@@ -1,0 +1,13 @@
+"""Operators of the TV-deconvolution slice."""
+from pycsou_tpu_torch.ops.basic import HomothetyOperator, IdentityOperator, NullOperator
+from pycsou_tpu_torch.ops.conv import Convolve2D, SeparableConvGram2D
+from pycsou_tpu_torch.ops.diff import Gradient
+
+__all__ = [
+    "HomothetyOperator",
+    "IdentityOperator",
+    "NullOperator",
+    "Convolve2D",
+    "SeparableConvGram2D",
+    "Gradient",
+]
