@@ -6,10 +6,12 @@
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions, and the time to build the CUDA kernels from
    ``pycsou_tpu_torch/csrc``.
-2. Runs every kernel of the port (K1-K4) at 4096 x 4096 with the
-   benchmark's 15 x 15 Gaussian PSF and its rank-2 PSF, against the plain
-   PyTorch version on the same inputs: max abs / rel error against the
-   stated tolerance, median CUDA-event times of kernel and plain.
+2. Runs every kernel of the port (K1-K7) at 4096 x 4096 with the
+   benchmark's 15 x 15 Gaussian PSF and its rank-2 PSF and its 70% keep
+   mask, against the plain PyTorch version on the same inputs: max abs /
+   rel error against the stated tolerance, median CUDA-event times of
+   kernel and plain, and the device-to-device copy of the kernels' image
+   streams (their floor).
 3. Drives the main path through the user's entry point, the README's
    ``PDS`` expression at 4096 x 4096 on the benchmark's problem, with the
    launch counters zeroed just before it and read just after: it must
@@ -18,15 +20,27 @@
    with the same blur and noise it must recover x better than the blurred
    observation.  The generic chain (``fuse=False``, K2) and the sweep
    engine (K2 + K3), each counted on its own, must agree with megar.
-   Then the slope-timed iterations/s and the ``solve()`` time to a 1e-6
-   relative improvement, on the benchmark's problem.
+4. Drives the masked paths at 4096 x 4096 the same way, each counted on
+   its own run: inpainting (``SquaredL2Loss * Masking``) and zero-fill
+   super-resolution (``* DownSampling``) fused onto
+   ``TVDeconvolution[sweepm2]`` (K6, one launch per two iterations, nothing
+   else), blurred super-resolution (``* (Masking * Convolve2D)``) fused
+   onto ``[megarm]`` (K7 once per iteration, K1 for ``A^H y`` only), and
+   large denoising by ``PDS`` and by ``CPS`` (K6).  Each must recover the
+   piecewise-constant image better than its observation.  Cross-checks:
+   sweepm2 against sweepm (K5) and the generic chain, megarm against the
+   generic chain.
+5. The slope-timed iterations/s of the main path and of the inpainting,
+   blurred super-resolution and denoising paths, and the main path's
+   ``solve()`` time to a 1e-6 relative improvement.
 
 Any failure exits non-zero.  On success the last two lines are a JSON
 object with the per-kernel results and the device line
 ``{"ok": true, "device": {...}}``.  In the results, ``kernels`` holds the
-main path's kernels (K1, K4) with the launches of the main path's run;
-``off_main_path_kernels`` holds K2 and K3 with the launches of the run
-named in ``run``.  Without CUDA it exits 2 and prints no result.
+kernels of the main paths (K1, K4 on the README's path, K6 on inpainting,
+K7 on blurred super-resolution) with the launches of the run named in
+``run``; ``off_main_path_kernels`` holds K2, K3 and K5 with the launches of
+their own runs.  Without CUDA it exits 2 and prints no result.
 """
 import json
 import math
@@ -54,11 +68,17 @@ KERNELS = {
     "K2": ("sepgram2d", "pycsou_tpu_torch/csrc/conv2d.cu", "pycsou_tpu/kernels/conv2d.py:391"),
     "K3": ("tv_pds_sweep_step_stats", "pycsou_tpu_torch/csrc/tv.cu", "pycsou_tpu/kernels/tv.py:395"),
     "K4": ("tv_pds_megar_step", "pycsou_tpu_torch/csrc/tvr.cu", "pycsou_tpu/kernels/tvr.py:352"),
+    "K5": ("tv_pds_sweepm_step_stats", "pycsou_tpu_torch/csrc/tv.cu", "pycsou_tpu/kernels/tv.py:476"),
+    "K6": ("tv_pds_sweepm2_step", "pycsou_tpu_torch/csrc/tvm2.cu", "pycsou_tpu/kernels/tv.py:623"),
+    "K7": ("tv_pds_megarm_step", "pycsou_tpu_torch/csrc/tvr.cu", "pycsou_tpu/kernels/tvr.py:352"),
 }
-# the fused main path (TVDeconvolution[megar]) runs K1 (A^H y) and K4; the
-# other two run on the generic chain and the sweep engine
-MAIN_PATH_KERNELS = ("K1", "K4")
-OFF_MAIN_PATH_KERNELS = {"K2": "PDS fuse=False", "K3": "TVDeconvolution stencil='sweep'"}
+# each kernel of a main path -> the run that counts its launches: the
+# README's PDS (TVDeconvolution[megar]) runs K1 (A^H y) and K4, inpainting
+# [sweepm2] K6, blurred super-resolution [megarm] K7
+MAIN_PATH_KERNELS = {"K1": "main path", "K4": "main path", "K6": "inpainting",
+                     "K7": "blurred super-resolution"}
+OFF_MAIN_PATH_KERNELS = {"K2": "PDS fuse=False", "K3": "TVDeconvolution stencil='sweep'",
+                         "K5": "TVDeconvolution stencil='sweepm'"}
 
 
 def log(*a):
@@ -91,15 +111,26 @@ def make_problem(rng, shape=SHAPE):
     return h, x_true, y
 
 
+def blocks_image(rng, shape=SHAPE, block=64):
+    """A piecewise-constant image (64-pixel blocks of |N(0, 1)| levels), the
+    kind of image a TV prior recovers."""
+    levels = np.abs(rng.standard_normal((shape[0] // block, shape[1] // block)))
+    return np.kron(levels, np.ones((block, block))).astype(np.float32)
+
+
+def keep_mask(shape=SHAPE):
+    """The benchmark's sampling mask (bench.py sec_inpaint): 70% kept."""
+    return np.random.default_rng(13).random(shape) < 0.7
+
+
 def blocks_problem(rng, h, shape=SHAPE, block=64):
-    """The same blur and noise on a piecewise-constant image (64-pixel
-    blocks of |N(0, 1)| levels), the kind of image a TV prior recovers.
-    White noise is not: there the TV solution's error stays about 0.5%
-    above the observation's, to convergence."""
+    """The same blur and noise on the piecewise-constant image of
+    :func:`blocks_image`.  White noise is no such image: there the TV
+    solution's error stays about 0.5% above the observation's, to
+    convergence."""
     from scipy.signal import fftconvolve
 
-    levels = np.abs(rng.standard_normal((shape[0] // block, shape[1] // block)))
-    x_true = np.kron(levels, np.ones((block, block))).astype(np.float32)
+    x_true = blocks_image(rng, shape, block)
     y = fftconvolve(x_true, h, mode="same").astype(np.float32)
     y += 0.01 * rng.standard_normal(shape).astype(np.float32)
     return x_true, y
@@ -131,8 +162,13 @@ def phase_kernels(dev, rng):
     from pycsou_tpu_torch.kernels.conv2d import (
         SepFactors, sepconv2d, sepconv2d_plain, sepgram2d, sepgram2d_plain,
     )
-    from pycsou_tpu_torch.kernels.tv import tv_pds_sweep_step_stats, tv_pds_sweep_step_stats_plain
-    from pycsou_tpu_torch.kernels.tvr import tv_pds_megar_step, tv_pds_megar_step_plain
+    from pycsou_tpu_torch.kernels.tv import (
+        tv_pds_sweep_step_stats, tv_pds_sweep_step_stats_plain, tv_pds_sweepm2_step,
+        tv_pds_sweepm2_step_plain, tv_pds_sweepm_step_stats, tv_pds_sweepm_step_stats_plain,
+    )
+    from pycsou_tpu_torch.kernels.tvr import (
+        tv_pds_megar_step, tv_pds_megar_step_plain, tv_pds_megarm_step_plain,
+    )
     from pycsou_tpu_torch.ops.conv import lowrank_factors
 
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
@@ -140,6 +176,8 @@ def phase_kernels(dev, rng):
     atb = t(rng.standard_normal(SHAPE))
     z0 = t(0.01 * rng.standard_normal(SHAPE))
     z1 = t(0.01 * rng.standard_normal(SHAPE))
+    m = t(keep_mask())
+    matb = m * atb  # a back-projection vanishes where nothing was sampled
     kw = dict(tau=0.3, sigma=0.3, rho=0.9, lam=LAM, nonneg=True, iso=True)
     res = {k: {"max_abs_err": 0.0, "max_rel_err": 0.0} for k in KERNELS}
 
@@ -184,20 +222,40 @@ def phase_kernels(dev, rng):
                            tv_pds_megar_step_plain(x, z0, z1, atb, f, a2, **kw),
                            lambda: tv_pds_megar_step(x, z0, z1, atb, f, a2, **kw),
                            lambda: tv_pds_megar_step_plain(x, z0, z1, atb, f, a2, **kw), psf)
+        times["K7"] = note("K7", "step", tv_pds_megar_step(x, z0, z1, atb, f, a2, mask=m, **kw),
+                           tv_pds_megarm_step_plain(x, z0, z1, m, atb, f, a2, **kw),
+                           lambda: tv_pds_megar_step(x, z0, z1, atb, f, a2, mask=m, **kw),
+                           lambda: tv_pds_megarm_step_plain(x, z0, z1, m, atb, f, a2, **kw), psf)
         for k, (ms, pms) in times.items():
             key = "" if psf == "gauss" else "rank2_"
             res[k][key + "ms"], res[k][key + "plain_ms"] = ms, pms
+    # the masked steps take no PSF
+    res["K5"]["ms"], res["K5"]["plain_ms"] = note(
+        "K5", "step", tv_pds_sweepm_step_stats(x, z0, z1, m, matb, **kw),
+        tv_pds_sweepm_step_stats_plain(x, z0, z1, m, matb, **kw),
+        lambda: tv_pds_sweepm_step_stats(x, z0, z1, m, matb, **kw),
+        lambda: tv_pds_sweepm_step_stats_plain(x, z0, z1, m, matb, **kw), "-")
+    res["K6"]["ms"], res["K6"]["plain_ms"] = note(
+        "K6", "2 steps", tv_pds_sweepm2_step(x, z0, z1, m, matb, **kw),
+        tv_pds_sweepm2_step_plain(x, z0, z1, m, matb, **kw),
+        lambda: tv_pds_sweepm2_step(x, z0, z1, m, matb, **kw),
+        lambda: tv_pds_sweepm2_step_plain(x, z0, z1, m, matb, **kw), "-")
     torch.cuda.synchronize()
 
-    # the floor K4 is held to: a device-to-device copy of its 7 image
-    # streams' worth (7 x 64 MiB), which itself moves 2 x 448 MiB
-    n = 7 * SHAPE[0] * SHAPE[1]
-    src = torch.empty(n, dtype=torch.float32, device=dev).uniform_()
-    dst = torch.empty_like(src)
-    copy_ms = median_ms(lambda: dst.copy_(src), reps=10)
-    log(f"device-to-device copy of 7 x 64 MiB: {copy_ms:.4f} ms "
-        f"({2 * n * 4 / copy_ms / 1e6:.1f} GB/s read+write); K4 gauss {res['K4']['ms']:.4f} ms")
-    del src, dst
+    # the floors the stream-bound kernels are held to: a device-to-device
+    # copy of 7 (K4) and 8 (K5, K6 for two iterations, K7) image streams'
+    # worth, n x 64 MiB, which itself moves 2 x n x 64 MiB
+    copy_ms = {}
+    for streams in (7, 8):
+        n = streams * SHAPE[0] * SHAPE[1]
+        src = torch.empty(n, dtype=torch.float32, device=dev).uniform_()
+        dst = torch.empty_like(src)
+        copy_ms[streams] = median_ms(lambda: dst.copy_(src), reps=10)
+        log(f"device-to-device copy of {streams} x 64 MiB: {copy_ms[streams]:.4f} ms "
+            f"({2 * n * 4 / copy_ms[streams] / 1e6:.1f} GB/s read+write)")
+        del src, dst
+    log(f"gauss: K4 {res['K4']['ms']:.4f} ms, K7 {res['K7']['ms']:.4f} ms; K5 {res['K5']['ms']:.4f} ms, "
+        f"K6 {res['K6']['ms']:.4f} ms for two iterations")
     return res, copy_ms
 
 
@@ -209,6 +267,55 @@ def count_launches(counters, fn):
     out = fn()
     torch.cuda.synchronize()
     return out, {k: c.launches for k, c in zip(KERNELS, counters)}
+
+
+def expect_launches(name, counts, exact, at_most=None):
+    """The kernels of ``exact`` launched exactly so often, those of
+    ``at_most`` no more often, every other kernel never."""
+    at_most = at_most or {}
+    for k, v in counts.items():
+        if k in exact:
+            ok, want = v == exact[k], exact[k]
+        elif k in at_most:
+            ok, want = v <= at_most[k], f"<= {at_most[k]}"
+        else:
+            ok, want = v == 0, 0
+        if not ok:
+            raise AssertionError(f"{name}: {k} launched {v} times, expected {want}")
+
+
+def built_and_run(build, n=ITERS):
+    """A run that builds a solver through its entry point and runs it for
+    ``n`` iterations: ``(solver, state)``."""
+    def run():
+        solver = build()
+        return solver, solver.run_fixed(n)
+    return run
+
+
+def recovery(state, x_true, observed):
+    """(||x - x_true||, ||observed - x_true||); x must be a finite image of
+    the full shape."""
+    x = state["x"]
+    if tuple(x.shape) != SHAPE or not bool(torch.isfinite(x).all()):
+        raise AssertionError("x is not a finite 4096 x 4096 image")
+    return float(torch.linalg.vector_norm(x - x_true)), float(torch.linalg.vector_norm(observed - x_true))
+
+
+def cross_check(name, counters, fn, ref, exact, at_most=None):
+    """``fn()`` counted on its own, held to ``ref`` within TOL_PATH."""
+    o, counts = count_launches(counters, fn)
+    log(f"{name}: run for {o['it']} iterations; launches {counts}")
+    expect_launches(name, counts, exact, at_most)
+    z = o["z"] if "z" in o else torch.stack([o["z0"], o["z1"]])
+    zr = ref["z"] if "z" in ref else torch.stack([ref["z0"], ref["z1"]])
+    ex, _ = max_err(o["x"], ref["x"])
+    ez, _ = max_err(z, zr)
+    scale = max(1.0, float(ref["x"].abs().max()))
+    log(f"{name} after {o['it']} iterations: max |dx| {ex:.3e}, max |dz| {ez:.3e} (tol {TOL_PATH:g} x {scale:.3f})")
+    if ex > TOL_PATH * scale or ez > TOL_PATH * scale:
+        raise AssertionError(f"{name} disagrees with the fused engine")
+    return counts
 
 
 def phase_main_path(dev, rng, counters):
@@ -227,28 +334,17 @@ def phase_main_path(dev, rng, counters):
         )
 
     def errors(state, x_true, data):
-        xt = torch.from_numpy(x_true).to(dev)
-        x = state["x"]
-        if tuple(x.shape) != SHAPE or not bool(torch.isfinite(x).all()):
-            raise AssertionError("x is not a finite 4096 x 4096 image")
-        return float(torch.linalg.vector_norm(x - xt)), float(torch.linalg.vector_norm(data - xt))
+        return recovery(state, torch.from_numpy(x_true).to(dev), data)
 
-    # the main path: the README expression built and run, nothing else
-    def main_run():
-        pds = expression(yt, max_iter=3000)
-        return pds, pds.run_fixed(ITERS)
-
-    (pds, st), main = count_launches(counters, main_run)
+    # the main path: the README expression built and run, nothing else; K1
+    # twice for A^H y (LeastSquaresLoss and TVDeconvolution each form it,
+    # as in the reference)
+    (pds, st), main = count_launches(counters, built_and_run(lambda: expression(yt, max_iter=3000)))
     fused = pds._fused
     if type(fused) is not TVDeconvolution or fused.stencil_mode != "megar":
         raise AssertionError(f"PDS fused onto {type(fused).__name__}[{getattr(fused, 'stencil_mode', None)}]")
     log(f"main path: PDS built and run for {st['it']} iterations; launches {main}")
-    if main["K4"] != ITERS:
-        raise AssertionError(f"K4 launched {main['K4']} times for {ITERS} iterations")
-    if main["K1"] == 0:
-        raise AssertionError("K1 (atb = A^H y) was not launched by the main path")
-    if main["K2"] or main["K3"]:
-        raise AssertionError("the fused main path launched K2/K3; megar runs K4 alone")
+    expect_launches("main path", main, {"K1": 2, "K4": ITERS})
     err, obs = errors(st, x_true, yt)
     log(f"PDS -> {type(fused).__name__}[{fused.stencil_mode}] tau=sigma={pds.tau:.6f} rho={pds.rho}; "
         f"benchmark problem after {st['it']} iterations: ||x - x_true|| / ||y - x_true|| = {err / obs:.6f}")
@@ -263,36 +359,103 @@ def phase_main_path(dev, rng, counters):
         raise AssertionError("the recovery is no better than the blurred observation")
 
     # the same iterations by the other entry points on the card, each
-    # counted on its own: the generic chain (fuse=False: the K2 gradient and
-    # plain operators) and the sweep engine (K2 + K3)
+    # counted on its own against megar: the generic chain (fuse=False: the
+    # K2 gradient and plain operators) and the sweep engine (K2 + K3); K1
+    # forms A^H y
     n = 5
     ref = pds.run_fixed(n)
-    others = {
-        "PDS fuse=False": (lambda: expression(yt, max_iter=3000, fuse=False).run_fixed(n), {"K2": n}),
-        "TVDeconvolution stencil='sweep'": (
-            lambda: TVDeconvolution(SHAPE, yt, LAM, filt=h, stencil="sweep", max_iter=3000).run_fixed(n),
-            {"K2": n, "K3": n},
-        ),
-    }
     runs = {"main path": main}
-    zr = torch.stack([ref["z0"], ref["z1"]])
-    for name, (fn, want) in others.items():
-        o, counts = count_launches(counters, fn)
-        runs[name] = counts
-        log(f"{name}: run for {n} iterations; launches {counts}")
-        for k, v in want.items():
-            if counts[k] != v:
-                raise AssertionError(f"{name}: {k} launched {counts[k]} times, expected {v}")
-        if counts["K4"]:
-            raise AssertionError(f"{name} launched K4")
-        z = o["z"] if "z" in o else torch.stack([o["z0"], o["z1"]])
-        ex, _ = max_err(o["x"], ref["x"])
-        ez, _ = max_err(z, zr)
-        scale = max(1.0, float(ref["x"].abs().max()))
-        log(f"{name} vs megar after {n} iterations: max |dx| {ex:.3e}, max |dz| {ez:.3e} (tol {TOL_PATH:g} x {scale:.3f})")
-        if ex > TOL_PATH * scale or ez > TOL_PATH * scale:
-            raise AssertionError(f"{name} disagrees with megar")
+    runs["PDS fuse=False"] = cross_check(
+        "PDS fuse=False", counters, lambda: expression(yt, max_iter=3000, fuse=False).run_fixed(n),
+        ref, {"K2": n}, {"K1": 2})
+    runs["TVDeconvolution stencil='sweep'"] = cross_check(
+        "TVDeconvolution stencil='sweep'", counters,
+        lambda: TVDeconvolution(SHAPE, yt, LAM, filt=h, stencil="sweep", max_iter=3000).run_fixed(n),
+        ref, {"K2": n, "K3": n}, {"K1": 2})
     return pds, runs
+
+
+def phase_masked_paths(dev, rng, counters):
+    """The masked paths at full size, each built through its entry point
+    and run with the launch counters zeroed just before and read just
+    after, on the piecewise-constant image."""
+    from pycsou_tpu_torch.func import L21Norm, NonNegativeOrthant, SquaredL2Loss
+    from pycsou_tpu_torch.ops import Convolve2D, DownSampling, Gradient, Masking
+    from pycsou_tpu_torch.opt import CPS, PDS, TVDeconvolution
+
+    h = gaussian_kernel()
+    xt = torch.from_numpy(blocks_image(rng)).to(dev)
+
+    def noise(shape, scale):
+        return torch.from_numpy((scale * rng.standard_normal(shape)).astype(np.float32)).to(dev)
+
+    def tv():
+        return LAM * L21Norm((2,) + SHAPE, axis=0)
+
+    def pds(op, y, **kw):
+        return PDS(SHAPE, F=SquaredL2Loss(op.codim_shape, data=y) * op, G=NonNegativeOrthant(SHAPE),
+                   H=tv(), K=Gradient(SHAPE), max_iter=3000, **kw)
+
+    M = Masking(SHAPE, keep_mask(), device=dev)
+    D = DownSampling(SHAPE, 2)
+    MA = M * Convolve2D(SHAPE, h, device=dev)
+    y_in = M(xt) + noise(M.codim_shape, 0.01)
+    y_ds = D(xt) + noise(D.codim_shape, 0.01)
+    y_bl = MA(xt) + noise(M.codim_shape, 0.01)
+    y_dn = xt + noise(SHAPE, 0.1)
+    # name -> (entry point, engine, exact launches, launch bounds, the
+    # observation the recovery must beat: the zero-filled back-projection,
+    # or the noisy image)
+    paths = {
+        "inpainting": (lambda: pds(M, y_in), "sweepm2", {"K6": ITERS // 2}, {}, M.adjoint(y_in)),
+        "zero-fill super-resolution": (lambda: pds(D, y_ds), "sweepm2", {"K6": ITERS // 2}, {},
+                                       D.adjoint(y_ds)),
+        "blurred super-resolution": (lambda: pds(MA, y_bl), "megarm", {"K7": ITERS}, {"K1": 2},
+                                     M.adjoint(y_bl)),
+        "denoising": (lambda: PDS(SHAPE, F=SquaredL2Loss(SHAPE, data=y_dn), G=NonNegativeOrthant(SHAPE),
+                                  H=tv(), K=Gradient(SHAPE), max_iter=3000),
+                      "sweepm2", {"K6": ITERS // 2}, {}, y_dn),
+        "CPS denoising": (lambda: CPS(SHAPE, G=SquaredL2Loss(SHAPE, data=y_dn), H=tv(), K=Gradient(SHAPE),
+                                      max_iter=3000),
+                          "sweepm2", {"K6": ITERS // 2}, {}, y_dn),
+    }
+    runs, solvers = {}, {}
+    for name, (build, engine, exact, at_most, observed) in paths.items():
+        (solver, st), counts = count_launches(counters, built_and_run(build))
+        fused = solver._fused
+        if type(fused) is not TVDeconvolution or fused.stencil_mode != engine:
+            raise AssertionError(
+                f"{name}: fused onto {type(fused).__name__}[{getattr(fused, 'stencil_mode', None)}], "
+                f"expected TVDeconvolution[{engine}]")
+        log(f"{name}: {type(solver).__name__} -> TVDeconvolution[{engine}] ({fused.mode} mode) built "
+            f"and run for {st['it']} iterations; launches {counts}")
+        if st["it"] != ITERS:
+            raise AssertionError(f"{name}: ran {st['it']} iterations, expected {ITERS}")
+        expect_launches(name, counts, exact, at_most)
+        err, obs = recovery(st, xt, observed)
+        log(f"{name}: ||x - x_true|| = {err:.4f} < ||observation - x_true|| = {obs:.4f}: {err < obs} "
+            f"(ratio {err / obs:.6f})")
+        if not err < obs:
+            raise AssertionError(f"{name}: the recovery is no better than the observation")
+        runs[name], solvers[name] = counts, solver
+
+    # cross-checks after an even number of iterations, each counted on its
+    # own: sweepm2 against sweepm (K5) and the generic chain, megarm against
+    # the generic chain (K1 forms A^H and A on it)
+    n = 6
+    inp = solvers["inpainting"]
+    ref = inp.run_fixed(n)
+    name = "TVDeconvolution stencil='sweepm'"
+    runs[name] = cross_check(
+        name, counters,
+        lambda: TVDeconvolution(SHAPE, inp._fused.y, LAM, mask=inp._fused.mask, tau=inp.tau,
+                                sigma=inp.sigma, stencil="sweepm", max_iter=3000).run_fixed(n),
+        ref, {"K5": n})
+    cross_check("inpainting PDS fuse=False", counters, lambda: pds(M, y_in, fuse=False).run_fixed(n), ref, {})
+    ref = solvers["blurred super-resolution"].run_fixed(n)
+    cross_check("blurred super-resolution PDS fuse=False", counters,
+                lambda: pds(MA, y_bl, fuse=False).run_fixed(n), ref, {}, {"K1": 2 * n + 2})
+    return runs, solvers
 
 
 def time_solver(solver, n_short=20, n_long=100, reps=3):
@@ -331,22 +494,31 @@ def main():
     t0 = time.perf_counter()
     _build.library()
     log(f"kernels built/loaded from {_build.build_dir()} in {time.perf_counter() - t0:.2f} s")
-    counters = [conv2d.sepconv2d, conv2d.sepgram2d, tv.tv_pds_sweep_step_stats, tvr.tv_pds_megar_step]
+    # in KERNELS order
+    counters = [conv2d.sepconv2d, conv2d.sepgram2d, tv.tv_pds_sweep_step_stats, tvr.tv_pds_megar_step,
+                tv.tv_pds_sweepm_step_stats, tv.tv_pds_sweepm2_step, tvr.tv_pds_megarm_step]
 
     rng = np.random.default_rng(SEED)
     log(f"-- kernels against their plain versions at {SHAPE[0]} x {SHAPE[1]}")
     res, copy_ms = phase_kernels(dev, rng)
     log("-- main path")
     pds, runs = phase_main_path(dev, rng, counters)
+    log("-- masked paths")
+    masked_runs, solvers = phase_masked_paths(dev, rng, counters)
+    runs.update(masked_runs)
 
-    log("-- throughput")
-    ips = time_solver(pds)
-    log(f"PDS[megar] slope-timed: {ips:.1f} iters/s ({1e3 / ips:.4f} ms/iteration)")
+    log(f"-- throughput ({smi})")
+    ips = {"main path": time_solver(pds)}
+    for name in ("inpainting", "blurred super-resolution", "denoising"):
+        ips[name] = time_solver(solvers[name])
+    for name, v in ips.items():
+        engine = (pds if name == "main path" else solvers[name])._fused.stencil_mode
+        log(f"{name} PDS[{engine}] slope-timed: {v:.1f} iters/s ({1e3 / v:.4f} ms/iteration)")
     tol_solver = pds.replace(tol=1e-6, min_iter=50)
     tol_solver.run_fixed(5)  # warm
     torch.cuda.synchronize()
     info = tol_solver.solve()
-    log(f"solve() to 1e-6: {info.elapsed:.3f} s, converged={info.converged} at iteration "
+    log(f"main path solve() to 1e-6: {info.elapsed:.3f} s, converged={info.converged} at iteration "
         f"{info.converged_at} ({info.n_iter} run)")
     if not info.converged or not math.isfinite(info.elapsed):
         raise AssertionError("solve() did not reach 1e-6")
@@ -355,21 +527,24 @@ def main():
     def entry(k, run):
         name, source, replaces = KERNELS[k]
         r = res[k]
-        return {
+        out = {
             "name": f"{k} {name}", "route": "cuda", "source": source, "replaces": replaces,
             "launches": runs[run][k], "run": run,
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "rank2_ms": r["rank2_ms"], "rank2_plain_ms": r["rank2_plain_ms"],
         }
+        if "rank2_ms" in r:
+            out["rank2_ms"], out["rank2_plain_ms"] = r["rank2_ms"], r["rank2_plain_ms"]
+        return out
 
-    # "kernels": the main path's kernels, with the launches of the main
-    # path's run; K2 and K3, which the fused main path does not run, with
-    # the launches of the run that goes through them
+    # "kernels": the main paths' kernels, each with the launches of the run
+    # of its path; K2, K3 and K5, which no fused main path runs, with the
+    # launches of the run that goes through them
     print(json.dumps({
-        "kernels": [entry(k, "main path") for k in MAIN_PATH_KERNELS],
+        "kernels": [entry(k, run) for k, run in MAIN_PATH_KERNELS.items()],
         "off_main_path_kernels": [entry(k, run) for k, run in OFF_MAIN_PATH_KERNELS.items()],
-        "copy_7x64MiB_ms": copy_ms, "iters_per_s": ips, "time_to_1e6_s": info.elapsed, "card": smi,
+        "copy_ms": {f"{n}x64MiB": v for n, v in copy_ms.items()}, "iters_per_s": ips,
+        "time_to_1e6_s": info.elapsed, "card": smi,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -1,5 +1,6 @@
-// The TV primal-dual (Condat-Vu) stencil, shared by K3 (tv.cu) and K4
-// (tvr.cu), and the stopping-metric partial sums both emit.
+// The TV primal-dual (Condat-Vu) stencil, shared by K3 and K5 (tv.cu), K4
+// and K7 (tvr.cu) and K6 (tvm2.cu), and the stopping-metric partial sums
+// they emit.
 //
 // One update at pixel p = (r, c), given the data gradient g:
 //
@@ -73,6 +74,12 @@ __device__ __forceinline__ PdsOut pds_stencil(int r, int c, int H, int W, const 
   const float keep = 1.f - p.rho;
   return PdsOut{p.rho * xt + keep * x0, p.rho * z0t + keep * z0, p.rho * z1t + keep * z1,
                 x0, z0, z1};
+}
+
+// The data gradient of a diagonal Gram m (K5, K6): g = 2 (m x - atb),
+// rounded as the plain version rounds it (no fused multiply-add).
+__device__ __forceinline__ float masked_grad(float m, float x, float atb) {
+  return 2.f * __fsub_rn(__fmul_rn(m, x), atb);
 }
 
 // Running per-thread sums: [|dx|^2, |x|^2, |dz0|^2, |z0|^2, |dz1|^2, |z1|^2].

@@ -1,7 +1,7 @@
 // Separable 'same' convolution passes over shared-memory tiles.
 //
 // Shared by the convolution sweep (K1, conv2d.cu), the fused Gram (K2,
-// conv2d.cu) and the fused TV step (K4, tvr.cu).  The convention is the
+// conv2d.cu) and the fused TV steps (K4, K7, tvr.cu).  The convention is the
 // package's 'same' convolution with zero boundary:
 //
 //     y[p] = sum_j h[j] x[p + o - j],   o = K // 2 (forward)
@@ -100,9 +100,11 @@ __host__ __device__ __forceinline__ int gram_scratch_floats(int nr, int nc, int 
 // G.p = (A^H A x) on region G: the forward pass t = A x on G grown by the
 // adjoint reach, t zeroed outside the image (the 'same' crop: t = A x
 // exists only on [0, H) x [0, W)), then the adjoint pass.  t never leaves
-// shared memory.
+// shared memory.  With Masked, t is multiplied by the (H, W) data mask m
+// after the crop, for the Gram A^H diag(m) A.
+template <bool Masked = false>
 __device__ inline void gram_into(const float* __restrict__ x, int H, int W, const GramTaps& g, Region G,
-                          float* scratch) {
+                          float* scratch, const float* __restrict__ m = nullptr) {
   Region T = source_region(G, g.Ku, g.Kv, g.oua, g.ova, scratch);
   Region X = source_region(T, g.Ku, g.Kv, g.ouf, g.ovf, T.p + T.nr * T.nc);
   float* tmp = X.p + X.nr * X.nc;
@@ -112,7 +114,10 @@ __device__ inline void gram_into(const float* __restrict__ x, int H, int W, cons
   for (int i = threadIdx.x; i < T.nr * T.nc; i += blockDim.x) {
     const int r = T.r0 + i / T.nc;
     const int c = T.c0 + i % T.nc;
-    if (r < 0 || r >= H || c < 0 || c >= W) T.p[i] = 0.f;
+    if (r < 0 || r >= H || c < 0 || c >= W)
+      T.p[i] = 0.f;
+    else if (Masked)
+      T.p[i] *= __ldg(m + (size_t)r * W + c);
   }
   __syncthreads();
   sep_same_pass(T, G, tmp, g.ua, g.va, g.rank, g.Ku, g.Kv, g.oua, g.ova);

@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels.
 
 The sources under ``pycsou_tpu_torch/csrc/`` are compiled by ``nvcc`` for
-``sm_90a`` into one shared library with a plain C interface and loaded with
-``ctypes`` (no PyTorch headers, so the build takes seconds).  The build runs
+``sm_90a``, one process per source in parallel, and linked into one shared
+library with a plain C interface, loaded with ``ctypes`` (no PyTorch
+headers, so the build takes seconds).  The build runs
 on first use, into ``build/pycsou_tpu_torch/<hash>/`` beside the package,
 keyed by a hash of the sources: an edited kernel is rebuilt, an unchanged
 one is loaded.  Nothing here runs at import time.
@@ -38,7 +39,9 @@ _SIGNATURES = {
     "pct_sepconv2d": [_P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _P],
     "pct_sepgram2d": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "pct_tv_sweep_stats": [_P] * 9 + [_I, _I, _F, _F, _F, _F, _I, _I, _P],
-    "pct_tv_megar": [_P] * 9 + [_I, _I, _P] + [_I] * 7 + [_F] * 5 + [_I, _I, _P],
+    "pct_tv_sweepm_stats": [_P] * 10 + [_I, _I, _F, _F, _F, _F, _I, _I, _P],
+    "pct_tv_sweepm2": [_P] * 10 + [_I, _I, _F, _F, _F, _F, _I, _I, _P],
+    "pct_tv_megar": [_P] * 10 + [_I, _I, _P] + [_I] * 7 + [_F] * 5 + [_I, _I, _P],
 }
 
 
@@ -73,17 +76,34 @@ def _nvcc() -> str:
 
 
 def _compile(out: Path) -> None:
+    """One ``nvcc -c`` per source, all started together, then one link."""
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    cmd = [_nvcc(), _ARCH, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-           "-Xptxas", "-v", "-o", str(tmp), *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {out.name}:\n{proc.stderr[-4000:]}"
-        )
+    nvcc, tag = _nvcc(), os.getpid()
+    jobs = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = out.parent / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, _ARCH, "-std=c++17", "-O3", "-c", "-Xcompiler", "-fPIC",
+               "-Xptxas", "-v", "-o", str(obj), str(src)]
+        jobs.append((src, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    logs, failed = [], []
+    for src, _, proc in jobs:
+        text = proc.communicate()[0]
+        logs.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{text[-4000:]}")
+    tmp = out.with_suffix(f".{tag}.tmp")
+    if not failed:
+        link = subprocess.run([nvcc, _ARCH, "-shared", "-o", str(tmp), *(str(o) for _, o, _ in jobs)],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(f"link ({link.returncode}):\n{link.stderr[-4000:]}")
+    (out.parent / "nvcc.log").write_text("".join(logs))
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed building {out.name}:\n" + "\n".join(failed))
     os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
 
 

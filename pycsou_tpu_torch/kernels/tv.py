@@ -1,4 +1,5 @@
-"""TV primal-dual stencil step (K3), its plain version and the stencil twin.
+"""TV primal-dual stencil steps: from a given gradient (K3), masked (K5) and
+masked two steps at a time (K6); their plain versions and the stencil twin.
 
 One Condat-Vu iteration of TV-regularised deconvolution, given the data
 gradient g::
@@ -18,6 +19,10 @@ last row of z0 and the last column of z1 are read as 0 and come out 0.
 ``tv_pds_stencil_step_xla`` and the specification of the stencil; the
 kernel's plain version adds the dual masks and the stopping-metric partial
 sums ``[|dx|^2, |x|^2, |dz0|^2, |z0|^2, |dz1|^2, |z1|^2]``.
+
+The masked steps take a diagonal Gram ``m`` (a sampling operator's
+``A^H 1``) and ``atb = A^H y`` in place of g, which they form in the
+kernel as ``g = 2 (m x - atb)``.
 """
 from __future__ import annotations
 
@@ -33,6 +38,10 @@ __all__ = [
     "tv_pds_sweep_step_stats_plain",
     "tv_pds_stencil_step_sweep",
     "stats_of",
+    "tv_pds_sweepm_step_stats",
+    "tv_pds_sweepm_step_stats_plain",
+    "tv_pds_sweepm2_step",
+    "tv_pds_sweepm2_step_plain",
 ]
 
 
@@ -119,3 +128,84 @@ def tv_pds_stencil_step_sweep(x, z, g, **kw):
     ``tv_pds_stencil_step_sweep``): ``(x', z' (2, H, W))``."""
     xn, z0n, z1n, _ = tv_pds_sweep_step_stats(x, z[0].contiguous(), z[1].contiguous(), g, **kw)
     return xn, torch.stack([z0n, z1n])
+
+
+# -- the masked (diagonal-Gram) steps: g = 2 (m x - atb) ---------------------
+
+
+def tv_pds_sweepm_step_stats_plain(x, z0, z1, m, atb, *, tau, sigma, rho, lam, nonneg=True,
+                                   iso=True):
+    """Plain PyTorch version of K5: the gradient of the diagonal Gram,
+    ``2 (m x - atb)``, then K3's plain version."""
+    return tv_pds_sweep_step_stats_plain(
+        x, z0, z1, 2.0 * (m * x - atb), tau=tau, sigma=sigma, rho=rho, lam=lam, nonneg=nonneg,
+        iso=iso,
+    )
+
+
+def tv_pds_sweepm2_step_plain(x, z0, z1, m, atb, **kw):
+    """Plain PyTorch version of K6: two plain K5 steps; the stats compare
+    the second step's output with the first's."""
+    x, z0, z1, _ = tv_pds_sweepm_step_stats_plain(x, z0, z1, m, atb, **kw)
+    return tv_pds_sweepm_step_stats_plain(x, z0, z1, m, atb, **kw)
+
+
+def _check_masked(x, z0, z1, m, atb) -> None:
+    for name, t in (("x", x), ("z0", z0), ("z1", z1), ("m", m), ("atb", atb)):
+        _check_image(t, name, like=None if name == "x" else x)
+    _check_device(x)
+
+
+def _launch_masked(fn, symbol, x, z0, z1, m, atb, kw):
+    """Launch of K5 or K6 (same C signature); counts on ``fn``."""
+    H, W = x.shape
+    xo, z0o, z1o = (torch.empty_like(x) for _ in range(3))
+    nblocks = -(-H // TILE) * -(-W // TILE)
+    partials = torch.empty(nblocks * 6, dtype=torch.float32, device=x.device)
+    stats = torch.empty(6, dtype=torch.float32, device=x.device)
+    err = getattr(library(), symbol)(
+        x.data_ptr(), z0.data_ptr(), z1.data_ptr(), m.data_ptr(), atb.data_ptr(),
+        xo.data_ptr(), z0o.data_ptr(), z1o.data_ptr(), partials.data_ptr(), stats.data_ptr(),
+        H, W, float(kw["tau"]), float(kw["sigma"]), float(kw["rho"]), float(kw["lam"]),
+        int(bool(kw["nonneg"])), int(bool(kw["iso"])), stream_of(x),
+    )
+    check(err, fn.__name__)
+    fn.launches += 1
+    return xo, z0o, z1o, stats
+
+
+def tv_pds_sweepm_step_stats(x, z0, z1, m, atb, *, tau, sigma, rho, lam, nonneg=True, iso=True):
+    """K5: one masked TV PDS iteration, the gradient ``2 (m x - atb)``
+    computed in the kernel from the m and atb streams; returns ``(x', z0',
+    z1', stats (6,))`` in new buffers.
+
+    Replaces ``pycsou_tpu/kernels/tv.py`` ``tv_pds_sweepm_step_stats``
+    (``_tv_sweepm_kernel``).  Bound by device memory: 8 image streams (x,
+    m, atb, z0, z1 in; x', z0', z1' out)."""
+    kw = dict(tau=tau, sigma=sigma, rho=rho, lam=lam, nonneg=nonneg, iso=iso)
+    _check_masked(x, z0, z1, m, atb)
+    if x.device.type == "cpu":
+        return tv_pds_sweepm_step_stats_plain(x, z0, z1, m, atb, **kw)
+    return _launch_masked(tv_pds_sweepm_step_stats, "pct_tv_sweepm_stats", x, z0, z1, m, atb, kw)
+
+
+tv_pds_sweepm_step_stats.launches = 0
+
+
+def tv_pds_sweepm2_step(x, z0, z1, m, atb, *, tau, sigma, rho, lam, nonneg=True, iso=True):
+    """K6: two masked TV PDS iterations in one pass; returns the state after
+    both and the stats of the second only, ``(x'', z0'', z1'', stats (6,))``,
+    in new buffers.
+
+    Replaces ``pycsou_tpu/kernels/tv.py`` ``tv_pds_sweepm2_step``
+    (``_tv_sweepm2_kernel``).  Bound by device memory: K5's 8 image streams
+    serve two iterations (each block reads its inputs over its tile grown by
+    2 and keeps the first iteration in shared memory)."""
+    kw = dict(tau=tau, sigma=sigma, rho=rho, lam=lam, nonneg=nonneg, iso=iso)
+    _check_masked(x, z0, z1, m, atb)
+    if x.device.type == "cpu":
+        return tv_pds_sweepm2_step_plain(x, z0, z1, m, atb, **kw)
+    return _launch_masked(tv_pds_sweepm2_step, "pct_tv_sweepm2", x, z0, z1, m, atb, kw)
+
+
+tv_pds_sweepm2_step.launches = 0

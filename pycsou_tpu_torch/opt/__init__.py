@@ -1,5 +1,5 @@
-"""Solvers of the TV-deconvolution slice."""
-from pycsou_tpu_torch.opt.proxalgs import PDS, PrimalDualSplitting
+"""Solvers of the TV-deconvolution and masked TV slices."""
+from pycsou_tpu_torch.opt.proxalgs import CPS, PDS, ChambollePockSplitting, PrimalDualSplitting
 from pycsou_tpu_torch.opt.tv import TVDeconvolution
 
-__all__ = ["PDS", "PrimalDualSplitting", "TVDeconvolution"]
+__all__ = ["PDS", "PrimalDualSplitting", "CPS", "ChambollePockSplitting", "TVDeconvolution"]

@@ -1,12 +1,14 @@
 """Expression recognition: rewrite a generic PDS configuration onto the
-fused TV engines (counterpart of ``pycsou_tpu/opt/fuse.py``, TV
-deconvolution only).
+fused TV engines (counterpart of ``pycsou_tpu/opt/fuse.py``, TV only).
 
 Matching is strictly structural (exact node types, default stencil
 conventions), so a rewrite never changes the mathematics: the fused engine
-computes the same Condat-Vu iterates to floating-point tolerance.  The
-sampling-operator matchers, the Chambolle-Pock denoise and the LASSO
-matchers wait for ROADMAP Queue 1 item 10.
+computes the same Condat-Vu iterates to floating-point tolerance.  The F
+slot takes a convolution (or plain) least-squares loss, a sampling
+operator's (inpainting, zero-fill super-resolution) or a sampling operator
+after a convolution (blurred super-resolution); Chambolle-Pock TV
+denoising has its own matcher.  The LASSO matchers wait for ROADMAP
+Queue 1 item 10.
 """
 from __future__ import annotations
 
@@ -80,10 +82,16 @@ def _why_G_nonneg(G):
 
 
 def _why_F(F, dim_shape) -> Optional[str]:
-    if _match_conv_least_squares(dim_shape, F) is None:
+    if (
+        _match_conv_least_squares(dim_shape, F) is None
+        and _match_sampling_least_squares(dim_shape, F) is None
+        and _match_masked_conv_least_squares(dim_shape, F) is None
+    ):
         return (
             f"F is {type(F).__name__}, not SquaredL2Loss (optionally composed with a "
-            "Convolve2D whose PSF has rank <= 4 within 31 taps per axis)"
+            "Convolve2D whose PSF has rank <= 4 within 31 taps per axis, a sampling "
+            "operator (Masking/DownSampling/SubSampling), or a sampling operator after "
+            "such a Convolve2D)"
         )
     return None
 
@@ -115,6 +123,53 @@ def _match_conv_least_squares(dim_shape, F):
     return filt, y
 
 
+def _is_sampling(op) -> bool:
+    """An exact sampling-operator node (its Gram is the diagonal A^H 1)."""
+    from pycsou_tpu_torch.ops.sampling import DownSampling, Masking, SubSampling
+
+    return type(op) in (Masking, DownSampling, SubSampling)
+
+
+def _back_projection(M, data):
+    """``(mask, y_img) = (M^H 1, M^H y)``: the sample counts and the
+    zero-filled observation of a sampling operator, on the data's device."""
+    ones = torch.ones(M.codim_shape, dtype=torch.float32, device=data.device)
+    return M.adjoint(ones), M.adjoint(data)
+
+
+def _match_sampling_least_squares(dim_shape, F):
+    """``||A x - y||^2`` with A a Masking, DownSampling or SubSampling:
+    ``(mask, y_img)`` for TVDeconvolution's mask mode, else None."""
+    from pycsou_tpu_torch.func.loss import LeastSquaresLoss
+
+    if type(F) is not LeastSquaresLoss or not _is_sampling(F.op):
+        return None
+    if tuple(F.op.dim_shape) != tuple(dim_shape):
+        return None
+    return _back_projection(F.op, F.data)
+
+
+def _match_masked_conv_least_squares(dim_shape, F):
+    """``||M C x - y||^2`` with M a sampling operator after a Convolve2D C
+    of a band-eligible PSF: ``(filt, mask, y_img)`` for TVDeconvolution's
+    combined mode, else None."""
+    from pycsou_tpu_torch.core.linop import LinOpComp
+    from pycsou_tpu_torch.func.loss import LeastSquaresLoss
+    from pycsou_tpu_torch.ops.conv import Convolve2D
+
+    if type(F) is not LeastSquaresLoss or type(F.op) is not LinOpComp:
+        return None
+    M, A = F.op.m1, F.op.m2
+    if not _is_sampling(M) or type(A) is not Convolve2D:
+        return None
+    if tuple(A.dim_shape) != tuple(dim_shape):
+        return None
+    filt = A.filt
+    if _band_factors(filt.cpu().numpy()) is None:
+        return None
+    return (filt,) + _back_projection(M, F.data)
+
+
 def match_tv_deconvolution(dim_shape, F, G, H, K, tau: float, sigma: float, rho: float,
                            metric_every: int = 1, device=None):
     """A :class:`~pycsou_tpu_torch.opt.tv.TVDeconvolution` computing the
@@ -125,9 +180,11 @@ def match_tv_deconvolution(dim_shape, F, G, H, K, tau: float, sigma: float, rho:
 
         min_x ||A x - y||^2 + lam ||grad x||_{2,1} (+ i_{x>=0})
 
-    ``F = SquaredL2Loss(y) * Convolve2D`` (or plain ``SquaredL2Loss(y)``),
-    ``G = NonNegativeOrthant`` or absent, ``H = lam * L21Norm(axis=0)`` (or
-    ``lam * L1Norm``), ``K = Gradient(kind='forward', step=1)``."""
+    ``F = SquaredL2Loss(y) * A`` with ``A`` a Convolve2D, a sampling
+    operator (Masking, DownSampling, SubSampling) or a sampling operator
+    after a Convolve2D (or plain ``SquaredL2Loss(y)``), ``G =
+    NonNegativeOrthant`` or absent, ``H = lam * L21Norm(axis=0)`` (or ``lam
+    * L1Norm``), ``K = Gradient(kind='forward', step=1)``."""
     from pycsou_tpu_torch.opt.tv import TVDeconvolution
 
     dim_shape = tuple(dim_shape)
@@ -141,13 +198,54 @@ def match_tv_deconvolution(dim_shape, F, G, H, K, tau: float, sigma: float, rho:
     nonneg, g_reason = _why_G_nonneg(G)
     if g_reason is not None:
         return None
-    fy = _match_conv_least_squares(dim_shape, F)
-    if fy is None:
+    # the three F flavours, in the reference's order: conv (or denoise),
+    # sampling only, sampling after a conv
+    filt = mask = None
+    if (fy := _match_conv_least_squares(dim_shape, F)) is not None:
+        filt, y = fy
+    elif (my := _match_sampling_least_squares(dim_shape, F)) is not None:
+        mask, y = my
+    elif (mc := _match_masked_conv_least_squares(dim_shape, F)) is not None:
+        filt, mask, y = mc
+    else:
         return None
-    filt, y = fy
     return TVDeconvolution(
-        dim_shape, y, lam, filt=filt, nonneg=nonneg, tau=float(tau), sigma=float(sigma),
-        rho=float(rho), metric_every=metric_every, isotropic=iso, device=device,
+        dim_shape, y, lam, filt=filt, mask=mask, nonneg=nonneg, tau=float(tau),
+        sigma=float(sigma), rho=float(rho), metric_every=metric_every, isotropic=iso,
+        device=device,
+    )
+
+
+def match_cps_tv_denoise(dim_shape, F, G, H, K, tau: float, sigma: float, rho: float,
+                         metric_every: int = 1, device=None):
+    """Chambolle-Pock TV denoising: ``F`` absent, ``G = SquaredL2Loss(y)``
+    (the data term as a prox), ``H = lam * L21Norm(axis=0)`` or ``lam *
+    L1Norm``, ``K = Gradient``.  The prox step
+    ``x+ = (x - tau div z + 2 tau y) / (1 + 2 tau)`` is the gradient step
+    ``x - tau' (2 (x - y) + div z)`` with ``tau' = tau / (1 + 2 tau)``, so a
+    denoising :class:`~pycsou_tpu_torch.opt.tv.TVDeconvolution` with
+    ``tau = tau'`` (sigma unchanged, no positivity) computes CPS's
+    iterates.  None on mismatch."""
+    from pycsou_tpu_torch.func.base import NullDifferentiableFunctional
+    from pycsou_tpu_torch.opt.tv import TVDeconvolution
+
+    dim_shape = tuple(dim_shape)
+    if len(dim_shape) != 2 or not (tau > 0 and sigma > 0):
+        return None
+    if type(F) is not NullDifferentiableFunctional:
+        return None
+    gy = _match_conv_least_squares(dim_shape, G)
+    if gy is None or gy[0] is not None:  # plain ||x - y||^2 only (prox form)
+        return None
+    if _why_K(K, dim_shape) is not None:
+        return None
+    lam, iso, h_reason = _why_H(H, dim_shape)
+    if h_reason is not None:
+        return None
+    return TVDeconvolution(
+        dim_shape, gy[1], lam, filt=None, nonneg=False, tau=float(tau) / (1.0 + 2.0 * float(tau)),
+        sigma=float(sigma), rho=float(rho), metric_every=metric_every, isotropic=iso,
+        device=device,
     )
 
 

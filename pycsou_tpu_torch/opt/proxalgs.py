@@ -1,12 +1,15 @@
 """Condat-Vu primal-dual splitting (counterpart of
-``pycsou_tpu/opt/proxalgs.py`` ``PrimalDualSplitting``/``PDS``).
+``pycsou_tpu/opt/proxalgs.py`` ``PrimalDualSplitting``/``PDS`` and its
+Chambolle-Pock special case ``CPS``).
 
 Same update rule, automatic step sizes and momentum as the reference.
-``fuse=True`` pattern-matches the (F, G, H, K) expression (``opt/fuse.py``)
-and delegates the iteration to the fused TV engine; ``fuse=False`` steps
-the expression generically and is the oracle the fused path is held
-against.  A fusion that raises is not caught: the error reaches the
-caller.  APGD, CPS, DRS and FBS wait for ROADMAP Queue 1 item 7.
+``fuse=True`` pattern-matches the (F, G, H, K) expression (``opt/fuse.py``:
+TV deconvolution, inpainting and super-resolution, then Chambolle-Pock TV
+denoising) and delegates the iteration to the fused TV engine;
+``fuse=False`` steps the expression generically and is the oracle the
+fused path is held against.  A fusion that raises is not caught: the
+error reaches the caller.  APGD, DRS and FBS wait for ROADMAP Queue 1
+item 7.
 """
 from __future__ import annotations
 
@@ -22,7 +25,7 @@ from pycsou_tpu_torch.ops.basic import IdentityOperator, NullOperator
 from pycsou_tpu_torch.utils.device import as_tensor, resolve_device
 from pycsou_tpu_torch.utils.shapes import as_shape
 
-__all__ = ["PrimalDualSplitting", "PDS"]
+__all__ = ["PrimalDualSplitting", "PDS", "ChambollePockSplitting", "CPS"]
 
 _INF = float("inf")
 
@@ -135,18 +138,21 @@ class PrimalDualSplitting(IterativeSolver):
         self._instats = int(metric_every) == 1
         self._fused = None
         if fuse and self._has_H:
-            from pycsou_tpu_torch.opt.fuse import explain_tv_mismatch, logger, match_tv_deconvolution
+            from pycsou_tpu_torch.opt import fuse
 
-            self._fused = match_tv_deconvolution(
-                dim_shape, self.F, self.G, self.H, self.K, self.tau, self.sigma, self.rho,
-                metric_every=metric_every, device=dev,
-            )
+            for match in (fuse.match_tv_deconvolution, fuse.match_cps_tv_denoise):
+                self._fused = match(
+                    dim_shape, self.F, self.G, self.H, self.K, self.tau, self.sigma, self.rho,
+                    metric_every=metric_every, device=dev,
+                )
+                if self._fused is not None:
+                    break
             if self._fused is not None:
                 self.iters_per_step = self._fused.iters_per_step
             else:
-                note = explain_tv_mismatch(dim_shape, self.F, self.G, self.H, self.K)
+                note = fuse.explain_tv_mismatch(dim_shape, self.F, self.G, self.H, self.K)
                 if note:
-                    logger.warning(note)
+                    fuse.logger.warning(note)
 
     # -- auto-tuning -------------------------------------------------------
     def set_step_sizes(self):
@@ -242,3 +248,16 @@ class PrimalDualSplitting(IterativeSolver):
 
 
 PDS = PrimalDualSplitting
+
+
+class ChambollePockSplitting(PrimalDualSplitting):
+    """PDS with F = None and rho = 1 (``pycsou_tpu/opt/proxalgs.py``
+    ``ChambollePockSplitting``)."""
+
+    def __init__(self, dim_shape, G=None, H=None, K=None, tau=None, sigma=None, rho=1.0, x0=None,
+                 z0=None, **kwargs):
+        super().__init__(dim_shape, F=None, G=G, H=H, K=K, tau=tau, sigma=sigma, rho=rho, x0=x0,
+                         z0=z0, **kwargs)
+
+
+CPS = ChambollePockSplitting

@@ -226,14 +226,15 @@ def test_unported_engines_raise(rng, engine):
 
 def test_unported_modes_raise(rng):
     y = rng.standard_normal(S).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="mask mode"):
-        topt.TVDeconvolution(S, y, LAM, mask=np.ones(S, np.float32))
+    # mask mode and the large-denoise reroute are ported: they build
+    s = topt.TVDeconvolution(S, y, LAM, mask=np.ones(S, np.float32))
+    assert (s.mode, s.stencil_mode, s.iters_per_step) == ("mask", "plain", 1)
     big = (2048, 1024)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.TVDeconvolution(big, np.zeros(big, np.float32), LAM)
+    s = topt.TVDeconvolution(big, np.zeros(big, np.float32), LAM)
+    assert s.mode == "mask" and tuple(s.filt.shape) == (1, 1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         topt.TVDeconvolution(S, y, LAM, filt=np.random.default_rng(0).random((5, 5)))
-    for engine in ("megar", "sweep"):  # the kernel engines need a CUDA device
+    for engine in ("megar", "sweep"):  # the conv mode's kernel engines need a CUDA device
         with pytest.raises(ValueError, match="CUDA"):
             topt.TVDeconvolution(S, y, LAM, filt=_gauss(), stencil=engine, device="cpu")
     with pytest.raises(ValueError, match="unknown stencil"):
@@ -260,3 +261,46 @@ def test_near_miss_is_explained(rng, caplog):
     p = topt.PDS(S, F=full, G=tfunc.NonNegativeOrthant(S), H=LAM * tfunc.L21Norm((2,) + S, axis=0), K=tops.Gradient(S))
     assert p._fused is None
     assert p.run_fixed(3)["x"].shape == S
+
+
+def test_mode_engine_validation(rng):
+    y = rng.standard_normal(S).astype(np.float32)
+    m = np.ones(S, np.float32)
+    h = _gauss()
+    cases = [
+        (dict(mask=m, stencil="megar"), "mask mode supports"),
+        (dict(mask=m, stencil="megarm"), "mask mode supports"),
+        (dict(filt=h, stencil="sweepm"), "conv mode supports"),
+        (dict(filt=h, mask=m, stencil="sweepm2"), "combined mode supports"),
+        (dict(filt=h, mask=m, stencil="megar"), "combined mode supports"),
+        (dict(mask=m, stencil="sweepm"), "CUDA"),
+        (dict(filt=h, mask=m, stencil="megarm"), "CUDA"),
+        (dict(stencil="sweepm2"), "CUDA"),  # an explicit masked engine reroutes a denoise
+        (dict(mask=np.ones((8, 8), np.float32)), "mask shape"),
+    ]
+    for kw, msg in cases:
+        with pytest.raises(ValueError, match=msg):
+            topt.TVDeconvolution(S, y, LAM, **kw)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        # a full-rank PSF in combined mode
+        topt.TVDeconvolution(S, y, LAM, filt=np.random.default_rng(0).random((5, 5)), mask=m)
+    s = topt.TVDeconvolution(S, y, LAM, filt=h, mask=m)
+    assert (s.mode, s.stencil_mode, s.gram) == ("combined", "plain", None)
+    assert s.beta == pytest.approx(2.0 * s.conv.lipschitz**2)
+
+
+def test_near_miss_note_knows_masked_F(rng, caplog):
+    """A sampling F (and a sampling F after a convolution) is a supported
+    slot: a K-only mismatch blames K, not F."""
+    keep = rng.random(S) < 0.5
+    for op in (tops.Masking(S, keep), tops.Masking(S, keep) * tops.Convolve2D(S, _gauss())):
+        F = tfunc.SquaredL2Loss(op.codim_shape, data=op(torch.ones(S))) * op
+        H = LAM * tfunc.L21Norm((2,) + S, axis=0)
+        K = tops.Gradient(S, step=2.0)  # the only mismatch
+        caplog.clear()
+        with caplog.at_level(logging.WARNING, logger="pycsou_tpu_torch.fuse"):
+            p = topt.PDS(S, F=F, G=tfunc.NonNegativeOrthant(S), H=H, K=K, max_iter=50)
+        assert p._fused is None
+        notes = [r.message for r in caplog.records if "NOT fused" in r.message]
+        assert notes and "steps" in notes[0] and "F is" not in notes[0]
+        assert explain_tv_mismatch(S, F, tfunc.NonNegativeOrthant(S), H, K) == notes[0]
