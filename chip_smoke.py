@@ -6,12 +6,12 @@
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions, and the time to build the CUDA kernels from
    ``pycsou_tpu_torch/csrc``.
-2. Runs every kernel of the port (K1-K7) at 4096 x 4096 with the
-   benchmark's 15 x 15 Gaussian PSF and its rank-2 PSF and its 70% keep
-   mask, against the plain PyTorch version on the same inputs: max abs /
-   rel error against the stated tolerance, median CUDA-event times of
-   kernel and plain, and the device-to-device copy of the kernels' image
-   streams (their floor).
+2. Runs every kernel of the port (K1-K8 at 4096 x 4096, K9 at 2048 x
+   2048) with the benchmark's 15 x 15 Gaussian PSF and its rank-2 PSF and
+   its 70% keep mask, against the plain PyTorch version on the same
+   inputs: max abs / rel error against the stated tolerance, median
+   CUDA-event times of kernel and plain, and the device-to-device copy of
+   the kernels' image streams (their floor).
 3. Drives the main path through the user's entry point, the README's
    ``PDS`` expression at 4096 x 4096 on the benchmark's problem, with the
    launch counters zeroed just before it and read just after: it must
@@ -30,17 +30,32 @@
    piecewise-constant image better than its observation.  Cross-checks:
    sweepm2 against sweepm (K5) and the generic chain, megarm against the
    generic chain.
-5. The slope-timed iterations/s of the main path and of the inpainting,
-   blurred super-resolution and denoising paths, and the main path's
-   ``solve()`` time to a 1e-6 relative improvement.
+5. Drives the LASSO path at 4096 x 4096: ``APGD(F=SquaredL2Loss(y) *
+   Convolve2D(h), G=0.01 * L1Norm)`` on the benchmark's problem must fuse
+   onto ``LassoDeconvolution[megaf]`` and launch K8 once per iteration and
+   K1 only for ``A^H y``; the generic chain (``fuse=False``, K2) must agree
+   after 5 iterations; on a sparse-spike image with the same blur and noise
+   the recovery must beat the observation after 100 iterations.
+6. Drives the PMYULA path at 2048 x 2048 (the benchmark's sampler: seed 3,
+   burn-in 20, ``G = 0.01 * L1Norm``): it must run the ``megal`` engine and
+   launch K9 once per sample and K1 only for ``A^H y``; the generic chain
+   (``use_pallas=False``, K2, the same Philox noise) must agree after 6
+   samples; the MMSE's mean must come within 0.02 of the truth's.  K9's
+   in-kernel noise must have standard normal moments at 2048 x 2048.
+7. The slope-timed iterations/s of the main path and of the inpainting,
+   blurred super-resolution, denoising and LASSO paths, the PMYULA
+   samples/s, and the main path's ``solve()`` time to a 1e-6 relative
+   improvement.
 
 Any failure exits non-zero.  On success the last two lines are a JSON
 object with the per-kernel results and the device line
-``{"ok": true, "device": {...}}``.  In the results, ``kernels`` holds the
-kernels of the main paths (K1, K4 on the README's path, K6 on inpainting,
-K7 on blurred super-resolution) with the launches of the run named in
-``run``; ``off_main_path_kernels`` holds K2, K3 and K5 with the launches of
-their own runs.  Without CUDA it exits 2 and prints no result.
+``{"ok": true, "device": {...}}``.  In the results, ``kernels`` holds K1-K9,
+each with the launches of the run named in ``run``, counted with every
+counter zeroed just before that run: the README's path for K1 and K4,
+inpainting for K6, blurred super-resolution for K7, the LASSO path for K8,
+the PMYULA path for K9, and for K2, K3 and K5, which no fused main path
+runs, the run that goes through each.  Without CUDA it exits 2 and prints
+no result.
 """
 import json
 import math
@@ -71,14 +86,19 @@ KERNELS = {
     "K5": ("tv_pds_sweepm_step_stats", "pycsou_tpu_torch/csrc/tv.cu", "pycsou_tpu/kernels/tv.py:476"),
     "K6": ("tv_pds_sweepm2_step", "pycsou_tpu_torch/csrc/tvm2.cu", "pycsou_tpu/kernels/tv.py:623"),
     "K7": ("tv_pds_megarm_step", "pycsou_tpu_torch/csrc/tvr.cu", "pycsou_tpu/kernels/tvr.py:352"),
+    "K8": ("lasso_fista_step", "pycsou_tpu_torch/csrc/fista.cu", "pycsou_tpu/kernels/fista.py:163"),
+    "K9": ("pmyula_mega_step", "pycsou_tpu_torch/csrc/langevin.cu", "pycsou_tpu/kernels/langevin.py:151"),
 }
-# each kernel of a main path -> the run that counts its launches: the
-# README's PDS (TVDeconvolution[megar]) runs K1 (A^H y) and K4, inpainting
-# [sweepm2] K6, blurred super-resolution [megarm] K7
-MAIN_PATH_KERNELS = {"K1": "main path", "K4": "main path", "K6": "inpainting",
-                     "K7": "blurred super-resolution"}
-OFF_MAIN_PATH_KERNELS = {"K2": "PDS fuse=False", "K3": "TVDeconvolution stencil='sweep'",
-                         "K5": "TVDeconvolution stencil='sweepm'"}
+# each kernel -> the run that counts its launches: the README's PDS
+# (TVDeconvolution[megar]) runs K1 (A^H y) and K4, inpainting [sweepm2] K6,
+# blurred super-resolution [megarm] K7, the LASSO path [megaf] K8, the
+# PMYULA path [megal] K9; K2, K3 and K5, which no fused main path runs, go
+# through the generic chain and the other engines
+RUN_OF = {"K1": "main path", "K2": "PDS fuse=False", "K3": "TVDeconvolution stencil='sweep'",
+          "K4": "main path", "K5": "TVDeconvolution stencil='sweepm'", "K6": "inpainting",
+          "K7": "blurred super-resolution", "K8": "LASSO", "K9": "PMYULA"}
+SHAPE_MCMC = (2048, 2048)  # bench.py sec_mcmc
+LAM_L1 = 0.01  # bench.py sec_lasso and sec_mcmc
 
 
 def log(*a):
@@ -169,6 +189,8 @@ def phase_kernels(dev, rng):
     from pycsou_tpu_torch.kernels.tvr import (
         tv_pds_megar_step, tv_pds_megar_step_plain, tv_pds_megarm_step_plain,
     )
+    from pycsou_tpu_torch.kernels.fista import lasso_fista_step, lasso_fista_step_plain
+    from pycsou_tpu_torch.kernels.langevin import pmyula_mega_step, pmyula_mega_step_plain
     from pycsou_tpu_torch.ops.conv import lowrank_factors
 
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
@@ -183,6 +205,7 @@ def phase_kernels(dev, rng):
 
     def note(k, label, got, want, fn, plain_fn, psf):
         pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+        worst = (0.0, 0.0)  # this call's (abs, rel); res[k] keeps the kernel's maximum
         for i, (a, b) in enumerate(pairs):
             if b.ndim == 1:  # the metric partial sums
                 rel = float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
@@ -190,13 +213,14 @@ def phase_kernels(dev, rng):
                     raise AssertionError(f"{k} {label} stats rel err {rel:.3e} > {TOL_STATS}")
                 continue
             ab, rel = max_err(a, b)
+            worst = (max(worst[0], ab), max(worst[1], rel))
             res[k]["max_abs_err"] = max(res[k]["max_abs_err"], ab)
             res[k]["max_rel_err"] = max(res[k]["max_rel_err"], rel)
             if rel > TOL_REL:
                 raise AssertionError(f"{k} {label} output {i}: err {ab:.3e} (rel {rel:.3e}) > {TOL_REL}")
         ms, pms = median_ms(fn), median_ms(plain_fn)
-        log(f"  {k} {label:<12} {psf:<6} max abs err {res[k]['max_abs_err']:.3e} "
-            f"(rel {res[k]['max_rel_err']:.3e}, tol {TOL_REL:g}); kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        log(f"  {k} {label:<12} {psf:<6} max abs err {worst[0]:.3e} "
+            f"(rel {worst[1]:.3e}, tol {TOL_REL:g}); kernel {ms:.4f} ms, plain {pms:.4f} ms")
         return ms, pms
 
     for psf, h in (("gauss", gaussian_kernel()), ("rank2", rank2_kernel())):
@@ -240,23 +264,91 @@ def phase_kernels(dev, rng):
         tv_pds_sweepm2_step_plain(x, z0, z1, m, matb, **kw),
         lambda: tv_pds_sweepm2_step(x, z0, z1, m, matb, **kw),
         lambda: tv_pds_sweepm2_step_plain(x, z0, z1, m, matb, **kw), "-")
+
+    # K8 at 4096^2: both PSFs, both prox modes, a momentum of 0.3 read from
+    # the device; the times are those of the LASSO path's soft threshold
+    mom = torch.tensor([0.3], device=dev)
+    for psf, h in (("gauss", gaussian_kernel()), ("rank2", rank2_kernel())):
+        us, vs = lowrank_factors(h)
+        f = SepFactors(us, vs, h.shape[0] // 2, h.shape[1] // 2, dev)
+        a2 = f.adjoint(2.0)
+        for nonneg in (False, True):
+            fk = dict(tau=0.5, lam=LAM_L1, nonneg=nonneg)
+            ms = note("K8", f"nonneg={nonneg}", lasso_fista_step(x, z0, atb, mom, f, a2, **fk),
+                      lasso_fista_step_plain(x, z0, atb, mom.reshape(()), f, a2, **fk),
+                      lambda: lasso_fista_step(x, z0, atb, mom, f, a2, **fk),
+                      lambda: lasso_fista_step_plain(x, z0, atb, mom.reshape(()), f, a2, **fk), psf)
+            if not nonneg:
+                key = "" if psf == "gauss" else "rank2_"
+                res["K8"][key + "ms"], res["K8"][key + "plain_ms"] = ms
+    # K9 at 2048^2 with the Gaussian PSF: every prox mode, w 0 and 1, noise
+    # streamed and drawn in the kernel; the times are those of the PMYULA
+    # path (soft threshold, w = 1, prng)
+    S2 = SHAPE_MCMC
+    x2, atb2, m1, xi = (t(rng.standard_normal(S2)) for _ in range(4))
+    m2 = t(np.abs(rng.standard_normal(S2)))
+    h = gaussian_kernel()
+    us, vs = lowrank_factors(h)
+    f = SepFactors(us, vs, h.shape[0] // 2, h.shape[1] // 2, dev)
+    a2 = f.adjoint(2.0)
+    si = torch.tensor([3, 25], dtype=torch.int32, device=dev)
+    for mode in ("stream", "prng"):
+        for prox in ("none", "nonneg", "l1"):
+            for w in (0.0, 1.0):
+                wf = torch.tensor([w], device=dev)
+                pk = dict(gamma=1 / 3, tau=1.0, lam=LAM_L1, prox_mode=prox, noise_mode=mode,
+                          noise=xi if mode == "stream" else None)
+                ms = note("K9", f"{mode} w={w:g}", pmyula_mega_step(x2, atb2, m1, m2, si, wf, f, a2, **pk),
+                          pmyula_mega_step_plain(x2, atb2, m1, m2, si, wf, f, a2, **pk),
+                          lambda: pmyula_mega_step(x2, atb2, m1, m2, si, wf, f, a2, **pk),
+                          lambda: pmyula_mega_step_plain(x2, atb2, m1, m2, si, wf, f, a2, **pk), prox)
+                if prox == "l1" and w == 1.0:
+                    key = "" if mode == "prng" else "stream_"
+                    res["K9"][key + "ms"], res["K9"][key + "plain_ms"] = ms
+    noise_moments(dev)
     torch.cuda.synchronize()
 
     # the floors the stream-bound kernels are held to: a device-to-device
-    # copy of 7 (K4) and 8 (K5, K6 for two iterations, K7) image streams'
-    # worth, n x 64 MiB, which itself moves 2 x n x 64 MiB
+    # copy of their image streams' worth, n images, which itself moves 2 x n
+    # images: 7 (K4), 8 (K5, K6 for two iterations, K7) and 5 (K8) at
+    # 4096^2, 7 (K9) at 2048^2
     copy_ms = {}
-    for streams in (7, 8):
-        n = streams * SHAPE[0] * SHAPE[1]
+    for streams, shape in ((7, SHAPE), (8, SHAPE), (5, SHAPE), (7, S2)):
+        n = streams * shape[0] * shape[1]
+        label = f"{streams}x{shape[0] * shape[1] * 4 >> 20}MiB"
         src = torch.empty(n, dtype=torch.float32, device=dev).uniform_()
         dst = torch.empty_like(src)
-        copy_ms[streams] = median_ms(lambda: dst.copy_(src), reps=10)
-        log(f"device-to-device copy of {streams} x 64 MiB: {copy_ms[streams]:.4f} ms "
-            f"({2 * n * 4 / copy_ms[streams] / 1e6:.1f} GB/s read+write)")
+        copy_ms[label] = median_ms(lambda: dst.copy_(src), reps=10)
+        log(f"device-to-device copy of {label}: {copy_ms[label]:.4f} ms "
+            f"({2 * n * 4 / copy_ms[label] / 1e6:.1f} GB/s read+write)")
         del src, dst
     log(f"gauss: K4 {res['K4']['ms']:.4f} ms, K7 {res['K7']['ms']:.4f} ms; K5 {res['K5']['ms']:.4f} ms, "
-        f"K6 {res['K6']['ms']:.4f} ms for two iterations")
+        f"K6 {res['K6']['ms']:.4f} ms for two iterations; K8 {res['K8']['ms']:.4f} ms; "
+        f"K9 at {S2[0]}^2 {res['K9']['ms']:.4f} ms (streamed noise {res['K9']['stream_ms']:.4f} ms)")
     return res, copy_ms
+
+
+def noise_moments(dev):
+    """K9's in-kernel noise at 2048^2: with x = atb = 0, a 1x1 PSF, no prox
+    and gamma = 1/2 (sqrt(2 gamma) = 1) a sample is the noise itself.  Its
+    mean must lie within 5/sqrt(N) of 0, its variance within 5 sqrt(2/N) of
+    1, with no NaN, and it must be normal_noise(seed, n) within TOL_REL."""
+    from pycsou_tpu_torch.kernels.conv2d import SepFactors
+    from pycsou_tpu_torch.kernels.langevin import normal_noise, pmyula_mega_step
+
+    f = SepFactors(np.ones((1, 1)), np.ones((1, 1)), 0, 0, dev)
+    z = torch.zeros(SHAPE_MCMC, device=dev)
+    si = torch.tensor([3, 25], dtype=torch.int32, device=dev)
+    xi, _, _ = pmyula_mega_step(z, z, z, z, si, torch.zeros(1, device=dev), f, f.adjoint(2.0), gamma=0.5, tau=1.0)
+    n = xi.numel()
+    mean, var = float(xi.double().mean()), float(xi.double().var())
+    ab, rel = max_err(xi, normal_noise(3, 25, SHAPE_MCMC, dev))
+    ok = bool(torch.isfinite(xi).all()) and abs(mean) < 5 / math.sqrt(n) and abs(var - 1) < 5 * math.sqrt(2 / n)
+    log(f"K9 prng noise at {SHAPE_MCMC[0]}^2: mean {mean:.3e} (bound {5 / math.sqrt(n):.3e}), variance "
+        f"{var:.6f} (bound 1 +- {5 * math.sqrt(2 / n):.3e}), finite {bool(torch.isfinite(xi).all())}; "
+        f"against normal_noise max abs err {ab:.3e} (rel {rel:.3e}, tol {TOL_REL:g})")
+    if not ok or rel > TOL_REL:
+        raise AssertionError("K9's in-kernel noise fails the moment check or disagrees with normal_noise")
 
 
 def count_launches(counters, fn):
@@ -293,27 +385,33 @@ def built_and_run(build, n=ITERS):
     return run
 
 
-def recovery(state, x_true, observed):
-    """(||x - x_true||, ||observed - x_true||); x must be a finite image of
-    the full shape."""
-    x = state["x"]
+def recovery(state, x_true, observed, key="x"):
+    """(||x - x_true||, ||observed - x_true||) for x = ``state[key]``, which
+    must be a finite image of the full shape."""
+    x = state[key]
     if tuple(x.shape) != SHAPE or not bool(torch.isfinite(x).all()):
-        raise AssertionError("x is not a finite 4096 x 4096 image")
+        raise AssertionError(f"{key} is not a finite 4096 x 4096 image")
     return float(torch.linalg.vector_norm(x - x_true)), float(torch.linalg.vector_norm(observed - x_true))
 
 
-def cross_check(name, counters, fn, ref, exact, at_most=None):
-    """``fn()`` counted on its own, held to ``ref`` within TOL_PATH."""
+def _entry(state, key):
+    """``state[key]``; a TV engine's split dual stacked as the generic z."""
+    if key == "z" and "z" not in state:
+        return torch.stack([state["z0"], state["z1"]])
+    return state[key]
+
+
+def cross_check(name, counters, fn, ref, exact, at_most=None, keys=("x", "z")):
+    """``fn()`` counted on its own, its ``keys`` held to ``ref`` within
+    TOL_PATH x max(1, max |x|)."""
     o, counts = count_launches(counters, fn)
     log(f"{name}: run for {o['it']} iterations; launches {counts}")
     expect_launches(name, counts, exact, at_most)
-    z = o["z"] if "z" in o else torch.stack([o["z0"], o["z1"]])
-    zr = ref["z"] if "z" in ref else torch.stack([ref["z0"], ref["z1"]])
-    ex, _ = max_err(o["x"], ref["x"])
-    ez, _ = max_err(z, zr)
+    errs = {k: max_err(_entry(o, k), _entry(ref, k))[0] for k in keys}
     scale = max(1.0, float(ref["x"].abs().max()))
-    log(f"{name} after {o['it']} iterations: max |dx| {ex:.3e}, max |dz| {ez:.3e} (tol {TOL_PATH:g} x {scale:.3f})")
-    if ex > TOL_PATH * scale or ez > TOL_PATH * scale:
+    log(f"{name} after {o['it']} iterations: " + ", ".join(f"max |d{k}| {e:.3e}" for k, e in errs.items())
+        + f" (tol {TOL_PATH:g} x {scale:.3f})")
+    if any(e > TOL_PATH * scale for e in errs.values()):
         raise AssertionError(f"{name} disagrees with the fused engine")
     return counts
 
@@ -458,6 +556,98 @@ def phase_masked_paths(dev, rng, counters):
     return runs, solvers
 
 
+def sparse_problem(rng, h, shape=SHAPE, density=0.002):
+    """Sparse spikes (0.2% of the pixels, heights 1 + U(0, 1)) with the
+    benchmark's blur and 0.01 noise: the kind of image a LASSO recovers."""
+    from scipy.signal import fftconvolve
+
+    x_true = np.zeros(shape, np.float32)
+    on = rng.random(shape) < density
+    x_true[on] = 1.0 + rng.random(int(on.sum()))
+    y = fftconvolve(x_true, h, mode="same").astype(np.float32)
+    y += 0.01 * rng.standard_normal(shape).astype(np.float32)
+    return x_true, y
+
+
+def phase_lasso_path(dev, rng, counters):
+    """The LASSO through APGD at 4096^2 (bench.py sec_lasso's problem and
+    lam), counted on its own run, with the generic chain and a sparse-spike
+    recovery."""
+    from pycsou_tpu_torch.func import L1Norm, SquaredL2Loss
+    from pycsou_tpu_torch.ops import Convolve2D
+    from pycsou_tpu_torch.opt import APGD, LassoDeconvolution
+
+    h, _, y = make_problem(rng)
+    yt = torch.from_numpy(y).to(dev)
+
+    def expression(data, **kw):
+        return APGD(SHAPE, F=SquaredL2Loss(SHAPE, data=data) * Convolve2D(SHAPE, h, device=dev),
+                    G=LAM_L1 * L1Norm(SHAPE), max_iter=3000, **kw)
+
+    # K1 twice for A^H y (LeastSquaresLoss and LassoDeconvolution each form
+    # it, as in the reference), K8 once per iteration
+    (apgd, st), counts = count_launches(counters, built_and_run(lambda: expression(yt)))
+    fused = apgd._fused
+    if type(fused) is not LassoDeconvolution or fused.engine != "megaf":
+        raise AssertionError(f"APGD fused onto {type(fused).__name__}[{getattr(fused, 'engine', None)}]")
+    log(f"LASSO: APGD -> LassoDeconvolution[megaf] tau={apgd.tau:.6f} lam={fused.lam} built and run for "
+        f"{st['it']} iterations; launches {counts}")
+    expect_launches("LASSO", counts, {"K1": 2, "K8": ITERS})
+    n = 5
+    ref = apgd.run_fixed(n)
+    cross_check("APGD fuse=False", counters, lambda: expression(yt, fuse=False).run_fixed(n), ref,
+                {"K2": n}, {"K1": 2}, keys=("x", "x_temp"))
+    x_true, ys = sparse_problem(rng, h)
+    yst = torch.from_numpy(ys).to(dev)
+    ss = expression(yst).run_fixed(ITERS)
+    err, obs = recovery(ss, torch.from_numpy(x_true).to(dev), yst, key="x_temp")
+    log(f"LASSO on sparse spikes after {ss['it']} iterations: ||x - x_true|| = {err:.4f} < ||y - x_true|| = "
+        f"{obs:.4f}: {err < obs} (ratio {err / obs:.6f})")
+    if not err < obs:
+        raise AssertionError("the LASSO recovery is no better than the blurred observation")
+    return apgd, counts
+
+
+def phase_pmyula_path(dev, counters):
+    """bench.py sec_mcmc's sampler at 2048^2, counted on its own run, with
+    the generic chain on the same noise."""
+    from scipy.signal import fftconvolve
+
+    from pycsou_tpu_torch.func import L1Norm, SquaredL2Loss
+    from pycsou_tpu_torch.ops import Convolve2D
+    from pycsou_tpu_torch.opt import PMYULA
+
+    rng = np.random.default_rng(6)
+    h = gaussian_kernel()
+    x_true = np.abs(rng.standard_normal(SHAPE_MCMC)).astype(np.float32)
+    ym = torch.from_numpy(fftconvolve(x_true, h, mode="same").astype(np.float32)).to(dev)
+
+    def sampler(**kw):
+        return PMYULA(SHAPE_MCMC, F=SquaredL2Loss(SHAPE_MCMC, data=ym) * Convolve2D(SHAPE_MCMC, h, device=dev),
+                      G=LAM_L1 * L1Norm(SHAPE_MCMC), seed=3, nb_burnin_iterations=20, max_iter=2000, **kw)
+
+    (s, st), counts = count_launches(counters, built_and_run(sampler))
+    if s.engine != "megal" or s._prox_mode != "l1":
+        raise AssertionError(f"PMYULA runs engine {s.engine!r} (prox {s._prox_mode!r}), expected 'megal' (l1)")
+    log(f"PMYULA[megal] tau={s.tau:.6f} gamma={s.gamma:.6f} built and run for {st['it']} samples; "
+        f"launches {counts}")
+    expect_launches("PMYULA", counts, {"K1": 2, "K9": ITERS})
+    n = int(st["count"])
+    mmse = st["mmse_raw"] / max(n, 1)
+    if tuple(mmse.shape) != SHAPE_MCMC or not bool(torch.isfinite(mmse).all()) or n != ITERS - 21:
+        raise AssertionError(f"PMYULA: {n} samples collected, or the MMSE is not a finite image")
+    gap = abs(float(mmse.mean()) - float(x_true.mean()))
+    log(f"PMYULA: {n} samples collected, mmse mean {float(mmse.mean()):.4f} (truth mean {x_true.mean():.4f}, "
+        f"gap {gap:.4f} < 0.02: {gap < 0.02})")
+    if not gap < 0.02:
+        raise AssertionError("the MMSE's mean is not within 0.02 of the truth's")
+    k = 6
+    ref = s.run_fixed(k)
+    cross_check("PMYULA use_pallas=False", counters, lambda: sampler(use_pallas=False).run_fixed(k), ref,
+                {"K2": k}, {"K1": 2}, keys=("x", "mmse_raw", "m2_raw"))
+    return s, counts
+
+
 def time_solver(solver, n_short=20, n_long=100, reps=3):
     """Slope-timed iterations/s (bench.py _time_solver): the difference of
     a long and a short run cancels the constant per-run cost."""
@@ -489,14 +679,15 @@ def main():
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     dev = torch.device("cuda", 0)
 
-    from pycsou_tpu_torch.kernels import _build, conv2d, tv, tvr
+    from pycsou_tpu_torch.kernels import _build, conv2d, fista, langevin, tv, tvr
 
     t0 = time.perf_counter()
     _build.library()
     log(f"kernels built/loaded from {_build.build_dir()} in {time.perf_counter() - t0:.2f} s")
     # in KERNELS order
     counters = [conv2d.sepconv2d, conv2d.sepgram2d, tv.tv_pds_sweep_step_stats, tvr.tv_pds_megar_step,
-                tv.tv_pds_sweepm_step_stats, tv.tv_pds_sweepm2_step, tvr.tv_pds_megarm_step]
+                tv.tv_pds_sweepm_step_stats, tv.tv_pds_sweepm2_step, tvr.tv_pds_megarm_step,
+                fista.lasso_fista_step, langevin.pmyula_mega_step]
 
     rng = np.random.default_rng(SEED)
     log(f"-- kernels against their plain versions at {SHAPE[0]} x {SHAPE[1]}")
@@ -506,14 +697,23 @@ def main():
     log("-- masked paths")
     masked_runs, solvers = phase_masked_paths(dev, rng, counters)
     runs.update(masked_runs)
+    log("-- LASSO path")
+    apgd, runs["LASSO"] = phase_lasso_path(dev, rng, counters)
+    log("-- PMYULA path")
+    sampler, runs["PMYULA"] = phase_pmyula_path(dev, counters)
 
     log(f"-- throughput ({smi})")
-    ips = {"main path": time_solver(pds)}
-    for name in ("inpainting", "blurred super-resolution", "denoising"):
-        ips[name] = time_solver(solvers[name])
-    for name, v in ips.items():
-        engine = (pds if name == "main path" else solvers[name])._fused.stencil_mode
-        log(f"{name} PDS[{engine}] slope-timed: {v:.1f} iters/s ({1e3 / v:.4f} ms/iteration)")
+    solvers.update({"main path": pds, "LASSO": apgd})
+    ips = {}
+    for name in ("main path", "inpainting", "blurred super-resolution", "denoising", "LASSO"):
+        ips[name] = v = time_solver(solvers[name])
+        fused = solvers[name]._fused
+        engine = getattr(fused, "stencil_mode", None) or fused.engine
+        log(f"{name} {type(solvers[name]).__name__}[{engine}] slope-timed: {v:.1f} iters/s "
+            f"({1e3 / v:.4f} ms/iteration)")
+    sps = time_solver(sampler)
+    log(f"PMYULA[{sampler.engine}] at {SHAPE_MCMC[0]}^2 slope-timed: {sps:.1f} samples/s "
+        f"({1e3 / sps:.4f} ms/sample)")
     tol_solver = pds.replace(tol=1e-6, min_iter=50)
     tol_solver.run_fixed(5)  # warm
     torch.cuda.synchronize()
@@ -533,17 +733,15 @@ def main():
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
         }
-        if "rank2_ms" in r:
-            out["rank2_ms"], out["rank2_plain_ms"] = r["rank2_ms"], r["rank2_plain_ms"]
+        for extra in ("rank2", "stream"):
+            if f"{extra}_ms" in r:
+                out[f"{extra}_ms"], out[f"{extra}_plain_ms"] = r[f"{extra}_ms"], r[f"{extra}_plain_ms"]
         return out
 
-    # "kernels": the main paths' kernels, each with the launches of the run
-    # of its path; K2, K3 and K5, which no fused main path runs, with the
-    # launches of the run that goes through them
+    # "kernels": K1-K9, each with the launches of the run named in RUN_OF
     print(json.dumps({
-        "kernels": [entry(k, run) for k, run in MAIN_PATH_KERNELS.items()],
-        "off_main_path_kernels": [entry(k, run) for k, run in OFF_MAIN_PATH_KERNELS.items()],
-        "copy_ms": {f"{n}x64MiB": v for n, v in copy_ms.items()}, "iters_per_s": ips,
+        "kernels": [entry(k, run) for k, run in RUN_OF.items()],
+        "copy_ms": copy_ms, "iters_per_s": ips, "pmyula_samples_per_s": sps,
         "time_to_1e6_s": info.elapsed, "card": smi,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,3 +12,16 @@ versions' convolutions switch TF32 off only for their own calls
 (``utils.device.full_f32``), because TF32 would change the operators.
 """
 __version__ = "0.1.0"
+
+from pycsou_tpu_torch.opt import (  # noqa: E402
+    APGD,
+    CPS,
+    DRS,
+    FBS,
+    PDS,
+    PMYULA,
+    LassoDeconvolution,
+    TVDeconvolution,
+)
+
+__all__ = ["APGD", "CPS", "DRS", "FBS", "PDS", "PMYULA", "LassoDeconvolution", "TVDeconvolution"]

@@ -49,7 +49,10 @@ def _rel_improvement(a_old, a_new) -> torch.Tensor:
 def _advance(solver, s, new):
     """Bookkeeping after one measured step: metric, histories."""
     rels = solver.metrics(s, new) if "var_history" in s else None
-    if rels is not None and solver.primary_var in rels:
+    # a solver that overrides metric() alone (PMYULA) measures something
+    # else than its primary variable's improvement
+    own = type(solver).metric is not IterativeSolver.metric and type(solver).metrics is IterativeSolver.metrics
+    if rels is not None and not own and solver.primary_var in rels:
         m = rels[solver.primary_var]  # == metric(): computed once
     else:
         m = solver.metric(s, new)
@@ -120,7 +123,8 @@ class IterativeSolver(Module):
     ``it``/``metric``/history keys); :meth:`metric` defaults to the
     relative improvement of ``x``.  Where :meth:`metrics` has an entry for
     ``primary_var``, that entry must equal :meth:`metric`: the driver takes
-    the stopping metric from it rather than computing it twice."""
+    the stopping metric from it rather than computing it twice, unless the
+    subclass overrides :meth:`metric` and not :meth:`metrics`."""
 
     # iterations one step() performs (it/history/max_iter count iterations)
     iters_per_step: int = 1

@@ -42,6 +42,8 @@ _SIGNATURES = {
     "pct_tv_sweepm_stats": [_P] * 10 + [_I, _I, _F, _F, _F, _F, _I, _I, _P],
     "pct_tv_sweepm2": [_P] * 10 + [_I, _I, _F, _F, _F, _F, _I, _I, _P],
     "pct_tv_megar": [_P] * 10 + [_I, _I, _P] + [_I] * 7 + [_F] * 5 + [_I, _I, _P],
+    "pct_lasso_fista": [_P] * 8 + [_I, _I, _P] + [_I] * 7 + [_F, _F, _I, _P],
+    "pct_pmyula": [_P] * 10 + [_I, _I, _P] + [_I] * 7 + [_F] * 5 + [_I, _P],
 }
 
 

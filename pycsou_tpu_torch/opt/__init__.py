@@ -1,5 +1,33 @@
-"""Solvers of the TV-deconvolution and masked TV slices."""
-from pycsou_tpu_torch.opt.proxalgs import CPS, PDS, ChambollePockSplitting, PrimalDualSplitting
+"""Solvers: the proximal splittings (PDS, CPS, DRS, FBS, APGD), the fused
+TV and LASSO engines, and the PMYULA sampler."""
+from pycsou_tpu_torch.opt.lasso import LassoDeconvolution
+from pycsou_tpu_torch.opt.mcmc import PMYULA
+from pycsou_tpu_torch.opt.proxalgs import (
+    APGD,
+    CPS,
+    DRS,
+    FBS,
+    PDS,
+    AcceleratedProximalGradientDescent,
+    ChambollePockSplitting,
+    DouglasRachfordSplitting,
+    ForwardBackwardSplitting,
+    PrimalDualSplitting,
+)
 from pycsou_tpu_torch.opt.tv import TVDeconvolution
 
-__all__ = ["PDS", "PrimalDualSplitting", "CPS", "ChambollePockSplitting", "TVDeconvolution"]
+__all__ = [
+    "APGD",
+    "AcceleratedProximalGradientDescent",
+    "CPS",
+    "ChambollePockSplitting",
+    "DRS",
+    "DouglasRachfordSplitting",
+    "FBS",
+    "ForwardBackwardSplitting",
+    "LassoDeconvolution",
+    "PDS",
+    "PMYULA",
+    "PrimalDualSplitting",
+    "TVDeconvolution",
+]

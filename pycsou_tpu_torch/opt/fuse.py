@@ -1,14 +1,17 @@
-"""Expression recognition: rewrite a generic PDS configuration onto the
-fused TV engines (counterpart of ``pycsou_tpu/opt/fuse.py``, TV only).
+"""Expression recognition: rewrite a generic PDS or APGD configuration onto
+the fused TV and LASSO engines (counterpart of ``pycsou_tpu/opt/fuse.py``).
 
 Matching is strictly structural (exact node types, default stencil
 conventions), so a rewrite never changes the mathematics: the fused engine
-computes the same Condat-Vu iterates to floating-point tolerance.  The F
-slot takes a convolution (or plain) least-squares loss, a sampling
+computes the same iterates to floating-point tolerance.  The F slot of the
+TV pattern takes a convolution (or plain) least-squares loss, a sampling
 operator's (inpainting, zero-fill super-resolution) or a sampling operator
 after a convolution (blurred super-resolution); Chambolle-Pock TV
-denoising has its own matcher.  The LASSO matchers wait for ROADMAP
-Queue 1 item 10.
+denoising has its own matcher, and so has the LASSO (APGD, and FBS at
+``rho = 1``).  A convolution matches only with a PSF the separable kernels
+take (rank <= 4 within 31 taps per axis): the FFT Gram of a full-rank PSF
+is not ported, so where the reference fuses such a LASSO onto its ``gram``
+engine the port runs APGD's generic chain, with the same iterates.
 """
 from __future__ import annotations
 
@@ -79,6 +82,28 @@ def _why_G_nonneg(G):
     if type(G) is NullProximableFunctional:
         return False, None
     return None, f"G is {type(G).__name__}, not the nonnegative orthant or absent"
+
+
+def _why_G_l1(G, dim_shape):
+    """(lam, None) on match, (None, reason) otherwise: ``lam * L1Norm`` or a
+    plain ``L1Norm`` over the solve domain."""
+    from pycsou_tpu_torch.core.functional import DiffProxFuncPostComp, ProxFuncPostComp
+    from pycsou_tpu_torch.func.penalty import L1Norm
+
+    lam = 1.0
+    g = G
+    if type(g) in (ProxFuncPostComp, DiffProxFuncPostComp):
+        if g.shift != 0.0:
+            return None, "G has a nonzero shift"
+        if g.scale <= 0:
+            return None, "G has a non-positive scale"
+        lam = float(g.scale)
+        g = g.func
+    if type(g) is not L1Norm:
+        return None, f"G wraps {type(g).__name__}, not L1Norm"
+    if tuple(g.dim_shape) != dim_shape:
+        return None, "G domain does not match the solve domain"
+    return lam, None
 
 
 def _why_F(F, dim_shape) -> Optional[str]:
@@ -247,6 +272,54 @@ def match_cps_tv_denoise(dim_shape, F, G, H, K, tau: float, sigma: float, rho: f
         sigma=float(sigma), rho=float(rho), metric_every=metric_every, isotropic=iso,
         device=device,
     )
+
+
+def match_lasso(dim_shape, F, G, tau: float, acceleration, d: float, metric_every: int = 1,
+                device=None):
+    """A :class:`~pycsou_tpu_torch.opt.lasso.LassoDeconvolution` computing
+    the same FISTA iterates as ``APGD(dim_shape, F, G, tau, acceleration,
+    d)``, or None when the expression does not match.
+
+    Recognised pattern::
+
+        min_x ||A x - y||^2 + lam ||x||_1
+
+    ``F = SquaredL2Loss(y) * Convolve2D`` (a PSF the separable kernels
+    take) or plain ``SquaredL2Loss(y)``, and ``G = lam * L1Norm`` or
+    ``L1Norm``."""
+    from pycsou_tpu_torch.opt.lasso import LassoDeconvolution
+
+    dim_shape = tuple(dim_shape)
+    if len(dim_shape) != 2 or not tau > 0:
+        return None
+    lam, g_reason = _why_G_l1(G, dim_shape)
+    if g_reason is not None:
+        return None
+    fy = _match_conv_least_squares(dim_shape, F)
+    if fy is None:
+        return None
+    filt, y = fy
+    return LassoDeconvolution(
+        dim_shape, y, lam, filt=filt, nonneg=False, tau=float(tau), acceleration=acceleration,
+        d=float(d), metric_every=metric_every, device=device,
+    )
+
+
+def explain_lasso_mismatch(dim_shape, F, G) -> Optional[str]:
+    """One-line "why not fused" note for an APGD configuration exactly one
+    slot away from the LASSO pattern, else None."""
+    dim_shape = tuple(dim_shape)
+    if len(dim_shape) != 2:
+        return None
+    reasons = []
+    _, r = _why_G_l1(G, dim_shape)
+    if r is not None:
+        reasons.append(r)
+    if (r := _why_F(F, dim_shape)) is not None:
+        reasons.append(r)
+    if len(reasons) != 1:
+        return None
+    return "APGD expression NOT fused (runs the generic chain): " + reasons[0]
 
 
 def explain_tv_mismatch(dim_shape, F, G, H, K) -> Optional[str]:

@@ -1,15 +1,15 @@
-"""Condat-Vu primal-dual splitting (counterpart of
-``pycsou_tpu/opt/proxalgs.py`` ``PrimalDualSplitting``/``PDS`` and its
-Chambolle-Pock special case ``CPS``).
+"""Proximal splitting solvers (counterpart of ``pycsou_tpu/opt/proxalgs.py``):
+the Condat-Vu primal-dual splitting ``PDS`` and its special cases ``CPS``
+(Chambolle-Pock), ``DRS`` (Douglas-Rachford) and ``FBS`` (forward-backward),
+and ``APGD`` (FISTA).
 
-Same update rule, automatic step sizes and momentum as the reference.
-``fuse=True`` pattern-matches the (F, G, H, K) expression (``opt/fuse.py``:
-TV deconvolution, inpainting and super-resolution, then Chambolle-Pock TV
-denoising) and delegates the iteration to the fused TV engine;
-``fuse=False`` steps the expression generically and is the oracle the
-fused path is held against.  A fusion that raises is not caught: the
-error reaches the caller.  APGD, DRS and FBS wait for ROADMAP Queue 1
-item 7.
+Same update rules, automatic step sizes and momentum as the reference.
+``fuse=True`` pattern-matches the expression (``opt/fuse.py``): a PDS onto
+the fused TV engine (TV deconvolution, inpainting and super-resolution,
+Chambolle-Pock TV denoising), an APGD, or an FBS at ``rho = 1``, onto the
+fused LASSO engine; ``fuse=False`` steps the expression generically and is
+the oracle the fused path is held against.  A fusion that raises is not
+caught: the error reaches the caller.
 """
 from __future__ import annotations
 
@@ -22,10 +22,22 @@ from pycsou_tpu_torch.core.linop import LinearOperator
 from pycsou_tpu_torch.core.solver import IterativeSolver, _rel_from_sums
 from pycsou_tpu_torch.func.base import NullDifferentiableFunctional, NullProximableFunctional
 from pycsou_tpu_torch.ops.basic import IdentityOperator, NullOperator
+from pycsou_tpu_torch.opt.lasso import ACCELERATIONS, momentum
 from pycsou_tpu_torch.utils.device import as_tensor, resolve_device
 from pycsou_tpu_torch.utils.shapes import as_shape
 
-__all__ = ["PrimalDualSplitting", "PDS", "ChambollePockSplitting", "CPS"]
+__all__ = [
+    "PrimalDualSplitting",
+    "PDS",
+    "AcceleratedProximalGradientDescent",
+    "APGD",
+    "ChambollePockSplitting",
+    "CPS",
+    "DouglasRachfordSplitting",
+    "DRS",
+    "ForwardBackwardSplitting",
+    "FBS",
+]
 
 _INF = float("inf")
 
@@ -153,6 +165,22 @@ class PrimalDualSplitting(IterativeSolver):
                 note = fuse.explain_tv_mismatch(dim_shape, self.F, self.G, self.H, self.K)
                 if note:
                     fuse.logger.warning(note)
+        elif fuse and F is not None and G is not None:
+            # FBS: with H absent this is proximal gradient, which at rho = 1
+            # is FISTA with zero momentum (the LASSO engine with
+            # acceleration=None); rho != 1 blends with the previous x, which
+            # the engine's (x_temp - x_temp_old) momentum cannot express
+            from pycsou_tpu_torch.opt import fuse
+
+            fused = fuse.match_lasso(dim_shape, self.F, self.G, self.tau, None, 75.0,
+                                     metric_every=metric_every, device=dev)
+            if fused is not None and self.rho != 1.0:
+                fuse.logger.warning(
+                    "FBS expression matches the fused FISTA engine but its rho="
+                    f"{self.rho} relaxation keeps it on the generic chain; pass rho=1 to fuse"
+                )
+                fused = None
+            self._fused = fused
 
     # -- auto-tuning -------------------------------------------------------
     def set_step_sizes(self):
@@ -174,10 +202,13 @@ class PrimalDualSplitting(IterativeSolver):
     # -- iteration ---------------------------------------------------------
     def initial_state(self):
         if self._fused is not None:
+            # the fused engine's layout: split duals (TV), or no dual at all
+            # (the LASSO engine an FBS routes to)
             state = self._fused.initial_state()
             state["x"] = self.x0.clone()
-            state["z0"] = self.z0[0].clone()
-            state["z1"] = self.z0[1].clone()
+            if "z0" in state:
+                state["z0"] = self.z0[0].clone()
+                state["z1"] = self.z0[1].clone()
             return state
         state = {"x": self.x0, "z": self.z0}
         if self._instats:
@@ -223,10 +254,11 @@ class PrimalDualSplitting(IterativeSolver):
         return super().metric(old, new)
 
     def diagnostics_vars(self, state):
-        """The generic contract is (x, z); the fused engine's split duals are
-        recombined in :meth:`metrics`."""
+        """The generic contract is (x, z); the fused TV engine's split duals
+        are recombined in :meth:`metrics`.  The LASSO engine an FBS routes
+        to has no dual: its own contract applies."""
         if self._fused is not None:
-            return ("x", "z")
+            return ("x", "z") if "z0" in state else self._fused.diagnostics_vars(state)
         return super().diagnostics_vars(state)
 
     def metrics(self, old, new):
@@ -235,6 +267,8 @@ class PrimalDualSplitting(IterativeSolver):
                 st = new["_gstats"]
                 return {"x": _rel_from_sums(st[0], st[1]), "z": _rel_from_sums(st[2], st[3])}
             return super().metrics(old, new)
+        if "z0" not in new:
+            return self._fused.metrics(old, new)
         st = new["_stats"]
         return {"x": _rel_from_sums(st[0], st[1]), "z": _rel_from_sums(st[2] + st[4], st[3] + st[5])}
 
@@ -250,6 +284,147 @@ class PrimalDualSplitting(IterativeSolver):
 PDS = PrimalDualSplitting
 
 
+class AcceleratedProximalGradientDescent(IterativeSolver):
+    r"""APGD / FISTA for ``min F(x) + G(x)``::
+
+        x_temp = prox_{tau G}(x - tau grad F(x))
+        t+ = (1 + sqrt(1 + 4 t^2)) / 2          ('BT')
+           = (n + d) / d                        ('CD', d = 75)
+           = 1                                  (None: no momentum)
+        x  = x_temp + ((t - 1) / t+) (x_temp - x_temp_old)
+
+    with the automatic ``tau = 1/beta``.  ``n`` is the solver's own
+    iteration counter in the state, a device tensor like ``t``, so the
+    momentum never makes the host wait.  The stopping metric watches
+    ``x_temp``.
+
+    ``fuse=True`` matches the LASSO pattern (``F = SquaredL2Loss(y) *
+    Convolve2D``, ``G = lam * L1Norm``) and delegates the iteration to
+    :class:`~pycsou_tpu_torch.opt.lasso.LassoDeconvolution`; an expression
+    one slot away logs why it was not fused.  The device is ``device`` if
+    given, else that of the first of F, G, x0 that holds tensors, else
+    PyTorch's default device."""
+
+    def __init__(
+        self,
+        dim_shape,
+        F=None,
+        G=None,
+        tau: Optional[float] = None,
+        acceleration: Optional[str] = "CD",
+        beta: Optional[float] = None,
+        x0=None,
+        d: float = 75.0,
+        max_iter: int = 500,
+        min_iter: int = 10,
+        accuracy_threshold: float = 1e-3,
+        verbose: Optional[int] = None,
+        metric_every: int = 1,
+        fuse: bool = True,
+        device=None,
+    ):
+        super().__init__(max_iter=max_iter, min_iter=min_iter, tol=accuracy_threshold,
+                         verbose=verbose, metric_every=metric_every)
+        dim_shape = as_shape(dim_shape)
+        dev = resolve_device(device, *[m.device for m in (F, G) if m is not None], x0)
+        self.device = dev
+        if F is None:
+            self.F = NullDifferentiableFunctional(dim_shape)
+            self.beta = 0.0
+        else:
+            self.F = F
+            b = beta if beta is not None else getattr(F, "diff_lipschitz", _INF)
+            if not math.isfinite(b):
+                raise ValueError("F must have a (known) Lipschitz-continuous gradient; pass beta=...")
+            self.beta = float(b)
+        self.G = G if G is not None else NullProximableFunctional(dim_shape)
+        if acceleration not in ACCELERATIONS:
+            raise ValueError("acceleration must be 'BT', 'CD' or None")
+        self.acceleration = acceleration
+        self.d = float(d)
+        if tau is not None:
+            self.tau = float(tau)
+        elif self.beta == 0:
+            raise ValueError("cannot auto-tune tau with beta = 0; pass tau=...")
+        else:
+            self.tau = 1.0 / self.beta
+        self.x0 = torch.zeros(dim_shape, device=dev) if x0 is None else as_tensor(x0, dev)
+        self.primary_var = "x_temp"
+        self._instats = int(metric_every) == 1
+
+        self._fused = None
+        if fuse and F is not None and G is not None:
+            from pycsou_tpu_torch.opt import fuse
+
+            self._fused = fuse.match_lasso(dim_shape, self.F, self.G, self.tau, self.acceleration,
+                                           self.d, metric_every=metric_every, device=dev)
+            if self._fused is None:
+                note = fuse.explain_lasso_mismatch(dim_shape, self.F, self.G)
+                if note:
+                    fuse.logger.warning(note)
+
+    def initial_state(self):
+        state = {
+            "x": self.x0,
+            "x_temp": torch.zeros_like(self.x0),
+            "t": torch.ones((), dtype=torch.float32, device=self.device),
+            "n": torch.zeros((), dtype=torch.int32, device=self.device),
+        }
+        if self._fused is not None:
+            # the same keys, with the engine's metric partial sums
+            fstate = self._fused.initial_state()
+            fstate.update(state)
+            return fstate
+        if self._instats:
+            state["_gstats"] = torch.zeros(4, device=self.device)
+        return state
+
+    def step(self, state):
+        if self._fused is not None:
+            return self._fused.step(state)
+        x, x_old, n = state["x"], state["x_temp"], state["n"]
+        x_temp = self.G.prox(x - self.tau * self.F.gradient(x), self.tau)
+        a, t = momentum(self.acceleration, self.d, state["t"], n)
+        dxt = x_temp - x_old
+        x_new = x_temp + a * dxt
+        out = {"x": x_new, "x_temp": x_temp, "t": t, "n": n + 1}
+        if self._instats:
+            # x_temp's improvement (the stopping metric), then the
+            # extrapolated point's
+            out["_gstats"] = torch.stack(
+                [_sumsq(dxt), _sumsq(x_old), _sumsq(x_new - x), _sumsq(x)]
+            )
+        return out
+
+    def _wrap_state(self, state):
+        if self._instats and self._fused is None and "_gstats" not in state:
+            state = dict(state)
+            state["_gstats"] = torch.zeros(4, device=self.device)
+        return super()._wrap_state(state)
+
+    def metric(self, old, new):
+        if self._fused is not None:
+            return self._fused.metric(old, new)
+        if "_gstats" in new:
+            return _rel_from_sums(new["_gstats"][0], new["_gstats"][1])
+        return super().metric(old, new)
+
+    def metrics(self, old, new):
+        if self._fused is not None:
+            return self._fused.metrics(old, new)
+        if "_gstats" in new:
+            st = new["_gstats"]
+            return {"x": _rel_from_sums(st[2], st[3]), "x_temp": _rel_from_sums(st[0], st[1])}
+        return super().metrics(old, new)
+
+    def objective(self, x):
+        """``F(x) + G(x)``."""
+        return self.F.apply(x) + self.G.apply(x)
+
+
+APGD = AcceleratedProximalGradientDescent
+
+
 class ChambollePockSplitting(PrimalDualSplitting):
     """PDS with F = None and rho = 1 (``pycsou_tpu/opt/proxalgs.py``
     ``ChambollePockSplitting``)."""
@@ -261,3 +436,28 @@ class ChambollePockSplitting(PrimalDualSplitting):
 
 
 CPS = ChambollePockSplitting
+
+
+class DouglasRachfordSplitting(PrimalDualSplitting):
+    """PDS with F = None, K = Id, sigma = 1/tau and rho = 1
+    (``pycsou_tpu/opt/proxalgs.py`` ``DouglasRachfordSplitting``)."""
+
+    def __init__(self, dim_shape, G=None, H=None, tau: float = 1.0, x0=None, z0=None, **kwargs):
+        super().__init__(dim_shape, F=None, G=G, H=H, K=None, tau=tau, sigma=1.0 / tau, rho=1.0,
+                         x0=x0, z0=z0, **kwargs)
+
+
+DRS = DouglasRachfordSplitting
+
+
+class ForwardBackwardSplitting(PrimalDualSplitting):
+    """PDS with H = None and K = None: proximal gradient (ISTA), fused onto
+    the LASSO engine at ``rho = 1`` (``pycsou_tpu/opt/proxalgs.py``
+    ``ForwardBackwardSplitting``)."""
+
+    def __init__(self, dim_shape, F=None, G=None, tau=None, rho=None, beta=None, x0=None, **kwargs):
+        super().__init__(dim_shape, F=F, G=G, H=None, K=None, tau=tau, rho=rho, beta=beta, x0=x0,
+                         **kwargs)
+
+
+FBS = ForwardBackwardSplitting

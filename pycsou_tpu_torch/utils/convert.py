@@ -2,11 +2,22 @@
 
 A JAX solver state (``pycsou_tpu``), with each entry turned into a numpy
 array, becomes the port's state with :func:`state_from_numpy`, and back
-with :func:`state_to_numpy`.  Both the fused TV layout (``x``, ``z0``,
-``z1``, ``_stats``, ``it``, ``metric``, histories) and the generic PDS
-layout (``x``, a stacked ``z``, ``_gstats``, ...) pass through unchanged:
-the keys are the same in both packages.  The iteration counter ``it`` is a
-device scalar in JAX and a Python int in the port.
+with :func:`state_to_numpy`.  The keys are the same in both packages, for
+every layout: the fused TV engine (``x``, ``z0``, ``z1``, ``_stats``), the
+generic PDS (a stacked ``z``, ``_gstats``), APGD and the LASSO engine
+(``x``, ``x_temp``, ``t``, ``n``, ``_stats`` or ``_gstats``) and PMYULA
+(``x``, ``n``, ``count``, ``mmse_raw``, ``m2_raw``, the P^2 states in
+``p2_raw``/``p2_ops`` and ``traces``), with ``it``, ``metric`` and the
+histories.  Lists and dicts (the P^2 states) are converted entry by entry.
+Integer entries (``n``, ``count``) stay integers (int32, as in JAX); the
+iteration counter ``it`` is a device scalar in JAX and a Python int in the
+port.
+
+PMYULA's PRNG ``key`` has no counterpart: the port's sampler draws the
+noise of sample ``n`` from a counter-based generator keyed by ``(seed,
+n)`` and keeps no generator state.  :func:`state_from_numpy` drops the
+``key``, so a JAX chain continues in the port from its ``x``, moments and
+counters, with other noise.
 """
 from __future__ import annotations
 
@@ -19,26 +30,38 @@ from pycsou_tpu_torch.utils.device import resolve_device
 
 __all__ = ["state_from_numpy", "state_to_numpy"]
 
+_DROPPED = ("key",)  # JAX-only entries (see the module docstring)
+
+
+def _to_torch(v, dev):
+    if isinstance(v, dict):
+        return {k: _to_torch(e, dev) for k, e in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_to_torch(e, dev) for e in v]
+    a = np.asarray(v)
+    dtype = np.int32 if a.dtype.kind in "iu" else np.float32
+    return torch.from_numpy(np.array(a, dtype=dtype)).to(dev)
+
+
+def _to_numpy(v):
+    if isinstance(v, dict):
+        return {k: _to_numpy(e) for k, e in v.items()}
+    if isinstance(v, (list, tuple)):
+        return [_to_numpy(e) for e in v]
+    return v.detach().cpu().numpy()
+
 
 def state_from_numpy(state: Dict[str, Any], device) -> Dict[str, Any]:
-    """Port state on ``device`` from a dict of numpy arrays (or scalars)."""
+    """Port state on ``device`` from a dict of numpy arrays, scalars, and
+    lists or dicts of them; the JAX ``key`` is dropped."""
     dev = resolve_device(device)
-    out = {}
-    for k, v in state.items():
-        if k == "it":
-            out[k] = int(np.asarray(v))
-        else:
-            out[k] = torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
-    return out
+    return {
+        k: int(np.asarray(v)) if k == "it" else _to_torch(v, dev)
+        for k, v in state.items() if k not in _DROPPED
+    }
 
 
-def state_to_numpy(state: Dict[str, Any]) -> Dict[str, np.ndarray]:
-    """Dict of numpy arrays from a port state (``it`` as int32, the JAX
-    package's type)."""
-    out = {}
-    for k, v in state.items():
-        if k == "it":
-            out[k] = np.asarray(v, dtype=np.int32)
-        else:
-            out[k] = v.detach().cpu().numpy()
-    return out
+def state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
+    """Dict of numpy arrays (lists and dicts kept) from a port state; ``it``
+    as int32, the JAX package's type."""
+    return {k: np.asarray(v, dtype=np.int32) if k == "it" else _to_numpy(v) for k, v in state.items()}

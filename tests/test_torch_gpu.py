@@ -11,13 +11,14 @@ Tolerances: 2e-6 relative to the largest magnitude for the images (f32
 FMAs against cuDNN's f32 convolutions, different summation order), rtol
 1e-5 for the metric partial sums (per-block sums folded in f64).  K6's two
 iterations compound the first one's rounding differences into the second:
-1e-5 for its images.
+1e-5 for its images.  K9 in prng mode: 1e-5 (its noise comes from the
+card's logf/cosf, the plain version's from torch.log/torch.cos).
 """
 import numpy as np
 import pytest
 import torch
 
-from pycsou_tpu_torch.func import L21Norm, NonNegativeOrthant, SquaredL2Loss
+from pycsou_tpu_torch.func import L1Norm, L21Norm, NonNegativeOrthant, SquaredL2Loss
 from pycsou_tpu_torch.kernels.conv2d import (
     SepFactors,
     sepconv2d,
@@ -25,6 +26,8 @@ from pycsou_tpu_torch.kernels.conv2d import (
     sepgram2d,
     sepgram2d_plain,
 )
+from pycsou_tpu_torch.kernels.fista import lasso_fista_step, lasso_fista_step_plain
+from pycsou_tpu_torch.kernels.langevin import normal_noise, pmyula_mega_step, pmyula_mega_step_plain
 from pycsou_tpu_torch.kernels.tv import (
     tv_pds_sweep_step_stats,
     tv_pds_sweep_step_stats_plain,
@@ -41,7 +44,7 @@ from pycsou_tpu_torch.kernels.tvr import (
 )
 from pycsou_tpu_torch.ops import Convolve2D, DownSampling, Gradient, Masking, SubSampling
 from pycsou_tpu_torch.ops.conv import lowrank_factors
-from pycsou_tpu_torch.opt import PDS, TVDeconvolution
+from pycsou_tpu_torch.opt import APGD, PDS, PMYULA, TVDeconvolution
 
 pytestmark = pytest.mark.gpu
 
@@ -263,3 +266,135 @@ def test_large_denoise_on_the_card(cuda, rng):
     c.run_fixed(6)
     assert tv_pds_sweepm2_step.launches == n0 + 6
     torch.cuda.synchronize()
+
+
+RAGGED = [(1, 40), (2, 33), (33, 2), (5, 7), (33, 130), (100, 130), (256, 384)]
+
+
+@pytest.mark.parametrize("shape", RAGGED)
+@pytest.mark.parametrize("rank,K0,K1", [(1, 15, 15), (2, 9, 7), (4, 31, 3)])
+def test_fista_kernel_matches_plain(cuda, rng, shape, rank, K0, K1):
+    """K8 against its plain version at ragged shapes and images smaller than
+    one tile, both prox modes, a momentum of 0.3 from a device scalar."""
+    h = _psf(rng, rank, K0, K1)
+    us, vs = lowrank_factors(h)
+    f = SepFactors(us, vs, K0 // 2, K1 // 2, cuda)
+    a2 = f.adjoint(2.0)
+    t = lambda arr: torch.from_numpy(arr.astype(np.float32)).to(cuda)  # noqa: E731
+    v, xp, atb = (t(rng.standard_normal(shape)) for _ in range(3))
+    mom = torch.tensor([0.3], device=cuda)
+    before = lasso_fista_step.launches
+    for nonneg in (False, True):
+        got = lasso_fista_step(v, xp, atb, mom, f, a2, tau=0.3, lam=0.05, nonneg=nonneg)
+        want = lasso_fista_step_plain(v, xp, atb, mom.reshape(()), f, a2, tau=0.3, lam=0.05, nonneg=nonneg)
+        _close(got[0], want[0])
+        _close(got[1], want[1])
+        torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-7)
+    assert lasso_fista_step.launches == before + 2
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", RAGGED)
+@pytest.mark.parametrize("rank,K0,K1", [(1, 15, 15), (2, 9, 7), (4, 31, 3)])
+def test_pmyula_kernel_matches_plain(cuda, rng, shape, rank, K0, K1):
+    """K9 against its plain version at ragged shapes, every prox mode, w 0
+    and 1, streamed noise and noise drawn in the kernel."""
+    h = _psf(rng, rank, K0, K1)
+    us, vs = lowrank_factors(h)
+    f = SepFactors(us, vs, K0 // 2, K1 // 2, cuda)
+    a2 = f.adjoint(2.0)
+    t = lambda arr: torch.from_numpy(arr.astype(np.float32)).to(cuda)  # noqa: E731
+    x, atb, m1, xi = (t(rng.standard_normal(shape)) for _ in range(4))
+    m2 = t(np.abs(rng.standard_normal(shape)))
+    si = torch.tensor([7, 123], dtype=torch.int32, device=cuda)
+    before = pmyula_mega_step.launches
+    for prox_mode in ("none", "nonneg", "l1"):
+        for w in (0.0, 1.0):
+            wf = torch.tensor([w], device=cuda)
+            kw = dict(gamma=0.07, tau=0.2, lam=0.03, prox_mode=prox_mode)
+            got = pmyula_mega_step(x, atb, m1, m2, si, wf, f, a2, noise_mode="stream", noise=xi, **kw)
+            want = pmyula_mega_step_plain(x, atb, m1, m2, si, wf, f, a2, noise_mode="stream", noise=xi, **kw)
+            for g, wv in zip(got, want):
+                _close(g, wv)
+            got = pmyula_mega_step(x, atb, m1, m2, si, wf, f, a2, **kw)
+            want = pmyula_mega_step_plain(x, atb, m1, m2, si, wf, f, a2, **kw)
+            for g, wv in zip(got, want):
+                _close(g, wv, rel=1e-5)
+    assert pmyula_mega_step.launches == before + 12
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("seed,n", [(0, 0), (3, 21), (2**31 - 1, 2**20 + 5)])
+def test_pmyula_prng_is_normal_noise(cuda, seed, n):
+    """K9's in-kernel noise is normal_noise(seed, n): with x = atb = 0, a 1x1
+    PSF, no prox and gamma = 1/2 (sqrt(2 gamma) = 1), x+ is the noise."""
+    S = (257, 300)
+    f = SepFactors(np.ones((1, 1)), np.ones((1, 1)), 0, 0, cuda)
+    z = torch.zeros(S, device=cuda)
+    si = torch.tensor([seed, n], dtype=torch.int32, device=cuda)
+    got, _, _ = pmyula_mega_step(z, z, z, z, si, torch.zeros(1, device=cuda), f, f.adjoint(2.0),
+                                 gamma=0.5, tau=1.0)
+    want = normal_noise(seed, n, S, cuda)
+    assert float((got - want).abs().max()) <= 1e-5
+    assert bool(torch.isfinite(got).all())
+
+
+def _gauss(k=15, s=2.0):
+    ax = np.arange(k) - k // 2
+    g = np.exp(-(ax**2) / (2 * s**2))
+    return (np.outer(g, g) / np.outer(g, g).sum()).astype(np.float32)
+
+
+def test_apgd_on_the_card_fuses_onto_megaf(cuda, rng):
+    """APGD on the LASSO on CUDA tensors: fused onto LassoDeconvolution with
+    the K8 engine, one K8 launch per iteration and no other kernel, the
+    generic chain's iterates (K2 gradient), and K8's plain version applied
+    step by step on the card."""
+    S = (192, 256)
+    h = _gauss()
+    y = torch.from_numpy(rng.standard_normal(S).astype(np.float32)).to(cuda)
+    mk = lambda **kw: APGD(S, F=SquaredL2Loss(S, data=y) * Convolve2D(S, h, device=cuda),  # noqa: E731
+                           G=0.01 * L1Norm(S), max_iter=100, **kw)
+    p = mk()
+    assert p._fused.engine == "megaf"
+    others = [tv_pds_megar_step, tv_pds_sweepm2_step, sepgram2d, sepconv2d, pmyula_mega_step]
+    before, k8 = [c.launches for c in others], lasso_fista_step.launches
+    st = p.run_fixed(20)
+    assert lasso_fista_step.launches == k8 + 20 and [c.launches for c in others] == before
+    gs = mk(fuse=False).run_fixed(20)
+    for k in ("x", "x_temp"):
+        _close(st[k], gs[k], rel=1e-5)
+    ls = p._fused
+    v, xp, t_, n = (torch.zeros(S, device=cuda), torch.zeros(S, device=cuda),
+                    torch.ones((), device=cuda), torch.zeros((), dtype=torch.int32, device=cuda))
+    from pycsou_tpu_torch.opt.lasso import momentum
+
+    for _ in range(20):
+        a, t_ = momentum(ls.acceleration, ls.d, t_, n)
+        xp, v, _ = lasso_fista_step_plain(v, xp, ls.atb, a, ls.gram.fwd, ls.gram.adj2, tau=ls.tau, lam=ls.lam)
+        n = n + 1
+    _close(st["x_temp"], xp, rel=1e-5)
+    _close(st["x"], v, rel=1e-5)
+
+
+def test_pmyula_on_the_card_runs_megal(cuda, rng):
+    """PMYULA on CUDA tensors runs the K9 engine: one K9 launch per sample
+    and no other kernel, and the generic chain's samples (K2 gradient, the
+    same Philox noise drawn by normal_noise)."""
+    S = (160, 192)
+    h = _gauss()
+    y = torch.from_numpy(np.abs(rng.standard_normal(S)).astype(np.float32)).to(cuda)
+    mk = lambda up: PMYULA(S, F=SquaredL2Loss(S, data=y) * Convolve2D(S, h, device=cuda),  # noqa: E731
+                           G=0.01 * L1Norm(S), seed=3, nb_burnin_iterations=2, use_pallas=up, max_iter=100)
+    s = mk("auto")
+    assert s.engine == "megal" and s._prox_mode == "l1"
+    others = [tv_pds_megar_step, lasso_fista_step, sepgram2d, sepconv2d]
+    before, k9 = [c.launches for c in others], pmyula_mega_step.launches
+    st = s.run_fixed(8)
+    assert pmyula_mega_step.launches == k9 + 8 and [c.launches for c in others] == before
+    g = mk(False)
+    assert g.engine == ""
+    gs = g.run_fixed(8)
+    for k in ("x", "mmse_raw", "m2_raw"):
+        _close(st[k], gs[k], rel=1e-5)
+    assert int(st["count"]) == int(gs["count"]) == 3
