@@ -6,20 +6,28 @@
 1. Prints the card (``nvidia-smi`` name and power limit), the torch and
    CUDA versions, and the time to build the CUDA kernels from
    ``pycsou_tpu_torch/csrc``.
-2. Runs every kernel of the port (K1-K8 at 4096 x 4096, K9 at 2048 x
-   2048) with the benchmark's 15 x 15 Gaussian PSF and its rank-2 PSF and
-   its 70% keep mask, against the plain PyTorch version on the same
-   inputs: max abs / rel error against the stated tolerance, median
-   CUDA-event times of kernel and plain, and the device-to-device copy of
-   the kernels' image streams (their floor).
+2. Runs every kernel of the port (K1-K8 and K10-K13 at 4096 x 4096, K9
+   at 2048 x 2048) with the benchmark's 15 x 15 Gaussian PSF and its
+   rank-2 PSF and its 70% keep mask (K10 and K11 also with the identity
+   1 x 1 PSF), against the plain PyTorch version on the same inputs: max
+   abs / rel error against the stated tolerance, median CUDA-event times of
+   kernel and plain, each kernel's bound (its image streams over 3.35 TB/s
+   or its float32 operations over 67 TFLOP/s, the larger), K1's one-call
+   PyTorch counterpart (``F.conv2d``), K12's outside ``w`` pass, and the
+   device-to-device copy of the kernels' image streams (their floor).
 3. Drives the main path through the user's entry point, the README's
    ``PDS`` expression at 4096 x 4096 on the benchmark's problem, with the
    launch counters zeroed just before it and read just after: it must
-   fuse onto ``TVDeconvolution[megar]``, launch K1 for ``A^H y`` and K4
-   once per iteration, and nothing else.  On a piecewise-constant image
-   with the same blur and noise it must recover x better than the blurred
-   observation.  The generic chain (``fuse=False``, K2) and the sweep
-   engine (K2 + K3), each counted on its own, must agree with megar.
+   fuse onto ``TVDeconvolution`` with the engine ladder's pick (mega3 for
+   the Gaussian PSF), launch K1 for ``A^H y`` and that engine's kernel once
+   per step (K10: one launch per two iterations), and nothing else.  On a
+   piecewise-constant image with the same blur and noise it must recover x
+   better than the blurred observation.  Every conv-mode engine asked for
+   by name (megar K4, mega3 K10, mega2 K11, mega K12, sweep K2 + K3,
+   element K2 + K13) and the generic chain (``fuse=False``, K2), each
+   counted on its own, must agree with megar after 6 iterations.  Small
+   denoising at 1024 x 1024 must run the ladder's pick in conv mode; the
+   rank-2 PSF must be refused by ``stencil="mega3"``.
 4. Drives the masked paths at 4096 x 4096 the same way, each counted on
    its own run: inpainting (``SquaredL2Loss * Masking``) and zero-fill
    super-resolution (``* DownSampling``) fused onto
@@ -42,20 +50,23 @@
    (``use_pallas=False``, K2, the same Philox noise) must agree after 6
    samples; the MMSE's mean must come within 0.02 of the truth's.  K9's
    in-kernel noise must have standard normal moments at 2048 x 2048.
-7. The slope-timed iterations/s of the main path and of the inpainting,
-   blurred super-resolution, denoising and LASSO paths, the PMYULA
-   samples/s, and the main path's ``solve()`` time to a 1e-6 relative
-   improvement.
+7. The slope-timed iterations/s of the main path, of the inpainting,
+   blurred super-resolution, denoising and LASSO paths and of the
+   megar, mega3, mega2, mega and element engines at 4096 x 4096, the
+   PMYULA samples/s, and the main path's ``solve()`` time to a 1e-6
+   relative improvement.
 
 Any failure exits non-zero.  On success the last two lines are a JSON
 object with the per-kernel results and the device line
-``{"ok": true, "device": {...}}``.  In the results, ``kernels`` holds K1-K9,
-each with the launches of the run named in ``run``, counted with every
-counter zeroed just before that run: the README's path for K1 and K4,
-inpainting for K6, blurred super-resolution for K7, the LASSO path for K8,
-the PMYULA path for K9, and for K2, K3 and K5, which no fused main path
-runs, the run that goes through each.  Without CUDA it exits 2 and prints
-no result.
+``{"ok": true, "device": {...}}``.  In the results, ``kernels`` holds
+K1-K13, each with the launches of the run named in ``run``, counted with
+every counter zeroed just before that run (``RUN_OF``: the README's path
+for K1 and the ladder's engine, inpainting for K6, blurred
+super-resolution for K7, the LASSO path for K8, the PMYULA path for K9,
+and for the kernels no fused main path runs, the run that goes through
+each), its ``bound_ms`` and ``bound_by``, and ``library_ms`` (K1's
+``F.conv2d``; null where no one PyTorch call computes the kernel's
+function).  Without CUDA it exits 2 and prints no result.
 """
 import json
 import math
@@ -66,6 +77,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 SHAPE = (4096, 4096)
 KSIZE = 15
@@ -88,15 +100,32 @@ KERNELS = {
     "K7": ("tv_pds_megarm_step", "pycsou_tpu_torch/csrc/tvr.cu", "pycsou_tpu/kernels/tvr.py:352"),
     "K8": ("lasso_fista_step", "pycsou_tpu_torch/csrc/fista.cu", "pycsou_tpu/kernels/fista.py:163"),
     "K9": ("pmyula_mega_step", "pycsou_tpu_torch/csrc/langevin.cu", "pycsou_tpu/kernels/langevin.py:151"),
+    "K10": ("tv_pds_mega3_step", "pycsou_tpu_torch/csrc/tvr1.cu", "pycsou_tpu/kernels/tv.py:1637"),
+    "K11": ("tv_pds_mega2_step", "pycsou_tpu_torch/csrc/tvr1.cu", "pycsou_tpu/kernels/tv.py:1386"),
+    "K12": ("tv_pds_mega_step", "pycsou_tpu_torch/csrc/tvr1.cu", "pycsou_tpu/kernels/tv.py:844"),
+    "K13": ("tv_pds_stencil_step", "pycsou_tpu_torch/csrc/tv.cu", "pycsou_tpu/kernels/tv.py:158"),
 }
-# each kernel -> the run that counts its launches: the README's PDS
-# (TVDeconvolution[megar]) runs K1 (A^H y) and K4, inpainting [sweepm2] K6,
-# blurred super-resolution [megarm] K7, the LASSO path [megaf] K8, the
-# PMYULA path [megal] K9; K2, K3 and K5, which no fused main path runs, go
-# through the generic chain and the other engines
+# the conv-mode engines -> the kernel each launches once per step (element
+# also launches K2 for its gradient)
+ENGINE_KERNEL = {"mega3": "K10", "mega2": "K11", "megar": "K4", "mega": "K12", "sweep": "K3",
+                 "element": "K13"}
+# each kernel -> the run that counts its launches: the README's PDS (the
+# ladder's pick, TVDeconvolution[mega3]) runs K1 (A^H y) and K10,
+# inpainting [sweepm2] K6, blurred super-resolution [megarm] K7, the LASSO
+# path [megaf] K8, the PMYULA path [megal] K9; the kernels no fused main
+# path runs go through the generic chain and the engines asked for by name
+# (phase_main_path puts the ladder's pick under "main path")
 RUN_OF = {"K1": "main path", "K2": "PDS fuse=False", "K3": "TVDeconvolution stencil='sweep'",
-          "K4": "main path", "K5": "TVDeconvolution stencil='sweepm'", "K6": "inpainting",
-          "K7": "blurred super-resolution", "K8": "LASSO", "K9": "PMYULA"}
+          "K4": "TVDeconvolution stencil='megar'", "K5": "TVDeconvolution stencil='sweepm'",
+          "K6": "inpainting", "K7": "blurred super-resolution", "K8": "LASSO", "K9": "PMYULA",
+          "K10": "TVDeconvolution stencil='mega3'", "K11": "TVDeconvolution stencil='mega2'",
+          "K12": "TVDeconvolution stencil='mega'", "K13": "TVDeconvolution stencil='element'"}
+# the least time of a kernel's work on an H100 SXM (NVIDIA's data sheet):
+# its image streams over the memory rate, or its float32 operations over
+# the float32 rate outside the tensor cores, whichever is larger
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+STENCIL_FLOPS = 40  # float32 operations of one stencil update per pixel (pds_stencil.cuh)
 SHAPE_MCMC = (2048, 2048)  # bench.py sec_mcmc
 LAM_L1 = 0.01  # bench.py sec_lasso and sec_mcmc
 
@@ -172,6 +201,15 @@ def median_ms(fn, reps=15, warmup=3):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def bound(streams, flops, shape=SHAPE):
+    """``(bound_ms, bound_by)`` of a kernel moving ``streams`` images of
+    ``shape`` (each read or written once) and doing ``flops`` float32
+    operations."""
+    t_bytes = streams * shape[0] * shape[1] * 4 / PEAK_BYTES_PER_S
+    t_ops = flops / PEAK_F32_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def max_err(got, want):
     """(max abs error, max abs error / max(1, max |want|))."""
     a = float((got - want).abs().max())
@@ -191,7 +229,14 @@ def phase_kernels(dev, rng):
     )
     from pycsou_tpu_torch.kernels.fista import lasso_fista_step, lasso_fista_step_plain
     from pycsou_tpu_torch.kernels.langevin import pmyula_mega_step, pmyula_mega_step_plain
+    from pycsou_tpu_torch.kernels.band import gram_band_cols
+    from pycsou_tpu_torch.kernels.tv import (
+        tv_pds_mega2_step, tv_pds_mega2_step_plain, tv_pds_mega3_step, tv_pds_mega3_step_plain,
+        tv_pds_mega_step, tv_pds_mega_step_plain, tv_pds_stencil_step, tv_pds_stencil_step_plain,
+    )
+    from pycsou_tpu_torch.ops import Convolve2D
     from pycsou_tpu_torch.ops.conv import lowrank_factors
+    from pycsou_tpu_torch.utils.device import full_f32
 
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
     x = t(np.abs(rng.standard_normal(SHAPE)))
@@ -253,6 +298,27 @@ def phase_kernels(dev, rng):
         for k, (ms, pms) in times.items():
             key = "" if psf == "gauss" else "rank2_"
             res[k][key + "ms"], res[k][key + "plain_ms"] = ms, pms
+        # the one PyTorch call computing K1's function: the 2-D PSF, flipped
+        # (F.conv2d correlates), as a cuDNN convolution in IEEE f32
+        wt = torch.from_numpy(np.ascontiguousarray(h[::-1, ::-1])).to(dev)[None, None]
+
+        def library_conv():
+            with full_f32():
+                return F.conv2d(x[None, None], wt, padding=KSIZE // 2)[0, 0]
+
+        ab, rel = max_err(library_conv(), sepconv2d(x, f))
+        if rel > TOL_REL:
+            raise AssertionError(f"K1 against F.conv2d: rel err {rel:.3e}")
+        key = "" if psf == "gauss" else "rank2_"
+        res["K1"][key + "library_ms"] = median_ms(library_conv)
+        log(f"  K1 library F.conv2d {psf:<6} {res['K1'][key + 'library_ms']:.4f} ms (rel err {rel:.3e} to K1)")
+        taps = f.rank * (f.Ku + f.Kv)
+        if psf == "gauss":
+            res["K1"]["bound"] = bound(2, 2 * taps * SHAPE[0] * SHAPE[1])
+            res["K2"]["bound"] = bound(3, (4 * taps + 2) * SHAPE[0] * SHAPE[1])
+            res["K3"]["bound"] = bound(7, STENCIL_FLOPS * SHAPE[0] * SHAPE[1])
+            res["K4"]["bound"] = bound(7, (4 * taps + STENCIL_FLOPS) * SHAPE[0] * SHAPE[1])
+            res["K7"]["bound"] = bound(8, (4 * taps + 1 + STENCIL_FLOPS) * SHAPE[0] * SHAPE[1])
     # the masked steps take no PSF
     res["K5"]["ms"], res["K5"]["plain_ms"] = note(
         "K5", "step", tv_pds_sweepm_step_stats(x, z0, z1, m, matb, **kw),
@@ -264,6 +330,50 @@ def phase_kernels(dev, rng):
         tv_pds_sweepm2_step_plain(x, z0, z1, m, matb, **kw),
         lambda: tv_pds_sweepm2_step(x, z0, z1, m, matb, **kw),
         lambda: tv_pds_sweepm2_step_plain(x, z0, z1, m, matb, **kw), "-")
+    res["K5"]["bound"] = bound(8, (STENCIL_FLOPS + 3) * SHAPE[0] * SHAPE[1])
+    res["K6"]["bound"] = bound(8, 2 * (STENCIL_FLOPS + 3) * SHAPE[0] * SHAPE[1])
+
+    # K10-K13, the rank-1 engines: the Gaussian PSF and the identity (the
+    # small-denoise route's 1 x 1 PSF); K10 against two plain K11 steps,
+    # with the second one's stats
+    zs = torch.stack([z0, z1])
+    zs[0, -1] = 0.0
+    zs[1, :, -1] = 0.0
+    for psf, h in (("gauss", gaussian_kernel()), ("identity", np.ones((1, 1), np.float32))):
+        gram = Convolve2D(SHAPE, h, device=dev).gram
+        times = {}
+        times["K10"] = note("K10", "2 steps", tv_pds_mega3_step(x, z0, z1, atb, gram, **kw),
+                            tv_pds_mega3_step_plain(x, z0, z1, atb, gram, **kw),
+                            lambda: tv_pds_mega3_step(x, z0, z1, atb, gram, **kw),
+                            lambda: tv_pds_mega3_step_plain(x, z0, z1, atb, gram, **kw), psf)
+        times["K11"] = note("K11", "step", tv_pds_mega2_step(x, z0, z1, atb, gram, **kw),
+                            tv_pds_mega2_step_plain(x, z0, z1, atb, gram, **kw),
+                            lambda: tv_pds_mega2_step(x, z0, z1, atb, gram, **kw),
+                            lambda: tv_pds_mega2_step_plain(x, z0, z1, atb, gram, **kw), psf)
+        bands = 2 * (len(gram.g_rows_acorr) + len(gram.g_cols_acorr))  # float32 ops per pixel
+        key = "" if psf == "gauss" else "identity_"
+        for k, (ms, pms) in times.items():
+            res[k][key + "ms"], res[k][key + "plain_ms"] = ms, pms
+        if psf != "gauss":
+            continue
+        res["K10"]["bound"] = bound(7, 2 * (bands + STENCIL_FLOPS) * SHAPE[0] * SHAPE[1])
+        res["K11"]["bound"] = bound(7, (bands + STENCIL_FLOPS) * SHAPE[0] * SHAPE[1])
+        cols = gram.band_plans()[1]
+        w = gram_band_cols(x, cols).contiguous()
+        res["K12"]["ms"], res["K12"]["plain_ms"] = note(
+            "K12", "step", tv_pds_mega_step(x, zs, w, atb, gram, **kw),
+            tv_pds_mega_step_plain(x, zs, w, atb, gram, **kw),
+            lambda: tv_pds_mega_step(x, zs, w, atb, gram, **kw),
+            lambda: tv_pds_mega_step_plain(x, zs, w, atb, gram, **kw), psf)
+        res["K12"]["bound"] = bound(8, (2 * len(gram.g_rows_acorr) + STENCIL_FLOPS) * SHAPE[0] * SHAPE[1])
+        res["K12"]["w_pass_ms"] = median_ms(lambda: gram_band_cols(x, cols).contiguous())
+        log(f"  K12's w = ColGram(x) pass (PyTorch, outside the kernel): {res['K12']['w_pass_ms']:.4f} ms")
+        g = sepgram2d_plain(x, gram.fwd, gram.adj2, atb)
+        res["K13"]["ms"], res["K13"]["plain_ms"] = note(
+            "K13", "step", tv_pds_stencil_step(x, zs, g, **kw), tv_pds_stencil_step_plain(x, zs, g, **kw),
+            lambda: tv_pds_stencil_step(x, zs, g, **kw), lambda: tv_pds_stencil_step_plain(x, zs, g, **kw), psf)
+        res["K13"]["bound"] = bound(7, STENCIL_FLOPS * SHAPE[0] * SHAPE[1])
+    del zs, w, g
 
     # K8 at 4096^2: both PSFs, both prox modes, a momentum of 0.3 read from
     # the device; the times are those of the LASSO path's soft threshold
@@ -281,6 +391,8 @@ def phase_kernels(dev, rng):
             if not nonneg:
                 key = "" if psf == "gauss" else "rank2_"
                 res["K8"][key + "ms"], res["K8"][key + "plain_ms"] = ms
+        if psf == "gauss":
+            res["K8"]["bound"] = bound(5, (4 * f.rank * (f.Ku + f.Kv) + 10) * SHAPE[0] * SHAPE[1])
     # K9 at 2048^2 with the Gaussian PSF: every prox mode, w 0 and 1, noise
     # streamed and drawn in the kernel; the times are those of the PMYULA
     # path (soft threshold, w = 1, prng)
@@ -305,13 +417,16 @@ def phase_kernels(dev, rng):
                 if prox == "l1" and w == 1.0:
                     key = "" if mode == "prng" else "stream_"
                     res["K9"][key + "ms"], res["K9"][key + "plain_ms"] = ms
+    # prng mode: x, atb, m1, m2 in, x, m1, m2 out; the Box-Muller and Philox
+    # arithmetic is a few dozen operations a pixel, integer for the most part
+    res["K9"]["bound"] = bound(7, (4 * f.rank * (f.Ku + f.Kv) + 30) * S2[0] * S2[1], shape=S2)
     noise_moments(dev)
     torch.cuda.synchronize()
 
     # the floors the stream-bound kernels are held to: a device-to-device
     # copy of their image streams' worth, n images, which itself moves 2 x n
-    # images: 7 (K4), 8 (K5, K6 for two iterations, K7) and 5 (K8) at
-    # 4096^2, 7 (K9) at 2048^2
+    # images: 7 (K4, K11, K13, K10 for two iterations), 8 (K5, K6 for two
+    # iterations, K7, K12) and 5 (K8) at 4096^2, 7 (K9) at 2048^2
     copy_ms = {}
     for streams, shape in ((7, SHAPE), (8, SHAPE), (5, SHAPE), (7, S2)):
         n = streams * shape[0] * shape[1]
@@ -324,7 +439,11 @@ def phase_kernels(dev, rng):
         del src, dst
     log(f"gauss: K4 {res['K4']['ms']:.4f} ms, K7 {res['K7']['ms']:.4f} ms; K5 {res['K5']['ms']:.4f} ms, "
         f"K6 {res['K6']['ms']:.4f} ms for two iterations; K8 {res['K8']['ms']:.4f} ms; "
-        f"K9 at {S2[0]}^2 {res['K9']['ms']:.4f} ms (streamed noise {res['K9']['stream_ms']:.4f} ms)")
+        f"K9 at {S2[0]}^2 {res['K9']['ms']:.4f} ms (streamed noise {res['K9']['stream_ms']:.4f} ms); "
+        f"K10 {res['K10']['ms']:.4f} ms for two iterations, K11 {res['K11']['ms']:.4f} ms, "
+        f"K12 {res['K12']['ms']:.4f} ms (+ {res['K12']['w_pass_ms']:.4f} ms for w), K13 {res['K13']['ms']:.4f} ms")
+    for k, r in res.items():
+        log(f"  {k} bound {r['bound'][0]:.4f} ms by {r['bound'][1]}")
     return res, copy_ms
 
 
@@ -417,6 +536,11 @@ def cross_check(name, counters, fn, ref, exact, at_most=None, keys=("x", "z")):
 
 
 def phase_main_path(dev, rng, counters):
+    """The README's PDS at 4096^2 on the benchmark's problem (the ladder's
+    pick), its recovery of a piecewise-constant image, and every conv-mode
+    engine asked for by name, each counted on its own run and held to megar
+    after 6 iterations (even: mega3 steps two at a time); small denoising at
+    1024^2 and the rank-2 PSF's refusal of mega3."""
     from pycsou_tpu_torch.func import L21Norm, NonNegativeOrthant, SquaredL2Loss
     from pycsou_tpu_torch.ops import Convolve2D, Gradient
     from pycsou_tpu_torch.opt import PDS, TVDeconvolution
@@ -424,11 +548,11 @@ def phase_main_path(dev, rng, counters):
     h, x_true, y = make_problem(rng)
     yt = torch.from_numpy(y).to(dev)
 
-    def expression(data, **kw):
+    def expression(data, shape=SHAPE, psf=h, **kw):
         return PDS(
-            SHAPE, F=SquaredL2Loss(SHAPE, data=data) * Convolve2D(SHAPE, h, device=dev),
-            G=NonNegativeOrthant(SHAPE), H=LAM * L21Norm((2,) + SHAPE, axis=0),
-            K=Gradient(SHAPE), **kw,
+            shape, F=SquaredL2Loss(shape, data=data) * Convolve2D(shape, psf, device=dev),
+            G=NonNegativeOrthant(shape), H=LAM * L21Norm((2,) + shape, axis=0),
+            K=Gradient(shape), **kw,
         )
 
     def errors(state, x_true, data):
@@ -436,15 +560,19 @@ def phase_main_path(dev, rng, counters):
 
     # the main path: the README expression built and run, nothing else; K1
     # twice for A^H y (LeastSquaresLoss and TVDeconvolution each form it,
-    # as in the reference)
+    # as in the reference), the ladder's engine once per step
     (pds, st), main = count_launches(counters, built_and_run(lambda: expression(yt, max_iter=3000)))
     fused = pds._fused
-    if type(fused) is not TVDeconvolution or fused.stencil_mode != "megar":
-        raise AssertionError(f"PDS fused onto {type(fused).__name__}[{getattr(fused, 'stencil_mode', None)}]")
-    log(f"main path: PDS built and run for {st['it']} iterations; launches {main}")
-    expect_launches("main path", main, {"K1": 2, "K4": ITERS})
+    engine = getattr(fused, "stencil_mode", None)
+    if type(fused) is not TVDeconvolution or engine not in ("mega3", "megar"):
+        raise AssertionError(f"PDS fused onto {type(fused).__name__}[{engine}]")
+    kmain = ENGINE_KERNEL[engine]
+    RUN_OF[kmain] = "main path"
+    log(f"main path: PDS -> TVDeconvolution[{engine}] built and run for {st['it']} iterations; "
+        f"launches {main}")
+    expect_launches("main path", main, {"K1": 2, kmain: ITERS // fused.iters_per_step})
     err, obs = errors(st, x_true, yt)
-    log(f"PDS -> {type(fused).__name__}[{fused.stencil_mode}] tau=sigma={pds.tau:.6f} rho={pds.rho}; "
+    log(f"PDS -> {type(fused).__name__}[{engine}] tau=sigma={pds.tau:.6f} rho={pds.rho}; "
         f"benchmark problem after {st['it']} iterations: ||x - x_true|| / ||y - x_true|| = {err / obs:.6f}")
 
     xb_true, yb = blocks_problem(rng, h)
@@ -456,21 +584,59 @@ def phase_main_path(dev, rng, counters):
     if not err < obs:
         raise AssertionError("the recovery is no better than the blurred observation")
 
-    # the same iterations by the other entry points on the card, each
-    # counted on its own against megar: the generic chain (fuse=False: the
-    # K2 gradient and plain operators) and the sweep engine (K2 + K3); K1
-    # forms A^H y
-    n = 5
-    ref = pds.run_fixed(n)
+    # every conv-mode engine on the card, each counted on its own against
+    # megar after 6 iterations; the generic chain (fuse=False: the K2
+    # gradient and plain operators) too; K1 forms A^H y
+    n = 6
     runs = {"main path": main}
+    solvers = {"main path": pds}
+
+    def tv(stencil):
+        return TVDeconvolution(SHAPE, yt, LAM, filt=h, stencil=stencil, max_iter=3000)
+
+    name = "TVDeconvolution stencil='megar'"
+    (solvers["megar"], ref), runs[name] = count_launches(counters, built_and_run(lambda: tv("megar"), n))
+    expect_launches(name, runs[name], {"K4": n}, {"K1": 2})
     runs["PDS fuse=False"] = cross_check(
         "PDS fuse=False", counters, lambda: expression(yt, max_iter=3000, fuse=False).run_fixed(n),
         ref, {"K2": n}, {"K1": 2})
-    runs["TVDeconvolution stencil='sweep'"] = cross_check(
-        "TVDeconvolution stencil='sweep'", counters,
-        lambda: TVDeconvolution(SHAPE, yt, LAM, filt=h, stencil="sweep", max_iter=3000).run_fixed(n),
-        ref, {"K2": n, "K3": n}, {"K1": 2})
-    return pds, runs
+    for e in ("mega3", "mega2", "mega", "sweep", "element"):
+        name = f"TVDeconvolution stencil='{e}'"
+        k = ENGINE_KERNEL[e]
+        exact = {k: n // 2 if e == "mega3" else n}
+        if e in ("sweep", "element"):
+            exact["K2"] = n
+        solvers[e] = tv(e)
+        runs[name] = cross_check(name, counters, lambda: solvers[e].run_fixed(n), ref, exact, {"K1": 2})
+
+    # small denoising (filt None, < 2**21 pixels): the conv mode's identity
+    # PSF and the ladder's pick, counted on its own run
+    small = (1024, 1024)
+    yd = torch.from_numpy(blocks_image(rng, small) + 0.1 * rng.standard_normal(small).astype(np.float32)).to(dev)
+
+    def denoise():
+        return PDS(small, F=SquaredL2Loss(small, data=yd), G=NonNegativeOrthant(small),
+                   H=LAM * L21Norm((2,) + small, axis=0), K=Gradient(small), max_iter=3000)
+
+    (dn, sd), counts = count_launches(counters, built_and_run(denoise))
+    dfused = dn._fused
+    log(f"small denoising at {small[0]}^2: PDS -> TVDeconvolution[{dfused.stencil_mode}] ({dfused.mode} mode, "
+        f"{tuple(dfused.filt.shape)} PSF) run for {sd['it']} iterations; launches {counts}")
+    if dfused.mode != "conv" or dfused.stencil_mode != engine:
+        raise AssertionError(f"small denoising runs {dfused.mode}[{dfused.stencil_mode}], expected conv[{engine}]")
+    expect_launches("small denoising", counts, {kmain: ITERS // dfused.iters_per_step}, {"K1": 2})
+    if not bool(torch.isfinite(sd["x"]).all()) or tuple(sd["x"].shape) != small:
+        raise AssertionError("small denoising: x is not a finite image")
+    runs["small denoising"] = counts
+
+    # a rank-2 PSF is outside the rank-1 engines' gate: mega3 refuses it
+    try:
+        TVDeconvolution(SHAPE, yt, LAM, filt=rank2_kernel(), stencil="mega3")
+    except ValueError as exc:
+        log(f"rank-2 PSF with stencil='mega3' raises ValueError: {exc}")
+    else:
+        raise AssertionError("stencil='mega3' accepted a rank-2 PSF")
+    return pds, runs, solvers
 
 
 def phase_masked_paths(dev, rng, counters):
@@ -687,13 +853,14 @@ def main():
     # in KERNELS order
     counters = [conv2d.sepconv2d, conv2d.sepgram2d, tv.tv_pds_sweep_step_stats, tvr.tv_pds_megar_step,
                 tv.tv_pds_sweepm_step_stats, tv.tv_pds_sweepm2_step, tvr.tv_pds_megarm_step,
-                fista.lasso_fista_step, langevin.pmyula_mega_step]
+                fista.lasso_fista_step, langevin.pmyula_mega_step, tv.tv_pds_mega3_step,
+                tv.tv_pds_mega2_step, tv.tv_pds_mega_step, tv.tv_pds_stencil_step]
 
     rng = np.random.default_rng(SEED)
     log(f"-- kernels against their plain versions at {SHAPE[0]} x {SHAPE[1]}")
     res, copy_ms = phase_kernels(dev, rng)
-    log("-- main path")
-    pds, runs = phase_main_path(dev, rng, counters)
+    log("-- main path and the conv-mode engines")
+    pds, runs, tv_solvers = phase_main_path(dev, rng, counters)
     log("-- masked paths")
     masked_runs, solvers = phase_masked_paths(dev, rng, counters)
     runs.update(masked_runs)
@@ -711,6 +878,9 @@ def main():
         engine = getattr(fused, "stencil_mode", None) or fused.engine
         log(f"{name} {type(solvers[name]).__name__}[{engine}] slope-timed: {v:.1f} iters/s "
             f"({1e3 / v:.4f} ms/iteration)")
+    for e in ("megar", "mega3", "mega2", "mega", "element"):
+        ips[f"TVDeconvolution[{e}]"] = v = time_solver(tv_solvers[e])
+        log(f"TVDeconvolution[{e}] at {SHAPE[0]}^2 slope-timed: {v:.1f} iters/s ({1e3 / v:.4f} ms/iteration)")
     sps = time_solver(sampler)
     log(f"PMYULA[{sampler.engine}] at {SHAPE_MCMC[0]}^2 slope-timed: {sps:.1f} samples/s "
         f"({1e3 / sps:.4f} ms/sample)")
@@ -731,14 +901,18 @@ def main():
             "name": f"{k} {name}", "route": "cuda", "source": source, "replaces": replaces,
             "launches": runs[run][k], "run": run,
             "max_abs_err": r["max_abs_err"], "max_rel_err": r["max_rel_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": r.get("library_ms"),
         }
-        for extra in ("rank2", "stream"):
+        for extra in ("rank2", "stream", "identity"):
             if f"{extra}_ms" in r:
                 out[f"{extra}_ms"], out[f"{extra}_plain_ms"] = r[f"{extra}_ms"], r[f"{extra}_plain_ms"]
+        for extra in ("rank2_library_ms", "w_pass_ms"):
+            if extra in r:
+                out[extra] = r[extra]
         return out
 
-    # "kernels": K1-K9, each with the launches of the run named in RUN_OF
+    # "kernels": K1-K13, each with the launches of the run named in RUN_OF
     print(json.dumps({
         "kernels": [entry(k, run) for k, run in RUN_OF.items()],
         "copy_ms": copy_ms, "iters_per_s": ips, "pmyula_samples_per_s": sps,

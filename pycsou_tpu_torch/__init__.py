@@ -5,8 +5,11 @@ reference), so each counterpart is found under the same path.  Plain tensor
 code is PyTorch; the hot kernels are CUDA C++ under ``csrc/``, built for
 ``sm_90a`` on first use (``kernels/_build.py``).
 
-The device is always explicit: constructors take ``device=`` or the device
-of the tensors they are given, and nothing moves work between CPU and GPU.
+The port runs on the CUDA card unless the caller asks for the CPU:
+constructors take ``device=``, else the device of the tensors they are
+given, else the port's default (``set_default_device("cpu")`` for a CPU
+run), else ``cuda``; without CUDA that last case raises.  Nothing moves
+work between CPU and GPU on its own.
 Importing the package changes no global PyTorch setting: the plain
 versions' convolutions switch TF32 off only for their own calls
 (``utils.device.full_f32``), because TF32 would change the operators.
@@ -23,5 +26,7 @@ from pycsou_tpu_torch.opt import (  # noqa: E402
     LassoDeconvolution,
     TVDeconvolution,
 )
+from pycsou_tpu_torch.utils.device import get_default_device, set_default_device  # noqa: E402
 
-__all__ = ["APGD", "CPS", "DRS", "FBS", "PDS", "PMYULA", "LassoDeconvolution", "TVDeconvolution"]
+__all__ = ["APGD", "CPS", "DRS", "FBS", "PDS", "PMYULA", "LassoDeconvolution", "TVDeconvolution",
+           "get_default_device", "set_default_device"]

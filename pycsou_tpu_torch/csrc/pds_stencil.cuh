@@ -1,6 +1,6 @@
-// The TV primal-dual (Condat-Vu) stencil, shared by K3 and K5 (tv.cu), K4
-// and K7 (tvr.cu) and K6 (tvm2.cu), and the stopping-metric partial sums
-// they emit.
+// The TV primal-dual (Condat-Vu) stencil, shared by K3, K5 and K13 (tv.cu),
+// K4 and K7 (tvr.cu), K6 (tvm2.cu) and K10-K12 (tvr1.cu), and the
+// stopping-metric partial sums they emit.
 //
 // One update at pixel p = (r, c), given the data gradient g:
 //
@@ -32,34 +32,46 @@ struct PdsOut {
   float xn, z0n, z1n, xo, z0o, z1o;
 };
 
+// The dual masked by the invariant: z0 read as 0 on the last row, z1 on the
+// last column (and both outside the image).
+template <class FZ0, class FZ1>
+struct MaskedDual {
+  FZ0 Z0;
+  FZ1 Z1;
+  int H, W;
+  __device__ __forceinline__ float z0(int r, int c) const {
+    return (r >= 0 && r < H - 1 && c >= 0 && c < W) ? Z0(r, c) : 0.f;
+  }
+  __device__ __forceinline__ float z1(int r, int c) const {
+    return (r >= 0 && r < H && c >= 0 && c < W - 1) ? Z1(r, c) : 0.f;
+  }
+  // x_t at (r, c) from x there: P(x - tau g - tau div z)
+  template <class FG>
+  __device__ __forceinline__ float x_t(int r, int c, float xv, FG G, const PdsParams& p) const {
+    const float div = (z0(r - 1, c) - z0(r, c)) + (z1(r, c - 1) - z1(r, c));
+    const float v = xv - p.tau * G(r, c) - p.tau * div;
+    return p.nonneg ? fmaxf(v, 0.f) : v;
+  }
+};
+
 // X, G, Z0, Z1: callables returning the value at an in-image (r, c).
 template <class FX, class FG, class FZ0, class FZ1>
 __device__ __forceinline__ PdsOut pds_stencil(int r, int c, int H, int W, const PdsParams& p,
                                               FX X, FG G, FZ0 Z0, FZ1 Z1) {
-  auto z0m = [&](int rr, int cc) {
-    return (rr >= 0 && rr < H - 1 && cc >= 0 && cc < W) ? Z0(rr, cc) : 0.f;
-  };
-  auto z1m = [&](int rr, int cc) {
-    return (rr >= 0 && rr < H && cc >= 0 && cc < W - 1) ? Z1(rr, cc) : 0.f;
-  };
-  auto x_t = [&](int rr, int cc, float xv) {
-    const float div = (z0m(rr - 1, cc) - z0m(rr, cc)) + (z1m(rr, cc - 1) - z1m(rr, cc));
-    float v = xv - p.tau * G(rr, cc) - p.tau * div;
-    return p.nonneg ? fmaxf(v, 0.f) : v;
-  };
+  const MaskedDual<FZ0, FZ1> z{Z0, Z1, H, W};
   const float x0 = X(r, c);
-  const float xt = x_t(r, c, x0);
+  const float xt = z.x_t(r, c, x0, G, p);
   const float u = 2.f * xt - x0;
   float du_r = 0.f, du_c = 0.f;
   if (r < H - 1) {
     const float xd = X(r + 1, c);
-    du_r = (2.f * x_t(r + 1, c, xd) - xd) - u;
+    du_r = (2.f * z.x_t(r + 1, c, xd, G, p) - xd) - u;
   }
   if (c < W - 1) {
     const float xr = X(r, c + 1);
-    du_c = (2.f * x_t(r, c + 1, xr) - xr) - u;
+    du_c = (2.f * z.x_t(r, c + 1, xr, G, p) - xr) - u;
   }
-  const float z0 = z0m(r, c), z1 = z1m(r, c);
+  const float z0 = z.z0(r, c), z1 = z.z1(r, c);
   const float v0 = z0 + p.sigma * du_r;
   const float v1 = z1 + p.sigma * du_c;
   float z0t, z1t;
@@ -74,6 +86,18 @@ __device__ __forceinline__ PdsOut pds_stencil(int r, int c, int H, int W, const 
   const float keep = 1.f - p.rho;
   return PdsOut{p.rho * xt + keep * x0, p.rho * z0t + keep * z0, p.rho * z1t + keep * z1,
                 x0, z0, z1};
+}
+
+// The primal half of pds_stencil alone: its x' at (r, c), the same
+// arithmetic, without the dual update (K10's first stage away from the
+// pixels its second stage reads duals at).
+template <class FX, class FG, class FZ0, class FZ1>
+__device__ __forceinline__ float pds_primal(int r, int c, int H, int W, const PdsParams& p,
+                                            FX X, FG G, FZ0 Z0, FZ1 Z1) {
+  const MaskedDual<FZ0, FZ1> z{Z0, Z1, H, W};
+  const float x0 = X(r, c);
+  const float keep = 1.f - p.rho;
+  return p.rho * z.x_t(r, c, x0, G, p) + keep * x0;
 }
 
 // The data gradient of a diagonal Gram m (K5, K6): g = 2 (m x - atb),
@@ -103,8 +127,10 @@ struct Stats6 {
 // Block sum of the six partials in a fixed order, written to
 // partials[block * 6 + k].  Blocks run in no order on the card, so each
 // writes its own slot and stats_fold adds the slots up afterwards.
+// NT: the block's thread count.
+template <int NT = kThreads>
 __device__ inline void block_stats(Stats6 st, float* __restrict__ partials) {
-  __shared__ float warp_sums[kThreads / 32][6];
+  __shared__ float warp_sums[NT / 32][6];
 #pragma unroll
   for (int k = 0; k < 6; ++k) {
     float v = st.s[k];

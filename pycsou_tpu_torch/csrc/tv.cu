@@ -1,14 +1,16 @@
 // K3: one TV primal-dual stencil step from a given data gradient g, with
 // the stopping-metric partial sums.  K5: the same step with the gradient of
-// a diagonal Gram, g = 2 (m x - atb), formed in the kernel.
+// a diagonal Gram, g = 2 (m x - atb), formed in the kernel.  K13: K3's step
+// on a stacked dual z (2, H, W), without the partial sums.
 //
 // K3 replaces pycsou_tpu/kernels/tv.py tv_pds_sweep_step_stats (and the
 // stacked-dual tv_pds_stencil_step_sweep): _tv_sweep_kernel via
 // _sweep_call, stencil _pds_stencil, dual prox _dual_prox, stats
 // _stats_update.  K5 replaces tv_pds_sweepm_step_stats (_tv_sweepm_kernel).
+// K13 replaces tv_pds_stencil_step (_tv_kernel, the Element-halo blocks).
 //
-// Bound by device-memory traffic: 7 image streams a step for K3 (x, g, z0,
-// z1 in; x', z0', z1' out), 8 for K5 (x, m, atb, z0, z1 in).  Each thread
+// Bound by device-memory traffic: 7 image streams a step for K3 and K13 (x,
+// g, z0, z1 in; x', z0', z1' out), 8 for K5 (x, m, atb, z0, z1 in).  Each thread
 // updates one pixel and reads its neighbours' inputs straight from global
 // memory; the re-reads hit L1.  The outputs go to buffers separate from the
 // inputs: the TPU kernels updated x, z0 and z1 in place, which is safe only
@@ -72,6 +74,26 @@ tv_sweepm_kernel(const float* __restrict__ x, const float* __restrict__ z0,
   block_stats(st, partials);
 }
 
+__global__ void __launch_bounds__(kThreads)
+tv_stencil_kernel(const float* __restrict__ x, const float* __restrict__ z,
+                  const float* __restrict__ g, float* __restrict__ xo, float* __restrict__ zo,
+                  int H, int W, PdsParams p) {
+  auto at = [W](const float* a) {
+    return [a, W](int r, int c) { return __ldg(a + (size_t)r * W + c); };
+  };
+  const size_t HW = (size_t)H * W;
+  const int r0 = blockIdx.y * kTile, c0 = blockIdx.x * kTile;
+  for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
+    const int r = r0 + i / kTile, c = c0 + i % kTile;
+    if (r >= H || c >= W) continue;
+    const PdsOut o = pds_stencil(r, c, H, W, p, at(x), at(g), at(z), at(z + HW));
+    const size_t k = (size_t)r * W + c;
+    xo[k] = o.xn;
+    zo[k] = o.z0n;
+    zo[HW + k] = o.z1n;
+  }
+}
+
 }  // namespace pct
 
 using namespace pct;
@@ -105,6 +127,16 @@ int pct_tv_sweepm_stats(const float* x, const float* z0, const float* z1, const 
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   stats_fold<<<1, kThreads, 0, (cudaStream_t)stream>>>(partials, grid.x * grid.y, stats);
+  return (int)cudaGetLastError();
+}
+
+// K13: z and zo are stacked (2, H, W) duals; no partial sums.
+int pct_tv_stencil(const float* x, const float* z, const float* g, float* xo, float* zo, int H,
+                   int W, float tau, float sigma, float rho, float lam, int nonneg, int iso,
+                   void* stream) {
+  dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile);
+  const PdsParams p{tau, sigma, rho, lam, nonneg, iso};
+  tv_stencil_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(x, z, g, xo, zo, H, W, p);
   return (int)cudaGetLastError();
 }
 

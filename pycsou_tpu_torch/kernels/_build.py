@@ -44,6 +44,10 @@ _SIGNATURES = {
     "pct_tv_megar": [_P] * 10 + [_I, _I, _P] + [_I] * 7 + [_F] * 5 + [_I, _I, _P],
     "pct_lasso_fista": [_P] * 8 + [_I, _I, _P] + [_I] * 7 + [_F, _F, _I, _P],
     "pct_pmyula": [_P] * 10 + [_I, _I, _P] + [_I] * 7 + [_F] * 5 + [_I, _P],
+    "pct_tv_stencil": [_P] * 5 + [_I, _I] + [_F] * 4 + [_I, _I, _P],
+    "pct_tv_mega2": [_P] * 9 + [_I, _I, _P, _P, _I, _I, _I] + [_F] * 4 + [_I, _I, _P],
+    "pct_tv_mega3": [_P] * 9 + [_I, _I, _P, _P, _I, _I, _I] + [_F] * 4 + [_I, _I, _P],
+    "pct_tv_mega": [_P] * 6 + [_I, _I, _P, _P, _I, _I, _I] + [_F] * 4 + [_I, _I, _P],
 }
 
 

@@ -1,5 +1,7 @@
-"""TV primal-dual stencil steps: from a given gradient (K3), masked (K5) and
-masked two steps at a time (K6); their plain versions and the stencil twin.
+"""TV primal-dual stencil steps: from a given gradient (K3, and K13 on a
+stacked dual), masked (K5), masked two steps at a time (K6), and the rank-1
+engines with the Gram in the kernel (K10 two steps, K11 one step, K12 the
+row Gram of a given w); their plain versions and the stencil twin.
 
 One Condat-Vu iteration of TV-regularised deconvolution, given the data
 gradient g::
@@ -23,12 +25,22 @@ sums ``[|dx|^2, |x|^2, |dz0|^2, |z0|^2, |dz1|^2, |z1|^2]``.
 The masked steps take a diagonal Gram ``m`` (a sampling operator's
 ``A^H 1``) and ``atb = A^H y`` in place of g, which they form in the
 kernel as ``g = 2 (m x - atb)``.
+
+The rank-1 engines take ``atb`` and a rank-1
+:class:`~pycsou_tpu_torch.ops.conv.SeparableConvGram2D` (its ``g_meta``
+plan) and form ``g = 2 (RowGram(ColGram(x)) - atb)`` in the kernel, each
+direction one band pass of the autocorrelation plus the edge corrections
+(``kernels/band.py``).  Their kernels are instantiated for padded reaches
+``R1_REACHES``: a PSF of at most 16 taps on each axis.
 """
 from __future__ import annotations
 
 import torch
 
+import numpy as np
+
 from pycsou_tpu_torch.kernels._build import TILE, check, library, stream_of
+from pycsou_tpu_torch.kernels.band import gram_band_cols, gram_band_rows
 from pycsou_tpu_torch.kernels.conv2d import _check_device, _check_image
 from pycsou_tpu_torch.ops.diff import fdiff_forward, fdiff_forward_adjoint
 
@@ -42,6 +54,15 @@ __all__ = [
     "tv_pds_sweepm_step_stats_plain",
     "tv_pds_sweepm2_step",
     "tv_pds_sweepm2_step_plain",
+    "R1_REACHES",
+    "rank1_reach",
+    "tv_pds_stencil_step",
+    "tv_pds_mega_step",
+    "tv_pds_mega_step_plain",
+    "tv_pds_mega2_step",
+    "tv_pds_mega2_step_plain",
+    "tv_pds_mega3_step",
+    "tv_pds_mega3_step_plain",
 ]
 
 
@@ -209,3 +230,210 @@ def tv_pds_sweepm2_step(x, z0, z1, m, atb, *, tau, sigma, rho, lam, nonneg=True,
 
 
 tv_pds_sweepm2_step.launches = 0
+
+
+# -- K13: the stencil step on a stacked dual -----------------------------------
+
+
+def _check_stacked(x, z) -> None:
+    _check_image(x, "x")
+    H, W = x.shape
+    if z.dtype != torch.float32 or tuple(z.shape) != (2, H, W) or not z.is_contiguous() \
+            or z.device != x.device:
+        raise ValueError(f"z: need a contiguous float32 (2, {H}, {W}) tensor on {x.device}, got "
+                         f"{z.dtype} {tuple(z.shape)} on {z.device}")
+
+
+def tv_pds_stencil_step(x, z, g, *, tau, sigma, rho, lam, nonneg=True, iso=True):
+    """K13: one stencil step from the gradient g on a stacked dual ``z (2,
+    H, W)``; returns ``(x', z' (2, H, W))`` in new buffers, no partial sums.
+
+    Replaces ``pycsou_tpu/kernels/tv.py`` ``tv_pds_stencil_step``
+    (``_tv_kernel``, the Element-halo row blocks).  Bound by device memory:
+    7 image streams (x, g, z (2) in; x', z' (2) out).  Its plain version is
+    :func:`tv_pds_stencil_step_plain`."""
+    _check_stacked(x, z)
+    _check_image(g, "g", like=x)
+    _check_device(x)
+    kw = dict(tau=tau, sigma=sigma, rho=rho, lam=lam, nonneg=nonneg, iso=iso)
+    if x.device.type == "cpu":
+        return tv_pds_stencil_step_plain(x, z, g, **kw)
+    H, W = x.shape
+    xo, zo = torch.empty_like(x), torch.empty_like(z)
+    err = library().pct_tv_stencil(
+        x.data_ptr(), z.data_ptr(), g.data_ptr(), xo.data_ptr(), zo.data_ptr(), H, W,
+        float(tau), float(sigma), float(rho), float(lam), int(bool(nonneg)), int(bool(iso)),
+        stream_of(x),
+    )
+    check(err, "tv_pds_stencil_step")
+    tv_pds_stencil_step.launches += 1
+    return xo, zo
+
+
+tv_pds_stencil_step.launches = 0
+
+
+# -- the rank-1 engines (K10-K12) -----------------------------------------------
+
+R1_REACHES = (0, 4, 8, 15)  # padded reaches the kernels are instantiated for (csrc/tvr1.cu)
+_R1_MAX = 2 * R1_REACHES[-1] + 1  # taps per axis in the kernels' R1Taps
+
+
+def rank1_reach(gram) -> int:
+    """The padded reach R the rank-1 kernels take for ``gram`` (the PSF's
+    larger reach, K - 1, rounded up to ``R1_REACHES``); raises when the
+    Gram has no rank-1 plan or a reach beyond 15."""
+    if getattr(gram, "g_meta", None) is None:
+        raise ValueError("the rank-1 engines need a SeparableConvGram2D with the rank-1 plan "
+                         "(a rank-1 PSF, H >= 3 m0 and W >= 3 m1)")
+    reach = max(len(gram.g_rows_taps), len(gram.g_cols_taps)) - 1
+    for R in R1_REACHES:
+        if reach <= R:
+            return R
+    raise ValueError(f"the rank-1 kernels take at most {R1_REACHES[-1] + 1} taps per axis, "
+                     f"the PSF has {len(gram.g_rows_taps)} x {len(gram.g_cols_taps)}")
+
+
+def _rank1_args(gram):
+    """``(taps, E, Kr, Kc, R)`` for the C launchers, built once per Gram:
+    the two autocorrelations centred at R in one host array (the row band
+    with the gradient's 2x), and the edge corrections on the device, the
+    row ones with the 2x."""
+    args = getattr(gram, "_r1_args", None)
+    if args is None:
+        R = rank1_reach(gram)
+        Kr, Kc = len(gram.g_rows_taps), len(gram.g_cols_taps)
+        taps = np.zeros(2 * _R1_MAX, np.float32)
+        taps[R - (Kr - 1) : R + Kr] = 2.0 * np.asarray(gram.g_rows_acorr, np.float32)
+        taps[_R1_MAX + R - (Kc - 1) : _R1_MAX + R + Kc] = np.asarray(gram.g_cols_acorr, np.float32)
+        parts = [2.0 * e.reshape(-1) for e in (gram.g_rows_E or ())]
+        parts += [e.reshape(-1) for e in (gram.g_cols_E or ())]
+        E = torch.cat(parts) if parts else torch.zeros(1, device=gram.device)
+        args = gram._r1_args = (taps, E.contiguous(), Kr, Kc, R)
+    return args
+
+
+def _rank1_grad_plain(x, atb, gram):
+    """``2 (RowGram(ColGram(x)) - atb)`` by the plain band passes."""
+    rows, cols = gram.band_plans()
+    return 2.0 * (gram_band_rows(gram_band_cols(x, cols), rows) - atb)
+
+
+def tv_pds_mega2_step_plain(x, z0, z1, atb, gram, **kw):
+    """Plain PyTorch version of K11: the rank-1 gradient by the plain band
+    passes, then K3's plain version."""
+    return tv_pds_sweep_step_stats_plain(x, z0, z1, _rank1_grad_plain(x, atb, gram), **kw)
+
+
+def tv_pds_mega3_step_plain(x, z0, z1, atb, gram, **kw):
+    """Plain PyTorch version of K10: two plain K11 steps; the stats compare
+    the second step's output with the first's."""
+    x, z0, z1, _ = tv_pds_mega2_step_plain(x, z0, z1, atb, gram, **kw)
+    return tv_pds_mega2_step_plain(x, z0, z1, atb, gram, **kw)
+
+
+def tv_pds_mega_step_plain(x, z, w, atb, gram, **kw):
+    """Plain PyTorch version of K12: ``g = 2 (RowGram(w) - atb)``, then the
+    plain stencil on the stacked dual."""
+    rows, _ = gram.band_plans()
+    return tv_pds_stencil_step_plain(x, z, 2.0 * (gram_band_rows(w, rows) - atb), **kw)
+
+
+def _check_rank1(gram, x, **images) -> None:
+    _check_image(x, "x")
+    for name, t in images.items():
+        _check_image(t, name, like=x)
+    _check_device(x)
+    rank1_reach(gram)
+    acorr = gram.band_plans()[0][0]
+    if acorr.device != x.device or tuple(gram.dim_shape) != tuple(x.shape):
+        raise ValueError(f"gram on {acorr.device} for {tuple(gram.dim_shape)}, image {tuple(x.shape)} "
+                         f"on {x.device}")
+
+
+def _launch_rank1(fn, symbol, x, z0, z1, atb, gram, kw):
+    """Launch of K10 or K11 (same C signature); counts on ``fn``."""
+    taps, E, Kr, Kc, R = _rank1_args(gram)
+    H, W = x.shape
+    xo, z0o, z1o = (torch.empty_like(x) for _ in range(3))
+    nblocks = -(-H // TILE) * -(-W // TILE)
+    partials = torch.empty(nblocks * 6, dtype=torch.float32, device=x.device)
+    stats = torch.empty(6, dtype=torch.float32, device=x.device)
+    err = getattr(library(), symbol)(
+        x.data_ptr(), z0.data_ptr(), z1.data_ptr(), atb.data_ptr(),
+        xo.data_ptr(), z0o.data_ptr(), z1o.data_ptr(), partials.data_ptr(), stats.data_ptr(),
+        H, W, taps.ctypes.data, E.data_ptr(), Kr, Kc, R,
+        float(kw["tau"]), float(kw["sigma"]), float(kw["rho"]), float(kw["lam"]),
+        int(bool(kw["nonneg"])), int(bool(kw["iso"])), stream_of(x),
+    )
+    check(err, fn.__name__)
+    fn.launches += 1
+    return xo, z0o, z1o, stats
+
+
+def tv_pds_mega2_step(x, z0, z1, atb, gram, *, tau, sigma, rho, lam, nonneg=True, iso=True):
+    """K11: one TV PDS iteration for a rank-1 PSF with both Gram directions
+    in the kernel; ``(x', z0', z1', stats (6,))`` in new buffers.
+
+    Replaces ``pycsou_tpu/kernels/tv.py`` ``tv_pds_mega2_step``
+    (``_tv_mega2_kernel``, ``_mega_row_gram``, ``_lane_gram_tile``).  Bound
+    by device memory: 7 image streams; the Gram is two band passes of
+    2K - 1 taps per 32 x 32 tile in shared memory (``csrc/tvr1.cu``)."""
+    kw = dict(tau=tau, sigma=sigma, rho=rho, lam=lam, nonneg=nonneg, iso=iso)
+    _check_rank1(gram, x, z0=z0, z1=z1, atb=atb)
+    if x.device.type == "cpu":
+        return tv_pds_mega2_step_plain(x, z0, z1, atb, gram, **kw)
+    return _launch_rank1(tv_pds_mega2_step, "pct_tv_mega2", x, z0, z1, atb, gram, kw)
+
+
+tv_pds_mega2_step.launches = 0
+
+
+def tv_pds_mega3_step(x, z0, z1, atb, gram, *, tau, sigma, rho, lam, nonneg=True, iso=True):
+    """K10: two TV PDS iterations for a rank-1 PSF in one pass; the state
+    after both and the stats of the second only (its "old" is the first
+    iteration's output), ``(x'', z0'', z1'', stats (6,))``, in new buffers.
+
+    Replaces ``pycsou_tpu/kernels/tv.py`` ``tv_pds_mega3_step``
+    (``_tv_mega3_kernel``).  Bound by device memory: K11's 7 image streams
+    serve two iterations (each block reads x over its tile grown by about
+    twice the Gram's reach and keeps the first iteration in shared memory)."""
+    kw = dict(tau=tau, sigma=sigma, rho=rho, lam=lam, nonneg=nonneg, iso=iso)
+    _check_rank1(gram, x, z0=z0, z1=z1, atb=atb)
+    if x.device.type == "cpu":
+        return tv_pds_mega3_step_plain(x, z0, z1, atb, gram, **kw)
+    return _launch_rank1(tv_pds_mega3_step, "pct_tv_mega3", x, z0, z1, atb, gram, kw)
+
+
+tv_pds_mega3_step.launches = 0
+
+
+def tv_pds_mega_step(x, z, w, atb, gram, *, tau, sigma, rho, lam, nonneg=True, iso=True):
+    """K12: one TV PDS iteration from ``w = ColGram(x)`` (formed by the
+    caller): the exact row Gram of w with its edge corrections, ``g = 2
+    (RowGram(w) - atb)``, and the stencil on the stacked dual; ``(x', z' (2,
+    H, W))`` in new buffers, no partial sums.
+
+    Replaces ``pycsou_tpu/kernels/tv.py`` ``tv_pds_mega_step``
+    (``_tv_mega_kernel``).  Bound by device memory: 8 image streams (w, x,
+    atb, z (2) in; x', z' (2) out), plus the caller's pass for w."""
+    kw = dict(tau=tau, sigma=sigma, rho=rho, lam=lam, nonneg=nonneg, iso=iso)
+    _check_stacked(x, z)
+    _check_rank1(gram, x, w=w, atb=atb)
+    if x.device.type == "cpu":
+        return tv_pds_mega_step_plain(x, z, w, atb, gram, **kw)
+    taps, E, Kr, Kc, R = _rank1_args(gram)
+    H, W = x.shape
+    xo, zo = torch.empty_like(x), torch.empty_like(z)
+    err = library().pct_tv_mega(
+        x.data_ptr(), z.data_ptr(), w.data_ptr(), atb.data_ptr(), xo.data_ptr(), zo.data_ptr(),
+        H, W, taps.ctypes.data, E.data_ptr(), Kr, Kc, R,
+        float(tau), float(sigma), float(rho), float(lam), int(bool(nonneg)), int(bool(iso)),
+        stream_of(x),
+    )
+    check(err, "tv_pds_mega_step")
+    tv_pds_mega_step.launches += 1
+    return xo, zo
+
+
+tv_pds_mega_step.launches = 0

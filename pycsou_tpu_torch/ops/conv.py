@@ -6,7 +6,10 @@
   takes the autodiff adjoint.  ``'direct'`` and the grouped ``'bandg'``
   wait for ROADMAP Queue 1 item 5.
 * ``SeparableConvGram2D`` — the exact Gram ``A^H A`` of a band convolution
-  through kernel K2, and the fused least-squares gradient.
+  through kernel K2, and the fused least-squares gradient; for a rank-1
+  PSF also the reference's rank-1 plan (``g_meta``, the autocorrelations,
+  the raw taps and the edge corrections of ``kernels/band.py``), which the
+  rank-1 TV engines K10-K12 read.
   ``ConvGram2D`` (the FFT Gram of ``ops/_gram.py``) waits for ROADMAP
   Queue 1 item 5; until then a full-rank PSF's Gram is the composition
   ``A^H o A``.
@@ -23,6 +26,7 @@ import numpy as np
 import torch
 
 from pycsou_tpu_torch.core.linop import LinearOperator, LinOpComp, SymmetricLinearOperator
+from pycsou_tpu_torch.kernels.band import make_gram_band
 from pycsou_tpu_torch.kernels.conv2d import MAX_TAPS, SepFactors, sepconv2d, sepgram2d
 from pycsou_tpu_torch.utils.device import as_tensor, resolve_device
 from pycsou_tpu_torch.utils.shapes import as_shape
@@ -152,10 +156,23 @@ class Convolve2D(LinearOperator):
         return SymmetricLinearOperator(LinOpComp(self.H, self))
 
 
+_ACORR_TILE = 128  # the reference's band tile: (2m - 1)-tap bands need 2 (m - 1) <= 128
+
+
 class SeparableConvGram2D(LinearOperator):
     """Exact Gram ``A^H A`` of a band (rank <= 4) convolution, one K2 pass:
     the forward and adjoint convolutions are exact 'same' convolutions, so
-    their composition needs no edge corrections."""
+    their composition needs no edge corrections.
+
+    For a rank-1 PSF of m0 x m1 taps on an (H, W) image with ``H >= 3 m0``,
+    ``W >= 3 m1`` and ``2 (m - 1) <= 128`` on both axes (the reference's
+    gate, ``pycsou_tpu/ops/conv.py`` ``SeparableConvGram2D.__init__``) it
+    also holds the rank-1 plan, bit-equal to the reference's: ``g_meta =
+    (lead_r, L_r, lead_c, L_c)``, the autocorrelations ``g_rows_acorr`` /
+    ``g_cols_acorr`` and raw factor taps ``g_rows_taps`` / ``g_cols_taps``
+    (tuples of floats), and the edge corrections ``g_rows_E`` / ``g_cols_E``
+    (``(E_top, E_bot)`` float32 tensors on the device, None for one tap).
+    Otherwise ``g_meta`` is None."""
 
     def __init__(self, conv: Convolve2D):
         if conv.method != "band":
@@ -166,6 +183,34 @@ class SeparableConvGram2D(LinearOperator):
         self.adj = conv.adj
         self.adj2 = conv.fwd.adjoint(2.0)  # the gradient's 2x in the adjoint row taps
         self.rank = conv.fwd.rank
+        self.g_meta = self.g_rows_acorr = self.g_cols_acorr = None
+        self.g_rows_taps = self.g_cols_taps = self.g_rows_E = self.g_cols_E = None
+        us, vs = conv.factors
+        (H, W), (m0, m1) = conv.dim_shape, (us.shape[0], vs.shape[0])
+        if (self.rank == 1 and H >= 3 * m0 and W >= 3 * m1
+                and 2 * (m0 - 1) <= _ACORR_TILE and 2 * (m1 - 1) <= _ACORR_TILE):
+            acr, Etr, Ebr, L_r = make_gram_band(us[:, 0], H)
+            acc, Etc, Ebc, L_c = make_gram_band(vs[:, 0], W)
+            self.g_meta = (m0 - 1, L_r, m1 - 1, L_c)
+            self.g_rows_acorr = tuple(float(t) for t in acr)
+            self.g_cols_acorr = tuple(float(t) for t in acc)
+            self.g_rows_taps = tuple(float(t) for t in us[:, 0])
+            self.g_cols_taps = tuple(float(t) for t in vs[:, 0])
+            dev = conv.device
+            self.g_rows_E = None if Etr is None else (as_tensor(Etr, dev), as_tensor(Ebr, dev))
+            self.g_cols_E = None if Etc is None else (as_tensor(Etc, dev), as_tensor(Ebc, dev))
+            self._band_plans = (
+                (as_tensor(acr.astype(np.float32), dev), *(self.g_rows_E or (None, None)), L_r),
+                (as_tensor(acc.astype(np.float32), dev), *(self.g_cols_E or (None, None)), L_c),
+            )
+
+    def band_plans(self):
+        """``(rows, cols)`` plans ``(acorr, E_top, E_bot, L)`` of the rank-1
+        Gram for :func:`~pycsou_tpu_torch.kernels.band.gram_band_rows` and
+        ``gram_band_cols``, on the device."""
+        if self.g_meta is None:
+            raise ValueError("the rank-1 plan needs a rank-1 PSF within the reference's gate")
+        return self._band_plans
 
     @property
     def device(self):

@@ -20,6 +20,7 @@ import torch
 from pycsou_tpu_torch.core.solver import IterativeSolver
 from pycsou_tpu_torch.func.base import NullDifferentiableFunctional, NullProximableFunctional
 from pycsou_tpu_torch.kernels.langevin import normal_noise, pmyula_mega_step
+from pycsou_tpu_torch.opt.tv import rank1_gate
 from pycsou_tpu_torch.utils.device import as_tensor, resolve_device
 from pycsou_tpu_torch.utils.shapes import as_shape
 from pycsou_tpu_torch.utils.stats import p2_add, p2_init, p2_quantile
@@ -27,9 +28,6 @@ from pycsou_tpu_torch.utils.stats import p2_add, p2_init, p2_quantile
 __all__ = ["PMYULA"]
 
 _INF = float("inf")
-# the reference's rank-1 engine reach: K - 1 <= 15 row taps (its 16-row
-# Gram halo) and an edge-correction window 2K - 2 <= 32
-_MEGAL_MAX_ROW_TAPS = 16
 
 
 class PMYULA(IterativeSolver):
@@ -51,11 +49,11 @@ class PMYULA(IterativeSolver):
     noise drawn in the kernel and the accumulators).  It applies when no
     tracker is asked for (no ``linops``, ``pvalues`` or ``scalar_fns``),
     ``F = SquaredL2Loss(y) * Convolve2D(h)`` (or ``SquaredL2Loss(y)``) on 2-D
-    images with a rank-1 PSF of at most 16 row taps (the reach of the
-    reference's rank-1 engine; its TPU tile gates on the image shape, H % 32,
-    W % 128, W >= 384 and the Mosaic tile budget, have no counterpart on the
-    card and are not copied), and G absent, the nonnegative orthant or ``lam
-    * L1Norm``.  ``""`` is the generic chain, with the same noise.
+    images with a PSF that passes the rank-1 engines' gate
+    (:func:`pycsou_tpu_torch.opt.tv.rank1_gate`, the reference's one source
+    of these gates: rank 1, at most 16 taps per axis, ``H >= 3 m0``, ``W >=
+    3 m1``), and G absent, the nonnegative orthant or ``lam * L1Norm``.
+    ``""`` is the generic chain, with the same noise.
 
     ``use_pallas``: ``"auto"`` takes ``"megal"`` where it applies on a CUDA
     device and the generic chain otherwise; ``True`` (CUDA) and
@@ -168,9 +166,9 @@ class PMYULA(IterativeSolver):
                     return f"G is not absent, the nonnegative orthant or lam * L1Norm ({reason})"
                 prox_mode = "l1"
         A = Convolve2D(dim_shape, np.ones((1, 1), np.float32) if filt is None else filt, device=self.device)
-        if A.fwd.rank != 1 or A.fwd.Ku > _MEGAL_MAX_ROW_TAPS:
-            return (f"the PSF has rank {A.fwd.rank} and {A.fwd.Ku} row taps; the fused engine takes "
-                    f"rank 1 and at most {_MEGAL_MAX_ROW_TAPS} row taps")
+        why = rank1_gate(A.gram)
+        if why is not None:
+            return f"the PSF is outside the rank-1 engines' gate: {why}"
         self._lg_fwd, self._lg_adj2 = A.fwd, A.fwd.adjoint(2.0)
         self._lg_atb = A.adjoint(as_tensor(y, self.device))
         self._prox_mode, self._lam_l1 = prox_mode, float(lam)

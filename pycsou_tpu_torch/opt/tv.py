@@ -13,20 +13,24 @@ Three modes, as in the reference:
 * **combined** (``filt`` and ``mask``): ``A = M o C``, blurred and sampled
   data; the Gram is ``C^H diag(mask) C`` and ``y`` is ``M^H y_obs``.
 
-Engines (``stencil=``), each emitting the six metric partial sums, so the
-stopping metric costs no extra pass:
+Engines (``stencil=``):
 
-* conv: ``"megar"`` (K4 alone, 7 image streams; the CUDA ``"auto"``) and
-  ``"sweep"`` (the K2 gradient, then the K3 stencil; 10 streams);
+* conv: the reference's ladder, in its order: ``"mega3"`` (K10, two
+  iterations per launch, ``iters_per_step = 2``), ``"mega2"`` (K11),
+  ``"megar"`` (K4), ``"mega"`` (K12 after the column Gram ``w`` in
+  PyTorch), ``"sweep"`` (the K2 gradient, then K3) and ``"element"`` (the
+  K2 gradient, then K13 on a stacked dual).  The three rank-1 engines need
+  :func:`rank1_gate`; the CUDA ``"auto"`` is the first eligible engine
+  (:func:`conv_engine`);
 * mask: ``"sweepm2"`` (K6, two iterations per launch, ``iters_per_step =
   2``; the CUDA ``"auto"``) and ``"sweepm"`` (K5, one iteration);
 * combined: ``"megarm"`` (K7; the CUDA ``"auto"``);
 * every mode: ``"plain"``, the kernels' plain PyTorch versions one
   iteration a step, for CPU tensors only (``"auto"`` on the CPU).
 
-The reference's rank-1 engines (mega3, mega2, mega) and its element-halo
-engine are not ported yet and raise ``NotImplementedError`` naming their
-ROADMAP item.
+Every engine but ``mega`` and ``element`` emits the six metric partial
+sums, so the stopping metric costs no extra pass; those two, as in the
+reference, carry no ``_stats`` and take the generic metric.
 """
 from __future__ import annotations
 
@@ -37,8 +41,14 @@ import numpy as np
 import torch
 
 from pycsou_tpu_torch.core.solver import IterativeSolver, _rel_from_sums
+from pycsou_tpu_torch.kernels.band import gram_band_cols
 from pycsou_tpu_torch.kernels.conv2d import sepgram2d
 from pycsou_tpu_torch.kernels.tv import (
+    R1_REACHES,
+    tv_pds_mega2_step,
+    tv_pds_mega3_step,
+    tv_pds_mega_step,
+    tv_pds_stencil_step,
     tv_pds_sweep_step_stats,
     tv_pds_sweepm2_step,
     tv_pds_sweepm_step_stats,
@@ -49,26 +59,85 @@ from pycsou_tpu_torch.kernels.tvr import (
     tv_pds_megar_step_plain,
     tv_pds_megarm_step_plain,
 )
-from pycsou_tpu_torch.ops.conv import Convolve2D
+from pycsou_tpu_torch.ops.conv import Convolve2D, SeparableConvGram2D
 from pycsou_tpu_torch.ops.diff import fdiff_forward
 from pycsou_tpu_torch.utils.device import as_tensor, resolve_device
 from pycsou_tpu_torch.utils.shapes import as_shape
 
-__all__ = ["TVDeconvolution"]
+__all__ = ["TVDeconvolution", "conv_engine", "rank1_gate"]
 
-# each mode's CUDA engines, the "auto" choice first
-MODE_ENGINES = {"conv": ("megar", "sweep"), "mask": ("sweepm2", "sweepm"), "combined": ("megarm",)}
+# each mode's CUDA engines in the order of the reference's ladder
+MODE_ENGINES = {
+    "conv": ("mega3", "mega2", "megar", "mega", "sweep", "element"),
+    "mask": ("sweepm2", "sweepm"),
+    "combined": ("megarm",),
+}
+RANK1_ENGINES = ("mega3", "mega2", "mega")
 _CUDA_ENGINES = sum(MODE_ENGINES.values(), ())
 ENGINES = ("auto",) + _CUDA_ENGINES + ("plain",)
-# the reference's engines this port does not have yet -> where they wait
-# (ROADMAP Queue 2, "still to port")
-UNPORTED_ENGINES = {
-    "mega3": "ROADMAP Queue 2 item 1 (two-step temporal blocking on K4)",
-    "mega2": "ROADMAP Queue 2 item 2",
-    "mega": "ROADMAP Queue 2 item 3",
-    "element": "ROADMAP Queue 2 item 4 (tv_pds_stencil_step)",
-}
+# engines whose kernels (or plain versions) emit the metric partial sums
+_STATS_ENGINES = ("mega3", "mega2", "megar", "megarm", "sweep", "sweepm", "sweepm2", "plain")
 _LARGE_DENOISE = 1 << 21  # pixels; the reference reroutes denoising past it
+_ROW_REACH = 15  # the reference's rank-1 row reach (its 16-row Gram halo)
+
+
+def rank1_gate(gram) -> Optional[str]:
+    """None when the rank-1 engines take this Gram, else why not: the one
+    source of the rank-1 gates, read by the TV ladder (mega3, mega2, mega:
+    K10-K12) and by ``PMYULA``'s fused engine (K9), as the reference's
+    ``mega3_plans`` is (``pycsou_tpu/opt/tv.py:48-89``).
+
+    The reference's mathematical gates, kept: a rank-1 PSF with the rank-1
+    plan of :class:`~pycsou_tpu_torch.ops.conv.SeparableConvGram2D` (``H >=
+    3 m0``, ``W >= 3 m1``, ``2 (m - 1) <= 128``), a row reach ``K1 = m0 - 1
+    <= 15``, a row edge window ``L_r = 2 m0 - 2 <= 32`` (implied by the
+    reach) and ``2 K1c <= 128`` (implied by the column reach below).  Its TPU tile and VMEM gates (``H % 32``, ``W % 128``, ``W >=
+    384``, the ``48 W 4 <= 820000`` Mosaic budget) are not copied: the
+    Hopper kernels (``csrc/tvr1.cu``) tile any (H, W) with 32 x 32 tiles,
+    the last tile of an axis shifted back onto the edge.  Their own
+    requirement is a column reach ``K1c = m1 - 1 <= 15`` as well: the
+    kernels are instantiated for reaches up to 15 (``R1_REACHES``), and
+    K10's two stages at 32 x 32 tiles take 125 KB of shared memory at that
+    reach.  So a rank-1 PSF of 17 to 31 columns runs megar here where the
+    reference runs mega3."""
+    if not isinstance(gram, SeparableConvGram2D) or gram.rank != 1:
+        return "the PSF is not rank 1"
+    m0, m1 = gram.fwd.Ku, gram.fwd.Kv
+    if m0 - 1 > _ROW_REACH:  # also L_r = 2 m0 - 2 <= 32
+        return f"{m0} row taps: the rank-1 engines take a row reach of at most {_ROW_REACH}"
+    if m1 - 1 > R1_REACHES[-1]:  # also 2 K1c <= 128
+        return f"{m1} column taps: the Hopper kernels take a column reach of at most {R1_REACHES[-1]}"
+    if gram.g_meta is None:
+        return f"the rank-1 plan needs H >= 3 m0 = {3 * m0} and W >= 3 m1 = {3 * m1}"
+    return None
+
+
+def conv_engine(gram, stencil: str = "auto", device_type: str = "cuda") -> str:
+    """The conv-mode engine a :class:`TVDeconvolution` of this Gram runs on
+    a device of ``device_type``: ``"auto"`` is the first eligible engine of
+    ``MODE_ENGINES["conv"]`` on CUDA (mega3 for a rank-1 PSF within
+    :func:`rank1_gate`, else megar) and ``"plain"`` on the CPU.  An
+    explicit engine is returned when it applies and raises ``ValueError``
+    when it does not (another mode's engine, a rank-1 engine outside the
+    gate, a CUDA engine on the CPU, ``"plain"`` on CUDA)."""
+    engines = MODE_ENGINES["conv"]
+    why = rank1_gate(gram)
+    if stencil == "auto":
+        if device_type != "cuda":
+            return "plain"
+        return next(e for e in engines if why is None or e not in RANK1_ENGINES)
+    if stencil != "plain" and stencil not in engines:
+        raise ValueError(
+            "conv mode supports stencil 'auto', " + ", ".join(repr(e) for e in engines)
+            + f" or 'plain', not {stencil!r}"
+        )
+    if stencil in RANK1_ENGINES and why is not None:
+        raise ValueError(f"stencil={stencil!r} is not eligible for this PSF and shape: {why}")
+    if stencil in engines and device_type != "cuda":
+        raise ValueError(f"stencil={stencil!r} launches CUDA kernels; the solver's device is {device_type}")
+    if stencil == "plain" and device_type != "cpu":
+        raise ValueError(f"stencil='plain' runs on CPU tensors only; the solver's device is {device_type}")
+    return stencil
 
 
 class TVDeconvolution(IterativeSolver):
@@ -102,10 +171,6 @@ class TVDeconvolution(IterativeSolver):
         super().__init__(max_iter=max_iter, min_iter=min_iter, tol=accuracy_threshold,
                          verbose=verbose, metric_every=metric_every)
         shape = as_shape(shape)
-        if stencil in UNPORTED_ENGINES:
-            raise NotImplementedError(
-                f"stencil={stencil!r} is not ported yet: {UNPORTED_ENGINES[stencil]}"
-            )
         if stencil not in ENGINES:
             raise ValueError(f"unknown stencil {stencil!r}; expected one of {ENGINES}")
         dev = resolve_device(device, y, filt, mask)
@@ -161,7 +226,9 @@ class TVDeconvolution(IterativeSolver):
             self.beta = 2.0 * conv.lipschitz**2
         self.mode = mode
 
-        if stencil == "auto":
+        if mode == "conv":
+            stencil = conv_engine(self.gram, stencil, dev.type)
+        elif stencil == "auto":
             stencil = MODE_ENGINES[mode][0] if dev.type == "cuda" else "plain"
         elif stencil != "plain" and stencil not in MODE_ENGINES[mode]:
             raise ValueError(
@@ -173,7 +240,7 @@ class TVDeconvolution(IterativeSolver):
         elif stencil == "plain" and dev.type != "cpu":
             raise ValueError(f"stencil='plain' runs on CPU tensors only; the solver's device is {dev}")
         self.stencil_mode = stencil
-        if stencil == "sweepm2":
+        if stencil in ("sweepm2", "mega3"):
             self.iters_per_step = 2
 
         L_K = math.sqrt(8.0)
@@ -196,7 +263,16 @@ class TVDeconvolution(IterativeSolver):
     # -- iteration ---------------------------------------------------------
     def initial_state(self):
         z = lambda: torch.zeros(self.y.shape, dtype=torch.float32, device=self.device)  # noqa: E731
-        return {"x": z(), "z0": z(), "z1": z(), "_stats": torch.zeros(6, device=self.device)}
+        state = {"x": z(), "z0": z(), "z1": z()}
+        if self.stencil_mode in _STATS_ENGINES:
+            state["_stats"] = torch.zeros(6, device=self.device)
+        return state
+
+    def _mega_colgram(self, x):
+        """``w = ColGram(x)`` for K12: the column band pass with its edge
+        corrections, in PyTorch at full f32 (the reference's XLA pass; K12
+        applies the row direction and its corrections)."""
+        return gram_band_cols(x, self.gram.band_plans()[1]).contiguous()
 
     def step(self, state):
         x, z0, z1 = state["x"], state["z0"], state["z1"]
@@ -205,7 +281,19 @@ class TVDeconvolution(IterativeSolver):
         engine, m, atb = self.stencil_mode, self.mask, self.atb
         if self.mode == "conv":
             g = self.gram
-            if engine == "megar":
+            if engine in ("mega", "element"):
+                # stacked duals and no partial sums, as in the reference
+                z = torch.stack([z0, z1])
+                if engine == "mega":
+                    x, z = tv_pds_mega_step(x, z, self._mega_colgram(x), atb, g, **kw)
+                else:
+                    x, z = tv_pds_stencil_step(x, z, sepgram2d(x, g.fwd, g.adj2, atb), **kw)
+                return {"x": x, "z0": z[0], "z1": z[1]}
+            if engine == "mega3":
+                out = tv_pds_mega3_step(x, z0, z1, atb, g, **kw)
+            elif engine == "mega2":
+                out = tv_pds_mega2_step(x, z0, z1, atb, g, **kw)
+            elif engine == "megar":
                 out = tv_pds_megar_step(x, z0, z1, atb, g.fwd, g.adj2, **kw)
             elif engine == "sweep":
                 out = tv_pds_sweep_step_stats(x, z0, z1, sepgram2d(x, g.fwd, g.adj2, atb), **kw)
@@ -229,12 +317,18 @@ class TVDeconvolution(IterativeSolver):
 
     # -- metrics from the engines' partial sums ----------------------------
     def metric(self, old, new):
-        """From the engine's partial sums; for sweepm2 they measure the
-        second iteration of the step only (the reference's convention)."""
+        """From the engine's partial sums; for the double-step engines
+        (sweepm2, mega3) they measure the second iteration of the step only
+        (the reference's convention).  Engines without them (mega, element)
+        take the generic relative improvement of x."""
+        if "_stats" not in new:
+            return super().metric(old, new)
         st = new["_stats"]
         return _rel_from_sums(st[0], st[1])
 
     def metrics(self, old, new):
+        if "_stats" not in new:
+            return super().metrics(old, new)
         st = new["_stats"]
         return {
             "x": _rel_from_sums(st[0], st[1]),

@@ -3,7 +3,8 @@
 A JAX solver state (``pycsou_tpu``), with each entry turned into a numpy
 array, becomes the port's state with :func:`state_from_numpy`, and back
 with :func:`state_to_numpy`.  The keys are the same in both packages, for
-every layout: the fused TV engine (``x``, ``z0``, ``z1``, ``_stats``), the
+every layout: the fused TV engines (``x``, ``z0``, ``z1``, with ``_stats``
+but for mega and element, which carry none, as in the reference), the
 generic PDS (a stacked ``z``, ``_gstats``), APGD and the LASSO engine
 (``x``, ``x_temp``, ``t``, ``n``, ``_stats`` or ``_gstats``) and PMYULA
 (``x``, ``n``, ``count``, ``mmse_raw``, ``m2_raw``, the P^2 states in

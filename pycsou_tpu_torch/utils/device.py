@@ -1,25 +1,43 @@
-"""Explicit device handling and float32 precision.
+"""Device handling and float32 precision.
 
-The port never chooses between CPU and GPU on the user's behalf: a device
-comes from an explicit ``device=`` argument or from the tensors given, and
-otherwise is PyTorch's own default device.  A CUDA request on a machine
-without CUDA raises.
+The port runs on the CUDA card unless the caller asks for the CPU.  A
+device comes, in this order, from an explicit ``device=`` argument, from
+the tensors given (tensors on the CPU ask for the CPU), from the port's own
+default set by :func:`set_default_device`, and otherwise is ``cuda``.  A
+CUDA device on a machine without CUDA raises, naming ``device="cpu"``: the
+port never moves work to the CPU on its own.  PyTorch's global default
+device is not read.
 """
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "as_tensor", "full_f32"]
+__all__ = ["resolve_device", "set_default_device", "get_default_device", "as_tensor", "full_f32"]
+
+_DEFAULT: Optional[torch.device] = None  # set_default_device; None means cuda
+
+
+def set_default_device(device) -> None:
+    """The device the port's entry points take when neither ``device=`` nor
+    a tensor names one (``None`` restores ``cuda``).  The CPU tests call
+    ``set_default_device("cpu")``."""
+    global _DEFAULT
+    _DEFAULT = None if device is None else torch.device(device)
+
+
+def get_default_device() -> torch.device:
+    """The device :func:`resolve_device` falls back to."""
+    return torch.device("cuda") if _DEFAULT is None else _DEFAULT
 
 
 def resolve_device(device=None, *sources) -> torch.device:
-    """``device`` if given, else the first tensor's device or
-    ``torch.device`` among ``sources``, else
-    ``torch.get_default_device()``.  Raises for CUDA when
-    ``torch.cuda.is_available()`` is false."""
+    """``device`` if given, else the device of the first tensor (or
+    ``torch.device``) among ``sources``, else :func:`get_default_device`.
+    Raises for a CUDA device when ``torch.cuda.is_available()`` is false."""
     if device is not None:
         dev = torch.device(device)
     else:
@@ -28,9 +46,13 @@ def resolve_device(device=None, *sources) -> torch.device:
             for s in sources
             if isinstance(s, (torch.Tensor, torch.device))
         )
-        dev = next(found, torch.get_default_device())
+        dev = next(found, None) or get_default_device()
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested, but torch.cuda.is_available() is False")
+        raise RuntimeError(
+            f"device {dev}: torch.cuda.is_available() is False.  The port runs on the CUDA card "
+            'unless asked for the CPU: pass device="cpu" (or CPU tensors), or call '
+            'pycsou_tpu_torch.set_default_device("cpu")'
+        )
     return dev
 
 
@@ -42,22 +64,32 @@ def as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 
+def _precision_switch(backend):
+    """``(owner, name, full-f32 value)`` of a backend's f32 switch: the
+    per-operator ``fp32_precision`` of newer PyTorch, else the legacy
+    ``allow_tf32``."""
+    if backend is torch.backends.cudnn:
+        op = getattr(backend, "conv", None)
+    else:
+        op = backend.matmul
+    if op is not None and hasattr(op, "fp32_precision"):
+        return op, "fp32_precision", "ieee"
+    return (backend if backend is torch.backends.cudnn else backend.matmul), "allow_tf32", False
+
+
 @contextlib.contextmanager
 def full_f32():
-    """Full IEEE f32 for cuDNN convolutions inside the block; the caller's
-    setting comes back on exit, so nothing outside the block changes.  The
-    plain versions of the kernels call ``F.conv2d``, where TF32 (cuDNN's
-    default for convolutions) would change the operator.  Newer PyTorch has
-    the per-operator ``cudnn.conv.fp32_precision`` switch; older PyTorch
-    only the legacy ``cudnn.allow_tf32``."""
-    conv = getattr(torch.backends.cudnn, "conv", None)
-    if conv is not None and hasattr(conv, "fp32_precision"):
-        owner, name, value = conv, "fp32_precision", "ieee"
-    else:
-        owner, name, value = torch.backends.cudnn, "allow_tf32", False
-    saved = getattr(owner, name)
-    setattr(owner, name, value)
+    """Full IEEE f32 for cuDNN convolutions and matrix products inside the
+    block; the caller's settings come back on exit, so nothing outside the
+    block changes.  The plain versions of the kernels call ``F.conv2d`` and
+    small matrix products, where TF32 (cuDNN's default for convolutions)
+    would change the operator."""
+    switches = [_precision_switch(torch.backends.cudnn), _precision_switch(torch.backends.cuda)]
+    saved = [getattr(owner, name) for owner, name, _ in switches]
+    for owner, name, value in switches:
+        setattr(owner, name, value)
     try:
         yield
     finally:
-        setattr(owner, name, saved)
+        for (owner, name, _), value in zip(switches, saved):
+            setattr(owner, name, value)

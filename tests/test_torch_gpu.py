@@ -28,7 +28,16 @@ from pycsou_tpu_torch.kernels.conv2d import (
 )
 from pycsou_tpu_torch.kernels.fista import lasso_fista_step, lasso_fista_step_plain
 from pycsou_tpu_torch.kernels.langevin import normal_noise, pmyula_mega_step, pmyula_mega_step_plain
+from pycsou_tpu_torch.kernels.band import gram_band_cols
 from pycsou_tpu_torch.kernels.tv import (
+    tv_pds_mega2_step,
+    tv_pds_mega2_step_plain,
+    tv_pds_mega3_step,
+    tv_pds_mega3_step_plain,
+    tv_pds_mega_step,
+    tv_pds_mega_step_plain,
+    tv_pds_stencil_step,
+    tv_pds_stencil_step_plain,
     tv_pds_sweep_step_stats,
     tv_pds_sweep_step_stats_plain,
     tv_pds_sweepm2_step,
@@ -108,14 +117,15 @@ def test_kernels_match_plain(cuda, rng, shape, rank, K0, K1):
 
 
 def test_pds_on_the_card_fuses_onto_megar(cuda, rng):
-    """The README expression on CUDA tensors: fused onto TVDeconvolution
-    with the K4 engine, one K4 launch per iteration, the same iterates as
-    the sweep engine (K2 + K3) and as K4's plain version applied step by
-    step on the card."""
+    """The README expression on CUDA tensors with a rank-2 PSF (a rank-1 PSF
+    takes mega3, test_rank1_engines_on_the_card): fused onto
+    TVDeconvolution with the K4 engine, one K4 launch per iteration, the
+    same iterates as the sweep engine (K2 + K3) and as K4's plain version
+    applied step by step on the card."""
     S = (192, 256)
     ax = np.arange(15) - 7
-    g = np.exp(-(ax**2) / 8.0)
-    h = np.outer(g, g).astype(np.float32)
+    g = lambda s: np.exp(-(ax**2) / (2 * s**2))  # noqa: E731
+    h = (np.outer(g(2.0), g(2.0)) + 0.35 * np.outer(g(0.8), g(4.0))).astype(np.float32)
     h /= h.sum()
     y = torch.from_numpy(rng.standard_normal(S).astype(np.float32)).to(cuda)
     p = PDS(
@@ -398,3 +408,103 @@ def test_pmyula_on_the_card_runs_megal(cuda, rng):
     for k in ("x", "mmse_raw", "m2_raw"):
         _close(st[k], gs[k], rel=1e-5)
     assert int(st["count"]) == int(gs["count"]) == 3
+
+
+def _rank1_psf(K0, K1):
+    a0, a1 = np.arange(K0) - K0 // 2, np.arange(K1) - K1 // 2
+    h = np.outer(np.exp(-(a0**2) / 8.0), np.exp(-(a1**2) / 3.4))
+    return (h / h.sum()).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape,K0,K1", [((48, 50), 15, 15), ((100, 130), 15, 15), ((256, 384), 15, 15),
+                                         ((100, 130), 9, 4), ((33, 130), 5, 11), ((7, 9), 1, 1),
+                                         ((130, 70), 16, 3)])
+@pytest.mark.parametrize("iso,nonneg", [(True, True), (False, False)])
+def test_rank1_kernels_match_plain(cuda, rng, shape, K0, K1, iso, nonneg):
+    """K10-K13 against their plain versions at ragged shapes (the shifted
+    last tile, images smaller than one tile, the edge corrections on both
+    axes); K10 twice in a row, as K6."""
+    gram = Convolve2D(shape, _rank1_psf(K0, K1), device=cuda).gram
+    t = lambda arr: torch.from_numpy(arr.astype(np.float32)).to(cuda)  # noqa: E731
+    x = t(np.abs(rng.standard_normal(shape)))
+    atb = t(rng.standard_normal(shape))
+    z0, z1 = t(0.01 * rng.standard_normal(shape)), t(0.01 * rng.standard_normal(shape))
+    kw = dict(KW, iso=iso, nonneg=nonneg)
+    counters = (tv_pds_mega3_step, tv_pds_mega2_step, tv_pds_mega_step, tv_pds_stencil_step)
+    before = [c.launches for c in counters]
+    _assert_step_close(tv_pds_mega2_step(x, z0, z1, atb, gram, **kw),
+                       tv_pds_mega2_step_plain(x, z0, z1, atb, gram, **kw), 2e-6)
+    got = tv_pds_mega3_step(x, z0, z1, atb, gram, **kw)
+    _assert_step_close(got, tv_pds_mega3_step_plain(x, z0, z1, atb, gram, **kw), 1e-5)
+    _assert_step_close(tv_pds_mega3_step(*got[:3], atb, gram, **kw),
+                       tv_pds_mega3_step_plain(*got[:3], atb, gram, **kw), 1e-5)
+    z = torch.stack([z0, z1])
+    z[0, -1] = 0.0
+    z[1, :, -1] = 0.0
+    w = gram_band_cols(x, gram.band_plans()[1]).contiguous()
+    for a, b in zip(tv_pds_mega_step(x, z, w, atb, gram, **kw), tv_pds_mega_step_plain(x, z, w, atb, gram, **kw)):
+        _close(a, b)
+    for a, b in zip(tv_pds_stencil_step(x, z, atb, **kw), tv_pds_stencil_step_plain(x, z, atb, **kw)):
+        _close(a, b)
+    assert [c.launches for c in counters] == [before[0] + 2, before[1] + 1, before[2] + 1, before[3] + 1]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("engine", ["mega3", "mega2", "mega", "element"])
+def test_rank1_engines_on_the_card(cuda, rng, engine):
+    """The README expression with a rank-1 PSF fuses onto mega3 on the card;
+    each rank-1 engine launches only its kernels (element: K2 + K13) and
+    agrees with megar after 6 iterations."""
+    S = (192, 256)
+    h = _gauss()
+    y = torch.from_numpy(np.abs(rng.standard_normal(S)).astype(np.float32)).to(cuda)
+    p = PDS(S, F=SquaredL2Loss(S, data=y) * Convolve2D(S, h, device=cuda), G=NonNegativeOrthant(S),
+            H=0.05 * L21Norm((2,) + S, axis=0), K=Gradient(S), max_iter=100)
+    assert p._fused.stencil_mode == "mega3" and p.iters_per_step == 2
+    ref = TVDeconvolution(S, y, 0.05, filt=h, stencil="megar", max_iter=100).run_fixed(6)
+    counters = {"mega3": tv_pds_mega3_step, "mega2": tv_pds_mega2_step, "mega": tv_pds_mega_step,
+                "element": tv_pds_stencil_step}
+    all_counters = list(counters.values()) + [tv_pds_megar_step, sepgram2d, tv_pds_sweep_step_stats]
+    before = [c.launches for c in all_counters]
+    st = TVDeconvolution(S, y, 0.05, filt=h, stencil=engine, max_iter=100).run_fixed(6)
+    want = {counters[engine]: 3 if engine == "mega3" else 6}
+    if engine == "element":
+        want[sepgram2d] = 6
+    assert [c.launches - b for c, b in zip(all_counters, before)] == [want.get(c, 0) for c in all_counters]
+    assert ("_stats" in st) == (engine in ("mega3", "mega2"))
+    for k in ("x", "z0", "z1"):
+        _close(st[k], ref[k], rel=1e-4)
+
+
+def test_mega3_bookkeeping_on_the_card(cuda, rng):
+    """mega3 on the card: run_fixed(odd n) runs n + 1 iterations in (n + 1)
+    / 2 launches, the odd history rows stay NaN, and the iterates are those
+    of K11's plain version step by step."""
+    S = (160, 224)
+    h = _gauss(9, 1.5)
+    y = torch.from_numpy(np.abs(rng.standard_normal(S)).astype(np.float32)).to(cuda)
+    s = TVDeconvolution(S, y, 0.05, filt=h, max_iter=100)
+    assert s.stencil_mode == "mega3" and s.iters_per_step == 2
+    n0 = tv_pds_mega3_step.launches
+    st = s.run_fixed(7)
+    assert st["it"] == 8 and tv_pds_mega3_step.launches == n0 + 4
+    hist = st["history"][:8].cpu().numpy()
+    assert np.isnan(hist[0::2]).all() and np.isfinite(hist[1::2]).all()
+    x, z0, z1 = (torch.zeros(S, device=cuda) for _ in range(3))
+    kw = dict(tau=s.tau, sigma=s.sigma, rho=s.rho, lam=s.lam, nonneg=s.nonneg, iso=s.iso)
+    for _ in range(8):
+        x, z0, z1, _ = tv_pds_mega2_step_plain(x, z0, z1, s.atb, s.gram, **kw)
+    for k, want in (("x", x), ("z0", z0), ("z1", z1)):
+        _close(st[k], want, rel=1e-5)
+
+
+def test_entry_points_default_to_the_card(cuda):
+    """numpy inputs and no device=: the port runs on the card; small
+    denoising takes the conv mode's identity PSF and mega3."""
+    c = Convolve2D((64, 64), np.ones((3, 3)))
+    assert c.device.type == "cuda" and c.apply(torch.ones((64, 64), device=cuda)).device.type == "cuda"
+    y = np.abs(np.random.default_rng(0).standard_normal((96, 128))).astype(np.float32)
+    p = PDS((96, 128), F=SquaredL2Loss((96, 128), data=y), G=NonNegativeOrthant((96, 128)),
+            H=0.05 * L21Norm((2, 96, 128), axis=0), K=Gradient((96, 128)), max_iter=100)
+    assert p._fused.mode == "conv" and p._fused.stencil_mode == "mega3"
+    assert p.run_fixed(4)["x"].device.type == "cuda"

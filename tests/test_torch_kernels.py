@@ -32,6 +32,17 @@ from pycsou_tpu_torch.kernels.tv import (
     tv_pds_sweep_step_stats_plain,
 )
 from pycsou_tpu_torch.kernels.tvr import tv_pds_megar_step, tv_pds_megar_step_plain
+from pycsou_tpu_torch.utils.device import set_default_device
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port runs on the CUDA card unless asked for the CPU: these tests
+    ask for it."""
+    set_default_device("cpu")
+    yield
+    set_default_device(None)
+
 
 RTOL, ATOL = 3e-4, 3e-5
 KW = dict(tau=0.05, sigma=0.05, rho=0.9, lam=0.1)

@@ -31,6 +31,17 @@ from pycsou_tpu_torch.kernels.fista import lasso_fista_step
 from pycsou_tpu_torch.ops import Convolve2D, Masking
 from pycsou_tpu_torch.opt import fuse as tfuse
 from pycsou_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
+from pycsou_tpu_torch.utils.device import set_default_device
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port runs on the CUDA card unless asked for the CPU: these tests
+    ask for it."""
+    set_default_device("cpu")
+    yield
+    set_default_device(None)
+
 
 S = (64, 384)  # the Pallas kernel's smallest shape (32-row tiles, W % 128, W >= 384)
 LAM = 0.02

@@ -43,6 +43,17 @@ from pycsou_tpu_torch.kernels.tv import (
 )
 from pycsou_tpu_torch.kernels.tvr import tv_pds_megar_step, tv_pds_megarm_step, tv_pds_megarm_step_plain
 from pycsou_tpu_torch.utils.convert import state_from_numpy
+from pycsou_tpu_torch.utils.device import set_default_device
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port runs on the CUDA card unless asked for the CPU: these tests
+    ask for it."""
+    set_default_device("cpu")
+    yield
+    set_default_device(None)
+
 
 S = (48, 64)
 LAM = 0.05

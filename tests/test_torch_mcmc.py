@@ -32,6 +32,17 @@ import pycsou_tpu_torch.utils.stats as tstats
 from pycsou_tpu_torch.kernels.langevin import _philox4x32_10, normal_noise, pmyula_mega_step
 from pycsou_tpu_torch.ops import Convolve2D, HomothetyOperator
 from pycsou_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
+from pycsou_tpu_torch.utils.device import set_default_device
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port runs on the CUDA card unless asked for the CPU: these tests
+    ask for it."""
+    set_default_device("cpu")
+    yield
+    set_default_device(None)
+
 
 S = (64, 384)  # the Pallas kernel's smallest shape (32-row tiles, W % 128, W >= 384)
 

@@ -19,6 +19,17 @@ import pycsou_tpu_torch.ops.conv as tconv
 import pycsou_tpu_torch.ops.diff as tdiff
 from pycsou_tpu_torch.core.functional import DiffProxFuncPreComp, ProxFuncPostComp
 from pycsou_tpu_torch.ops.basic import HomothetyOperator, IdentityOperator, NullOperator
+from pycsou_tpu_torch.utils.device import set_default_device
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port runs on the CUDA card unless asked for the CPU: these tests
+    ask for it."""
+    set_default_device("cpu")
+    yield
+    set_default_device(None)
+
 
 S = (24, 40)
 

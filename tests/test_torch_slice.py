@@ -23,8 +23,18 @@ import pycsou_tpu_torch.func as tfunc
 import pycsou_tpu_torch.ops as tops
 import pycsou_tpu_torch.opt as topt
 from pycsou_tpu_torch.opt.fuse import explain_tv_mismatch
-from pycsou_tpu_torch.opt.tv import UNPORTED_ENGINES
 from pycsou_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
+from pycsou_tpu_torch.utils.device import set_default_device
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu():
+    """The port runs on the CUDA card unless asked for the CPU: these tests
+    ask for it."""
+    set_default_device("cpu")
+    yield
+    set_default_device(None)
+
 
 S = (48, 64)
 LAM = 0.05
@@ -217,10 +227,13 @@ def test_cuda_request_without_cuda_raises(rng):
         tfunc.SquaredL2Loss(S, data=y, device="cuda")
 
 
-@pytest.mark.parametrize("engine", sorted(UNPORTED_ENGINES))
+@pytest.mark.parametrize("engine", ["element", "mega", "mega2", "mega3"])
 def test_unported_engines_raise(rng, engine):
+    """The engines that were not ported before K10-K13 are now: they launch
+    CUDA kernels, so asked for on a CPU device they raise as every CUDA
+    engine does (tests/test_torch_rank1.py runs their plain versions)."""
     y = rng.standard_normal(S).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="CUDA"):
         topt.TVDeconvolution(S, y, LAM, filt=_gauss(), stencil=engine)
 
 
