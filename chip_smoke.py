@@ -50,21 +50,38 @@
    (``use_pallas=False``, K2, the same Philox noise) must agree after 6
    samples; the MMSE's mean must come within 0.02 of the truth's.  K9's
    in-kernel noise must have standard normal moments at 2048 x 2048.
-7. The slope-timed iterations/s of the main path, of the inpainting,
-   blurred super-resolution, denoising and LASSO paths and of the
-   megar, mega3, mega2, mega and element engines at 4096 x 4096, the
-   PMYULA samples/s, and the main path's ``solve()`` time to a 1e-6
-   relative improvement.
+7. Drives ``DistributedTVDeconv2D`` on a mesh of four row shards of
+   4096 x 4096 on one card (``make_mesh((4,), devices=[cuda:0] * 4)``,
+   1024 rows a shard).  First K14 (mega2 on a shard, the Gaussian PSF),
+   K15 (megar on a shard, the rank-2 PSF) and K16 (sweep on a shard) on the
+   first, a middle and the last shard of a 4096 x 4096 state with the halos
+   cut from it, against their plain versions (times per shard launch, and
+   each bound from the shard's streams), and each on a one-shard mesh (the
+   whole image, zero halos) against K11, K4 and K3.  Then the three engines,
+   each built and run for 100 iterations on its own with the counters
+   zeroed: the Gaussian PSF on megasp (K1 four times for the shards'
+   ``A^H y``, K14 four times an iteration), the rank-2 PSF on megarsp (K1
+   four, K15 four an iteration), the 70% keep mask on sweepsp (K16 four an
+   iteration); each must recover a piecewise-constant image better than its
+   observation and agree after 6 iterations with ``TVDeconvolution`` on
+   mega2, megar and sweepm given the same tau and sigma.
+8. The slope-timed iterations/s of the main path, of the inpainting,
+   blurred super-resolution, denoising and LASSO paths, of the megar,
+   mega3, mega2, mega and element engines and of the three sharded paths
+   at 4096 x 4096, the device-idle share of sharded megasp from a
+   ``torch.profiler`` trace, the PMYULA samples/s, and the main path's
+   ``solve()`` time to a 1e-6 relative improvement.
 
 Any failure exits non-zero.  On success the last two lines are a JSON
 object with the per-kernel results and the device line
 ``{"ok": true, "device": {...}}``.  In the results, ``kernels`` holds
-K1-K13, each with the launches of the run named in ``run``, counted with
+K1-K16, each with the launches of the run named in ``run``, counted with
 every counter zeroed just before that run (``RUN_OF``: the README's path
 for K1 and the ladder's engine, inpainting for K6, blurred
 super-resolution for K7, the LASSO path for K8, the PMYULA path for K9,
-and for the kernels no fused main path runs, the run that goes through
-each), its ``bound_ms`` and ``bound_by``, and ``library_ms`` (K1's
+the sharded paths for K14-K16, and for the kernels no fused main path
+runs, the run that goes through each), its ``bound_ms`` and ``bound_by``,
+and ``library_ms`` (K1's
 ``F.conv2d``; null where no one PyTorch call computes the kernel's
 function).  Without CUDA it exits 2 and prints no result.
 """
@@ -104,6 +121,9 @@ KERNELS = {
     "K11": ("tv_pds_mega2_step", "pycsou_tpu_torch/csrc/tvr1.cu", "pycsou_tpu/kernels/tv.py:1386"),
     "K12": ("tv_pds_mega_step", "pycsou_tpu_torch/csrc/tvr1.cu", "pycsou_tpu/kernels/tv.py:844"),
     "K13": ("tv_pds_stencil_step", "pycsou_tpu_torch/csrc/tv.cu", "pycsou_tpu/kernels/tv.py:158"),
+    "K14": ("tv_pds_mega2_shard_step", "pycsou_tpu_torch/csrc/tvr1.cu", "pycsou_tpu/kernels/tv.py:1417"),
+    "K15": ("tv_pds_megar_shard_step", "pycsou_tpu_torch/csrc/tvr.cu", "pycsou_tpu/kernels/tvr.py:378"),
+    "K16": ("tv_pds_sweep_shard_step", "pycsou_tpu_torch/csrc/tv.cu", "pycsou_tpu/kernels/tv.py:670"),
 }
 # the conv-mode engines -> the kernel each launches once per step (element
 # also launches K2 for its gradient)
@@ -119,7 +139,8 @@ RUN_OF = {"K1": "main path", "K2": "PDS fuse=False", "K3": "TVDeconvolution sten
           "K4": "TVDeconvolution stencil='megar'", "K5": "TVDeconvolution stencil='sweepm'",
           "K6": "inpainting", "K7": "blurred super-resolution", "K8": "LASSO", "K9": "PMYULA",
           "K10": "TVDeconvolution stencil='mega3'", "K11": "TVDeconvolution stencil='mega2'",
-          "K12": "TVDeconvolution stencil='mega'", "K13": "TVDeconvolution stencil='element'"}
+          "K12": "TVDeconvolution stencil='mega'", "K13": "TVDeconvolution stencil='element'",
+          "K14": "sharded megasp", "K15": "sharded megarsp", "K16": "sharded sweepsp"}
 # the least time of a kernel's work on an H100 SXM (NVIDIA's data sheet):
 # its image streams over the memory rate, or its float32 operations over
 # the float32 rate outside the tensor cores, whichever is larger
@@ -127,6 +148,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 STENCIL_FLOPS = 40  # float32 operations of one stencil update per pixel (pds_stencil.cuh)
 SHAPE_MCMC = (2048, 2048)  # bench.py sec_mcmc
+SHARDS = 4  # the sharded paths' mesh: four row shards on one card
 LAM_L1 = 0.01  # bench.py sec_lasso and sec_mcmc
 
 
@@ -208,6 +230,16 @@ def bound(streams, flops, shape=SHAPE):
     t_bytes = streams * shape[0] * shape[1] * 4 / PEAK_BYTES_PER_S
     t_ops = flops / PEAK_F32_PER_S
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def shard_rows(h, reach):
+    """Rows of width W that a row-shard kernel must move for a core of ``h``
+    rows when its data gradient reaches ``reach`` rows each side: x over the
+    core grown by ``reach`` above and ``reach + 1`` below (the stencil reads
+    the gradient a row down), atb (or g) and z1 over the core and the row
+    below, z0 over the core and a row either side, the three outputs over
+    the core."""
+    return (h + 2 * reach + 1) + (h + 1) + (h + 2) + (h + 1) + 3 * h
 
 
 def max_err(got, want):
@@ -443,7 +475,8 @@ def phase_kernels(dev, rng):
         f"K10 {res['K10']['ms']:.4f} ms for two iterations, K11 {res['K11']['ms']:.4f} ms, "
         f"K12 {res['K12']['ms']:.4f} ms (+ {res['K12']['w_pass_ms']:.4f} ms for w), K13 {res['K13']['ms']:.4f} ms")
     for k, r in res.items():
-        log(f"  {k} bound {r['bound'][0]:.4f} ms by {r['bound'][1]}")
+        if "bound" in r:  # K14-K16: phase_shard_kernels
+            log(f"  {k} bound {r['bound'][0]:.4f} ms by {r['bound'][1]}")
     return res, copy_ms
 
 
@@ -814,6 +847,179 @@ def phase_pmyula_path(dev, counters):
     return s, counts
 
 
+def phase_shard_kernels(dev, rng, res):
+    """K14-K16 on the first, a middle and the last of SHARDS row shards of a
+    4096^2 state, halos cut from it, against their plain versions; and on a
+    one-shard mesh (the whole image, zero halos) against K11, K4 and K3."""
+    from pycsou_tpu_torch.kernels.tv import (
+        tv_pds_mega2_shard_step, tv_pds_mega2_shard_step_plain, tv_pds_mega2_step, tv_pds_sweep_shard_step,
+        tv_pds_sweep_shard_step_plain, tv_pds_sweep_step_stats,
+    )
+    from pycsou_tpu_torch.kernels.tvr import tv_pds_megar_shard_step, tv_pds_megar_shard_step_plain, tv_pds_megar_step
+    from pycsou_tpu_torch.ops import Convolve2D
+    from pycsou_tpu_torch.parallel import halo_extend, halos
+
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    x = t(np.abs(rng.standard_normal(SHAPE)))
+    atb, g = t(rng.standard_normal(SHAPE)), t(rng.standard_normal(SHAPE))
+    z0, z1 = t(0.01 * rng.standard_normal(SHAPE)), t(0.01 * rng.standard_normal(SHAPE))
+    kw = dict(tau=0.3, sigma=0.3, rho=0.9, lam=LAM, nonneg=True, iso=True, H_global=SHAPE[0])
+    gauss = Convolve2D(SHAPE, gaussian_kernel(), device=dev).gram
+    rank2 = Convolve2D(SHAPE, rank2_kernel(), device=dev).gram
+    H, W = SHAPE
+
+    def check(k, label, got, want):
+        for i, (a, b) in enumerate(zip(got, want)):
+            if i == 3:
+                rel = float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+                if rel > TOL_STATS:
+                    raise AssertionError(f"{k} {label} stats rel err {rel:.3e} > {TOL_STATS}")
+                continue
+            ab, rel = max_err(a, b)
+            res[k]["max_abs_err"] = max(res[k]["max_abs_err"], ab)
+            res[k]["max_rel_err"] = max(res[k]["max_rel_err"], rel)
+            if rel > TOL_REL:
+                raise AssertionError(f"{k} {label} output {i}: err {ab:.3e} (rel {rel:.3e}) > {TOL_REL}")
+
+    def run(k, R, arrays, call, plain):
+        """``call``/``plain`` (shard index, core blocks, halos, off) on shards
+        0, SHARDS // 2 and SHARDS - 1 of ``arrays`` split into SHARDS."""
+        h = H // SHARDS
+        cores = [[a[i * h : (i + 1) * h] for i in range(SHARDS)] for a in arrays]
+        hls = halos(cores, R)
+        res[k].update({"shard_ms": {}, "shard_plain_ms": {}})
+        for i in (0, SHARDS // 2, SHARDS - 1):
+            core = [c[i] for c in cores]
+            args = (i, core, hls[i], i * h - R)
+            check(k, f"shard {i}", call(*args), plain(*args))
+            ms, pms = median_ms(lambda: call(*args)), median_ms(lambda: plain(*args))
+            res[k]["shard_ms"][i], res[k]["shard_plain_ms"][i] = ms, pms
+            log(f"  {k} shard {i} of {SHARDS} ({h} rows, {R} halo rows): max abs err "
+                f"{res[k]['max_abs_err']:.3e} (rel {res[k]['max_rel_err']:.3e}, tol {TOL_REL:g}); "
+                f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+        # the times of a middle shard, which has both neighbours
+        res[k]["ms"], res[k]["plain_ms"] = res[k]["shard_ms"][SHARDS // 2], res[k]["shard_plain_ms"][SHARDS // 2]
+
+    h = H // SHARDS
+    atbs = [atb[i * h : (i + 1) * h] for i in range(SHARDS)]
+    R = 16
+    exts = halo_extend(atbs, R)
+    run("K14", R, (x, z0, z1),
+        lambda i, c, hl, off: tv_pds_mega2_shard_step(*c, exts[i], hl, gauss, off, **kw),
+        lambda i, c, hl, off: tv_pds_mega2_shard_step_plain(*c, exts[i], hl, gauss, off, **kw))
+    bands = 2 * (len(gauss.g_rows_acorr) + len(gauss.g_cols_acorr))
+    reach = (len(gauss.g_rows_acorr) - 1) // 2  # the Gram's rows each side
+    res["K14"]["bound"] = bound(1, (bands + STENCIL_FLOPS) * h * W, shape=(shard_rows(h, reach), W))
+    R = 32
+    exts = halo_extend(atbs, R)
+    f, a2 = rank2.fwd, rank2.adj2
+    run("K15", R, (x, z0, z1),
+        lambda i, c, hl, off: tv_pds_megar_shard_step(*c, exts[i], hl, f, a2, off, **kw),
+        lambda i, c, hl, off: tv_pds_megar_shard_step_plain(*c, exts[i], hl, f, a2, off, **kw))
+    res["K15"]["bound"] = bound(1, (4 * f.rank * (f.Ku + f.Kv) + STENCIL_FLOPS) * h * W,
+                                shape=(shard_rows(h, f.Ku - 1), W))
+    run("K16", 1, (x, g, z0, z1),
+        lambda i, c, hl, off: tv_pds_sweep_shard_step(c[0], c[1], c[2], c[3], hl, off, **kw),
+        lambda i, c, hl, off: tv_pds_sweep_shard_step_plain(c[0], c[1], c[2], c[3], hl, off, **kw))
+    res["K16"]["bound"] = bound(1, STENCIL_FLOPS * h * W, shape=(shard_rows(h, 0), W))
+
+    # a one-shard mesh: the whole image with zero halos is the single-device kernel
+    kw1 = {k: v for k, v in kw.items() if k != "H_global"}
+    zeros = lambda R, n: tuple(torch.zeros((R, W), device=dev) for _ in range(n))  # noqa: E731
+    pad = lambda a, R: torch.cat([a.new_zeros((R, W)), a, a.new_zeros((R, W))])  # noqa: E731
+    one = {
+        "K14": (tv_pds_mega2_shard_step(x, z0, z1, pad(atb, 16), zeros(16, 6), gauss, -16, **kw),
+                tv_pds_mega2_step(x, z0, z1, atb, gauss, **kw1), "K11"),
+        "K15": (tv_pds_megar_shard_step(x, z0, z1, pad(atb, 32), zeros(32, 6), f, a2, -32, **kw),
+                tv_pds_megar_step(x, z0, z1, atb, f, a2, **kw1), "K4"),
+        "K16": (tv_pds_sweep_shard_step(x, g, z0, z1, zeros(1, 8), -1, **kw),
+                tv_pds_sweep_step_stats(x, z0, z1, g, **kw1), "K3"),
+    }
+    for k, (got, want, single) in one.items():
+        errs = [max_err(a, b) for a, b in zip(got[:3], want[:3])]
+        res[k]["one_shard_max_abs_err"] = max(e[0] for e in errs)
+        srel = float(((got[3] - want[3]).abs() / want[3].abs().clamp(min=1e-30)).max())
+        log(f"  {k} on a one-shard mesh against {single}: max abs err {res[k]['one_shard_max_abs_err']:.3e}, "
+            f"stats rel err {srel:.3e}")
+        if max(e[1] for e in errs) > TOL_REL or srel > TOL_STATS:
+            raise AssertionError(f"{k} on a one-shard mesh disagrees with {single}")
+    torch.cuda.synchronize()
+    for k in ("K14", "K15", "K16"):
+        log(f"  {k} bound {res[k]['bound'][0]:.4f} ms by {res[k]['bound'][1]} (a shard)")
+
+
+def phase_sharded_paths(dev, rng, counters):
+    """DistributedTVDeconv2D's three engines on SHARDS row shards on one
+    card, each built and run on its own with the counters zeroed, its
+    recovery of a piecewise-constant image, and each against the
+    single-device engine after 6 iterations."""
+    from scipy.signal import fftconvolve
+
+    from pycsou_tpu_torch.opt import TVDeconvolution
+    from pycsou_tpu_torch.parallel import DistributedTVDeconv2D, make_mesh
+
+    mesh = make_mesh((SHARDS,), devices=[dev] * SHARDS)
+    xb = blocks_image(rng, SHAPE)
+    noisy = lambda a: (a + 0.01 * rng.standard_normal(SHAPE)).astype(np.float32)  # noqa: E731
+    m = keep_mask(SHAPE).astype(np.float32)
+    psfs = {"megasp": gaussian_kernel(), "megarsp": rank2_kernel(), "sweepsp": None}
+    ys = {e: noisy(fftconvolve(xb, h, mode="same")) for e, h in psfs.items() if h is not None}
+    ys["sweepsp"] = m * noisy(xb)
+    # engine -> (exact launches, the single-device engine it must agree with)
+    plan = {"megasp": ({"K1": SHARDS, "K14": SHARDS * ITERS}, "mega2"),
+            "megarsp": ({"K1": SHARDS, "K15": SHARDS * ITERS}, "megar"),
+            "sweepsp": ({"K16": SHARDS * ITERS}, "sweepm")}
+    runs, solvers = {}, {}
+    x_true = torch.from_numpy(xb).to(dev)
+    for engine, (exact, single) in plan.items():
+        name = f"sharded {engine}"
+        y = torch.from_numpy(ys[engine]).to(dev)
+        mask = torch.from_numpy(m).to(dev) if engine == "sweepsp" else None
+
+        def build():
+            return DistributedTVDeconv2D(SHAPE, psfs[engine], y, LAM, mesh=mesh, mask=mask, max_iter=3000)
+
+        (solver, st), counts = count_launches(counters, built_and_run(build))
+        if solver._sp_engine != engine:
+            raise AssertionError(f"{name}: DistributedTVDeconv2D picked {solver._sp_engine}")
+        log(f"{name}: DistributedTVDeconv2D[{engine}] on {SHARDS} shards of {SHAPE[0] // SHARDS} rows on "
+            f"{dev} built and run for {st['it']} iterations; launches {counts}")
+        expect_launches(name, counts, exact)
+        err, obs = recovery({"x": solver._gather(st["x"])}, x_true, y)
+        log(f"{name}: ||x - x_true|| = {err:.4f} < ||observation - x_true|| = {obs:.4f}: {err < obs} "
+            f"(ratio {err / obs:.6f})")
+        if not err < obs:
+            raise AssertionError(f"{name}: the recovery is no better than the observation")
+        n = 6
+        got = solver.postprocess(solver.run_fixed(n))
+        ref = TVDeconvolution(SHAPE, y, LAM, filt=psfs[engine], mask=mask, stencil=single, tau=solver.tau,
+                              sigma=solver.sigma, max_iter=3000).run_fixed(n)
+        errs = {k: max_err(got[k], ref[k])[0] for k in ("x", "z0", "z1")}
+        scale = max(1.0, float(ref["x"].abs().max()))
+        log(f"{name} against TVDeconvolution[{single}] after {n} iterations: "
+            + ", ".join(f"max |d{k}| {e:.3e}" for k, e in errs.items()) + f" (tol {TOL_PATH:g} x {scale:.3f})")
+        if any(e > TOL_PATH * scale for e in errs.values()):
+            raise AssertionError(f"{name} disagrees with TVDeconvolution[{single}]")
+        runs[name], solvers[name] = counts, solver
+    return runs, solvers
+
+
+def device_ms_per_iteration(solver, n=20):
+    """Device time an iteration in a ``torch.profiler`` trace of ``n``
+    iterations: the summed durations of the CUDA events (kernels, copies,
+    fills); None when the trace holds none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    state = solver.run_fixed(2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        solver.run_fixed(n, state=state)
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / n if us > 0 else None
+
+
 def time_solver(solver, n_short=20, n_long=100, reps=3):
     """Slope-timed iterations/s (bench.py _time_solver): the difference of
     a long and a short run cancels the constant per-run cost."""
@@ -854,11 +1060,14 @@ def main():
     counters = [conv2d.sepconv2d, conv2d.sepgram2d, tv.tv_pds_sweep_step_stats, tvr.tv_pds_megar_step,
                 tv.tv_pds_sweepm_step_stats, tv.tv_pds_sweepm2_step, tvr.tv_pds_megarm_step,
                 fista.lasso_fista_step, langevin.pmyula_mega_step, tv.tv_pds_mega3_step,
-                tv.tv_pds_mega2_step, tv.tv_pds_mega_step, tv.tv_pds_stencil_step]
+                tv.tv_pds_mega2_step, tv.tv_pds_mega_step, tv.tv_pds_stencil_step,
+                tv.tv_pds_mega2_shard_step, tvr.tv_pds_megar_shard_step, tv.tv_pds_sweep_shard_step]
 
     rng = np.random.default_rng(SEED)
     log(f"-- kernels against their plain versions at {SHAPE[0]} x {SHAPE[1]}")
     res, copy_ms = phase_kernels(dev, rng)
+    log(f"-- shard kernels on {SHARDS} row shards of {SHAPE[0]} x {SHAPE[1]}")
+    phase_shard_kernels(dev, rng, res)
     log("-- main path and the conv-mode engines")
     pds, runs, tv_solvers = phase_main_path(dev, rng, counters)
     log("-- masked paths")
@@ -868,6 +1077,9 @@ def main():
     apgd, runs["LASSO"] = phase_lasso_path(dev, rng, counters)
     log("-- PMYULA path")
     sampler, runs["PMYULA"] = phase_pmyula_path(dev, counters)
+    log(f"-- sharded paths: DistributedTVDeconv2D on {SHARDS} row shards on one card")
+    sharded_runs, sharded = phase_sharded_paths(dev, rng, counters)
+    runs.update(sharded_runs)
 
     log(f"-- throughput ({smi})")
     solvers.update({"main path": pds, "LASSO": apgd})
@@ -881,6 +1093,10 @@ def main():
     for e in ("megar", "mega3", "mega2", "mega", "element"):
         ips[f"TVDeconvolution[{e}]"] = v = time_solver(tv_solvers[e])
         log(f"TVDeconvolution[{e}] at {SHAPE[0]}^2 slope-timed: {v:.1f} iters/s ({1e3 / v:.4f} ms/iteration)")
+    for name, solver in sharded.items():
+        ips[name] = v = time_solver(solver)
+        log(f"{name} DistributedTVDeconv2D[{solver._sp_engine}] at {SHAPE[0]}^2 on {SHARDS} shards slope-timed: "
+            f"{v:.1f} iters/s ({1e3 / v:.4f} ms/iteration)")
     sps = time_solver(sampler)
     log(f"PMYULA[{sampler.engine}] at {SHAPE_MCMC[0]}^2 slope-timed: {sps:.1f} samples/s "
         f"({1e3 / sps:.4f} ms/sample)")
@@ -893,6 +1109,11 @@ def main():
     if not info.converged or not math.isfinite(info.elapsed):
         raise AssertionError("solve() did not reach 1e-6")
     log(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # last: a profiler trace can leave tracing on that slows later launches
+    busy = device_ms_per_iteration(sharded["sharded megasp"])
+    idle = None if busy is None else 1.0 - busy * ips["sharded megasp"] / 1e3
+    log(f"sharded megasp: device time {busy} ms an iteration in a torch.profiler trace, "
+        f"device idle share {idle} (not measured when None)")
 
     def entry(k, run):
         name, source, replaces = KERNELS[k]
@@ -907,16 +1128,16 @@ def main():
         for extra in ("rank2", "stream", "identity"):
             if f"{extra}_ms" in r:
                 out[f"{extra}_ms"], out[f"{extra}_plain_ms"] = r[f"{extra}_ms"], r[f"{extra}_plain_ms"]
-        for extra in ("rank2_library_ms", "w_pass_ms"):
+        for extra in ("rank2_library_ms", "w_pass_ms", "one_shard_max_abs_err", "shard_ms", "shard_plain_ms"):
             if extra in r:
                 out[extra] = r[extra]
         return out
 
-    # "kernels": K1-K13, each with the launches of the run named in RUN_OF
+    # "kernels": K1-K16, each with the launches of the run named in RUN_OF
     print(json.dumps({
         "kernels": [entry(k, run) for k, run in RUN_OF.items()],
         "copy_ms": copy_ms, "iters_per_s": ips, "pmyula_samples_per_s": sps,
-        "time_to_1e6_s": info.elapsed, "card": smi,
+        "time_to_1e6_s": info.elapsed, "sharded_megasp_device_idle_share": idle, "card": smi,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -26,7 +26,9 @@ from pycsou_tpu_torch.opt import (  # noqa: E402
     LassoDeconvolution,
     TVDeconvolution,
 )
+from pycsou_tpu_torch.parallel import DistributedTVDeconv2D, Mesh, make_mesh  # noqa: E402
 from pycsou_tpu_torch.utils.device import get_default_device, set_default_device  # noqa: E402
 
-__all__ = ["APGD", "CPS", "DRS", "FBS", "PDS", "PMYULA", "LassoDeconvolution", "TVDeconvolution",
-           "get_default_device", "set_default_device"]
+__all__ = ["APGD", "CPS", "DRS", "DistributedTVDeconv2D", "FBS", "Mesh", "PDS", "PMYULA",
+           "LassoDeconvolution", "TVDeconvolution", "get_default_device", "make_mesh",
+           "set_default_device"]

@@ -3,7 +3,7 @@
 Counterpart of ``pycsou_tpu/core/linop.py``.  ``adjoint`` defaults to the
 vector-Jacobian product of ``apply`` (``torch.func.vjp``, in place of
 ``jax.linear_transpose``); closed forms override it where a kernel is
-cheaper.  Spectral estimation (``opnorm``) waits for ROADMAP Queue 1 item 4
+cheaper.  Spectral estimation (``opnorm``) waits for ROADMAP Queue 1 item 3
 (``utils/opnorm.py``) and raises.
 """
 from __future__ import annotations
@@ -68,7 +68,7 @@ class LinearOperator(DifferentiableMap):
     def opnorm(self, **kwargs) -> float:
         raise NotImplementedError(
             f"{type(self).__name__}.opnorm: power iteration is not ported yet "
-            "(ROADMAP Queue 1 item 4, utils/opnorm.py); set .lipschitz explicitly"
+            "(ROADMAP Queue 1 item 3, utils/opnorm.py); set .lipschitz explicitly"
         )
 
     def compute_lipschitz_cst(self, **kwargs) -> float:

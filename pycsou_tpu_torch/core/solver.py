@@ -8,6 +8,10 @@ reads them once per chunk of iterations (``solve``) or never
 (``run_fixed``).  A solve therefore stops at the end of the chunk in which
 the metric first fell to ``tol``: up to ``chunk - 1`` iterations past that
 point (``SolveInfo.converged_at`` records the iteration itself).
+
+An iterand is a tensor, or for a row-sharded solver
+(``parallel.solvers``) a tuple of per-shard tensors; the metric, the
+histories and the counters live on the first shard's device.
 """
 from __future__ import annotations
 
@@ -25,6 +29,14 @@ _INF = float("inf")
 # iterations between host reads of the metric in solve() (verbose overrides)
 _SYNC_EVERY = 16
 _HISTORY_KEYS = ("history", "var_history", "obj_history")
+
+
+def _is_iterand(v) -> bool:
+    """A tensor of at least one dimension, or a tuple of such (the shards of
+    one variable)."""
+    if isinstance(v, tuple):
+        return len(v) > 0 and all(_is_iterand(t) for t in v)
+    return isinstance(v, torch.Tensor) and v.ndim >= 1
 
 
 def _rel_from_sums(d2, o2) -> torch.Tensor:
@@ -154,8 +166,7 @@ class IterativeSolver(Module):
         reserved = {"it", "metric"} | set(_HISTORY_KEYS)
         return tuple(
             k for k, v in state.items()
-            if k not in reserved and not k.startswith("_")
-            and isinstance(v, torch.Tensor) and v.ndim >= 1
+            if k not in reserved and not k.startswith("_") and _is_iterand(v)
         )
 
     def metrics(self, old, new) -> Dict[str, torch.Tensor]:
@@ -167,7 +178,8 @@ class IterativeSolver(Module):
 
     # -- driver ------------------------------------------------------------
     def _device(self, state) -> torch.device:
-        return state[self.primary_var].device
+        v = state[self.primary_var]
+        return (v[0] if isinstance(v, tuple) else v).device
 
     def _stride(self) -> int:
         return max(1, self.metric_every) * max(1, self.iters_per_step)

@@ -44,6 +44,43 @@ __device__ __forceinline__ void load_region(Region d, const float* __restrict__ 
   }
 }
 
+// Shard: a row shard of an (H, W) image, read at global (r, c) by the
+// shard kernels K14, K15 and K16.  The core rows [row0, row0 + hloc) are
+// `core`; the R rows above are `top` and the R rows below `bot`, each
+// (R, W), as the neighbouring shards send them (zeros beyond the image's
+// edges).  Rows outside [row0 - R, row0 + hloc + R) are not held: a load
+// reads them as 0, and the kernels use such values only on rows they do not
+// write (each checks that R covers its reach).
+struct Shard {
+  const float *top, *core, *bot;
+  int row0, hloc, R, W;
+  __device__ __forceinline__ float operator()(int r, int c) const {
+    const int l = r - row0;
+    const float* row = l < 0 ? top + (size_t)(l + R) * W
+                       : l < hloc ? core + (size_t)l * W
+                                  : bot + (size_t)(l - hloc) * W;
+    return __ldg(row + c);
+  }
+};
+
+// A shard kernel takes, for each image a, three __restrict__ pointers:
+// a##t the rows above, a the core, a##b the rows below.  It builds all its
+// Shards from its one (row0, hloc, R, W), so that the compiler shares their
+// index arithmetic.
+#define PCT_IMAGE(a) \
+  const float* __restrict__ a##t, const float* __restrict__ a, const float* __restrict__ a##b
+
+// Zero-padded copy of a shard's rows into a region: 0 outside the rows it
+// holds, [row0 - R, row0 + hloc + R) within [0, H).
+__device__ __forceinline__ void load_region(Region d, const Shard& src, int H, int W) {
+  const int lo = max(0, src.row0 - src.R), hi = min(H, src.row0 + src.hloc + src.R);
+  for (int i = threadIdx.x; i < d.nr * d.nc; i += blockDim.x) {
+    const int r = d.r0 + i / d.nc;
+    const int c = d.c0 + i % d.nc;
+    d.p[i] = (r >= lo && r < hi && c >= 0 && c < W) ? src(r, c) : 0.f;
+  }
+}
+
 // Copy `n` floats from global to shared memory.
 __device__ __forceinline__ void load_taps(float* dst, const float* __restrict__ src, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = __ldg(src + i);
@@ -101,9 +138,10 @@ __host__ __device__ __forceinline__ int gram_scratch_floats(int nr, int nc, int 
 // adjoint reach, t zeroed outside the image (the 'same' crop: t = A x
 // exists only on [0, H) x [0, W)), then the adjoint pass.  t never leaves
 // shared memory.  With Masked, t is multiplied by the (H, W) data mask m
-// after the crop, for the Gram A^H diag(m) A.
-template <bool Masked = false>
-__device__ inline void gram_into(const float* __restrict__ x, int H, int W, const GramTaps& g, Region G,
+// after the crop, for the Gram A^H diag(m) A.  x is an (H, W) image in
+// device memory or a Shard.
+template <bool Masked = false, class Src>
+__device__ inline void gram_into(Src x, int H, int W, const GramTaps& g, Region G,
                           float* scratch, const float* __restrict__ m = nullptr) {
   Region T = source_region(G, g.Ku, g.Kv, g.oua, g.ova, scratch);
   Region X = source_region(T, g.Ku, g.Kv, g.ouf, g.ovf, T.p + T.nr * T.nc);

@@ -7,7 +7,9 @@
 //
 // Replaces pycsou_tpu/kernels/tvr.py tv_pds_megar_step (_tv_megar_kernel
 // via _megar_call): K4 without mask=, K7 with it ('megarm'; the mask
-// multiply is tvr.py:155-156).  The shard variants are not ported.
+// multiply is tvr.py:155-156).  K15 is K4 on a row shard of the image and
+// replaces tv_pds_megar_shard_step (the same kernel in shard mode).  The
+// 2-D-mesh variant (tv_pds_megar_shard2d_step) is not ported.
 //
 // Bound by device-memory traffic: 7 image streams a step (x, atb, z0, z1
 // in; x', z0', z1' out), 8 with K7's m; the Gram's t = A x and the gradient
@@ -20,6 +22,15 @@
 // so updating in place (as the TPU kernel did on its ordered grid) would
 // race.  Masked is a template parameter, so K4's instantiation is the
 // unmasked code unchanged.
+//
+// K15 is K4's code over a row source (the Shard of sepconv.cuh) in place of
+// the (H, W) pointers; K4 keeps its own kernel, so that its code is that of
+// the single-device engine alone.  K15 reads the shard's core rows
+// [row0, row0 + hloc) with R >= Ku halo rows from each neighbour (x, z0,
+// z1) and the halo-extended atb.  Every boundary (the 'same' crop of
+// t = A x, the dual masks, the zero last row of the forward difference)
+// keys to global rows and the global height H; each block recomputes the
+// Gram on its tile's rows from the halos.
 #include "sepconv.cuh"
 #include "pds_stencil.cuh"
 
@@ -65,6 +76,43 @@ tv_megar_kernel(const float* __restrict__ x, const float* __restrict__ z0,
   block_stats(st, partials);
 }
 
+__global__ void __launch_bounds__(kThreads)
+tv_megar_shard_kernel(PCT_IMAGE(x), PCT_IMAGE(z0), PCT_IMAGE(z1), PCT_IMAGE(atb),
+                      float* __restrict__ xo, float* __restrict__ z0o, float* __restrict__ z1o,
+                      float* __restrict__ partials, int row0, int hloc, int R, int H, int W,
+                      const float* __restrict__ taps, int rank, int Ku, int Kv, int ouf, int ovf,
+                      int oua, int ova, float atb_coef, PdsParams p) {
+  const Shard X{xt, x, xb, row0, hloc, R, W};
+  const Shard Z0{z0t, z0, z0b, row0, hloc, R, W};
+  const Shard Z1{z1t, z1, z1b, row0, hloc, R, W};
+  const Shard A{atbt, atb, atbb, row0, hloc, R, W};
+  extern __shared__ float smem[];
+  const int ntaps = 2 * rank * (Ku + Kv);
+  load_taps(smem, taps, ntaps);
+  const GramTaps gt{smem, smem + rank * Ku, smem + rank * (Ku + Kv),
+                    smem + rank * (2 * Ku + Kv), rank, Ku, Kv, ouf, ovf, oua, ova};
+  const int r0 = row0 + blockIdx.y * kTile, c0 = blockIdx.x * kTile;
+  Region G{smem + ntaps, r0, c0, kTile + 1, kTile + 1};
+  gram_into(X, H, W, gt, G, G.p + G.nr * G.nc);
+
+  const float* gs = G.p;
+  const int gnc = G.nc;
+  auto grad = [=](int r, int c) { return gs[(r - r0) * gnc + (c - c0)] - atb_coef * A(r, c); };
+  Stats6 st;
+  st.zero();
+  for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
+    const int r = r0 + i / kTile, c = c0 + i % kTile;
+    if (r >= row0 + hloc || c >= W) continue;
+    const PdsOut o = pds_stencil(r, c, H, W, p, X, grad, Z0, Z1);
+    const size_t k = (size_t)(r - row0) * W + c;
+    xo[k] = o.xn;
+    z0o[k] = o.z0n;
+    z1o[k] = o.z1n;
+    st.add(o);
+  }
+  block_stats(st, partials);
+}
+
 }  // namespace pct
 
 using namespace pct;
@@ -90,6 +138,35 @@ int pct_tv_megar(const float* x, const float* z0, const float* z1, const float* 
   kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
       x, z0, z1, m, atb, xo, z0o, z1o, partials, H, W, taps, rank, Ku, Kv, ouf, ovf, oua, ova,
       atb_coef, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  stats_fold<<<1, kThreads, 0, (cudaStream_t)stream>>>(partials, grid.x * grid.y, stats);
+  return (int)cudaGetLastError();
+}
+
+// K15: x, z0, z1 are the shard's core (hloc, W) blocks of global rows
+// [row0, row0 + hloc) of an (H, W) image, xt, xb, ..., z1b their (R, W)
+// halo blocks above (t) and below (b), R >= Ku, and atb_ext the
+// (hloc + 2R, W) halo-extended atb; the rest as pct_tv_megar without m.
+int pct_tv_megar_shard(const float* x, const float* z0, const float* z1, const float* atb_ext,
+                       const float* xt, const float* xb, const float* z0t, const float* z0b,
+                       const float* z1t, const float* z1b, float* xo, float* z0o, float* z1o,
+                       float* partials, float* stats, int row0, int hloc, int R, int H, int W,
+                       const float* taps, int rank, int Ku, int Kv, int ouf, int ovf, int oua,
+                       int ova, float atb_coef, float tau, float sigma, float rho, float lam,
+                       int nonneg, int iso, void* stream) {
+  const size_t floats = 2 * rank * (Ku + Kv) + (kTile + 1) * (kTile + 1) +
+                        gram_scratch_floats(kTile + 1, kTile + 1, Ku, Kv);
+  const size_t bytes = floats * sizeof(float);
+  cudaError_t err = allow_smem(tv_megar_shard_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((W + kTile - 1) / kTile, (hloc + kTile - 1) / kTile);
+  const PdsParams p{tau, sigma, rho, lam, nonneg, iso};
+  const size_t RW = (size_t)R * W;
+  const float *atbt = atb_ext, *atb = atb_ext + RW, *atbb = atb + (size_t)hloc * W;
+  tv_megar_shard_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
+      xt, x, xb, z0t, z0, z0b, z1t, z1, z1b, atbt, atb, atbb, xo, z0o, z1o, partials, row0, hloc,
+      R, H, W, taps, rank, Ku, Kv, ouf, ovf, oua, ova, atb_coef, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   stats_fold<<<1, kThreads, 0, (cudaStream_t)stream>>>(partials, grid.x * grid.y, stats);

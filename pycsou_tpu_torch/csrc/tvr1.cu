@@ -10,6 +10,9 @@
 //   K12 tv_mega_kernel   replaces tv_pds_mega_step (_tv_mega_kernel): the row
 //                        Gram of a given w = ColGram(x), then the stencil of
 //                        a stacked dual (2, H, W); no partial sums.
+//   K14 tv_mega2_shard_kernel  replaces tv_pds_mega2_shard_step (the same
+//                        kernel in shard mode): K11 on a row shard's core
+//                        rows, with halo rows from its neighbours.
 //
 // For A = R(u) C(v) the Gram is A^H A = RowGram o ColGram, each the exact
 // 1-D 'same'-convolution Gram T^H T: the (2K - 1)-tap autocorrelation band
@@ -42,6 +45,16 @@
 // block at 102 KB of shared memory, two blocks an SM.  Stage-1 values
 // outside the image are written as 0: the zero boundary of the second
 // Gram.
+//
+// K14 is K11's code over a row source (the Shard of sepconv.cuh) in place
+// of the (H, W) pointers; K11 keeps its own kernel, so that its code is
+// that of the single-device engine alone.  K14's tiles cover the shard's
+// core rows [row0, row0 + hloc) of the (H, W) image, the last shifted back
+// to end on the core's last row (on the image's edge for the last shard, as
+// the edge corrections need).  The x window comes from the core and the
+// neighbours' R >= reach + 1 halo rows, 0 beyond them (values that only
+// reach rows the block does not write); every boundary keys to global rows
+// and the global H.
 //
 // Bound by device-memory traffic: 7 image streams for K11 (x, atb, z0, z1
 // in; x', z0', z1' out), the same 7 for K10's TWO iterations, 8 for K12
@@ -173,6 +186,18 @@ __device__ __forceinline__ void load_window(float* d, int s, const float* __rest
   }
 }
 
+// The same from a row shard; rows it does not hold, outside
+// [row0 - R, row0 + hloc + R), read as 0.
+__device__ __forceinline__ void load_window(float* d, int s, const Shard& src, int H, int W, int r0,
+                                            int c0, int nr, int nc) {
+  const int lo = max(0, src.row0 - src.R), hi = min(H, src.row0 + src.hloc + src.R);
+  for (int i = threadIdx.x; i < nr * nc; i += blockDim.x) {
+    const int rr = i / nc, cc = i - (i / nc) * nc;
+    const int r = r0 + rr, c = c0 + cc;
+    d[rr * s + cc] = (r >= lo && r < hi && c >= 0 && c < W) ? src(r, c) : 0.f;
+  }
+}
+
 // G = Gram(x) - (nothing): the exact rank-1 Gram (2x folded into the rows)
 // on the region of nG x nG pixels at (gr, gc), from X, a window of x over
 // rows [gr - R, gr + nG + R) and columns [gc - R, gc + nG + R) with stride
@@ -244,6 +269,48 @@ tv_mega2_kernel(const float* __restrict__ x, const float* __restrict__ z0,
     if (r < rn || c < cn || r >= H || c >= W) continue;
     const PdsOut o = pds_stencil(r, c, H, W, p, xs, grad, at(z0), at(z1));
     const size_t k = (size_t)r * W + c;
+    xo[k] = o.xn;
+    z0o[k] = o.z0n;
+    z1o[k] = o.z1n;
+    st.add(o);
+  }
+  block_stats(st, partials);
+}
+
+// -- K14: K11 on a row shard --------------------------------------------
+
+template <int R>
+__global__ void __launch_bounds__(kThreads)
+tv_mega2_shard_kernel(PCT_IMAGE(x), PCT_IMAGE(z0), PCT_IMAGE(z1), PCT_IMAGE(atb),
+                      float* __restrict__ xo, float* __restrict__ z0o, float* __restrict__ z1o,
+                      float* __restrict__ partials, int row0, int hloc, int Rh, int H, int W,
+                      R1Taps tp, R1Edges e, PdsParams p) {
+  const Shard Xs{xt, x, xb, row0, hloc, Rh, W};
+  const Shard Z0{z0t, z0, z0b, row0, hloc, Rh, W};
+  const Shard Z1{z1t, z1, z1b, row0, hloc, Rh, W};
+  const Shard A{atbt, atb, atbb, row0, hloc, Rh, W};
+  using S = Mega2Smem<R>;
+  extern __shared__ float smem[];
+  float* X = smem;
+  float* Wt = X + S::nX * S::sX;
+  float* G = Wt + S::nX * S::sW;
+  const int r0 = row0 + tile_origin(blockIdx.y, hloc), c0 = tile_origin(blockIdx.x, W);
+  load_window(X, S::sX, Xs, H, W, r0 - R, c0 - R, S::nX, S::nX);
+  __syncthreads();
+  gram_region<R, 11, 11>(X, S::sX, Wt, S::sW, G, kG, r0, c0, kG, H, W, tp, e);
+
+  const float* px = X;
+  auto xs = [=](int r, int c) { return px[(r - r0 + R) * S::sX + (c - c0 + R)]; };
+  const float* pg = G;
+  auto grad = [=](int r, int c) { return pg[(r - r0) * kG + (c - c0)] - 2.f * A(r, c); };
+  const int rn = row0 + blockIdx.y * kTile, cn = blockIdx.x * kTile;  // this block's own pixels
+  Stats6 st;
+  st.zero();
+  for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
+    const int r = r0 + i / kTile, c = c0 + i % kTile;
+    if (r < rn || c < cn || r >= row0 + hloc || c >= W) continue;
+    const PdsOut o = pds_stencil(r, c, H, W, p, xs, grad, Z0, Z1);
+    const size_t k = (size_t)(r - row0) * W + c;
     xo[k] = o.xn;
     z0o[k] = o.z0n;
     z1o[k] = o.z1n;
@@ -432,6 +499,25 @@ int launch_mega2(const float* x, const float* z0, const float* z1, const float* 
   return (int)cudaGetLastError();
 }
 
+// x, z0, z1, atb: {top, core, bottom} pointers of each image.
+template <int R>
+int launch_mega2_shard(const float* const x[3], const float* const z0[3], const float* const z1[3],
+                       const float* const atb[3], float* xo, float* z0o, float* z1o,
+                       float* partials, float* stats, int row0, int hloc, int Rh, int H, int W,
+                       const R1Taps& tp, const R1Edges& e, const PdsParams& p, cudaStream_t s) {
+  const size_t bytes = Mega2Smem<R>::floats * sizeof(float);
+  cudaError_t err = allow_smem(tv_mega2_shard_kernel<R>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((W + kTile - 1) / kTile, (hloc + kTile - 1) / kTile);
+  tv_mega2_shard_kernel<R><<<grid, kThreads, bytes, s>>>(
+      x[0], x[1], x[2], z0[0], z0[1], z0[2], z1[0], z1[1], z1[2], atb[0], atb[1], atb[2], xo, z0o,
+      z1o, partials, row0, hloc, Rh, H, W, tp, e, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  stats_fold<<<1, kThreads, 0, s>>>(partials, grid.x * grid.y, stats);
+  return (int)cudaGetLastError();
+}
+
 template <int R>
 int launch_mega3(const float* x, const float* z0, const float* z1, const float* atb, float* xo,
                  float* z0o, float* z1o, float* partials, float* stats, int H, int W,
@@ -486,6 +572,31 @@ int pct_tv_mega2(const float* x, const float* z0, const float* z1, const float* 
   const PdsParams p{tau, sigma, rho, lam, nonneg, iso};
   const cudaStream_t s = (cudaStream_t)stream;
 #define CALL(RR) launch_mega2<RR>(x, z0, z1, atb, xo, z0o, z1o, partials, stats, H, W, tp, e, p, s)
+  PCT_R1_DISPATCH(R, CALL)
+#undef CALL
+}
+
+// K14: x, z0, z1 are the shard's core (hloc, W) blocks of global rows
+// [row0, row0 + hloc) of an (H, W) image, xt, xb, ..., z1b their (Rh, W)
+// halo blocks above (t) and below (b), Rh >= R + 1, and atb_ext the
+// (hloc + 2 Rh, W) halo-extended atb; the rest as pct_tv_mega2.
+int pct_tv_mega2_shard(const float* x, const float* z0, const float* z1, const float* atb_ext,
+                       const float* xt, const float* xb, const float* z0t, const float* z0b,
+                       const float* z1t, const float* z1b, float* xo, float* z0o, float* z1o,
+                       float* partials, float* stats, int row0, int hloc, int Rh, int H, int W,
+                       const float* taps, const float* E, int Kr, int Kc, int R, float tau,
+                       float sigma, float rho, float lam, int nonneg, int iso, void* stream) {
+  const R1Taps tp = taps_of(taps);
+  const R1Edges e{E, Kr, Kc};
+  const PdsParams p{tau, sigma, rho, lam, nonneg, iso};
+  const cudaStream_t s = (cudaStream_t)stream;
+  const size_t RW = (size_t)Rh * W;
+  const float* X[3] = {xt, x, xb};
+  const float* Z0[3] = {z0t, z0, z0b};
+  const float* Z1[3] = {z1t, z1, z1b};
+  const float* A[3] = {atb_ext, atb_ext + RW, atb_ext + RW + (size_t)hloc * W};
+#define CALL(RR) \
+  launch_mega2_shard<RR>(X, Z0, Z1, A, xo, z0o, z1o, partials, stats, row0, hloc, Rh, H, W, tp, e, p, s)
   PCT_R1_DISPATCH(R, CALL)
 #undef CALL
 }

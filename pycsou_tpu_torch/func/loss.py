@@ -1,7 +1,7 @@
 """Loss functionals of the slice (counterpart of ``pycsou_tpu/func/loss.py``):
 the data-shifted squared l2 loss and the least-squares node its composition
 with a linear operator builds.  The other losses wait for ROADMAP Queue 1
-item 11."""
+item 7."""
 from __future__ import annotations
 
 import torch

@@ -1,7 +1,7 @@
 """Penalty functionals of the slice (counterpart of
 ``pycsou_tpu/func/penalty.py``): SquaredL2Norm, L1Norm, L21Norm in axis mode
 and the nonnegative orthant.  The other penalties, and L21Norm's ``groups``
-mode, wait for ROADMAP Queue 1 item 11."""
+mode, wait for ROADMAP Queue 1 item 7."""
 from __future__ import annotations
 
 import math
@@ -58,7 +58,7 @@ class L21Norm(ProximableFunctional):
     def __init__(self, dim_shape, groups=None, axis: int = 0):
         if groups is not None:
             raise NotImplementedError(
-                "L21Norm groups= mode is not ported yet (ROADMAP Queue 1 item 11); use axis="
+                "L21Norm groups= mode is not ported yet (ROADMAP Queue 1 item 7); use axis="
             )
         super().__init__(dim_shape)
         self.axis = int(axis)

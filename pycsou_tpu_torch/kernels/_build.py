@@ -48,6 +48,11 @@ _SIGNATURES = {
     "pct_tv_mega2": [_P] * 9 + [_I, _I, _P, _P, _I, _I, _I] + [_F] * 4 + [_I, _I, _P],
     "pct_tv_mega3": [_P] * 9 + [_I, _I, _P, _P, _I, _I, _I] + [_F] * 4 + [_I, _I, _P],
     "pct_tv_mega": [_P] * 6 + [_I, _I, _P, _P, _I, _I, _I] + [_F] * 4 + [_I, _I, _P],
+    # the row-shard kernels: core blocks, halo blocks, outputs, then
+    # (row0, hloc, halo rows, H, W) and the single-device kernel's arguments
+    "pct_tv_sweep_shard": [_P] * 17 + [_I] * 5 + [_F] * 4 + [_I, _I, _P],
+    "pct_tv_mega2_shard": [_P] * 15 + [_I] * 5 + [_P, _P, _I, _I, _I] + [_F] * 4 + [_I, _I, _P],
+    "pct_tv_megar_shard": [_P] * 15 + [_I] * 5 + [_P] + [_I] * 7 + [_F] * 5 + [_I, _I, _P],
 }
 
 

@@ -1,7 +1,8 @@
 """TV primal-dual stencil steps: from a given gradient (K3, and K13 on a
 stacked dual), masked (K5), masked two steps at a time (K6), and the rank-1
 engines with the Gram in the kernel (K10 two steps, K11 one step, K12 the
-row Gram of a given w); their plain versions and the stencil twin.
+row Gram of a given w), and K3 and K11 on a row shard of the image (K16,
+K14); their plain versions and the stencil twin.
 
 One Condat-Vu iteration of TV-regularised deconvolution, given the data
 gradient g::
@@ -32,6 +33,15 @@ plan) and form ``g = 2 (RowGram(ColGram(x)) - atb)`` in the kernel, each
 direction one band pass of the autocorrelation plus the edge corrections
 (``kernels/band.py``).  Their kernels are instantiated for padded reaches
 ``R1_REACHES``: a PSF of at most 16 taps on each axis.
+
+The shard kernels run one iteration on a shard's core rows ``[row0, row0 +
+h_loc)`` of an image of ``H_global`` rows.  They take the core blocks, the
+``(R, W)`` halo blocks of the neighbouring shards above and below (zeros
+beyond the image's edges) and ``off = row0 - R``, the global row of the
+halo-extended block's first row, as the reference's do; the outputs are the
+core's, in new buffers, with the core's partial sums.  Every boundary keys
+to global rows.  Their plain versions run the single-device plain engine on
+the halo-extended block (:func:`shard_plain`).
 """
 from __future__ import annotations
 
@@ -63,6 +73,11 @@ __all__ = [
     "tv_pds_mega2_step_plain",
     "tv_pds_mega3_step",
     "tv_pds_mega3_step_plain",
+    "shard_plain",
+    "tv_pds_sweep_shard_step",
+    "tv_pds_sweep_shard_step_plain",
+    "tv_pds_mega2_shard_step",
+    "tv_pds_mega2_shard_step_plain",
 ]
 
 
@@ -339,16 +354,20 @@ def tv_pds_mega_step_plain(x, z, w, atb, gram, **kw):
     return tv_pds_stencil_step_plain(x, z, 2.0 * (gram_band_rows(w, rows) - atb), **kw)
 
 
+def _check_rank1_gram(gram, device, shape) -> None:
+    rank1_reach(gram)
+    acorr = gram.band_plans()[0][0]
+    if acorr.device != device or tuple(gram.dim_shape) != tuple(shape):
+        raise ValueError(f"gram on {acorr.device} for {tuple(gram.dim_shape)}, image {tuple(shape)} "
+                         f"on {device}")
+
+
 def _check_rank1(gram, x, **images) -> None:
     _check_image(x, "x")
     for name, t in images.items():
         _check_image(t, name, like=x)
     _check_device(x)
-    rank1_reach(gram)
-    acorr = gram.band_plans()[0][0]
-    if acorr.device != x.device or tuple(gram.dim_shape) != tuple(x.shape):
-        raise ValueError(f"gram on {acorr.device} for {tuple(gram.dim_shape)}, image {tuple(x.shape)} "
-                         f"on {x.device}")
+    _check_rank1_gram(gram, x.device, x.shape)
 
 
 def _launch_rank1(fn, symbol, x, z0, z1, atb, gram, kw):
@@ -437,3 +456,144 @@ def tv_pds_mega_step(x, z, w, atb, gram, *, tau, sigma, rho, lam, nonneg=True, i
 
 
 tv_pds_mega_step.launches = 0
+
+
+# -- the row-shard kernels (K16, K14) -------------------------------------------
+
+
+def shard_plain(engine, ext, off: int, h_loc: int, H_global: int):
+    """A single-device plain engine on a halo-extended row shard: ``ext =
+    (x, z0, z1, a)``, rows ``[off, off + h_loc + 2R)`` of an image of
+    ``H_global`` rows (``a`` the engine's fourth input, atb or g).  Rows
+    outside the image are dropped, and a zero row is added below when the
+    block stops short of the image's last row, so that the engine's last-row
+    rules (the dual mask, the zero forward difference) and its image-edge
+    corrections fall on rows the core does not read (given R covers the
+    engine's reach).  Returns the core of ``engine(*ext)``'s (x', z0', z1')
+    and the core's partial sums."""
+    n = ext[0].shape[0]
+    R = (n - h_loc) // 2
+    lo, hi = max(0, -off), min(n, H_global - off)
+    ext = [t[lo:hi] for t in ext]
+    if off + n < H_global:
+        ext = [torch.cat([t, t.new_zeros((1, t.shape[1]))]) for t in ext]
+    xn, z0n, z1n, _ = engine(*ext)
+    core = slice(R - lo, R - lo + h_loc)
+    z0, z1 = _mask_duals(ext[1], ext[2])  # the old duals as the stats read them
+    xn, z0n, z1n = (t[core].contiguous() for t in (xn, z0n, z1n))
+    return xn, z0n, z1n, stats_of([(xn, ext[0][core]), (z0n, z0[core]), (z1n, z1[core])])
+
+
+def _ext(top, core, bot):
+    return torch.cat([top, core, bot])
+
+
+def check_shard(x, images, halos, n_halos: int, off: int, H_global: int, reach: int, atb_ext=None):
+    """Checks shared by the shard kernels; returns ``(R, row0)``.  ``reach``:
+    the halo rows the kernel reads from each neighbour; ``atb_ext``, where
+    given, must be the (h_loc + 2R, W) halo-extended block."""
+    _check_image(x, "x")
+    for name, t in images.items():
+        _check_image(t, name, like=x)
+    _check_device(x)
+    if len(halos) != n_halos:
+        raise ValueError(f"need {n_halos} halo blocks, got {len(halos)}")
+    R, W = halos[0].shape
+    for i, t in enumerate(halos):
+        _check_image(t, f"halos[{i}]")
+        if tuple(t.shape) != (R, W) or W != x.shape[1] or t.device != x.device:
+            raise ValueError(f"halos[{i}]: {tuple(t.shape)} on {t.device}, expected ({R}, {x.shape[1]}) "
+                             f"on {x.device}")
+    if R < reach:
+        raise ValueError(f"{R} halo rows: this kernel reads {reach} rows from each neighbour")
+    row0, h_loc = int(off) + R, x.shape[0]
+    if atb_ext is not None:
+        _check_image(atb_ext, "atb_ext")
+        if tuple(atb_ext.shape) != (h_loc + 2 * R, W) or atb_ext.device != x.device:
+            raise ValueError(f"atb_ext: {tuple(atb_ext.shape)} on {atb_ext.device}, expected "
+                             f"{(h_loc + 2 * R, W)} on {x.device}")
+    if row0 < 0 or row0 + h_loc > H_global:
+        raise ValueError(f"core rows [{row0}, {row0 + h_loc}) outside an image of {H_global} rows")
+    return R, row0
+
+
+def _launch_shard(fn, symbol, x, core, halos, row0, H_global, args, kw):
+    """Launch of a shard kernel (core blocks, halos, outputs, then
+    ``(row0, h_loc, R, H, W)`` and ``args``); counts on ``fn``."""
+    h_loc, W = x.shape
+    xo, z0o, z1o = (torch.empty_like(x) for _ in range(3))
+    nblocks = -(-h_loc // TILE) * -(-W // TILE)
+    partials = torch.empty(nblocks * 6, dtype=torch.float32, device=x.device)
+    stats = torch.empty(6, dtype=torch.float32, device=x.device)
+    err = getattr(library(), symbol)(
+        *(t.data_ptr() for t in core), *(t.data_ptr() for t in halos),
+        xo.data_ptr(), z0o.data_ptr(), z1o.data_ptr(), partials.data_ptr(), stats.data_ptr(),
+        row0, h_loc, halos[0].shape[0], H_global, W, *args,
+        float(kw["tau"]), float(kw["sigma"]), float(kw["rho"]), float(kw["lam"]),
+        int(bool(kw["nonneg"])), int(bool(kw["iso"])), stream_of(x),
+    )
+    check(err, fn.__name__)
+    fn.launches += 1
+    return xo, z0o, z1o, stats
+
+
+def tv_pds_sweep_shard_step_plain(x, g, z0, z1, halos, off, *, H_global, **kw):
+    """Plain PyTorch version of K16: K3's plain version on the
+    halo-extended shard (:func:`shard_plain`)."""
+    xt, xb, gt, gb, z0t, z0b, z1t, z1b = halos
+    ext = (_ext(xt, x, xb), _ext(z0t, z0, z0b), _ext(z1t, z1, z1b), _ext(gt, g, gb))
+    return shard_plain(lambda *a: tv_pds_sweep_step_stats_plain(*a, **kw), ext, off, x.shape[0], H_global)
+
+
+def tv_pds_sweep_shard_step(x, g, z0, z1, halos, off, *, H_global, tau, sigma, rho, lam, nonneg=True,
+                            iso=True):
+    """K16: K3 on the core rows of a row shard, given the gradient g;
+    ``halos = (xt, xb, gt, gb, z0t, z0b, z1t, z1b)``, (R, W) blocks with R
+    >= 1; ``(x', z0', z1', stats (6,))`` of the core in new buffers.
+
+    Replaces ``pycsou_tpu/kernels/tv.py`` ``tv_pds_sweep_shard_step``
+    (``_tv_sweep_kernel`` in shard mode via ``_sweep_call``).  Bound by
+    device memory: K3's 7 core streams and one halo row of x, g, z0 and z1
+    from each neighbour."""
+    kw = dict(tau=tau, sigma=sigma, rho=rho, lam=lam, nonneg=nonneg, iso=iso)
+    _, row0 = check_shard(x, dict(g=g, z0=z0, z1=z1), halos, 8, off, H_global, 1)
+    if x.device.type == "cpu":
+        return tv_pds_sweep_shard_step_plain(x, g, z0, z1, halos, off, H_global=H_global, **kw)
+    return _launch_shard(tv_pds_sweep_shard_step, "pct_tv_sweep_shard", x, (x, z0, z1, g), halos, row0,
+                         H_global, (), kw)
+
+
+tv_pds_sweep_shard_step.launches = 0
+
+
+def tv_pds_mega2_shard_step_plain(x, z0, z1, atb_ext, halos, gram, off, *, H_global, **kw):
+    """Plain PyTorch version of K14: K11's plain version on the
+    halo-extended shard (:func:`shard_plain`)."""
+    xt, xb, z0t, z0b, z1t, z1b = halos
+    ext = (_ext(xt, x, xb), _ext(z0t, z0, z0b), _ext(z1t, z1, z1b), atb_ext)
+    return shard_plain(lambda *a: tv_pds_mega2_step_plain(*a, gram, **kw), ext, off, x.shape[0], H_global)
+
+
+def tv_pds_mega2_shard_step(x, z0, z1, atb_ext, halos, gram, off, *, H_global, tau, sigma, rho, lam,
+                            nonneg=True, iso=True):
+    """K14: K11 on the core rows of a row shard; ``halos = (xt, xb, z0t,
+    z0b, z1t, z1b)``, (R, W) blocks with R >= the padded reach + 1 (16 for
+    a PSF of 16 rows), ``atb_ext`` the (h_loc + 2R, W) halo-extended atb,
+    ``gram`` the rank-1 Gram of the whole (H_global, W) image on the
+    shard's device; ``(x', z0', z1', stats (6,))`` of the core in new
+    buffers.
+
+    Replaces ``pycsou_tpu/kernels/tv.py`` ``tv_pds_mega2_shard_step``
+    (``_tv_mega2_kernel`` in shard mode via ``_mega2_call``).  Bound by
+    device memory: K11's 7 streams over the core and its halos."""
+    kw = dict(tau=tau, sigma=sigma, rho=rho, lam=lam, nonneg=nonneg, iso=iso)
+    _, row0 = check_shard(x, dict(z0=z0, z1=z1), halos, 6, off, H_global, rank1_reach(gram) + 1, atb_ext)
+    _check_rank1_gram(gram, x.device, (H_global, x.shape[1]))
+    if x.device.type == "cpu":
+        return tv_pds_mega2_shard_step_plain(x, z0, z1, atb_ext, halos, gram, off, H_global=H_global, **kw)
+    taps, E, Kr, Kc, Rp = _rank1_args(gram)
+    return _launch_shard(tv_pds_mega2_shard_step, "pct_tv_mega2_shard", x, (x, z0, z1, atb_ext), halos,
+                         row0, H_global, (taps.ctypes.data, E.data_ptr(), Kr, Kc, Rp), kw)
+
+
+tv_pds_mega2_shard_step.launches = 0

@@ -7,7 +7,9 @@ taps) and feeds it straight into the stencil of ``kernels/tv.py``, with the
 stopping-metric partial sums.  ``t = A x`` and g never reach device memory:
 7 image streams a step (x, atb, z0, z1 in; x', z0', z1' out).  K7 multiplies
 a data mask onto ``t`` between the two convolutions, for the Gram
-``A^H diag(m) A`` of blurred, partially sampled data (8 streams).
+``A^H diag(m) A`` of blurred, partially sampled data (8 streams).  K15 is
+K4 on the core rows of a row shard of the image (the shard conventions of
+``kernels/tv.py``).
 """
 from __future__ import annotations
 
@@ -22,13 +24,20 @@ from pycsou_tpu_torch.kernels.conv2d import (
     sepconv2d_plain,
     sepgram2d_plain,
 )
-from pycsou_tpu_torch.kernels.tv import tv_pds_sweep_step_stats_plain
+from pycsou_tpu_torch.kernels.tv import (
+    _launch_shard,
+    check_shard,
+    shard_plain,
+    tv_pds_sweep_step_stats_plain,
+)
 
 __all__ = [
     "tv_pds_megar_step",
     "tv_pds_megar_step_plain",
     "tv_pds_megarm_step",
     "tv_pds_megarm_step_plain",
+    "tv_pds_megar_shard_step",
+    "tv_pds_megar_shard_step_plain",
 ]
 
 
@@ -123,3 +132,39 @@ def tv_pds_megarm_step(x, z0, z1, m, atb, fwd: SepFactors, adj2: SepFactors, *, 
 
 
 tv_pds_megarm_step.launches = 0
+
+
+def tv_pds_megar_shard_step_plain(x, z0, z1, atb_ext, halos, fwd: SepFactors, adj2: SepFactors, off, *,
+                                  H_global, **kw):
+    """Plain PyTorch version of K15: K4's plain version on the
+    halo-extended shard (``kernels.tv.shard_plain``)."""
+    xt, xb, z0t, z0b, z1t, z1b = halos
+    ext = (torch.cat([xt, x, xb]), torch.cat([z0t, z0, z0b]), torch.cat([z1t, z1, z1b]), atb_ext)
+    return shard_plain(lambda *a: tv_pds_megar_step_plain(*a, fwd, adj2, **kw), ext, off, x.shape[0],
+                       H_global)
+
+
+def tv_pds_megar_shard_step(x, z0, z1, atb_ext, halos, fwd: SepFactors, adj2: SepFactors, off, *,
+                            H_global, tau, sigma, rho, lam, nonneg=True, iso=True):
+    """K15: K4 on the core rows of a row shard; ``halos = (xt, xb, z0t, z0b,
+    z1t, z1b)``, (R, W) blocks with R >= the PSF's rows (32 covers every
+    PSF K4 takes), ``atb_ext`` the (h_loc + 2R, W) halo-extended atb;
+    ``(x', z0', z1', stats (6,))`` of the core in new buffers.
+
+    Replaces ``pycsou_tpu/kernels/tvr.py`` ``tv_pds_megar_shard_step``
+    (``_tv_megar_kernel`` in shard mode via ``_megar_call``).  Bound by
+    device memory: K4's 7 streams over the core and its halos; each block
+    recomputes the Gram of its tile from the halos."""
+    kw = dict(tau=tau, sigma=sigma, rho=rho, lam=lam, nonneg=nonneg, iso=iso)
+    _, row0 = check_shard(x, dict(z0=z0, z1=z1), halos, 6, off, H_global, fwd.Ku, atb_ext)
+    taps = gram_taps(fwd, adj2)
+    _check_device(x, fwd, adj2)
+    if x.device.type == "cpu":
+        return tv_pds_megar_shard_step_plain(x, z0, z1, atb_ext, halos, fwd, adj2, off, H_global=H_global,
+                                             **kw)
+    args = (taps.data_ptr(), fwd.rank, fwd.Ku, fwd.Kv, fwd.ou, fwd.ov, adj2.ou, adj2.ov, 2.0)
+    return _launch_shard(tv_pds_megar_shard_step, "pct_tv_megar_shard", x, (x, z0, z1, atb_ext), halos,
+                         row0, H_global, args, kw)
+
+
+tv_pds_megar_shard_step.launches = 0

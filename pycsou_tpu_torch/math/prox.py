@@ -1,7 +1,7 @@
 """Proximal maps and projections of the TV-deconvolution slice
 (counterpart of ``pycsou_tpu/math/prox.py``; real tensors).  The l1-ball
 projection, Lambert W and the other projections wait for ROADMAP Queue 1
-item 11."""
+item 7."""
 from __future__ import annotations
 
 import torch

@@ -1,6 +1,6 @@
 """Structural operators of the slice: identity, null and homothety
 (counterpart of ``pycsou_tpu/ops/basic.py``; dense, sparse, diagonal and
-polynomial operators wait for ROADMAP Queue 1 items 4 and 11)."""
+polynomial operators wait for ROADMAP Queue 1 item 3)."""
 from __future__ import annotations
 
 from numbers import Number

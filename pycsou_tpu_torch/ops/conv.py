@@ -4,14 +4,14 @@
   (any PSF of rank <= 4 within 31 taps per axis) runs apply and adjoint
   through kernel K1; ``method='fft'`` applies through ``torch.fft`` and
   takes the autodiff adjoint.  ``'direct'`` and the grouped ``'bandg'``
-  wait for ROADMAP Queue 1 item 5.
+  wait for ROADMAP Queue 1 item 2.
 * ``SeparableConvGram2D`` — the exact Gram ``A^H A`` of a band convolution
   through kernel K2, and the fused least-squares gradient; for a rank-1
   PSF also the reference's rank-1 plan (``g_meta``, the autocorrelations,
   the raw taps and the edge corrections of ``kernels/band.py``), which the
   rank-1 TV engines K10-K12 read.
   ``ConvGram2D`` (the FFT Gram of ``ops/_gram.py``) waits for ROADMAP
-  Queue 1 item 5; until then a full-rank PSF's Gram is the composition
+  Queue 1 item 2; until then a full-rank PSF's Gram is the composition
   ``A^H o A``.
 
 ``lowrank_factors`` and ``_fft_lipschitz`` are the reference's numpy code
@@ -104,7 +104,7 @@ class Convolve2D(LinearOperator):
             raise ValueError("filter must be 2-D")
         if method in ("direct", "bandg"):
             raise NotImplementedError(
-                f"Convolve2D method={method!r} is not ported yet (ROADMAP Queue 1 item 5)"
+                f"Convolve2D method={method!r} is not ported yet (ROADMAP Queue 1 item 2)"
             )
         if method not in ("auto", "band", "fft"):
             raise ValueError("method must be 'auto', 'band' or 'fft'")

@@ -1,6 +1,6 @@
 """Finite-difference operators of the slice (counterpart of
 ``pycsou_tpu/ops/diff.py``): forward differences and the stacked
-``Gradient``.  The other stencils wait for ROADMAP Queue 1 item 11."""
+``Gradient``.  The other stencils wait for ROADMAP Queue 1 item 3."""
 from __future__ import annotations
 
 import math
@@ -43,13 +43,13 @@ class Gradient(LinearOperator):
     output, adjoint the negative divergence.  ``||K|| <= sqrt(sum 4/s^2)``
     (``sqrt(8)`` for a unit-step 2-D image) in closed form.  Only the
     'forward' kind is ported; 'backward'/'centered' wait for ROADMAP Queue 1
-    item 11."""
+    item 3."""
 
     def __init__(self, dim_shape, kind: str = "forward", step: Union[float, Sequence[float]] = 1.0,
                  dtype=torch.float32):
         if kind != "forward":
             raise NotImplementedError(
-                f"Gradient kind={kind!r} is not ported yet (ROADMAP Queue 1 item 11)"
+                f"Gradient kind={kind!r} is not ported yet (ROADMAP Queue 1 item 3)"
             )
         dim_shape = as_shape(dim_shape)
         d = len(dim_shape)

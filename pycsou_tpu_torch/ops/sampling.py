@@ -9,7 +9,7 @@ The adjoints are the reference's exactly: ``Masking`` *sets* the values,
 ``SubSampling`` *adds* them (a repeated index counts twice), and
 ``DownSampling`` zero-upsamples onto the ``ceil(n / f)``-per-axis grid.
 ``Pooling``, ``NNSampling``, ``GeneralisedVandermonde`` and
-``MappedDistanceMatrix`` wait for ROADMAP Queue 1 item 11.
+``MappedDistanceMatrix`` wait for ROADMAP Queue 1 item 7.
 """
 from __future__ import annotations
 

@@ -28,6 +28,19 @@ Engines (``stencil=``):
 * every mode: ``"plain"``, the kernels' plain PyTorch versions one
   iteration a step, for CPU tensors only (``"auto"`` on the CPU).
 
+In mask and combined modes the CUDA ``"auto"`` is the mode's first engine
+for every shape (:func:`masked_engine`), where the reference picks by its
+TPU tile gates (``pycsou_tpu/opt/tv.py:314-373``): mask mode runs sweepm2
+only when an 8-, 16- or 32-row tile within the Mosaic budget divides H into
+at least two tiles, else sweepm with one tile, else its XLA chain; combined
+mode runs megarm only with a megar plan (``W % 128 == 0``, ``W >= 384``,
+``H % 8 == 0``), else its XLA chain.  The Hopper kernels tile any shape, so
+the port keeps sweepm2 and megarm there.  Where the reference steps once and
+the port twice a launch (sweepm or the XLA chain against sweepm2),
+``run_fixed`` of an odd n runs n + 1 iterations here and n there, and
+``solve()`` may stop at another iteration; at equal iteration counts the
+iterates agree.
+
 Every engine but ``mega`` and ``element`` emits the six metric partial
 sums, so the stopping metric costs no extra pass; those two, as in the
 reference, carry no ``_stats`` and take the generic metric.
@@ -64,7 +77,7 @@ from pycsou_tpu_torch.ops.diff import fdiff_forward
 from pycsou_tpu_torch.utils.device import as_tensor, resolve_device
 from pycsou_tpu_torch.utils.shapes import as_shape
 
-__all__ = ["TVDeconvolution", "conv_engine", "rank1_gate"]
+__all__ = ["TVDeconvolution", "conv_engine", "masked_engine", "rank1_gate"]
 
 # each mode's CUDA engines in the order of the reference's ladder
 MODE_ENGINES = {
@@ -133,11 +146,34 @@ def conv_engine(gram, stencil: str = "auto", device_type: str = "cuda") -> str:
         )
     if stencil in RANK1_ENGINES and why is not None:
         raise ValueError(f"stencil={stencil!r} is not eligible for this PSF and shape: {why}")
-    if stencil in engines and device_type != "cuda":
+    return _on_its_device(stencil, device_type)
+
+
+def _on_its_device(stencil: str, device_type: str) -> str:
+    """``stencil``, or ``ValueError`` when it does not run on ``device_type``
+    (a CUDA engine on the CPU, ``"plain"`` on CUDA)."""
+    if stencil in _CUDA_ENGINES and device_type != "cuda":
         raise ValueError(f"stencil={stencil!r} launches CUDA kernels; the solver's device is {device_type}")
     if stencil == "plain" and device_type != "cpu":
         raise ValueError(f"stencil='plain' runs on CPU tensors only; the solver's device is {device_type}")
     return stencil
+
+
+def masked_engine(mode: str, stencil: str = "auto", device_type: str = "cuda") -> str:
+    """The engine a mask- or combined-mode :class:`TVDeconvolution` runs on a
+    device of ``device_type``: ``"auto"`` is the mode's first CUDA engine
+    (sweepm2, megarm) on CUDA for every shape (the module docstring says
+    where the reference picks otherwise) and ``"plain"`` on the CPU.  An
+    explicit engine is returned when it applies and raises ``ValueError``
+    when it does not."""
+    if stencil == "auto":
+        return MODE_ENGINES[mode][0] if device_type == "cuda" else "plain"
+    if stencil != "plain" and stencil not in MODE_ENGINES[mode]:
+        raise ValueError(
+            f"{mode} mode supports stencil 'auto', "
+            + ", ".join(repr(e) for e in MODE_ENGINES[mode]) + f" or 'plain', not {stencil!r}"
+        )
+    return _on_its_device(stencil, device_type)
 
 
 class TVDeconvolution(IterativeSolver):
@@ -228,17 +264,8 @@ class TVDeconvolution(IterativeSolver):
 
         if mode == "conv":
             stencil = conv_engine(self.gram, stencil, dev.type)
-        elif stencil == "auto":
-            stencil = MODE_ENGINES[mode][0] if dev.type == "cuda" else "plain"
-        elif stencil != "plain" and stencil not in MODE_ENGINES[mode]:
-            raise ValueError(
-                f"{mode} mode supports stencil 'auto', "
-                + ", ".join(repr(e) for e in MODE_ENGINES[mode]) + f" or 'plain', not {stencil!r}"
-            )
-        elif stencil in _CUDA_ENGINES and dev.type != "cuda":
-            raise ValueError(f"stencil={stencil!r} launches CUDA kernels; the solver's device is {dev}")
-        elif stencil == "plain" and dev.type != "cpu":
-            raise ValueError(f"stencil='plain' runs on CPU tensors only; the solver's device is {dev}")
+        else:
+            stencil = masked_engine(mode, stencil, dev.type)
         self.stencil_mode = stencil
         if stencil in ("sweepm2", "mega3"):
             self.iters_per_step = 2
@@ -256,7 +283,7 @@ class TVDeconvolution(IterativeSolver):
         if conv.method != "band":
             raise NotImplementedError(
                 "TVDeconvolution needs a PSF of rank <= 4 within 31 taps per axis; the "
-                "FFT Gram for other PSFs is not ported yet (ROADMAP Queue 1 item 5)"
+                "FFT Gram for other PSFs is not ported yet (ROADMAP Queue 1 item 2)"
             )
         return conv
 

@@ -14,6 +14,11 @@ Integer entries (``n``, ``count``) stay integers (int32, as in JAX); the
 iteration counter ``it`` is a device scalar in JAX and a Python int in the
 port.
 
+A row-sharded solver (``parallel.DistributedTVDeconv2D``) keeps ``x``,
+``z0`` and ``z1`` as tuples of per-shard tensors: :func:`state_to_numpy`
+joins each into one array, and :func:`shard_state_from_numpy` cuts the JAX
+solver's gathered arrays into the shards of a mesh.
+
 PMYULA's PRNG ``key`` has no counterpart: the port's sampler draws the
 noise of sample ``n`` from a counter-based generator keyed by ``(seed,
 n)`` and keeps no generator state.  :func:`state_from_numpy` drops the
@@ -29,7 +34,9 @@ import torch
 
 from pycsou_tpu_torch.utils.device import resolve_device
 
-__all__ = ["state_from_numpy", "state_to_numpy"]
+__all__ = ["shard_state_from_numpy", "state_from_numpy", "state_to_numpy"]
+
+_SHARDED = ("x", "z0", "z1")  # the per-shard entries of a row-sharded solver's state
 
 _DROPPED = ("key",)  # JAX-only entries (see the module docstring)
 
@@ -62,7 +69,32 @@ def state_from_numpy(state: Dict[str, Any], device) -> Dict[str, Any]:
     }
 
 
+def shard_state_from_numpy(state: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """A row-sharded solver's port state on ``mesh`` (a 1-D
+    ``parallel.Mesh``) from the JAX solver's state as numpy arrays: ``x``,
+    ``z0`` and ``z1`` cut into equal row shards on the mesh's devices, the
+    rest (``_stats``, ``metric``, the histories) on the first device."""
+    devices = mesh.devices
+    out = state_from_numpy({k: v for k, v in state.items() if k not in _SHARDED}, devices[0])
+    for k in _SHARDED:
+        a = np.asarray(state[k], np.float32)
+        if a.shape[0] % len(devices):
+            raise ValueError(f"{k}: {a.shape[0]} rows do not divide over {len(devices)} shards")
+        h = a.shape[0] // len(devices)
+        out[k] = tuple(torch.from_numpy(np.ascontiguousarray(a[i * h : (i + 1) * h])).to(d)
+                       for i, d in enumerate(devices))
+    return out
+
+
 def state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
     """Dict of numpy arrays (lists and dicts kept) from a port state; ``it``
-    as int32, the JAX package's type."""
-    return {k: np.asarray(v, dtype=np.int32) if k == "it" else _to_numpy(v) for k, v in state.items()}
+    as int32, the JAX package's type; a tuple of shards joined along its
+    rows."""
+    def one(k, v):
+        if k == "it":
+            return np.asarray(v, dtype=np.int32)
+        if isinstance(v, tuple):
+            return np.concatenate([_to_numpy(t) for t in v])
+        return _to_numpy(v)
+
+    return {k: one(k, v) for k, v in state.items()}

@@ -45,12 +45,21 @@ from pycsou_tpu_torch.kernels.tv import (
     tv_pds_sweepm_step_stats,
     tv_pds_sweepm_step_stats_plain,
 )
+from pycsou_tpu_torch.kernels.tv import (
+    tv_pds_mega2_shard_step,
+    tv_pds_mega2_shard_step_plain,
+    tv_pds_sweep_shard_step,
+    tv_pds_sweep_shard_step_plain,
+)
 from pycsou_tpu_torch.kernels.tvr import (
+    tv_pds_megar_shard_step,
+    tv_pds_megar_shard_step_plain,
     tv_pds_megar_step,
     tv_pds_megar_step_plain,
     tv_pds_megarm_step,
     tv_pds_megarm_step_plain,
 )
+from pycsou_tpu_torch.parallel import DistributedTVDeconv2D, halo_extend, halos, make_mesh
 from pycsou_tpu_torch.ops import Convolve2D, DownSampling, Gradient, Masking, SubSampling
 from pycsou_tpu_torch.ops.conv import lowrank_factors
 from pycsou_tpu_torch.opt import APGD, PDS, PMYULA, TVDeconvolution
@@ -508,3 +517,94 @@ def test_entry_points_default_to_the_card(cuda):
             H=0.05 * L21Norm((2, 96, 128), axis=0), K=Gradient((96, 128)), max_iter=100)
     assert p._fused.mode == "conv" and p._fused.stencil_mode == "mega3"
     assert p.run_fixed(4)["x"].device.type == "cuda"
+
+
+# -- the row-shard kernels (K14-K16) and DistributedTVDeconv2D -------------------
+
+
+@pytest.mark.parametrize("P", [1, 2, 4])
+@pytest.mark.parametrize("shape,K0,K1", [((128, 130), 15, 15), ((256, 96), 9, 4), ((96, 33), 5, 5)])
+def test_shard_kernels_match_plain(cuda, rng, P, shape, K0, K1):
+    """K14 (rank 1), K15 (rank 2) and K16 on every shard of P on one card,
+    halos from the exchange, against their plain versions; each launches
+    once a shard."""
+    H, W = shape
+    h = H // P
+    t = lambda arr: torch.from_numpy(arr.astype(np.float32)).to(cuda)  # noqa: E731
+    x, atb, g = t(np.abs(rng.standard_normal(shape))), t(rng.standard_normal(shape)), t(rng.standard_normal(shape))
+    z0, z1 = t(0.01 * rng.standard_normal(shape)), t(0.01 * rng.standard_normal(shape))
+    xs, as_, gs, z0s, z1s = ([v[i * h : (i + 1) * h] for i in range(P)] for v in (x, atb, g, z0, z1))
+    kw = dict(KW, H_global=H)
+    gram = Convolve2D(shape, _rank1_psf(K0, K1), device=cuda).gram
+    f = Convolve2D(shape, _psf(rng, 2, K0, K1), device=cuda).fwd
+    a2 = f.adjoint(2.0)
+    counters = (tv_pds_mega2_shard_step, tv_pds_megar_shard_step, tv_pds_sweep_shard_step)
+    before = [c.launches for c in counters]
+    for R in (1, 3):
+        for i, hl in enumerate(halos((xs, gs, z0s, z1s), R)):
+            _assert_step_close(tv_pds_sweep_shard_step(xs[i], gs[i], z0s[i], z1s[i], hl, i * h - R, **kw),
+                               tv_pds_sweep_shard_step_plain(xs[i], gs[i], z0s[i], z1s[i], hl, i * h - R, **kw), 2e-6)
+    R = max(K0, K1)  # K14 reads the padded reach + 1 <= 16 rows, K15 K0 rows
+    R1 = {1: 1, 5: 5, 9: 9, 15: 16}[max(K0, K1)]
+    ext, ext1 = halo_extend(as_, R), halo_extend(as_, R1)
+    for i, (hl, hl1) in enumerate(zip(halos((xs, z0s, z1s), R), halos((xs, z0s, z1s), R1))):
+        c = (xs[i], z0s[i], z1s[i])
+        _assert_step_close(tv_pds_megar_shard_step(*c, ext[i], hl, f, a2, i * h - R, **kw),
+                           tv_pds_megar_shard_step_plain(*c, ext[i], hl, f, a2, i * h - R, **kw), 2e-6)
+        _assert_step_close(tv_pds_mega2_shard_step(*c, ext1[i], hl1, gram, i * h - R1, **kw),
+                           tv_pds_mega2_shard_step_plain(*c, ext1[i], hl1, gram, i * h - R1, **kw), 2e-6)
+    assert [c.launches - b for c, b in zip(counters, before)] == [P, P, 2 * P]
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("shape", [(48, 50), (256, 384), (100, 130)])
+def test_one_shard_mesh_is_the_single_device_kernel(cuda, rng, shape):
+    """K14, K15 and K16 on one shard (the whole image, zero halos) equal
+    K11, K4 and K3."""
+    H, W = shape
+    t = lambda arr: torch.from_numpy(arr.astype(np.float32)).to(cuda)  # noqa: E731
+    x, atb, g = t(np.abs(rng.standard_normal(shape))), t(rng.standard_normal(shape)), t(rng.standard_normal(shape))
+    z0, z1 = t(0.01 * rng.standard_normal(shape)), t(0.01 * rng.standard_normal(shape))
+    gram = Convolve2D(shape, _rank1_psf(15, 15), device=cuda).gram
+    f = Convolve2D(shape, _psf(rng, 2, 15, 15), device=cuda).fwd
+    a2 = f.adjoint(2.0)
+    zeros = lambda R, n: tuple(torch.zeros((R, W), device=cuda) for _ in range(n))  # noqa: E731
+    pad = lambda a, R: torch.cat([a.new_zeros((R, W)), a, a.new_zeros((R, W))])  # noqa: E731
+    kw = dict(KW, H_global=H)
+    pairs = [
+        (tv_pds_mega2_shard_step(x, z0, z1, pad(atb, 16), zeros(16, 6), gram, -16, **kw),
+         tv_pds_mega2_step(x, z0, z1, atb, gram, **KW)),
+        (tv_pds_megar_shard_step(x, z0, z1, pad(atb, 32), zeros(32, 6), f, a2, -32, **kw),
+         tv_pds_megar_step(x, z0, z1, atb, f, a2, **KW)),
+        (tv_pds_sweep_shard_step(x, g, z0, z1, zeros(1, 8), -1, **kw), tv_pds_sweep_step_stats(x, z0, z1, g, **KW)),
+    ]
+    for got, want in pairs:
+        _assert_step_close(got, want, 2e-6)
+
+
+@pytest.mark.parametrize("engine,single", [("megasp", "mega2"), ("megarsp", "megar"), ("sweepsp", "sweepm")])
+def test_distributed_on_one_card(cuda, rng, engine, single):
+    """DistributedTVDeconv2D on four shards of one card: the engine, its
+    kernel four times an iteration (K1 four times for A^H y in conv mode,
+    nothing else), and the single-device engine's iterates after 6
+    iterations."""
+    S, P = (512, 384), 4
+    y = torch.from_numpy(np.abs(rng.standard_normal(S)).astype(np.float32)).to(cuda)
+    filt = {"megasp": _gauss(), "megarsp": _psf(rng, 2, 9, 9), "sweepsp": None}[engine]
+    mask = torch.from_numpy((rng.random(S) < 0.7).astype(np.float32)).to(cuda) if engine == "sweepsp" else None
+    kernel = {"megasp": tv_pds_mega2_shard_step, "megarsp": tv_pds_megar_shard_step,
+              "sweepsp": tv_pds_sweep_shard_step}[engine]
+    counters = [sepconv2d, tv_pds_mega2_shard_step, tv_pds_megar_shard_step, tv_pds_sweep_shard_step,
+                tv_pds_mega2_step, tv_pds_megar_step, tv_pds_sweep_step_stats]
+    before = [c.launches for c in counters]
+    s = DistributedTVDeconv2D(S, filt, y, 0.05, mesh=make_mesh((P,), devices=[cuda] * P), mask=mask, max_iter=100)
+    st = s.run_fixed(6)
+    want = {kernel: 6 * P, sepconv2d: 0 if mask is not None else P}
+    assert s._sp_engine == engine
+    assert [c.launches - b for c, b in zip(counters, before)] == [want.get(c, 0) for c in counters]
+    ref = TVDeconvolution(S, y, 0.05, filt=filt, mask=mask, stencil=single, tau=s.tau, sigma=s.sigma,
+                          max_iter=100).run_fixed(6)
+    out = s.postprocess(st)
+    for k in ("x", "z0", "z1"):
+        _close(out[k], ref[k], rel=1e-4)
+    assert out["x"].device.type == "cuda" and out["x"].shape == S

@@ -283,7 +283,7 @@ def test_match_lasso_as_the_reference(rng, kind):
 
 def test_full_rank_psf_runs_generic_and_says_why(rng, caplog):
     """A full-rank PSF: the reference fuses it onto its FFT-Gram engine,
-    which the port lacks (ROADMAP Queue 1 item 5); the port's APGD runs the
+    which the port lacks (ROADMAP Queue 1 item 2); the port's APGD runs the
     generic chain, logs why, and gives the reference's iterates."""
     shape = (24, 32)
     hf = np.random.default_rng(0).random((5, 5)).astype(np.float32)

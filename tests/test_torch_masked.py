@@ -42,6 +42,7 @@ from pycsou_tpu_torch.kernels.tv import (
     tv_pds_sweepm_step_stats_plain,
 )
 from pycsou_tpu_torch.kernels.tvr import tv_pds_megar_step, tv_pds_megarm_step, tv_pds_megarm_step_plain
+from pycsou_tpu_torch.opt.tv import masked_engine
 from pycsou_tpu_torch.utils.convert import state_from_numpy
 from pycsou_tpu_torch.utils.device import set_default_device
 
@@ -407,3 +408,54 @@ def test_double_step_solve_matches_reference(rng, monkeypatch):
     assert ti.converged_at == ji.n_iter and ti.converged_at % 2 == 0
     assert ti.n_iter % 16 == 0 and ti.converged_at <= ti.n_iter < ti.converged_at + 16
     np.testing.assert_allclose(ti.history[: ji.n_iter], np.asarray(ji.history), rtol=1e-3)
+
+
+# -- the mask and combined modes' engine pick --------------------------------
+
+_PICK_SHAPES = {
+    "mask": [(64, 384), (96, 200), (40, 64), (64, 8192), (32, 384), (100, 384), (24, 30000)],
+    "combined": [(64, 384), (96, 512), (64, 200), (100, 384), (40, 384)],
+}
+
+
+def _reference_tiles_ok(mode, shape):
+    """The reference's TPU tile gates for sweepm2 (an 8-, 16- or 32-row tile
+    within the Mosaic budget, at least two tiles) and megarm (its megar
+    plan: W % 128, W >= 384, H % 8, a 16- or 32-row tile), ``pycsou_tpu/
+    opt/tv.py:314-373``."""
+    H, W = shape
+    if mode == "mask":
+        r = next((r for r in (32, 16, 8) if H % r == 0 and r * W * 4 <= 820_000), 0)
+        return r != 0 and H // r >= 2
+    return (W % 128 == 0 and W >= 384 and H % 8 == 0
+            and any(H % r == 0 and (r + 8) * W * 4 <= 820_000 for r in (32, 16)))
+
+
+@pytest.mark.parametrize("mode", ["mask", "combined"])
+def test_masked_pick_matches_reference_pick(mode):
+    """The port's CUDA ``"auto"`` in mask and combined modes against the JAX
+    solver's pick (``use_pallas=True`` on the CPU selects without
+    launching): equal where the reference's tile gates pass; elsewhere the
+    reference falls back to sweepm or its XLA chain and the port keeps
+    sweepm2 and megarm (the difference ``opt/tv.py``'s docstring states)."""
+    port = masked_engine(mode, "auto", "cuda")
+    assert port == {"mask": "sweepm2", "combined": "megarm"}[mode]
+    assert masked_engine(mode, "auto", "cpu") == "plain"
+    for shape in _PICK_SHAPES[mode]:
+        y = np.zeros(shape, np.float32)
+        m = np.ones(shape, np.float32)
+        filt = _gauss() if mode == "combined" else None
+        ref = jopt.TVDeconvolution(shape, jnp.asarray(y), LAM, filt=filt, mask=jnp.asarray(m),
+                                   use_pallas=True).stencil_mode
+        if _reference_tiles_ok(mode, shape):
+            assert ref == port, (shape, ref)
+        else:
+            assert ref in (("sweepm", "xla") if mode == "mask" else ("xla",)), (shape, ref)
+    # the solver takes the same pick
+    t = topt.TVDeconvolution(S, np.zeros(S, np.float32), LAM, mask=np.ones(S, np.float32),
+                             filt=_gauss() if mode == "combined" else None, device="cpu")
+    assert t.stencil_mode == "plain" and t.mode == mode
+    with pytest.raises(ValueError, match="launches CUDA kernels"):
+        masked_engine(mode, port, "cpu")
+    with pytest.raises(ValueError, match=f"{mode} mode supports"):
+        masked_engine(mode, "mega3", "cuda")
