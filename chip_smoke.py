@@ -65,23 +65,41 @@
    iteration); each must recover a piecewise-constant image better than its
    observation and agree after 6 iterations with ``TVDeconvolution`` on
    mega2, megar and sweepm given the same tau and sigma.
-8. The slope-timed iterations/s of the main path, of the inpainting,
+8. Drives ``Spatial2DTVDeconv2D`` on a 2-D ``(sp0, sp1)`` mesh of one
+   card.  First K17 (megar on a block of a 2-D mesh) on blocks (0, 0),
+   (0, 2), (2, 2) and (3, 3) of a (4, 4) mesh and on the four blocks of a
+   (2, 2) mesh of a 4096 x 4096 state, halos from the exchange, with both
+   PSFs, against its plain version (times per block launch, each bound from
+   the block's own streams), and on a one-block mesh (zero halos) against
+   K4; K18 (``sepgram_apply``, ``A^H A x``) at 4096 x 4096 on both PSFs
+   against its plain version and K2 without ``atb``.  Then the path at
+   4096 x 4096 on the (2, 2) mesh of four 2048 x 2048 blocks, the Gaussian
+   and the rank-2 PSF, each built and run for 100 iterations with the
+   counters zeroed (K1 four times for the blocks' ``A^H y``, K17 four
+   times an iteration, nothing else), each recovering a piecewise-constant
+   image better than its observation and agreeing after 6 iterations with
+   ``TVDeconvolution[megar]`` given the same tau and sigma; a (4, 1) mesh
+   (the row-shard kernel K15) and a (1, 4) mesh (K17 with zero row halos),
+   each counted and held to megar after 6 iterations.
+9. The slope-timed iterations/s of the main path, of the inpainting,
    blurred super-resolution, denoising and LASSO paths, of the megar,
-   mega3, mega2, mega and element engines and of the three sharded paths
-   at 4096 x 4096, the device-idle share of sharded megasp from a
-   ``torch.profiler`` trace, the PMYULA samples/s, and the main path's
+   mega3, mega2, mega and element engines, of the three sharded paths and
+   of the two 2-D mesh paths at 4096 x 4096, the device-idle share of
+   sharded megasp and of the 2-D mesh path (Gaussian PSF) from
+   ``torch.profiler`` traces, the PMYULA samples/s, and the main path's
    ``solve()`` time to a 1e-6 relative improvement.
 
 Any failure exits non-zero.  On success the last two lines are a JSON
 object with the per-kernel results and the device line
 ``{"ok": true, "device": {...}}``.  In the results, ``kernels`` holds
-K1-K16, each with the launches of the run named in ``run``, counted with
+K1-K18, each with the launches of the run named in ``run``, counted with
 every counter zeroed just before that run (``RUN_OF``: the README's path
 for K1 and the ladder's engine, inpainting for K6, blurred
 super-resolution for K7, the LASSO path for K8, the PMYULA path for K9,
-the sharded paths for K14-K16, and for the kernels no fused main path
-runs, the run that goes through each), its ``bound_ms`` and ``bound_by``,
-and ``library_ms`` (K1's
+the sharded paths for K14-K16, the 2-D mesh path for K17, the direct
+``sepgram_apply`` calls for K18, which no path of the package calls, and
+for the kernels no fused main path runs, the run that goes through each),
+its ``bound_ms`` and ``bound_by``, and ``library_ms`` (K1's
 ``F.conv2d``; null where no one PyTorch call computes the kernel's
 function).  Without CUDA it exits 2 and prints no result.
 """
@@ -124,6 +142,8 @@ KERNELS = {
     "K14": ("tv_pds_mega2_shard_step", "pycsou_tpu_torch/csrc/tvr1.cu", "pycsou_tpu/kernels/tv.py:1417"),
     "K15": ("tv_pds_megar_shard_step", "pycsou_tpu_torch/csrc/tvr.cu", "pycsou_tpu/kernels/tvr.py:378"),
     "K16": ("tv_pds_sweep_shard_step", "pycsou_tpu_torch/csrc/tv.cu", "pycsou_tpu/kernels/tv.py:670"),
+    "K17": ("tv_pds_megar_shard2d_step", "pycsou_tpu_torch/csrc/tvr.cu", "pycsou_tpu/kernels/tvr.py:411"),
+    "K18": ("sepgram_apply", "pycsou_tpu_torch/csrc/conv2d.cu", "pycsou_tpu/kernels/sepgram.py:140"),
 }
 # the conv-mode engines -> the kernel each launches once per step (element
 # also launches K2 for its gradient)
@@ -140,7 +160,8 @@ RUN_OF = {"K1": "main path", "K2": "PDS fuse=False", "K3": "TVDeconvolution sten
           "K6": "inpainting", "K7": "blurred super-resolution", "K8": "LASSO", "K9": "PMYULA",
           "K10": "TVDeconvolution stencil='mega3'", "K11": "TVDeconvolution stencil='mega2'",
           "K12": "TVDeconvolution stencil='mega'", "K13": "TVDeconvolution stencil='element'",
-          "K14": "sharded megasp", "K15": "sharded megarsp", "K16": "sharded sweepsp"}
+          "K14": "sharded megasp", "K15": "sharded megarsp", "K16": "sharded sweepsp",
+          "K17": "2-D mesh megar2d (gauss)", "K18": "sepgram_apply"}
 # the least time of a kernel's work on an H100 SXM (NVIDIA's data sheet):
 # its image streams over the memory rate, or its float32 operations over
 # the float32 rate outside the tensor cores, whichever is larger
@@ -149,6 +170,7 @@ PEAK_F32_PER_S = 67e12
 STENCIL_FLOPS = 40  # float32 operations of one stencil update per pixel (pds_stencil.cuh)
 SHAPE_MCMC = (2048, 2048)  # bench.py sec_mcmc
 SHARDS = 4  # the sharded paths' mesh: four row shards on one card
+MESH2D = (2, 2)  # the 2-D mesh path's (sp0, sp1) mesh: four blocks on one card
 LAM_L1 = 0.01  # bench.py sec_lasso and sec_mcmc
 
 
@@ -240,6 +262,18 @@ def shard_rows(h, reach):
     below, z0 over the core and a row either side, the three outputs over
     the core."""
     return (h + 2 * reach + 1) + (h + 1) + (h + 2) + (h + 1) + 3 * h
+
+
+def block_elems(h, w, reach_r, reach_c):
+    """Floats a 2-D mesh block kernel must move for an (h, w) core when its
+    data gradient reaches ``reach_r`` rows and ``reach_c`` columns each
+    side: x over the core grown by the reach (one more below and right, the
+    stencil reads the gradient there), atb over the core and the row and
+    column after it, z0 over a row either side and the column after, z1
+    over a column either side and the row after, the three outputs over the
+    core."""
+    return ((h + 2 * reach_r + 1) * (w + 2 * reach_c + 1) + (h + 1) * (w + 1) + (h + 2) * (w + 1)
+            + (h + 1) * (w + 2) + 3 * h * w)
 
 
 def max_err(got, want):
@@ -1004,6 +1038,191 @@ def phase_sharded_paths(dev, rng, counters):
     return runs, solvers
 
 
+def phase_block_kernels(dev, rng, res):
+    """K17 on four blocks of a (4, 4) mesh and on the four blocks of the
+    path's (2, 2) mesh of a 4096^2 state, halos from the exchange, with
+    both PSFs, against its plain version; on a one-block mesh (zero halos)
+    against K4.  K18 at 4096^2 on both PSFs against its plain version and
+    K2 without atb."""
+    from pycsou_tpu_torch.kernels.conv2d import SepFactors, sepgram2d
+    from pycsou_tpu_torch.kernels.sepgram import sepgram_apply, sepgram_apply_plain
+    from pycsou_tpu_torch.kernels.tvr import (
+        HALO_COLS, tv_pds_megar_shard2d_step, tv_pds_megar_shard2d_step_plain, tv_pds_megar_step,
+    )
+    from pycsou_tpu_torch.ops.conv import lowrank_factors
+    from pycsou_tpu_torch.parallel import halo_extend_2d, halos_2d, lane_extend
+
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    x = t(np.abs(rng.standard_normal(SHAPE)))
+    atb = t(rng.standard_normal(SHAPE))
+    z0, z1 = t(0.01 * rng.standard_normal(SHAPE)), t(0.01 * rng.standard_normal(SHAPE))
+    H, W = SHAPE
+    C, R = HALO_COLS, 32
+    kw = dict(tau=0.3, sigma=0.3, rho=0.9, lam=LAM, nonneg=True, iso=True)
+    kw2 = dict(kw, H_global=H, W_global=W)
+
+    def grid(a, n0, n1):
+        h, w = H // n0, W // n1
+        return tuple(tuple(a[i * h : (i + 1) * h, j * w : (j + 1) * w].contiguous() for j in range(n1))
+                     for i in range(n0))
+
+    def check(label, got, want):
+        for i, (a, b) in enumerate(zip(got, want)):
+            if i == 3:
+                rel = float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+                if rel > TOL_STATS:
+                    raise AssertionError(f"K17 {label} stats rel err {rel:.3e} > {TOL_STATS}")
+                continue
+            ab, rel = max_err(a, b)
+            res["K17"]["max_abs_err"] = max(res["K17"]["max_abs_err"], ab)
+            res["K17"]["max_rel_err"] = max(res["K17"]["max_rel_err"], rel)
+            if rel > TOL_REL:
+                raise AssertionError(f"K17 {label} output {i}: err {ab:.3e} (rel {rel:.3e}) > {TOL_REL}")
+
+    res["K17"].update({"block_ms": {}, "block_plain_ms": {}})
+    k18_taps = []
+    for psf, hk in (("gauss", gaussian_kernel()), ("rank2", rank2_kernel())):
+        us, vs = lowrank_factors(hk)
+        f = SepFactors(us, vs, hk.shape[0] // 2, hk.shape[1] // 2, dev)
+        a2 = f.adjoint(2.0)
+        for (n0, n1), blocks in (((4, 4), ((0, 0), (0, 2), (2, 2), (3, 3))),
+                                 (MESH2D, tuple((i, j) for i in range(MESH2D[0]) for j in range(MESH2D[1])))):
+            h, w = H // n0, W // n1
+            ext = [lane_extend(grid(a, n0, n1), C) for a in (x, z0, z1)]
+            hl, aext = halos_2d(ext, R), halo_extend_2d(grid(atb, n0, n1), R, C)
+            times = []
+            for i, j in blocks:
+                args = (ext[0][i][j], ext[1][i][j], ext[2][i][j], aext[i][j], hl[i][j], f, a2, (i * h - R, j * w - C))
+                label = f"{psf} ({n0}, {n1}) block ({i}, {j})"
+                check(label, tv_pds_megar_shard2d_step(*args, **kw2), tv_pds_megar_shard2d_step_plain(*args, **kw2))
+                ms = median_ms(lambda: tv_pds_megar_shard2d_step(*args, **kw2))
+                pms = median_ms(lambda: tv_pds_megar_shard2d_step_plain(*args, **kw2))
+                res["K17"]["block_ms"][label], res["K17"]["block_plain_ms"][label] = ms, pms
+                times.append((ms, pms))
+                log(f"  K17 {label} ({h} x {w}, {R} halo rows, {C} halo columns): max abs err "
+                    f"{res['K17']['max_abs_err']:.3e} (rel {res['K17']['max_rel_err']:.3e}, tol {TOL_REL:g}); "
+                    f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+            del ext, hl, aext
+        # the times on the path's blocks: the median of its four blocks
+        key = "" if psf == "gauss" else "rank2_"
+        res["K17"][key + "ms"] = statistics.median(m for m, _ in times)
+        res["K17"][key + "plain_ms"] = statistics.median(p for _, p in times)
+        taps = f.rank * (f.Ku + f.Kv)
+        h, w = H // MESH2D[0], W // MESH2D[1]
+        b = bound(1, (4 * taps + STENCIL_FLOPS) * h * w, shape=(block_elems(h, w, f.Ku - 1, f.Kv - 1), 1))
+        res["K17"][key + "bound"] = b
+        log(f"  K17 {psf} bound {b[0]:.4f} ms by {b[1]} (a {h} x {w} block)")
+
+        # a one-block mesh: the whole image, zero halos, is K4
+        if psf == "gauss":
+            cpad = lambda a: torch.cat([a.new_zeros((a.shape[0], C)), a, a.new_zeros((a.shape[0], C))], 1)  # noqa: E731
+            xe, z0e, z1e = cpad(x), cpad(z0), cpad(z1)
+            ae = torch.cat([atb.new_zeros((R, W + 2 * C)), cpad(atb), atb.new_zeros((R, W + 2 * C))])
+            zr = tuple(torch.zeros((R, W + 2 * C), device=dev) for _ in range(6))
+            got = tv_pds_megar_shard2d_step(xe, z0e, z1e, ae, zr, f, a2, (-R, -C), **kw2)
+            want = tv_pds_megar_step(x, z0, z1, atb, f, a2, **kw)
+            errs = [max_err(a, b) for a, b in zip(got[:3], want[:3])]
+            res["K17"]["one_block_max_abs_err"] = max(e[0] for e in errs)
+            srel = float(((got[3] - want[3]).abs() / want[3].abs().clamp(min=1e-30)).max())
+            log(f"  K17 on a one-block mesh against K4: max abs err {res['K17']['one_block_max_abs_err']:.3e}, "
+                f"stats rel err {srel:.3e}")
+            if max(e[1] for e in errs) > TOL_REL or srel > TOL_STATS:
+                raise AssertionError("K17 on a one-block mesh disagrees with K4")
+            del xe, z0e, z1e, ae, got, want
+
+        # K18: A^H A x, against its plain version and K2 without atb
+        ut, vt = tuple(map(tuple, us.T)), tuple(map(tuple, vs.T))
+        k18_taps.append((ut, vt))
+        g = sepgram_apply(x, ut, vt)
+        ab, rel = max_err(g, sepgram_apply_plain(x, ut, vt))
+        kab, krel = max_err(g, sepgram2d(x, f, f.adjoint()))
+        res["K18"]["max_abs_err"] = max(res["K18"]["max_abs_err"], ab)
+        res["K18"]["max_rel_err"] = max(res["K18"]["max_rel_err"], rel)
+        res["K18"][key + "k2_max_abs_err"] = kab
+        if rel > TOL_REL or krel > TOL_REL:
+            raise AssertionError(f"K18 {psf}: rel err {rel:.3e} to its plain version, {krel:.3e} to K2")
+        ms = median_ms(lambda: sepgram_apply(x, ut, vt))
+        pms = median_ms(lambda: sepgram_apply_plain(x, ut, vt))
+        res["K18"][key + "ms"], res["K18"][key + "plain_ms"] = ms, pms
+        if psf == "gauss":
+            res["K18"]["bound"] = bound(2, 4 * taps * H * W)
+        log(f"  K18 sepgram_apply {psf:<6} max abs err {ab:.3e} (rel {rel:.3e}, tol {TOL_REL:g}), to K2 {kab:.3e}; "
+            f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
+    torch.cuda.synchronize()
+    for k in ("K17", "K18"):
+        log(f"  {k} bound {res[k]['bound'][0]:.4f} ms by {res[k]['bound'][1]}")
+    # K18's run: no path of the package calls it, so its launches are
+    # counted on direct calls, one per PSF
+    return lambda: [sepgram_apply(x, ut, vt) for ut, vt in k18_taps]
+
+
+def phase_spatial2d_paths(dev, rng, counters):
+    """Spatial2DTVDeconv2D at 4096^2 on the (2, 2) mesh of one card, the
+    Gaussian and the rank-2 PSF, each built and run on its own with the
+    counters zeroed, its recovery of a piecewise-constant image, and each
+    against TVDeconvolution[megar] after 6 iterations; then a (4, 1) mesh
+    (the row-shard kernel K15) and a (1, 4) mesh (K17 with zero row halos),
+    each built and run for 6 iterations with the counters zeroed and held
+    to megar."""
+    from scipy.signal import fftconvolve
+
+    from pycsou_tpu_torch.opt import TVDeconvolution
+    from pycsou_tpu_torch.parallel import Spatial2DTVDeconv2D, make_mesh
+
+    def mesh(shape):
+        return make_mesh(shape, ("sp0", "sp1"), devices=[dev] * (shape[0] * shape[1]))
+
+    xb = blocks_image(rng, SHAPE)
+    x_true = torch.from_numpy(xb).to(dev)
+    n_blocks = MESH2D[0] * MESH2D[1]
+    runs, solvers = {}, {}
+
+    def agree(name, got, ref):
+        errs = {k: max_err(got[k], ref[k])[0] for k in ("x", "z0", "z1")}
+        scale = max(1.0, float(ref["x"].abs().max()))
+        log(f"{name} against TVDeconvolution[megar] after {ref['it']} iterations: "
+            + ", ".join(f"max |d{k}| {e:.3e}" for k, e in errs.items()) + f" (tol {TOL_PATH:g} x {scale:.3f})")
+        if any(e > TOL_PATH * scale for e in errs.values()):
+            raise AssertionError(f"{name} disagrees with TVDeconvolution[megar]")
+
+    n = 6
+    for psf, hk in (("gauss", gaussian_kernel()), ("rank2", rank2_kernel())):
+        name = f"2-D mesh megar2d ({psf})"
+        y = torch.from_numpy((fftconvolve(xb, hk, mode="same") + 0.01 * rng.standard_normal(SHAPE))
+                             .astype(np.float32)).to(dev)
+
+        def build(shape=MESH2D):
+            return Spatial2DTVDeconv2D(SHAPE, hk, y, LAM, mesh=mesh(shape), max_iter=3000)
+
+        (solver, st), counts = count_launches(counters, built_and_run(build))
+        if solver._sp_engine != "megar2d":
+            raise AssertionError(f"{name}: Spatial2DTVDeconv2D picked {solver._sp_engine!r}")
+        log(f"{name}: Spatial2DTVDeconv2D[megar2d] on a {MESH2D} mesh of {SHAPE[0] // MESH2D[0]} x "
+            f"{SHAPE[1] // MESH2D[1]} blocks on {dev} built and run for {st['it']} iterations; launches {counts}")
+        expect_launches(name, counts, {"K1": n_blocks, "K17": n_blocks * ITERS})
+        err, obs = recovery({"x": solver._gather(st["x"])}, x_true, y)
+        log(f"{name}: ||x - x_true|| = {err:.4f} < ||observation - x_true|| = {obs:.4f}: {err < obs} "
+            f"(ratio {err / obs:.6f})")
+        if not err < obs:
+            raise AssertionError(f"{name}: the recovery is no better than the observation")
+        ref = TVDeconvolution(SHAPE, y, LAM, filt=hk, stencil="megar", tau=solver.tau, sigma=solver.sigma,
+                              max_iter=3000).run_fixed(n)
+        agree(name, solver.postprocess(solver.run_fixed(n)), ref)
+        runs[name], solvers[name] = counts, solver
+        if psf == "gauss":
+            continue
+        # the columns not cut (K15 on row blocks), the rows not cut (K17 with
+        # zero row halos): 6 iterations each, counted on their own
+        for shape, k in (((n_blocks, 1), "K15"), ((1, n_blocks), "K17")):
+            sub = f"2-D mesh megar2d ({psf}) on a {shape} mesh"
+            (other, st), counts = count_launches(counters, built_and_run(lambda: build(shape), n))
+            log(f"{sub}: built and run for {st['it']} iterations; launches {counts}")
+            expect_launches(sub, counts, {"K1": n_blocks, k: n_blocks * n})
+            agree(sub, other.postprocess(st), ref)
+            runs[sub] = counts
+    return runs, solvers
+
+
 def device_ms_per_iteration(solver, n=20):
     """Device time an iteration in a ``torch.profiler`` trace of ``n``
     iterations: the summed durations of the CUDA events (kernels, copies,
@@ -1051,7 +1270,7 @@ def main():
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     dev = torch.device("cuda", 0)
 
-    from pycsou_tpu_torch.kernels import _build, conv2d, fista, langevin, tv, tvr
+    from pycsou_tpu_torch.kernels import _build, conv2d, fista, langevin, sepgram, tv, tvr
 
     t0 = time.perf_counter()
     _build.library()
@@ -1061,13 +1280,19 @@ def main():
                 tv.tv_pds_sweepm_step_stats, tv.tv_pds_sweepm2_step, tvr.tv_pds_megarm_step,
                 fista.lasso_fista_step, langevin.pmyula_mega_step, tv.tv_pds_mega3_step,
                 tv.tv_pds_mega2_step, tv.tv_pds_mega_step, tv.tv_pds_stencil_step,
-                tv.tv_pds_mega2_shard_step, tvr.tv_pds_megar_shard_step, tv.tv_pds_sweep_shard_step]
+                tv.tv_pds_mega2_shard_step, tvr.tv_pds_megar_shard_step, tv.tv_pds_sweep_shard_step,
+                tvr.tv_pds_megar_shard2d_step, sepgram.sepgram_apply]
 
     rng = np.random.default_rng(SEED)
     log(f"-- kernels against their plain versions at {SHAPE[0]} x {SHAPE[1]}")
     res, copy_ms = phase_kernels(dev, rng)
     log(f"-- shard kernels on {SHARDS} row shards of {SHAPE[0]} x {SHAPE[1]}")
     phase_shard_kernels(dev, rng, res)
+    log(f"-- block kernel on 2-D meshes of {SHAPE[0]} x {SHAPE[1]}, and sepgram_apply")
+    k18_run = phase_block_kernels(dev, rng, res)
+    _, runs_k18 = count_launches(counters, k18_run)
+    log(f"sepgram_apply called directly on both PSFs; launches {runs_k18}")
+    expect_launches("sepgram_apply", runs_k18, {"K18": 2})
     log("-- main path and the conv-mode engines")
     pds, runs, tv_solvers = phase_main_path(dev, rng, counters)
     log("-- masked paths")
@@ -1080,6 +1305,10 @@ def main():
     log(f"-- sharded paths: DistributedTVDeconv2D on {SHARDS} row shards on one card")
     sharded_runs, sharded = phase_sharded_paths(dev, rng, counters)
     runs.update(sharded_runs)
+    log(f"-- 2-D mesh path: Spatial2DTVDeconv2D on a {MESH2D} mesh on one card")
+    mesh_runs, meshed = phase_spatial2d_paths(dev, rng, counters)
+    runs.update(mesh_runs)
+    runs["sepgram_apply"] = runs_k18
 
     log(f"-- throughput ({smi})")
     solvers.update({"main path": pds, "LASSO": apgd})
@@ -1097,6 +1326,10 @@ def main():
         ips[name] = v = time_solver(solver)
         log(f"{name} DistributedTVDeconv2D[{solver._sp_engine}] at {SHAPE[0]}^2 on {SHARDS} shards slope-timed: "
             f"{v:.1f} iters/s ({1e3 / v:.4f} ms/iteration)")
+    for name, solver in meshed.items():
+        ips[name] = v = time_solver(solver)
+        log(f"{name} Spatial2DTVDeconv2D at {SHAPE[0]}^2 on a {MESH2D} mesh slope-timed: {v:.1f} iters/s "
+            f"({1e3 / v:.4f} ms/iteration)")
     sps = time_solver(sampler)
     log(f"PMYULA[{sampler.engine}] at {SHAPE_MCMC[0]}^2 slope-timed: {sps:.1f} samples/s "
         f"({1e3 / sps:.4f} ms/sample)")
@@ -1114,6 +1347,11 @@ def main():
     idle = None if busy is None else 1.0 - busy * ips["sharded megasp"] / 1e3
     log(f"sharded megasp: device time {busy} ms an iteration in a torch.profiler trace, "
         f"device idle share {idle} (not measured when None)")
+    name2d = "2-D mesh megar2d (gauss)"
+    busy2d = device_ms_per_iteration(meshed[name2d])
+    idle2d = None if busy2d is None else 1.0 - busy2d * ips[name2d] / 1e3
+    log(f"{name2d}: device time {busy2d} ms an iteration in a torch.profiler trace, "
+        f"device idle share {idle2d} (not measured when None)")
 
     def entry(k, run):
         name, source, replaces = KERNELS[k]
@@ -1128,16 +1366,21 @@ def main():
         for extra in ("rank2", "stream", "identity"):
             if f"{extra}_ms" in r:
                 out[f"{extra}_ms"], out[f"{extra}_plain_ms"] = r[f"{extra}_ms"], r[f"{extra}_plain_ms"]
-        for extra in ("rank2_library_ms", "w_pass_ms", "one_shard_max_abs_err", "shard_ms", "shard_plain_ms"):
+        if "rank2_bound" in r:
+            out["rank2_bound_ms"] = r["rank2_bound"][0]
+        for extra in ("rank2_library_ms", "w_pass_ms", "one_shard_max_abs_err", "shard_ms", "shard_plain_ms",
+                      "one_block_max_abs_err", "block_ms", "block_plain_ms", "k2_max_abs_err",
+                      "rank2_k2_max_abs_err"):
             if extra in r:
                 out[extra] = r[extra]
         return out
 
-    # "kernels": K1-K16, each with the launches of the run named in RUN_OF
+    # "kernels": K1-K18, each with the launches of the run named in RUN_OF
     print(json.dumps({
         "kernels": [entry(k, run) for k, run in RUN_OF.items()],
         "copy_ms": copy_ms, "iters_per_s": ips, "pmyula_samples_per_s": sps,
-        "time_to_1e6_s": info.elapsed, "sharded_megasp_device_idle_share": idle, "card": smi,
+        "time_to_1e6_s": info.elapsed, "sharded_megasp_device_idle_share": idle,
+        "mesh2d_gauss_device_idle_share": idle2d, "card": smi,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

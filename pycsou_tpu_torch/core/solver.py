@@ -9,9 +9,10 @@ reads them once per chunk of iterations (``solve``) or never
 the metric first fell to ``tol``: up to ``chunk - 1`` iterations past that
 point (``SolveInfo.converged_at`` records the iteration itself).
 
-An iterand is a tensor, or for a row-sharded solver
-(``parallel.solvers``) a tuple of per-shard tensors; the metric, the
-histories and the counters live on the first shard's device.
+An iterand is a tensor, or for a sharded solver (``parallel.solvers``) a
+tuple of per-shard tensors (a 2-D mesh: a tuple of row tuples of blocks);
+the metric, the histories and the counters live on the first shard's
+device.
 """
 from __future__ import annotations
 
@@ -179,7 +180,9 @@ class IterativeSolver(Module):
     # -- driver ------------------------------------------------------------
     def _device(self, state) -> torch.device:
         v = state[self.primary_var]
-        return (v[0] if isinstance(v, tuple) else v).device
+        while isinstance(v, tuple):
+            v = v[0]
+        return v.device
 
     def _stride(self) -> int:
         return max(1, self.metric_every) * max(1, self.iters_per_step)

@@ -81,6 +81,40 @@ __device__ __forceinline__ void load_region(Region d, const Shard& src, int H, i
   }
 }
 
+// Shard2D: a block of a 2-D mesh of an (H, W) image, read at global (r, c)
+// by K17.  The core rows [row0, row0 + hloc) are `core`, the R rows above
+// `top` and the R rows below `bot`; each holds the block's columns
+// [col0, col0 + wloc) with C columns of its left and right neighbours on
+// either side (the lane extension), so a row has ld = wloc + 2C floats and
+// global column c sits at c - col0 + C.  The corner columns of `top` and
+// `bot` come from the diagonal neighbours.  What lies outside the held
+// window [row0 - R, row0 + hloc + R) x [col0 - C, col0 + wloc + C) a load
+// reads as 0, as for Shard.
+struct Shard2D {
+  const float *top, *core, *bot;
+  int row0, hloc, R, col0, wloc, C;
+  __device__ __forceinline__ float operator()(int r, int c) const {
+    const int l = r - row0;
+    const size_t ld = (size_t)(wloc + 2 * C);
+    const float* row = l < 0 ? top + (size_t)(l + R) * ld
+                       : l < hloc ? core + (size_t)l * ld
+                                  : bot + (size_t)(l - hloc) * ld;
+    return __ldg(row + (c - col0 + C));
+  }
+};
+
+// Zero-padded copy of a 2-D shard's window into a region: 0 outside the
+// window it holds and outside [0, H) x [0, W).
+__device__ __forceinline__ void load_region(Region d, const Shard2D& src, int H, int W) {
+  const int lo = max(0, src.row0 - src.R), hi = min(H, src.row0 + src.hloc + src.R);
+  const int clo = max(0, src.col0 - src.C), chi = min(W, src.col0 + src.wloc + src.C);
+  for (int i = threadIdx.x; i < d.nr * d.nc; i += blockDim.x) {
+    const int r = d.r0 + i / d.nc;
+    const int c = d.c0 + i % d.nc;
+    d.p[i] = (r >= lo && r < hi && c >= clo && c < chi) ? src(r, c) : 0.f;
+  }
+}
+
 // Copy `n` floats from global to shared memory.
 __device__ __forceinline__ void load_taps(float* dst, const float* __restrict__ src, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = __ldg(src + i);

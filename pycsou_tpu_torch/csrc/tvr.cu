@@ -8,8 +8,9 @@
 // Replaces pycsou_tpu/kernels/tvr.py tv_pds_megar_step (_tv_megar_kernel
 // via _megar_call): K4 without mask=, K7 with it ('megarm'; the mask
 // multiply is tvr.py:155-156).  K15 is K4 on a row shard of the image and
-// replaces tv_pds_megar_shard_step (the same kernel in shard mode).  The
-// 2-D-mesh variant (tv_pds_megar_shard2d_step) is not ported.
+// replaces tv_pds_megar_shard_step (the same kernel in shard mode); K17 is
+// K4 on a block of a 2-D (sp0, sp1) mesh and replaces
+// tv_pds_megar_shard2d_step (the same kernel with CORE_L = 128 lanes).
 //
 // Bound by device-memory traffic: 7 image streams a step (x, atb, z0, z1
 // in; x', z0', z1' out), 8 with K7's m; the Gram's t = A x and the gradient
@@ -31,6 +32,17 @@
 // t = A x, the dual masks, the zero last row of the forward difference)
 // keys to global rows and the global height H; each block recomputes the
 // Gram on its tile's rows from the halos.
+//
+// K17 is K15 read through Shard2D (sepconv.cuh): the block's core columns
+// [col0, col0 + wloc) with C >= Kv columns of its left and right neighbours
+// in every row it reads, its top and bottom halos holding the diagonal
+// neighbours' corners.  Its grid walks the core's tiles and writes
+// core-shaped (hloc, wloc) outputs.  Three widths stay apart: the global W
+// (every boundary: the 'same' crop in gram_into, the dual masks and the
+// zero last column of the forward difference in pds_stencil, which take
+// global (r, c) and (H, W)), the stride wloc + 2C of the extended rows
+// (Shard2D alone), and the core's column range (this kernel's tiles and
+// output index).
 #include "sepconv.cuh"
 #include "pds_stencil.cuh"
 
@@ -113,6 +125,43 @@ tv_megar_shard_kernel(PCT_IMAGE(x), PCT_IMAGE(z0), PCT_IMAGE(z1), PCT_IMAGE(atb)
   block_stats(st, partials);
 }
 
+__global__ void __launch_bounds__(kThreads)
+tv_megar_shard2d_kernel(PCT_IMAGE(x), PCT_IMAGE(z0), PCT_IMAGE(z1), PCT_IMAGE(atb),
+                        float* __restrict__ xo, float* __restrict__ z0o, float* __restrict__ z1o,
+                        float* __restrict__ partials, int row0, int hloc, int R, int col0, int wloc,
+                        int C, int H, int W, const float* __restrict__ taps, int rank, int Ku, int Kv,
+                        int ouf, int ovf, int oua, int ova, float atb_coef, PdsParams p) {
+  const Shard2D X{xt, x, xb, row0, hloc, R, col0, wloc, C};
+  const Shard2D Z0{z0t, z0, z0b, row0, hloc, R, col0, wloc, C};
+  const Shard2D Z1{z1t, z1, z1b, row0, hloc, R, col0, wloc, C};
+  const Shard2D A{atbt, atb, atbb, row0, hloc, R, col0, wloc, C};
+  extern __shared__ float smem[];
+  const int ntaps = 2 * rank * (Ku + Kv);
+  load_taps(smem, taps, ntaps);
+  const GramTaps gt{smem, smem + rank * Ku, smem + rank * (Ku + Kv),
+                    smem + rank * (2 * Ku + Kv), rank, Ku, Kv, ouf, ovf, oua, ova};
+  const int r0 = row0 + blockIdx.y * kTile, c0 = col0 + blockIdx.x * kTile;
+  Region G{smem + ntaps, r0, c0, kTile + 1, kTile + 1};
+  gram_into(X, H, W, gt, G, G.p + G.nr * G.nc);
+
+  const float* gs = G.p;
+  const int gnc = G.nc;
+  auto grad = [=](int r, int c) { return gs[(r - r0) * gnc + (c - c0)] - atb_coef * A(r, c); };
+  Stats6 st;
+  st.zero();
+  for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
+    const int r = r0 + i / kTile, c = c0 + i % kTile;
+    if (r >= row0 + hloc || c >= col0 + wloc) continue;
+    const PdsOut o = pds_stencil(r, c, H, W, p, X, grad, Z0, Z1);
+    const size_t k = (size_t)(r - row0) * wloc + (c - col0);
+    xo[k] = o.xn;
+    z0o[k] = o.z0n;
+    z1o[k] = o.z1n;
+    st.add(o);
+  }
+  block_stats(st, partials);
+}
+
 }  // namespace pct
 
 using namespace pct;
@@ -167,6 +216,37 @@ int pct_tv_megar_shard(const float* x, const float* z0, const float* z1, const f
   tv_megar_shard_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
       xt, x, xb, z0t, z0, z0b, z1t, z1, z1b, atbt, atb, atbb, xo, z0o, z1o, partials, row0, hloc,
       R, H, W, taps, rank, Ku, Kv, ouf, ovf, oua, ova, atb_coef, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  stats_fold<<<1, kThreads, 0, (cudaStream_t)stream>>>(partials, grid.x * grid.y, stats);
+  return (int)cudaGetLastError();
+}
+
+// K17: x, z0, z1 are the block's lane-extended (hloc, wloc + 2C) rows of
+// global rows [row0, row0 + hloc) and columns [col0 - C, col0 + wloc + C)
+// of an (H, W) image, xt, xb, ..., z1b their (R, wloc + 2C) halo rows above
+// (t) and below (b), R >= Ku and C >= Kv, and atb_ext the (hloc + 2R,
+// wloc + 2C) fully extended atb; the outputs are the (hloc, wloc) core; the
+// rest as pct_tv_megar_shard.
+int pct_tv_megar_shard2d(const float* x, const float* z0, const float* z1, const float* atb_ext,
+                         const float* xt, const float* xb, const float* z0t, const float* z0b,
+                         const float* z1t, const float* z1b, float* xo, float* z0o, float* z1o,
+                         float* partials, float* stats, int row0, int hloc, int R, int col0, int wloc,
+                         int C, int H, int W, const float* taps, int rank, int Ku, int Kv, int ouf,
+                         int ovf, int oua, int ova, float atb_coef, float tau, float sigma, float rho,
+                         float lam, int nonneg, int iso, void* stream) {
+  const size_t floats = 2 * rank * (Ku + Kv) + (kTile + 1) * (kTile + 1) +
+                        gram_scratch_floats(kTile + 1, kTile + 1, Ku, Kv);
+  const size_t bytes = floats * sizeof(float);
+  cudaError_t err = allow_smem(tv_megar_shard2d_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((wloc + kTile - 1) / kTile, (hloc + kTile - 1) / kTile);
+  const PdsParams p{tau, sigma, rho, lam, nonneg, iso};
+  const size_t RL = (size_t)R * (wloc + 2 * C);
+  const float *atbt = atb_ext, *atb = atb_ext + RL, *atbb = atb + (size_t)hloc * (wloc + 2 * C);
+  tv_megar_shard2d_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
+      xt, x, xb, z0t, z0, z0b, z1t, z1, z1b, atbt, atb, atbb, xo, z0o, z1o, partials, row0, hloc,
+      R, col0, wloc, C, H, W, taps, rank, Ku, Kv, ouf, ovf, oua, ova, atb_coef, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   stats_fold<<<1, kThreads, 0, (cudaStream_t)stream>>>(partials, grid.x * grid.y, stats);

@@ -53,6 +53,9 @@ _SIGNATURES = {
     "pct_tv_sweep_shard": [_P] * 17 + [_I] * 5 + [_F] * 4 + [_I, _I, _P],
     "pct_tv_mega2_shard": [_P] * 15 + [_I] * 5 + [_P, _P, _I, _I, _I] + [_F] * 4 + [_I, _I, _P],
     "pct_tv_megar_shard": [_P] * 15 + [_I] * 5 + [_P] + [_I] * 7 + [_F] * 5 + [_I, _I, _P],
+    # the 2-D-mesh block kernel: (row0, hloc, halo rows, col0, wloc, halo
+    # columns, H, W) in place of the row shard's five
+    "pct_tv_megar_shard2d": [_P] * 15 + [_I] * 8 + [_P] + [_I] * 7 + [_F] * 5 + [_I, _I, _P],
 }
 
 

@@ -461,7 +461,20 @@ tv_pds_mega_step.launches = 0
 # -- the row-shard kernels (K16, K14) -------------------------------------------
 
 
-def shard_plain(engine, ext, off: int, h_loc: int, H_global: int):
+def _onto_image(ext, axis: int, off: int, n_core: int, n_global: int):
+    """``ext`` cut along ``axis`` to the image (indices ``[off, off + n)``
+    of ``n_global``), with a zero slice added where it stops short of the
+    image's last one; returns it and the core's slice there."""
+    n = ext[0].shape[axis]
+    R = (n - n_core) // 2
+    lo, hi = max(0, -off), min(n, n_global - off)
+    ext = [t.narrow(axis, lo, hi - lo) for t in ext]
+    if off + n < n_global:
+        ext = [torch.cat([t, t.new_zeros(t.shape[:axis] + (1,) + t.shape[axis + 1:])], dim=axis) for t in ext]
+    return ext, slice(R - lo, R - lo + n_core)
+
+
+def shard_plain(engine, ext, off: int, h_loc: int, H_global: int, cols=None):
     """A single-device plain engine on a halo-extended row shard: ``ext =
     (x, z0, z1, a)``, rows ``[off, off + h_loc + 2R)`` of an image of
     ``H_global`` rows (``a`` the engine's fourth input, atb or g).  Rows
@@ -469,16 +482,16 @@ def shard_plain(engine, ext, off: int, h_loc: int, H_global: int):
     block stops short of the image's last row, so that the engine's last-row
     rules (the dual mask, the zero forward difference) and its image-edge
     corrections fall on rows the core does not read (given R covers the
-    engine's reach).  Returns the core of ``engine(*ext)``'s (x', z0', z1')
-    and the core's partial sums."""
-    n = ext[0].shape[0]
-    R = (n - h_loc) // 2
-    lo, hi = max(0, -off), min(n, H_global - off)
-    ext = [t[lo:hi] for t in ext]
-    if off + n < H_global:
-        ext = [torch.cat([t, t.new_zeros((1, t.shape[1]))]) for t in ext]
+    engine's reach).  ``cols = (col_off, w_loc, W_global)`` does the same
+    along the columns, for a block of a 2-D mesh extended by C columns each
+    side.  Returns the core of ``engine(*ext)``'s (x', z0', z1') and the
+    core's partial sums."""
+    ext, rows = _onto_image(ext, 0, off, h_loc, H_global)
+    core = (rows, slice(None))
+    if cols is not None:
+        ext, core_cols = _onto_image(ext, 1, *cols)
+        core = (rows, core_cols)
     xn, z0n, z1n, _ = engine(*ext)
-    core = slice(R - lo, R - lo + h_loc)
     z0, z1 = _mask_duals(ext[1], ext[2])  # the old duals as the stats read them
     xn, z0n, z1n = (t[core].contiguous() for t in (xn, z0n, z1n))
     return xn, z0n, z1n, stats_of([(xn, ext[0][core]), (z0n, z0[core]), (z1n, z1[core])])

@@ -9,7 +9,9 @@ stopping-metric partial sums.  ``t = A x`` and g never reach device memory:
 a data mask onto ``t`` between the two convolutions, for the Gram
 ``A^H diag(m) A`` of blurred, partially sampled data (8 streams).  K15 is
 K4 on the core rows of a row shard of the image (the shard conventions of
-``kernels/tv.py``).
+``kernels/tv.py``), K17 K4 on the core of a block of a 2-D mesh: its
+inputs are lane-extended by ``HALO_COLS`` columns of the left and right
+neighbours (the reference's 128 lanes: ``_megar_call`` ``core_l``).
 """
 from __future__ import annotations
 
@@ -32,13 +34,21 @@ from pycsou_tpu_torch.kernels.tv import (
 )
 
 __all__ = [
+    "HALO_COLS",
     "tv_pds_megar_step",
     "tv_pds_megar_step_plain",
     "tv_pds_megarm_step",
     "tv_pds_megarm_step_plain",
     "tv_pds_megar_shard_step",
     "tv_pds_megar_shard_step_plain",
+    "tv_pds_megar_shard2d_step",
+    "tv_pds_megar_shard2d_step_plain",
 ]
+
+# the column halo of K17's blocks: K4 reads x over the PSF's columns (<= 31)
+# each side of a tile, plus one for the stencil, so 32 covers every PSF it
+# takes (the reference's one 128-lane chunk, tvr.py:416-431)
+HALO_COLS = 32
 
 
 def tv_pds_megar_step_plain(x, z0, z1, atb, fwd: SepFactors, adj2: SepFactors, *, tau, sigma,
@@ -168,3 +178,91 @@ def tv_pds_megar_shard_step(x, z0, z1, atb_ext, halos, fwd: SepFactors, adj2: Se
 
 
 tv_pds_megar_shard_step.launches = 0
+
+
+# -- K17: a block of a 2-D mesh --------------------------------------------------
+
+
+def check_shard2d(x_ext, images, halos, off, H_global: int, W_global: int, reach_r: int, reach_c: int,
+                  atb_ext):
+    """Checks of K17; returns ``(R, row0, col0, w_loc)``.  ``x_ext`` and
+    ``images`` are ``(h_loc, w_loc + 2 HALO_COLS)`` lane-extended blocks,
+    the six ``halos`` ``(R, w_loc + 2 HALO_COLS)`` with ``R >= reach_r``,
+    ``atb_ext`` ``(h_loc + 2R, w_loc + 2 HALO_COLS)``; ``off = (row, col)``,
+    the global position of the extended block's (0, 0); the core must lie
+    in the ``(H_global, W_global)`` image."""
+    C = HALO_COLS
+    if reach_c > C:
+        raise ValueError(f"{C} halo columns: this kernel reads {reach_c} columns from each neighbour")
+    _check_image(x_ext, "x_ext")
+    h_loc, w_ext = x_ext.shape
+    w_loc = w_ext - 2 * C
+    if w_loc < 1:
+        raise ValueError(f"x_ext: {w_ext} columns, need the core and {C} halo columns each side")
+    R, row0 = check_shard(x_ext, images, halos, 6, int(off[0]), H_global, reach_r)
+    _check_image(atb_ext, "atb_ext")
+    if tuple(atb_ext.shape) != (h_loc + 2 * R, w_ext) or atb_ext.device != x_ext.device:
+        raise ValueError(f"atb_ext: {tuple(atb_ext.shape)} on {atb_ext.device}, expected "
+                         f"{(h_loc + 2 * R, w_ext)} on {x_ext.device}")
+    col0 = int(off[1]) + C
+    if col0 < 0 or col0 + w_loc > W_global:
+        raise ValueError(f"core columns [{col0}, {col0 + w_loc}) outside an image of {W_global} columns")
+    return R, row0, col0, w_loc
+
+
+def tv_pds_megar_shard2d_step_plain(x_ext, z0_ext, z1_ext, atb_ext, halos, fwd: SepFactors,
+                                    adj2: SepFactors, off, *, H_global, W_global, **kw):
+    """Plain PyTorch version of K17: K4's plain version on the
+    ``(h_loc + 2R, w_loc + 2 HALO_COLS)`` block, cut to the image and grown
+    by a zero row and column where it stops short of the image's last
+    (``kernels.tv.shard_plain`` on both axes)."""
+    xt, xb, z0t, z0b, z1t, z1b = halos
+    ext = (torch.cat([xt, x_ext, xb]), torch.cat([z0t, z0_ext, z0b]), torch.cat([z1t, z1_ext, z1b]), atb_ext)
+    w_loc = x_ext.shape[1] - 2 * HALO_COLS
+    return shard_plain(lambda *a: tv_pds_megar_step_plain(*a, fwd, adj2, **kw), ext, int(off[0]),
+                       x_ext.shape[0], H_global, cols=(int(off[1]), w_loc, W_global))
+
+
+def tv_pds_megar_shard2d_step(x_ext, z0_ext, z1_ext, atb_ext, halos, fwd: SepFactors, adj2: SepFactors,
+                              off, *, H_global, W_global, tau, sigma, rho, lam, nonneg=True, iso=True):
+    """K17: K4 on the core of a block of a 2-D ``(sp0, sp1)`` mesh.
+    ``x_ext``/``z0_ext``/``z1_ext``: the block's ``(h_loc, w_loc + 64)``
+    lane-extended rows (``parallel.lane_extend`` with ``HALO_COLS`` = 32,
+    zeros beyond the image); ``atb_ext``: the ``(h_loc + 2R, w_loc + 64)``
+    fully extended atb; ``halos = (xt, xb, z0t, z0b, z1t, z1b)``: ``(R,
+    w_loc + 64)`` rows of the row neighbours' lane-extended blocks (the
+    diagonal corners ride along), R >= the PSF's rows; ``off``: the global
+    ``(row, col)`` of the extended block's (0, 0), ``(row0 - R, col0 -
+    32)``; ``H_global``/``W_global``: the image's.  Returns ``(x', z0',
+    z1', stats (6,))`` of the ``(h_loc, w_loc)`` core in new buffers.
+
+    Replaces ``pycsou_tpu/kernels/tvr.py`` ``tv_pds_megar_shard2d_step``
+    (``_tv_megar_kernel`` with ``CORE_L = 128`` via ``_megar_call``).
+    Bound by device memory: K4's 7 streams over the core and its halos;
+    each block recomputes the Gram of its tile from the halos."""
+    kw = dict(tau=tau, sigma=sigma, rho=rho, lam=lam, nonneg=nonneg, iso=iso)
+    R, row0, col0, w_loc = check_shard2d(x_ext, dict(z0_ext=z0_ext, z1_ext=z1_ext), halos, off, H_global,
+                                         W_global, fwd.Ku, fwd.Kv, atb_ext)
+    taps = gram_taps(fwd, adj2)
+    _check_device(x_ext, fwd, adj2)
+    if x_ext.device.type == "cpu":
+        return tv_pds_megar_shard2d_step_plain(x_ext, z0_ext, z1_ext, atb_ext, halos, fwd, adj2, off,
+                                               H_global=H_global, W_global=W_global, **kw)
+    h_loc = x_ext.shape[0]
+    xo, z0o, z1o = (x_ext.new_empty((h_loc, w_loc)) for _ in range(3))
+    nblocks = -(-h_loc // TILE) * -(-w_loc // TILE)
+    partials = x_ext.new_empty(nblocks * 6)
+    stats = x_ext.new_empty(6)
+    err = library().pct_tv_megar_shard2d(
+        x_ext.data_ptr(), z0_ext.data_ptr(), z1_ext.data_ptr(), atb_ext.data_ptr(),
+        *(t.data_ptr() for t in halos), xo.data_ptr(), z0o.data_ptr(), z1o.data_ptr(),
+        partials.data_ptr(), stats.data_ptr(), row0, h_loc, R, col0, w_loc, HALO_COLS, H_global, W_global,
+        taps.data_ptr(), fwd.rank, fwd.Ku, fwd.Kv, fwd.ou, fwd.ov, adj2.ou, adj2.ov, 2.0,
+        float(tau), float(sigma), float(rho), float(lam), int(bool(nonneg)), int(bool(iso)), stream_of(x_ext),
+    )
+    check(err, "tv_pds_megar_shard2d_step")
+    tv_pds_megar_shard2d_step.launches += 1
+    return xo, z0o, z1o, stats
+
+
+tv_pds_megar_shard2d_step.launches = 0

@@ -6,8 +6,10 @@ sharded solver keeps one block per mesh position on that position's device
 and runs each block's kernels in mesh order.  A device may appear more than
 once, so a mesh of four shards can live on one card
 (``make_mesh((4,), devices=[torch.device("cuda", 0)] * 4)``); the CPU tests
-use ``devices=["cpu"] * n``.  Meshes across processes or hosts
-(``torch.distributed``) are not ported yet (ROADMAP Queue 1 item 8).
+use ``devices=["cpu"] * n``.  :func:`make_mesh_2d` gives the reference's
+default ``(sp0, sp1)`` shape for ``Spatial2DTVDeconv2D``.  Meshes across
+processes or hosts (``torch.distributed``) are not ported yet (ROADMAP
+Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Optional, Sequence
 
 import torch
 
-__all__ = ["Mesh", "make_mesh"]
+__all__ = ["Mesh", "make_mesh", "make_mesh_2d", "mesh_shape_2d"]
 
 
 class Mesh:
@@ -68,3 +70,26 @@ def make_mesh(shape: Optional[Sequence[int]] = None, axis_names: Sequence[str] =
     if n > len(devices) or n < 1:
         raise ValueError(f"mesh of shape {shape} needs {n} devices, {len(devices)} given")
     return Mesh(devices[:n], axis_names, shape)
+
+
+def mesh_shape_2d(n: int) -> tuple:
+    """The reference's default 2-D shape for ``n`` devices
+    (``Spatial2DTVDeconv2D``'s default mesh): ``n0 = isqrt(n)``, lowered
+    until it divides ``n``, and ``n1 = n // n0``.
+
+        >>> mesh_shape_2d(8)
+        (2, 4)
+    """
+    n0 = math.isqrt(n)
+    while n % n0:
+        n0 -= 1
+    return n0, n // n0
+
+
+def make_mesh_2d(axis_names: Sequence[str] = ("sp0", "sp1"), devices: Optional[Sequence] = None) -> Mesh:
+    """A 2-D mesh of :func:`mesh_shape_2d` over ``devices`` (default, as
+    :func:`make_mesh`: every visible CUDA device once; ``(1, 1)`` on one
+    card)."""
+    if devices is None:
+        devices = make_mesh().devices
+    return make_mesh(mesh_shape_2d(len(devices)), axis_names, devices)

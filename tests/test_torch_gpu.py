@@ -51,7 +51,11 @@ from pycsou_tpu_torch.kernels.tv import (
     tv_pds_sweep_shard_step,
     tv_pds_sweep_shard_step_plain,
 )
+from pycsou_tpu_torch.kernels.sepgram import sepgram_apply, sepgram_apply_plain
 from pycsou_tpu_torch.kernels.tvr import (
+    HALO_COLS,
+    tv_pds_megar_shard2d_step,
+    tv_pds_megar_shard2d_step_plain,
     tv_pds_megar_shard_step,
     tv_pds_megar_shard_step_plain,
     tv_pds_megar_step,
@@ -59,7 +63,16 @@ from pycsou_tpu_torch.kernels.tvr import (
     tv_pds_megarm_step,
     tv_pds_megarm_step_plain,
 )
-from pycsou_tpu_torch.parallel import DistributedTVDeconv2D, halo_extend, halos, make_mesh
+from pycsou_tpu_torch.parallel import (
+    DistributedTVDeconv2D,
+    Spatial2DTVDeconv2D,
+    halo_extend,
+    halo_extend_2d,
+    halos,
+    halos_2d,
+    lane_extend,
+    make_mesh,
+)
 from pycsou_tpu_torch.ops import Convolve2D, DownSampling, Gradient, Masking, SubSampling
 from pycsou_tpu_torch.ops.conv import lowrank_factors
 from pycsou_tpu_torch.opt import APGD, PDS, PMYULA, TVDeconvolution
@@ -608,3 +621,90 @@ def test_distributed_on_one_card(cuda, rng, engine, single):
     for k in ("x", "z0", "z1"):
         _close(out[k], ref[k], rel=1e-4)
     assert out["x"].device.type == "cuda" and out["x"].shape == S
+
+
+# -- the 2-D mesh: K17, Spatial2DTVDeconv2D, and K18 ------------------------------
+
+
+def _grid(a, n0, n1):
+    h, w = a.shape[0] // n0, a.shape[1] // n1
+    return tuple(tuple(a[i * h : (i + 1) * h, j * w : (j + 1) * w].contiguous() for j in range(n1))
+                 for i in range(n0))
+
+
+@pytest.mark.parametrize("shape,mesh", [((96, 132), (1, 1)), ((96, 132), (2, 2)), ((96, 132), (3, 4)),
+                                        ((128, 130), (4, 2)), ((64, 130), (1, 2))])
+@pytest.mark.parametrize("rank,K0,K1", [(1, 15, 15), (2, 9, 4), (4, 31, 3)])
+def test_block_kernel_matches_plain(cuda, rng, shape, mesh, rank, K0, K1):
+    """K17 on every block of an (n0, n1) mesh on one card, halos from the
+    exchange, against its plain version; the blocks joined equal K4 on the
+    whole image; one launch a block."""
+    (H, W), (n0, n1) = shape, mesh
+    h, w, R, C = H // n0, W // n1, min(K0, H // n0), HALO_COLS
+    t = lambda arr: torch.from_numpy(arr.astype(np.float32)).to(cuda)  # noqa: E731
+    x, atb = t(np.abs(rng.standard_normal(shape))), t(rng.standard_normal(shape))
+    z0, z1 = t(0.01 * rng.standard_normal(shape)), t(0.01 * rng.standard_normal(shape))
+    f = Convolve2D(shape, _psf(rng, rank, K0, K1), device=cuda).fwd
+    a2 = f.adjoint(2.0)
+    ext = [lane_extend(_grid(v, n0, n1), C) for v in (x, z0, z1)]
+    hl, aext = halos_2d(ext, R), halo_extend_2d(_grid(atb, n0, n1), R, C)
+    kw = dict(KW, H_global=H, W_global=W)
+    before = tv_pds_megar_shard2d_step.launches
+    outs = []
+    for i in range(n0):
+        row = []
+        for j in range(n1):
+            args = (ext[0][i][j], ext[1][i][j], ext[2][i][j], aext[i][j], hl[i][j], f, a2, (i * h - R, j * w - C))
+            got = tv_pds_megar_shard2d_step(*args, **kw)
+            _assert_step_close(got, tv_pds_megar_shard2d_step_plain(*args, **kw), 2e-6)
+            row.append(got)
+        outs.append(row)
+    assert tv_pds_megar_shard2d_step.launches - before == n0 * n1
+    want = tv_pds_megar_step(x, z0, z1, atb, f, a2, **KW)
+    for k in range(3):
+        _close(torch.cat([torch.cat([o[k] for o in row], dim=1) for row in outs]), want[k])
+    torch.testing.assert_close(sum(o[3] for row in outs for o in row), want[3], rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("mesh,kernel", [((2, 2), "K17"), ((1, 4), "K17"), ((4, 1), "K15")])
+@pytest.mark.parametrize("rank", [1, 2])
+def test_spatial2d_on_one_card(cuda, rng, mesh, kernel, rank):
+    """Spatial2DTVDeconv2D on a 2-D mesh of four blocks on one card: its
+    block kernel four times an iteration (K15 when the columns are not cut),
+    K1 four times for A^H y, nothing else; TVDeconvolution[megar]'s iterates
+    after 6 iterations."""
+    S = (256, 384)
+    y = torch.from_numpy(np.abs(rng.standard_normal(S)).astype(np.float32)).to(cuda)
+    filt = _gauss() if rank == 1 else _psf(rng, 2, 9, 9)
+    counters = [sepconv2d, tv_pds_megar_shard2d_step, tv_pds_megar_shard_step, tv_pds_megar_step]
+    before = [c.launches for c in counters]
+    s = Spatial2DTVDeconv2D(S, filt, y, 0.05, mesh=make_mesh(mesh, ("sp0", "sp1"), devices=[cuda] * 4),
+                            max_iter=100)
+    st = s.run_fixed(6)
+    block = tv_pds_megar_shard2d_step if kernel == "K17" else tv_pds_megar_shard_step
+    want = {sepconv2d: 4, block: 24}
+    assert s._sp_engine == "megar2d"
+    assert [c.launches - b for c, b in zip(counters, before)] == [want.get(c, 0) for c in counters]
+    ref = TVDeconvolution(S, y, 0.05, filt=filt, stencil="megar", tau=s.tau, sigma=s.sigma,
+                          max_iter=100).run_fixed(6)
+    out = s.postprocess(st)
+    for k in ("x", "z0", "z1"):
+        _close(out[k], ref[k], rel=1e-4)
+    assert out["x"].device.type == "cuda" and out["x"].shape == S
+
+
+@pytest.mark.parametrize("shape", [(1, 40), (33, 2), (100, 130), (256, 384)])
+@pytest.mark.parametrize("rank,K0,K1", [(1, 15, 15), (1, 8, 6), (2, 7, 7), (2, 9, 4), (4, 31, 3)])
+def test_sepgram_apply_matches_plain_and_k2(cuda, rng, shape, rank, K0, K1):
+    """K18 against its plain version and against K2 with no atb (the same
+    function), odd and even tap counts; one launch a call."""
+    h = _psf(rng, rank, K0, K1)
+    us, vs = lowrank_factors(h)
+    us, vs = tuple(map(tuple, us.T)), tuple(map(tuple, vs.T))
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    f = SepFactors(np.asarray(us).T, np.asarray(vs).T, K0 // 2, K1 // 2, cuda)
+    before = (sepgram_apply.launches, sepgram2d.launches)
+    got = sepgram_apply(x, us, vs)
+    assert (sepgram_apply.launches, sepgram2d.launches) == (before[0] + 1, before[1])
+    _close(got, sepgram_apply_plain(x, us, vs))
+    _close(got, sepgram2d(x, f, f.adjoint()), rel=1e-7)
