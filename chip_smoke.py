@@ -22,7 +22,10 @@
    the Gaussian PSF), launch K1 for ``A^H y`` and that engine's kernel once
    per step (K10: one launch per two iterations), and nothing else.  On a
    piecewise-constant image with the same blur and noise it must recover x
-   better than the blurred observation.  Every conv-mode engine asked for
+   better than the blurred observation.  The same expression with the
+   rank-2 PSF must fuse onto megar (K1 2, K4 once per iteration), recover
+   its image and agree with the generic chain after 6 iterations.  Every
+   conv-mode engine asked for
    by name (megar K4, mega3 K10, mega2 K11, mega K12, sweep K2 + K3,
    element K2 + K13) and the generic chain (``fuse=False``, K2), each
    counted on its own, must agree with megar after 6 iterations.  Small
@@ -81,20 +84,28 @@
    ``TVDeconvolution[megar]`` given the same tau and sigma; a (4, 1) mesh
    (the row-shard kernel K15) and a (1, 4) mesh (K17 with zero row halos),
    each counted and held to megar after 6 iterations.
-9. The slope-timed iterations/s of the main path, of the inpainting,
-   blurred super-resolution, denoising and LASSO paths, of the megar,
-   mega3, mega2, mega and element engines, of the three sharded paths and
-   of the two 2-D mesh paths at 4096 x 4096, the device-idle share of
-   sharded megasp and of the 2-D mesh path (Gaussian PSF) from
-   ``torch.profiler`` traces, the PMYULA samples/s, and the main path's
-   ``solve()`` time to a 1e-6 relative improvement.
+9. The slope-timed iterations/s of the main path (both PSFs), of the
+   inpainting, blurred super-resolution, denoising and LASSO paths, of the
+   generic chain, of the megar, mega3, mega2, mega and element engines, of
+   the three sharded paths and of the two 2-D mesh paths at 4096 x 4096,
+   the device-idle share of sharded megasp, of the 2-D mesh path
+   (Gaussian PSF) and of megar from ``torch.profiler`` traces, the PMYULA
+   samples/s, and the main path's ``solve()`` time to a 1e-6 relative
+   improvement.
+
+``python3 chip_smoke.py --gram-ab OLD_ROOT`` instead times the callers of
+the shared Gram (``csrc/sepconv.cuh``: K1, K2, K18, K4, K7, K8, K9, K15,
+K17) on both PSFs, two untouched kernels as controls, and the rates of the
+paths they carry, for the checkout at OLD_ROOT and for this one in turns
+(old, new, new, old), each run a process of its own on the same card.
 
 Any failure exits non-zero.  On success the last two lines are a JSON
 object with the per-kernel results and the device line
 ``{"ok": true, "device": {...}}``.  In the results, ``kernels`` holds
 K1-K18, each with the launches of the run named in ``run``, counted with
 every counter zeroed just before that run (``RUN_OF``: the README's path
-for K1 and the ladder's engine, inpainting for K6, blurred
+for K1 and the ladder's engine, the same path with the rank-2 PSF for K4,
+inpainting for K6, blurred
 super-resolution for K7, the LASSO path for K8, the PMYULA path for K9,
 the sharded paths for K14-K16, the 2-D mesh path for K17, the direct
 ``sepgram_apply`` calls for K18, which no path of the package calls, and
@@ -150,13 +161,14 @@ KERNELS = {
 ENGINE_KERNEL = {"mega3": "K10", "mega2": "K11", "megar": "K4", "mega": "K12", "sweep": "K3",
                  "element": "K13"}
 # each kernel -> the run that counts its launches: the README's PDS (the
-# ladder's pick, TVDeconvolution[mega3]) runs K1 (A^H y) and K10,
+# ladder's pick, TVDeconvolution[mega3]) runs K1 (A^H y) and K10, the same
+# PDS with the rank-2 PSF [megar] K4,
 # inpainting [sweepm2] K6, blurred super-resolution [megarm] K7, the LASSO
 # path [megaf] K8, the PMYULA path [megal] K9; the kernels no fused main
 # path runs go through the generic chain and the engines asked for by name
 # (phase_main_path puts the ladder's pick under "main path")
 RUN_OF = {"K1": "main path", "K2": "PDS fuse=False", "K3": "TVDeconvolution stencil='sweep'",
-          "K4": "TVDeconvolution stencil='megar'", "K5": "TVDeconvolution stencil='sweepm'",
+          "K4": "main path (rank-2 PSF)", "K5": "TVDeconvolution stencil='sweepm'",
           "K6": "inpainting", "K7": "blurred super-resolution", "K8": "LASSO", "K9": "PMYULA",
           "K10": "TVDeconvolution stencil='mega3'", "K11": "TVDeconvolution stencil='mega2'",
           "K12": "TVDeconvolution stencil='mega'", "K13": "TVDeconvolution stencil='element'",
@@ -604,10 +616,12 @@ def cross_check(name, counters, fn, ref, exact, at_most=None, keys=("x", "z")):
 
 def phase_main_path(dev, rng, counters):
     """The README's PDS at 4096^2 on the benchmark's problem (the ladder's
-    pick), its recovery of a piecewise-constant image, and every conv-mode
-    engine asked for by name, each counted on its own run and held to megar
-    after 6 iterations (even: mega3 steps two at a time); small denoising at
-    1024^2 and the rank-2 PSF's refusal of mega3."""
+    pick), its recovery of a piecewise-constant image, the same PDS with the
+    rank-2 PSF (megar: its launches, recovery, and the generic chain after
+    6 iterations), and every conv-mode engine asked for by name, each
+    counted on its own run and held to megar after 6 iterations (even:
+    mega3 steps two at a time); small denoising at 1024^2 and the rank-2
+    PSF's refusal of mega3."""
     from pycsou_tpu_torch.func import L21Norm, NonNegativeOrthant, SquaredL2Loss
     from pycsou_tpu_torch.ops import Convolve2D, Gradient
     from pycsou_tpu_torch.opt import PDS, TVDeconvolution
@@ -651,12 +665,33 @@ def phase_main_path(dev, rng, counters):
     if not err < obs:
         raise AssertionError("the recovery is no better than the blurred observation")
 
+    # the same expression with the rank-2 PSF: outside the rank-1 engines'
+    # gate, "auto" fuses it onto megar; K1 twice for A^H y, K4 once a step
+    h2 = rank2_kernel()
+    x2_true, y2 = blocks_problem(rng, h2)
+    y2t = torch.from_numpy(y2).to(dev)
+    name2 = "main path (rank-2 PSF)"
+    (pds2, st2), main2 = count_launches(counters, built_and_run(lambda: expression(y2t, psf=h2, max_iter=3000)))
+    fused2 = pds2._fused
+    if type(fused2) is not TVDeconvolution or fused2.stencil_mode != "megar":
+        raise AssertionError(f"{name2}: PDS fused onto {type(fused2).__name__}[{getattr(fused2, 'stencil_mode', None)}]")
+    log(f"{name2}: PDS -> TVDeconvolution[megar] built and run for {st2['it']} iterations; launches {main2}")
+    expect_launches(name2, main2, {"K1": 2, "K4": ITERS})
+    err, obs = errors(st2, x2_true, y2t)
+    log(f"{name2}: ||x - x_true|| = {err:.4f} < ||y - x_true|| = {obs:.4f}: {err < obs} (ratio {err / obs:.6f})")
+    if not err < obs:
+        raise AssertionError(f"{name2}: the recovery is no better than the blurred observation")
+
     # every conv-mode engine on the card, each counted on its own against
     # megar after 6 iterations; the generic chain (fuse=False: the K2
     # gradient and plain operators) too; K1 forms A^H y
     n = 6
-    runs = {"main path": main}
-    solvers = {"main path": pds}
+    runs = {"main path": main, name2: main2}
+    solvers = {"main path": pds, name2: pds2}
+    runs[f"{name2} PDS fuse=False"] = cross_check(
+        f"{name2} PDS fuse=False", counters,
+        lambda: expression(y2t, psf=h2, max_iter=3000, fuse=False).run_fixed(n), pds2.run_fixed(n), {"K2": n},
+        {"K1": 2})
 
     def tv(stencil):
         return TVDeconvolution(SHAPE, yt, LAM, filt=h, stencil=stencil, max_iter=3000)
@@ -667,6 +702,7 @@ def phase_main_path(dev, rng, counters):
     runs["PDS fuse=False"] = cross_check(
         "PDS fuse=False", counters, lambda: expression(yt, max_iter=3000, fuse=False).run_fixed(n),
         ref, {"K2": n}, {"K1": 2})
+    solvers["fuse=False"] = expression(yt, max_iter=3000, fuse=False)  # timed in main
     for e in ("mega3", "mega2", "mega", "sweep", "element"):
         name = f"TVDeconvolution stencil='{e}'"
         k = ENGINE_KERNEL[e]
@@ -1319,6 +1355,10 @@ def main():
         engine = getattr(fused, "stencil_mode", None) or fused.engine
         log(f"{name} {type(solvers[name]).__name__}[{engine}] slope-timed: {v:.1f} iters/s "
             f"({1e3 / v:.4f} ms/iteration)")
+    for name in ("main path (rank-2 PSF)", "fuse=False"):
+        ips[name] = v = time_solver(tv_solvers[name])
+        log(f"{name} PDS[{getattr(tv_solvers[name]._fused, 'stencil_mode', 'generic chain')}] at {SHAPE[0]}^2 "
+            f"slope-timed: {v:.1f} iters/s ({1e3 / v:.4f} ms/iteration)")
     for e in ("megar", "mega3", "mega2", "mega", "element"):
         ips[f"TVDeconvolution[{e}]"] = v = time_solver(tv_solvers[e])
         log(f"TVDeconvolution[{e}] at {SHAPE[0]}^2 slope-timed: {v:.1f} iters/s ({1e3 / v:.4f} ms/iteration)")
@@ -1352,6 +1392,10 @@ def main():
     idle2d = None if busy2d is None else 1.0 - busy2d * ips[name2d] / 1e3
     log(f"{name2d}: device time {busy2d} ms an iteration in a torch.profiler trace, "
         f"device idle share {idle2d} (not measured when None)")
+    busy_r = device_ms_per_iteration(tv_solvers["megar"])
+    idle_r = None if busy_r is None else 1.0 - busy_r * ips["TVDeconvolution[megar]"] / 1e3
+    log(f"TVDeconvolution[megar]: device time {busy_r} ms an iteration in a torch.profiler trace, "
+        f"device idle share {idle_r} (not measured when None)")
 
     def entry(k, run):
         name, source, replaces = KERNELS[k]
@@ -1380,7 +1424,7 @@ def main():
         "kernels": [entry(k, run) for k, run in RUN_OF.items()],
         "copy_ms": copy_ms, "iters_per_s": ips, "pmyula_samples_per_s": sps,
         "time_to_1e6_s": info.elapsed, "sharded_megasp_device_idle_share": idle,
-        "mesh2d_gauss_device_idle_share": idle2d, "card": smi,
+        "mesh2d_gauss_device_idle_share": idle2d, "megar_device_idle_share": idle_r, "card": smi,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -1388,5 +1432,174 @@ def main():
     return 0
 
 
+# -- A/B of the shared Gram's callers: python3 chip_smoke.py --gram-ab PARENT_ROOT
+
+
+def gram_times(root):
+    """``--gram-times ROOT``: with the package of the checkout at ROOT, the
+    median CUDA-event ms of every caller of the shared Gram (K1, K2, K18,
+    K4, K7, K8, K15 a middle 1024-row shard, K17 the median of the four
+    2048^2 blocks of the (2, 2) mesh at 4096^2; K9 at 2048^2) on both PSFs,
+    of K3 and K10 (untouched controls), the slope-timed rates of the paths
+    they carry and the device-idle share of the (2, 2) path and of megar;
+    one JSON line."""
+    sys.path.insert(0, str(root))
+    from scipy.signal import fftconvolve
+
+    from pycsou_tpu_torch.func import L1Norm, L21Norm, NonNegativeOrthant, SquaredL2Loss
+    from pycsou_tpu_torch.kernels import _build
+    from pycsou_tpu_torch.kernels.conv2d import SepFactors, sepconv2d, sepgram2d
+    from pycsou_tpu_torch.kernels.fista import lasso_fista_step
+    from pycsou_tpu_torch.kernels.langevin import pmyula_mega_step
+    from pycsou_tpu_torch.kernels.sepgram import sepgram_apply
+    from pycsou_tpu_torch.kernels.tv import tv_pds_mega3_step, tv_pds_sweep_step_stats
+    from pycsou_tpu_torch.kernels.tvr import (
+        HALO_COLS, tv_pds_megar_shard2d_step, tv_pds_megar_shard_step, tv_pds_megar_step,
+    )
+    from pycsou_tpu_torch.ops import Convolve2D, Gradient, Masking
+    from pycsou_tpu_torch.ops.conv import lowrank_factors
+    from pycsou_tpu_torch.opt import APGD, PDS, PMYULA, TVDeconvolution
+    from pycsou_tpu_torch.parallel import (
+        DistributedTVDeconv2D, Spatial2DTVDeconv2D, halo_extend, halo_extend_2d, halos, halos_2d, lane_extend,
+        make_mesh,
+    )
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    _build.library()
+    out = {"root": str(root), "build_s": time.perf_counter() - t0, "ms": {}, "iters_per_s": {}, "idle": {}}
+    ms = out["ms"]
+    rng = np.random.default_rng(SEED)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    x, atb = t(np.abs(rng.standard_normal(SHAPE))), t(rng.standard_normal(SHAPE))
+    z0, z1 = t(0.01 * rng.standard_normal(SHAPE)), t(0.01 * rng.standard_normal(SHAPE))
+    m = t(keep_mask())
+    x2, atb2, m1 = (t(rng.standard_normal(SHAPE_MCMC)) for _ in range(3))
+    m2 = t(np.abs(rng.standard_normal(SHAPE_MCMC)))
+    kw = dict(tau=0.3, sigma=0.3, rho=0.9, lam=LAM, nonneg=True, iso=True)
+    mom, si, wf = torch.tensor([0.3], device=dev), torch.tensor([3, 25], dtype=torch.int32, device=dev), \
+        torch.tensor([1.0], device=dev)
+    H, W = SHAPE
+    R, C, hs = 32, HALO_COLS, H // SHARDS
+    cores = [[a[i * hs : (i + 1) * hs] for i in range(SHARDS)] for a in (x, z0, z1)]
+    shard_halos, shard_atb = halos(cores, R), halo_extend([atb[i * hs : (i + 1) * hs] for i in range(SHARDS)], R)
+    n0, n1 = MESH2D
+    hb, wb = H // n0, W // n1
+    grid = lambda a: tuple(tuple(a[i * hb : (i + 1) * hb, j * wb : (j + 1) * wb].contiguous()  # noqa: E731
+                                 for j in range(n1)) for i in range(n0))
+    ext = [lane_extend(grid(a), C) for a in (x, z0, z1)]
+    block_halos, block_atb = halos_2d(ext, R), halo_extend_2d(grid(atb), R, C)
+    for psf, h in (("gauss", gaussian_kernel()), ("rank2", rank2_kernel())):
+        us, vs = lowrank_factors(h)
+        f = SepFactors(us, vs, h.shape[0] // 2, h.shape[1] // 2, dev)
+        a2 = f.adjoint(2.0)
+        ut, vt = tuple(map(tuple, us.T)), tuple(map(tuple, vs.T))
+        ms[f"K1 {psf}"] = median_ms(lambda: sepconv2d(x, f))
+        ms[f"K2 {psf}"] = median_ms(lambda: sepgram2d(x, f, a2, atb))
+        ms[f"K18 {psf}"] = median_ms(lambda: sepgram_apply(x, ut, vt))
+        ms[f"K4 {psf}"] = median_ms(lambda: tv_pds_megar_step(x, z0, z1, atb, f, a2, **kw))
+        ms[f"K7 {psf}"] = median_ms(lambda: tv_pds_megar_step(x, z0, z1, atb, f, a2, mask=m, **kw))
+        ms[f"K8 {psf}"] = median_ms(lambda: lasso_fista_step(x, z0, atb, mom, f, a2, tau=0.5, lam=LAM_L1))
+        ms[f"K9 {psf}"] = median_ms(lambda: pmyula_mega_step(x2, atb2, m1, m2, si, wf, f, a2, gamma=1 / 3, tau=1.0,
+                                                             lam=LAM_L1, prox_mode="l1", noise_mode="prng"))
+        i = SHARDS // 2
+        ms[f"K15 {psf}"] = median_ms(lambda: tv_pds_megar_shard_step(
+            *(c[i] for c in cores), shard_atb[i], shard_halos[i], f, a2, i * hs - R, H_global=H, **kw))
+        ms[f"K17 {psf}"] = statistics.median(
+            median_ms(lambda: tv_pds_megar_shard2d_step(ext[0][i][j], ext[1][i][j], ext[2][i][j], block_atb[i][j],
+                                                        block_halos[i][j], f, a2, (i * hb - R, j * wb - C),
+                                                        H_global=H, W_global=W, **kw))
+            for i in range(n0) for j in range(n1))
+    gauss = gaussian_kernel()
+    gram = Convolve2D(SHAPE, gauss, device=dev).gram
+    ms["K10 gauss (control)"] = median_ms(lambda: tv_pds_mega3_step(x, z0, z1, atb, gram, **kw))
+    ms["K3 (control)"] = median_ms(lambda: tv_pds_sweep_step_stats(x, z0, z1, atb, **kw))
+    del cores, shard_halos, shard_atb, ext, block_halos, block_atb
+
+    # the paths, each slope-timed (the same problems as main's)
+    xb = blocks_image(rng)
+    blur = lambda h: torch.from_numpy((fftconvolve(xb, h, mode="same")  # noqa: E731
+                                       + 0.01 * rng.standard_normal(SHAPE)).astype(np.float32)).to(dev)
+    yg, yr = blur(gauss), blur(rank2_kernel())
+
+    def pds(y, op, **k):
+        return PDS(SHAPE, F=SquaredL2Loss(op.codim_shape, data=y) * op, G=NonNegativeOrthant(SHAPE),
+                   H=LAM * L21Norm((2,) + SHAPE, axis=0), K=Gradient(SHAPE), max_iter=3000, **k)
+
+    MA = Masking(SHAPE, keep_mask(), device=dev) * Convolve2D(SHAPE, gauss, device=dev)
+    ym = MA(torch.from_numpy(xb).to(dev))
+    mesh1 = make_mesh((SHARDS,), devices=[dev] * SHARDS)
+    mesh2 = make_mesh(MESH2D, ("sp0", "sp1"), devices=[dev] * (n0 * n1))
+    ymc = torch.from_numpy(fftconvolve(np.abs(rng.standard_normal(SHAPE_MCMC)), gauss, mode="same")
+                           .astype(np.float32)).to(dev)
+    paths = {
+        "megar (gauss)": lambda: TVDeconvolution(SHAPE, yg, LAM, filt=gauss, stencil="megar", max_iter=3000),
+        "main path (rank-2 PSF)": lambda: pds(yr, Convolve2D(SHAPE, rank2_kernel(), device=dev)),
+        "PDS fuse=False (gauss)": lambda: pds(yg, Convolve2D(SHAPE, gauss, device=dev), fuse=False),
+        "blurred super-resolution": lambda: pds(ym, MA),
+        "LASSO": lambda: APGD(SHAPE, F=SquaredL2Loss(SHAPE, data=yg) * Convolve2D(SHAPE, gauss, device=dev),
+                              G=LAM_L1 * L1Norm(SHAPE), max_iter=3000),
+        "PMYULA": lambda: PMYULA(SHAPE_MCMC, F=SquaredL2Loss(SHAPE_MCMC, data=ymc)
+                                 * Convolve2D(SHAPE_MCMC, gauss, device=dev), G=LAM_L1 * L1Norm(SHAPE_MCMC),
+                                 seed=3, nb_burnin_iterations=20, max_iter=2000),
+        "sharded megarsp": lambda: DistributedTVDeconv2D(SHAPE, rank2_kernel(), yr, LAM, mesh=mesh1, max_iter=3000),
+        "2-D mesh (gauss)": lambda: Spatial2DTVDeconv2D(SHAPE, gauss, yg, LAM, mesh=mesh2, max_iter=3000),
+        "2-D mesh (rank2)": lambda: Spatial2DTVDeconv2D(SHAPE, rank2_kernel(), yr, LAM, mesh=mesh2, max_iter=3000),
+    }
+    for name, build in paths.items():
+        solver = build()
+        out["iters_per_s"][name] = v = time_solver(solver)
+        if name in ("megar (gauss)", "2-D mesh (gauss)"):
+            busy = device_ms_per_iteration(solver)
+            out["idle"][name] = None if busy is None else 1.0 - busy * v / 1e3
+        del solver
+    torch.cuda.synchronize()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def gram_ab(parent):
+    """``--gram-ab PARENT_ROOT``: gram_times of the parent's checkout and of
+    this one in turns, parent, change, change, parent, each in a process of
+    its own on the same card; prints each metric's four values and the ratio
+    of the change's mean to the parent's, then the whole record as one JSON
+    line."""
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card", file=sys.stderr)
+        return 2
+    here, parent = Path(__file__).resolve().parent, Path(parent).resolve()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    runs = []
+    for label, root in (("parent", parent), ("change", here), ("change", here), ("parent", parent)):
+        p = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--gram-times", str(root)], cwd=root,
+                           capture_output=True, text=True, timeout=900)
+        if p.returncode != 0:
+            print(p.stdout[-4000:], p.stderr[-8000:], file=sys.stderr)
+            raise RuntimeError(f"--gram-times {root} exited {p.returncode}")
+        runs.append((label, json.loads(p.stdout.strip().splitlines()[-1])))
+        log(f"{label} {root}: built/loaded in {runs[-1][1]['build_s']:.2f} s")
+    table = {}
+    for group in ("ms", "iters_per_s", "idle"):
+        for key in runs[0][1][group]:
+            vals = [r[group][key] for _, r in runs]
+            par, chg = [v for (lb, _), v in zip(runs, vals) if lb == "parent"], \
+                [v for (lb, _), v in zip(runs, vals) if lb == "change"]
+            ratio = None if None in vals else statistics.mean(chg) / statistics.mean(par)
+            table[f"{group} {key}"] = {"parent": par, "change": chg, "change/parent": ratio}
+            log(f"{group:<12} {key:<28} parent {par}  change {chg}  change/parent {ratio}")
+    record = {"card": smi, "order": [lb for lb, _ in runs], "build_s": [r["build_s"] for _, r in runs],
+              "table": table}
+    print(json.dumps(record), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--gram-times":
+        sys.exit(gram_times(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] == "--gram-ab":
+        sys.exit(gram_ab(sys.argv[2]))
     sys.exit(main())

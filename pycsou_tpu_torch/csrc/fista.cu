@@ -13,9 +13,11 @@
 // Replaces pycsou_tpu/kernels/fista.py lasso_fista_step (_fista_kernel).
 // The TPU kernel ran a 3-stage VMEM ring over an ordered grid; here each
 // block owns a 32 x 32 output tile, forms the exact Gram on it with
-// gram_into (forward then adjoint 'same' convolution; t = A v stays in
-// shared memory) and runs the per-pixel epilogue.  The epilogue needs no
-// halo: v is read over the Gram's reach only.
+// gram_into (forward then adjoint 'same' convolution, register-blocked
+// passes with the taps, padded to K = 7, 15 or 31, in the kernel's
+// parameters; t = A v stays in shared memory) and runs the per-pixel
+// epilogue.  The epilogue needs no halo: v is read over the Gram's reach
+// only.
 //
 // Bound by device-memory traffic: 5 image streams an iteration (v, atb,
 // x_prev in; x+, v+ out).  The momentum changes every iteration (BT and CD
@@ -29,20 +31,16 @@
 
 namespace pct {
 
-__global__ void __launch_bounds__(kThreads)
+template <int K>
+__global__ void __launch_bounds__(kThreads, gram_min_blocks(K))
 lasso_fista_kernel(const float* __restrict__ v, const float* __restrict__ xp,
                    const float* __restrict__ atb, const float* __restrict__ mom,
                    float* __restrict__ xo, float* __restrict__ vo, float* __restrict__ partials,
-                   int H, int W, const float* __restrict__ taps, int rank, int Ku, int Kv, int ouf,
-                   int ovf, int oua, int ova, float tau, float thr, int nonneg) {
+                   int H, int W, GramTaps<K> gt, float tau, float thr, int nonneg) {
   extern __shared__ float smem[];
-  const int ntaps = 2 * rank * (Ku + Kv);
-  load_taps(smem, taps, ntaps);
-  const GramTaps gt{smem, smem + rank * Ku, smem + rank * (Ku + Kv),
-                    smem + rank * (2 * Ku + Kv), rank, Ku, Kv, ouf, ovf, oua, ova};
   const int r0 = blockIdx.y * kTile, c0 = blockIdx.x * kTile;
-  Region G{smem + ntaps, r0, c0, kTile, kTile};
-  gram_into(v, H, W, gt, G, G.p + kTile * kTile);
+  const Region G{smem, r0, c0, kTile, kTile, kTile + 1};
+  gram_into<K>(v, H, W, gt, G, G.p + kTile * G.s);
 
   const float a = __ldg(mom);
   Stats6 st;
@@ -52,7 +50,7 @@ lasso_fista_kernel(const float* __restrict__ v, const float* __restrict__ xp,
     if (r >= H || c >= W) continue;
     const size_t k = (size_t)r * W + c;
     const float vv = __ldg(v + k), xpv = __ldg(xp + k);
-    const float g = __fsub_rn(G.p[i], __fmul_rn(2.f, __ldg(atb + k)));
+    const float g = __fsub_rn(G.p[(i / kTile) * G.s + i % kTile], __fmul_rn(2.f, __ldg(atb + k)));
     const float u = __fsub_rn(vv, __fmul_rn(tau, g));
     float xn;
     if (nonneg) {
@@ -77,27 +75,42 @@ lasso_fista_kernel(const float* __restrict__ v, const float* __restrict__ xp,
 
 using namespace pct;
 
+namespace {
+
+template <int K>
+int launch_lasso_fista(const float* v, const float* xp, const float* atb, const float* mom, float* xo,
+                       float* vo, float* partials, float* stats, int H, int W, const GramTaps<K>& gt,
+                       float tau, float thr, int nonneg, cudaStream_t s) {
+  const size_t floats = kTile * (kTile + 1) + gram_scratch_floats(kTile, kTile, K, gt.f.rank);
+  const size_t bytes = floats * sizeof(float);
+  cudaError_t err = allow_smem(lasso_fista_kernel<K>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile);
+  lasso_fista_kernel<K><<<grid, kThreads, bytes, s>>>(v, xp, atb, mom, xo, vo, partials, H, W, gt, tau,
+                                                      thr, nonneg);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  stats_fold<<<1, kThreads, 0, s>>>(partials, grid.x * grid.y, stats);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" {
 
-// taps = [uf | vf | ua | va] with the gradient's 2x already in ua; mom is a
-// one-float device buffer; stats (6,) receives the folded partial sums.
+// taps = [uf | vf | ua | va] in host memory, with the gradient's 2x already
+// in ua; mom is a one-float device buffer; stats (6,) receives the folded
+// partial sums.
 int pct_lasso_fista(const float* v, const float* xp, const float* atb, const float* mom, float* xo,
                     float* vo, float* partials, float* stats, int H, int W, const float* taps,
                     int rank, int Ku, int Kv, int ouf, int ovf, int oua, int ova, float tau,
                     float thr, int nonneg, void* stream) {
-  const size_t floats =
-      2 * rank * (Ku + Kv) + kTile * kTile + gram_scratch_floats(kTile, kTile, Ku, Kv);
-  const size_t bytes = floats * sizeof(float);
-  cudaError_t err = allow_smem(lasso_fista_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile);
-  lasso_fista_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      v, xp, atb, mom, xo, vo, partials, H, W, taps, rank, Ku, Kv, ouf, ovf, oua, ova, tau, thr,
-      nonneg);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  stats_fold<<<1, kThreads, 0, (cudaStream_t)stream>>>(partials, grid.x * grid.y, stats);
-  return (int)cudaGetLastError();
+#define CALL(K)                                                                                     \
+  launch_lasso_fista<K>(v, xp, atb, mom, xo, vo, partials, stats, H, W,                         \
+                        gram_taps<K>(taps, rank, Ku, Kv, ouf, ovf, oua, ova), tau, thr, nonneg, \
+                        (cudaStream_t)stream)
+  PCT_DISPATCH_TAPS(Ku, Kv, CALL)
+#undef CALL
 }
 
 }  // extern "C"

@@ -19,7 +19,9 @@
 // from the Mosaic PRNG, which has no counterpart here.  On the card each
 // block owns a 32 x 32 tile and takes the exact Gram from gram_into
 // (forward, then adjoint 'same' convolution: exact by the two-sweep
-// argument, any rank <= 4), then runs the per-pixel update.
+// argument, any rank <= 4; register-blocked passes with the taps, padded to
+// K = 7, 15 or 31, in the kernel's parameters), then runs the per-pixel
+// update.
 //
 // Bound by device-memory traffic: 7 image streams a sample in prng mode (x,
 // atb, m1, m2 in; x+, m1+, m2+ out), 8 with a streamed xi; t = A x and gw
@@ -62,22 +64,18 @@ __device__ __forceinline__ float philox_normal(size_t idx, uint32_t seed, uint32
   return __fmul_rn(r, cosf(__fmul_rn(6.2831855f, u2)));
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int K>
+__global__ void __launch_bounds__(kThreads, gram_min_blocks(K))
 pmyula_kernel(const float* __restrict__ x, const float* __restrict__ atb,
               const float* __restrict__ m1, const float* __restrict__ m2,
               const float* __restrict__ noise, const int* __restrict__ si,
               const float* __restrict__ wf, float* __restrict__ xo, float* __restrict__ m1o,
-              float* __restrict__ m2o, int H, int W, const float* __restrict__ taps, int rank,
-              int Ku, int Kv, int ouf, int ovf, int oua, int ova, float gamma, float c1, float cp,
+              float* __restrict__ m2o, int H, int W, GramTaps<K> gt, float gamma, float c1, float cp,
               float ns, float thr, int prox_mode) {
   extern __shared__ float smem[];
-  const int ntaps = 2 * rank * (Ku + Kv);
-  load_taps(smem, taps, ntaps);
-  const GramTaps gt{smem, smem + rank * Ku, smem + rank * (Ku + Kv),
-                    smem + rank * (2 * Ku + Kv), rank, Ku, Kv, ouf, ovf, oua, ova};
   const int r0 = blockIdx.y * kTile, c0 = blockIdx.x * kTile;
-  Region G{smem + ntaps, r0, c0, kTile, kTile};
-  gram_into(x, H, W, gt, G, G.p + kTile * kTile);
+  const Region G{smem, r0, c0, kTile, kTile, kTile + 1};
+  gram_into<K>(x, H, W, gt, G, G.p + kTile * G.s);
 
   const uint32_t seed = (uint32_t)__ldg(si), n = (uint32_t)__ldg(si + 1);
   const float w = __ldg(wf);
@@ -86,7 +84,7 @@ pmyula_kernel(const float* __restrict__ x, const float* __restrict__ atb,
     if (r >= H || c >= W) continue;
     const size_t k = (size_t)r * W + c;
     const float xj = __ldg(x + k);
-    const float gw = __fsub_rn(G.p[i], __fmul_rn(2.f, __ldg(atb + k)));
+    const float gw = __fsub_rn(G.p[(i / kTile) * G.s + i % kTile], __fmul_rn(2.f, __ldg(atb + k)));
     const float z = noise ? __ldg(noise + k) : philox_normal(k, seed, n);
     float xn;
     if (prox_mode == kProxNone) {
@@ -113,26 +111,41 @@ pmyula_kernel(const float* __restrict__ x, const float* __restrict__ atb,
 
 using namespace pct;
 
+namespace {
+
+template <int K>
+int launch_pmyula(const float* x, const float* atb, const float* m1, const float* m2, const float* noise,
+                  const int* si, const float* wf, float* xo, float* m1o, float* m2o, int H, int W,
+                  const GramTaps<K>& gt, float gamma, float c1, float cp, float ns, float thr,
+                  int prox_mode, cudaStream_t s) {
+  const size_t floats = kTile * (kTile + 1) + gram_scratch_floats(kTile, kTile, K, gt.f.rank);
+  const size_t bytes = floats * sizeof(float);
+  cudaError_t err = allow_smem(pmyula_kernel<K>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile);
+  pmyula_kernel<K><<<grid, kThreads, bytes, s>>>(x, atb, m1, m2, noise, si, wf, xo, m1o, m2o, H, W, gt,
+                                                 gamma, c1, cp, ns, thr, prox_mode);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" {
 
-// taps = [uf | vf | ua | va] with the gradient's 2x already in ua; si = (seed,
-// n) int32 and wf = (w,) float32 on the device; noise null draws xi in the
-// kernel.
+// taps = [uf | vf | ua | va] in host memory, with the gradient's 2x already
+// in ua; si = (seed, n) int32 and wf = (w,) float32 on the device; noise
+// null draws xi in the kernel.
 int pct_pmyula(const float* x, const float* atb, const float* m1, const float* m2,
                const float* noise, const int* si, const float* wf, float* xo, float* m1o,
                float* m2o, int H, int W, const float* taps, int rank, int Ku, int Kv, int ouf,
                int ovf, int oua, int ova, float gamma, float c1, float cp, float ns, float thr,
                int prox_mode, void* stream) {
-  const size_t floats =
-      2 * rank * (Ku + Kv) + kTile * kTile + gram_scratch_floats(kTile, kTile, Ku, Kv);
-  const size_t bytes = floats * sizeof(float);
-  cudaError_t err = allow_smem(pmyula_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile);
-  pmyula_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      x, atb, m1, m2, noise, si, wf, xo, m1o, m2o, H, W, taps, rank, Ku, Kv, ouf, ovf, oua, ova,
-      gamma, c1, cp, ns, thr, prox_mode);
-  return (int)cudaGetLastError();
+#define CALL(K)                                                                                  \
+  launch_pmyula<K>(x, atb, m1, m2, noise, si, wf, xo, m1o, m2o, H, W,                        \
+                   gram_taps<K>(taps, rank, Ku, Kv, ouf, ovf, oua, ova), gamma, c1, cp, ns, thr, \
+                   prox_mode, (cudaStream_t)stream)
+  PCT_DISPATCH_TAPS(Ku, Kv, CALL)
+#undef CALL
 }
 
 }  // extern "C"

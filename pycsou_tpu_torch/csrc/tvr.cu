@@ -12,17 +12,22 @@
 // K4 on a block of a 2-D (sp0, sp1) mesh and replaces
 // tv_pds_megar_shard2d_step (the same kernel with CORE_L = 128 lanes).
 //
-// Bound by device-memory traffic: 7 image streams a step (x, atb, z0, z1
-// in; x', z0', z1' out), 8 with K7's m; the Gram's t = A x and the gradient
-// stay in shared memory.  Each block owns a 32 x 32 output tile and
-// computes the gradient on the tile grown by one row and column (the
-// stencil's forward differences read u one pixel down and right), which
-// needs x over the forward + adjoint reach + 1 (K7 reads m over the tile
-// grown by the adjoint reach + 1, where t lives).  The outputs go to
-// buffers separate from the inputs: a block reads its neighbours' x and z,
-// so updating in place (as the TPU kernel did on its ordered grid) would
-// race.  Masked is a template parameter, so K4's instantiation is the
-// unmasked code unchanged.
+// What bounds it.  Each block owns a 32 x 32 output tile and computes the
+// gradient on the tile grown by one row and column (the stencil's forward
+// differences read u one pixel down and right), which needs x over the
+// forward + adjoint reach + 1.  Device memory sees 7 image streams a step (x,
+// atb, z0, z1 in; x', z0', z1' out), 8 with K7's m: 0.14 ms at 4096^2 at an
+// H100 SXM's 3.35 TB/s (its 700 W limit).  The Gram (sepconv.cuh gram_into:
+// four passes of K taps a rank term over the 33 x 33 gradient region grown by
+// the reach, about 116k FMAs a tile and term for K = 15, 1.9 G at 4096^2)
+// needs 0.06 ms a rank term at the same card's float32 rate, so long as its
+// passes are not bound by shared-memory loads: they are register-blocked,
+// with the taps in this kernel's parameters (GramTaps, padded to K = 7, 15 or
+// 31, the template parameter).  t = A x and the gradient stay in shared
+// memory.  The outputs go to buffers separate from the inputs: a block reads
+// its neighbours' x and z, so updating in place (as the TPU kernel did on its
+// ordered grid) would race.  Masked is a template parameter, so K4's
+// instantiation is the unmasked code alone.
 //
 // K15 is K4's code over a row source (the Shard of sepconv.cuh) in place of
 // the (H, W) pointers; K4 keeps its own kernel, so that its code is that of
@@ -31,7 +36,9 @@
 // z1) and the halo-extended atb.  Every boundary (the 'same' crop of
 // t = A x, the dual masks, the zero last row of the forward difference)
 // keys to global rows and the global height H; each block recomputes the
-// Gram on its tile's rows from the halos.
+// Gram on its tile's rows from the halos.  The Gram's window finds each
+// row's pointer once (load_region); the stencil's reads pick top, core or
+// bottom on every read.
 //
 // K17 is K15 read through Shard2D (sepconv.cuh): the block's core columns
 // [col0, col0 + wloc) with C >= Kv columns of its left and right neighbours
@@ -48,30 +55,26 @@
 
 namespace pct {
 
-template <bool Masked>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kGrad = kTile + 1;  // the gradient region: the tile grown by 1 down and right
+
+template <int K, bool Masked>
+__global__ void __launch_bounds__(kThreads, Masked ? 1 : gram_min_blocks(K))
 tv_megar_kernel(const float* __restrict__ x, const float* __restrict__ z0,
                 const float* __restrict__ z1, const float* __restrict__ m,
                 const float* __restrict__ atb, float* __restrict__ xo, float* __restrict__ z0o,
-                float* __restrict__ z1o, float* __restrict__ partials, int H, int W,
-                const float* __restrict__ taps, int rank, int Ku, int Kv, int ouf, int ovf, int oua,
-                int ova, float atb_coef, PdsParams p) {
+                float* __restrict__ z1o, float* __restrict__ partials, int H, int W, GramTaps<K> gt,
+                float atb_coef, PdsParams p) {
   extern __shared__ float smem[];
-  const int ntaps = 2 * rank * (Ku + Kv);
-  load_taps(smem, taps, ntaps);
-  const GramTaps gt{smem, smem + rank * Ku, smem + rank * (Ku + Kv),
-                    smem + rank * (2 * Ku + Kv), rank, Ku, Kv, ouf, ovf, oua, ova};
   const int r0 = blockIdx.y * kTile, c0 = blockIdx.x * kTile;
-  Region G{smem + ntaps, r0, c0, kTile + 1, kTile + 1};
-  gram_into<Masked>(x, H, W, gt, G, G.p + G.nr * G.nc, m);
+  const Region G{smem, r0, c0, kGrad, kGrad, kGrad};
+  gram_into<K, Masked>(x, H, W, gt, G, G.p + G.nr * G.s, m);
 
   auto at = [W](const float* a) {
     return [a, W](int r, int c) { return __ldg(a + (size_t)r * W + c); };
   };
   const float* gs = G.p;
-  const int gnc = G.nc;
   auto grad = [=](int r, int c) {
-    return gs[(r - r0) * gnc + (c - c0)] - atb_coef * __ldg(atb + (size_t)r * W + c);
+    return gs[(r - r0) * kGrad + (c - c0)] - atb_coef * __ldg(atb + (size_t)r * W + c);
   };
   Stats6 st;
   st.zero();
@@ -88,28 +91,23 @@ tv_megar_kernel(const float* __restrict__ x, const float* __restrict__ z0,
   block_stats(st, partials);
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int K>
+__global__ void __launch_bounds__(kThreads, gram_min_blocks(K))
 tv_megar_shard_kernel(PCT_IMAGE(x), PCT_IMAGE(z0), PCT_IMAGE(z1), PCT_IMAGE(atb),
                       float* __restrict__ xo, float* __restrict__ z0o, float* __restrict__ z1o,
                       float* __restrict__ partials, int row0, int hloc, int R, int H, int W,
-                      const float* __restrict__ taps, int rank, int Ku, int Kv, int ouf, int ovf,
-                      int oua, int ova, float atb_coef, PdsParams p) {
+                      GramTaps<K> gt, float atb_coef, PdsParams p) {
   const Shard X{xt, x, xb, row0, hloc, R, W};
   const Shard Z0{z0t, z0, z0b, row0, hloc, R, W};
   const Shard Z1{z1t, z1, z1b, row0, hloc, R, W};
   const Shard A{atbt, atb, atbb, row0, hloc, R, W};
   extern __shared__ float smem[];
-  const int ntaps = 2 * rank * (Ku + Kv);
-  load_taps(smem, taps, ntaps);
-  const GramTaps gt{smem, smem + rank * Ku, smem + rank * (Ku + Kv),
-                    smem + rank * (2 * Ku + Kv), rank, Ku, Kv, ouf, ovf, oua, ova};
   const int r0 = row0 + blockIdx.y * kTile, c0 = blockIdx.x * kTile;
-  Region G{smem + ntaps, r0, c0, kTile + 1, kTile + 1};
-  gram_into(X, H, W, gt, G, G.p + G.nr * G.nc);
+  const Region G{smem, r0, c0, kGrad, kGrad, kGrad};
+  gram_into<K>(X, H, W, gt, G, G.p + G.nr * G.s);
 
   const float* gs = G.p;
-  const int gnc = G.nc;
-  auto grad = [=](int r, int c) { return gs[(r - r0) * gnc + (c - c0)] - atb_coef * A(r, c); };
+  auto grad = [=](int r, int c) { return gs[(r - r0) * kGrad + (c - c0)] - atb_coef * A(r, c); };
   Stats6 st;
   st.zero();
   for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
@@ -125,28 +123,23 @@ tv_megar_shard_kernel(PCT_IMAGE(x), PCT_IMAGE(z0), PCT_IMAGE(z1), PCT_IMAGE(atb)
   block_stats(st, partials);
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int K>
+__global__ void __launch_bounds__(kThreads, gram_min_blocks(K))
 tv_megar_shard2d_kernel(PCT_IMAGE(x), PCT_IMAGE(z0), PCT_IMAGE(z1), PCT_IMAGE(atb),
                         float* __restrict__ xo, float* __restrict__ z0o, float* __restrict__ z1o,
                         float* __restrict__ partials, int row0, int hloc, int R, int col0, int wloc,
-                        int C, int H, int W, const float* __restrict__ taps, int rank, int Ku, int Kv,
-                        int ouf, int ovf, int oua, int ova, float atb_coef, PdsParams p) {
+                        int C, int H, int W, GramTaps<K> gt, float atb_coef, PdsParams p) {
   const Shard2D X{xt, x, xb, row0, hloc, R, col0, wloc, C};
   const Shard2D Z0{z0t, z0, z0b, row0, hloc, R, col0, wloc, C};
   const Shard2D Z1{z1t, z1, z1b, row0, hloc, R, col0, wloc, C};
   const Shard2D A{atbt, atb, atbb, row0, hloc, R, col0, wloc, C};
   extern __shared__ float smem[];
-  const int ntaps = 2 * rank * (Ku + Kv);
-  load_taps(smem, taps, ntaps);
-  const GramTaps gt{smem, smem + rank * Ku, smem + rank * (Ku + Kv),
-                    smem + rank * (2 * Ku + Kv), rank, Ku, Kv, ouf, ovf, oua, ova};
   const int r0 = row0 + blockIdx.y * kTile, c0 = col0 + blockIdx.x * kTile;
-  Region G{smem + ntaps, r0, c0, kTile + 1, kTile + 1};
-  gram_into(X, H, W, gt, G, G.p + G.nr * G.nc);
+  const Region G{smem, r0, c0, kGrad, kGrad, kGrad};
+  gram_into<K>(X, H, W, gt, G, G.p + G.nr * G.s);
 
   const float* gs = G.p;
-  const int gnc = G.nc;
-  auto grad = [=](int r, int c) { return gs[(r - r0) * gnc + (c - c0)] - atb_coef * A(r, c); };
+  auto grad = [=](int r, int c) { return gs[(r - r0) * kGrad + (c - c0)] - atb_coef * A(r, c); };
   Stats6 st;
   st.zero();
   for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
@@ -166,31 +159,87 @@ tv_megar_shard2d_kernel(PCT_IMAGE(x), PCT_IMAGE(z0), PCT_IMAGE(z1), PCT_IMAGE(at
 
 using namespace pct;
 
+namespace {
+
+// Shared-memory bytes of a megar block: the gradient region and the Gram's
+// scratch.
+size_t megar_smem_bytes(int K, int rank) {
+  return (kGrad * kGrad + gram_scratch_floats(kGrad, kGrad, K, rank)) * sizeof(float);
+}
+
+template <int K>
+int launch_megar(const float* x, const float* z0, const float* z1, const float* m, const float* atb,
+                 float* xo, float* z0o, float* z1o, float* partials, float* stats, int H, int W,
+                 const GramTaps<K>& gt, float atb_coef, const PdsParams& p, cudaStream_t s) {
+  const size_t bytes = megar_smem_bytes(K, gt.f.rank);
+  auto kernel = m ? tv_megar_kernel<K, true> : tv_megar_kernel<K, false>;
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile);
+  kernel<<<grid, kThreads, bytes, s>>>(x, z0, z1, m, atb, xo, z0o, z1o, partials, H, W, gt, atb_coef, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  stats_fold<<<1, kThreads, 0, s>>>(partials, grid.x * grid.y, stats);
+  return (int)cudaGetLastError();
+}
+
+// x, z0, z1, atb: {top, core, bottom} pointers of each image.
+template <int K>
+int launch_megar_shard(const float* const x[3], const float* const z0[3], const float* const z1[3],
+                       const float* const atb[3], float* xo, float* z0o, float* z1o,
+                       float* partials, float* stats, int row0, int hloc, int R, int H, int W,
+                       const GramTaps<K>& gt, float atb_coef, const PdsParams& p, cudaStream_t s) {
+  const size_t bytes = megar_smem_bytes(K, gt.f.rank);
+  cudaError_t err = allow_smem(tv_megar_shard_kernel<K>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((W + kTile - 1) / kTile, (hloc + kTile - 1) / kTile);
+  tv_megar_shard_kernel<K><<<grid, kThreads, bytes, s>>>(
+      x[0], x[1], x[2], z0[0], z0[1], z0[2], z1[0], z1[1], z1[2], atb[0], atb[1], atb[2], xo, z0o,
+      z1o, partials, row0, hloc, R, H, W, gt, atb_coef, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  stats_fold<<<1, kThreads, 0, s>>>(partials, grid.x * grid.y, stats);
+  return (int)cudaGetLastError();
+}
+
+template <int K>
+int launch_megar_shard2d(const float* const x[3], const float* const z0[3], const float* const z1[3],
+                         const float* const atb[3], float* xo, float* z0o, float* z1o,
+                         float* partials, float* stats, int row0, int hloc, int R, int col0,
+                         int wloc, int C, int H, int W, const GramTaps<K>& gt, float atb_coef,
+                         const PdsParams& p, cudaStream_t s) {
+  const size_t bytes = megar_smem_bytes(K, gt.f.rank);
+  cudaError_t err = allow_smem(tv_megar_shard2d_kernel<K>, bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((wloc + kTile - 1) / kTile, (hloc + kTile - 1) / kTile);
+  tv_megar_shard2d_kernel<K><<<grid, kThreads, bytes, s>>>(
+      x[0], x[1], x[2], z0[0], z0[1], z0[2], z1[0], z1[1], z1[2], atb[0], atb[1], atb[2], xo, z0o,
+      z1o, partials, row0, hloc, R, col0, wloc, C, H, W, gt, atb_coef, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  stats_fold<<<1, kThreads, 0, s>>>(partials, grid.x * grid.y, stats);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
 extern "C" {
 
-// taps = [uf | vf | ua | va] with the gradient's 2x already in ua;
-// g = (A^H diag(m) A x) - atb_coef * atb feeds the stencil.  m == nullptr
-// launches K4 (no mask), else K7.
+// taps = [uf | vf | ua | va] in host memory, with the gradient's 2x already
+// in ua; g = (A^H diag(m) A x) - atb_coef * atb feeds the stencil.
+// m == nullptr launches K4 (no mask), else K7.
 int pct_tv_megar(const float* x, const float* z0, const float* z1, const float* m,
                  const float* atb, float* xo, float* z0o, float* z1o, float* partials,
                  float* stats, int H, int W, const float* taps, int rank, int Ku, int Kv, int ouf,
                  int ovf, int oua, int ova, float atb_coef, float tau, float sigma, float rho,
                  float lam, int nonneg, int iso, void* stream) {
-  const size_t floats = 2 * rank * (Ku + Kv) + (kTile + 1) * (kTile + 1) +
-                        gram_scratch_floats(kTile + 1, kTile + 1, Ku, Kv);
-  const size_t bytes = floats * sizeof(float);
-  auto kernel = m ? tv_megar_kernel<true> : tv_megar_kernel<false>;
-  cudaError_t err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile);
   const PdsParams p{tau, sigma, rho, lam, nonneg, iso};
-  kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      x, z0, z1, m, atb, xo, z0o, z1o, partials, H, W, taps, rank, Ku, Kv, ouf, ovf, oua, ova,
-      atb_coef, p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  stats_fold<<<1, kThreads, 0, (cudaStream_t)stream>>>(partials, grid.x * grid.y, stats);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+#define CALL(K)                                                                            \
+  launch_megar<K>(x, z0, z1, m, atb, xo, z0o, z1o, partials, stats, H, W,              \
+                  gram_taps<K>(taps, rank, Ku, Kv, ouf, ovf, oua, ova), atb_coef, p, s)
+  PCT_DISPATCH_TAPS(Ku, Kv, CALL)
+#undef CALL
 }
 
 // K15: x, z0, z1 are the shard's core (hloc, W) blocks of global rows
@@ -204,22 +253,18 @@ int pct_tv_megar_shard(const float* x, const float* z0, const float* z1, const f
                        const float* taps, int rank, int Ku, int Kv, int ouf, int ovf, int oua,
                        int ova, float atb_coef, float tau, float sigma, float rho, float lam,
                        int nonneg, int iso, void* stream) {
-  const size_t floats = 2 * rank * (Ku + Kv) + (kTile + 1) * (kTile + 1) +
-                        gram_scratch_floats(kTile + 1, kTile + 1, Ku, Kv);
-  const size_t bytes = floats * sizeof(float);
-  cudaError_t err = allow_smem(tv_megar_shard_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((W + kTile - 1) / kTile, (hloc + kTile - 1) / kTile);
   const PdsParams p{tau, sigma, rho, lam, nonneg, iso};
+  const cudaStream_t s = (cudaStream_t)stream;
   const size_t RW = (size_t)R * W;
-  const float *atbt = atb_ext, *atb = atb_ext + RW, *atbb = atb + (size_t)hloc * W;
-  tv_megar_shard_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      xt, x, xb, z0t, z0, z0b, z1t, z1, z1b, atbt, atb, atbb, xo, z0o, z1o, partials, row0, hloc,
-      R, H, W, taps, rank, Ku, Kv, ouf, ovf, oua, ova, atb_coef, p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  stats_fold<<<1, kThreads, 0, (cudaStream_t)stream>>>(partials, grid.x * grid.y, stats);
-  return (int)cudaGetLastError();
+  const float* X[3] = {xt, x, xb};
+  const float* Z0[3] = {z0t, z0, z0b};
+  const float* Z1[3] = {z1t, z1, z1b};
+  const float* A[3] = {atb_ext, atb_ext + RW, atb_ext + RW + (size_t)hloc * W};
+#define CALL(K)                                                                                \
+  launch_megar_shard<K>(X, Z0, Z1, A, xo, z0o, z1o, partials, stats, row0, hloc, R, H, W,  \
+                        gram_taps<K>(taps, rank, Ku, Kv, ouf, ovf, oua, ova), atb_coef, p, s)
+  PCT_DISPATCH_TAPS(Ku, Kv, CALL)
+#undef CALL
 }
 
 // K17: x, z0, z1 are the block's lane-extended (hloc, wloc + 2C) rows of
@@ -235,22 +280,19 @@ int pct_tv_megar_shard2d(const float* x, const float* z0, const float* z1, const
                          int C, int H, int W, const float* taps, int rank, int Ku, int Kv, int ouf,
                          int ovf, int oua, int ova, float atb_coef, float tau, float sigma, float rho,
                          float lam, int nonneg, int iso, void* stream) {
-  const size_t floats = 2 * rank * (Ku + Kv) + (kTile + 1) * (kTile + 1) +
-                        gram_scratch_floats(kTile + 1, kTile + 1, Ku, Kv);
-  const size_t bytes = floats * sizeof(float);
-  cudaError_t err = allow_smem(tv_megar_shard2d_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((wloc + kTile - 1) / kTile, (hloc + kTile - 1) / kTile);
   const PdsParams p{tau, sigma, rho, lam, nonneg, iso};
+  const cudaStream_t s = (cudaStream_t)stream;
   const size_t RL = (size_t)R * (wloc + 2 * C);
-  const float *atbt = atb_ext, *atb = atb_ext + RL, *atbb = atb + (size_t)hloc * (wloc + 2 * C);
-  tv_megar_shard2d_kernel<<<grid, kThreads, bytes, (cudaStream_t)stream>>>(
-      xt, x, xb, z0t, z0, z0b, z1t, z1, z1b, atbt, atb, atbb, xo, z0o, z1o, partials, row0, hloc,
-      R, col0, wloc, C, H, W, taps, rank, Ku, Kv, ouf, ovf, oua, ova, atb_coef, p);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  stats_fold<<<1, kThreads, 0, (cudaStream_t)stream>>>(partials, grid.x * grid.y, stats);
-  return (int)cudaGetLastError();
+  const float* X[3] = {xt, x, xb};
+  const float* Z0[3] = {z0t, z0, z0b};
+  const float* Z1[3] = {z1t, z1, z1b};
+  const float* A[3] = {atb_ext, atb_ext + RL, atb_ext + RL + (size_t)hloc * (wloc + 2 * C)};
+#define CALL(K)                                                                                 \
+  launch_megar_shard2d<K>(X, Z0, Z1, A, xo, z0o, z1o, partials, stats, row0, hloc, R, col0, \
+                          wloc, C, H, W, gram_taps<K>(taps, rank, Ku, Kv, ouf, ovf, oua, ova), \
+                          atb_coef, p, s)
+  PCT_DISPATCH_TAPS(Ku, Kv, CALL)
+#undef CALL
 }
 
 }  // extern "C"

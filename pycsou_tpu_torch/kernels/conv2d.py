@@ -41,15 +41,17 @@ MAX_TAPS = 31
 class SepFactors:
     """Factor taps ``u`` (Ku, rank) and ``v`` (Kv, rank) of a separable PSF
     with their 'same' offsets, on one device, plus the packed
-    ``[u^T | v^T]`` buffer the kernels read."""
+    ``[u^T | v^T]`` host buffer the kernels' launchers copy into the
+    kernels' parameters."""
 
     def __init__(self, u, v, ou: int, ov: int, device):
-        u = torch.as_tensor(np.asarray(u, np.float32), device=device)
-        v = torch.as_tensor(np.asarray(v, np.float32), device=device)
+        u, v = np.asarray(u, np.float32), np.asarray(v, np.float32)
         if u.ndim == 1:
             u = u[:, None]
         if v.ndim == 1:
             v = v[:, None]
+        packed = np.concatenate([u.T.reshape(-1), v.T.reshape(-1)])
+        u, v = torch.as_tensor(u, device=device), torch.as_tensor(v, device=device)
         rank = u.shape[1]
         if rank != v.shape[1] or not 1 <= rank <= MAX_RANK:
             raise ValueError(f"factor ranks {u.shape[1]}/{v.shape[1]}: need equal and <= {MAX_RANK}")
@@ -61,7 +63,7 @@ class SepFactors:
         self.u, self.v = u, v
         self.ou, self.ov = int(ou), int(ov)
         self.rank, self.Ku, self.Kv = rank, Ku, Kv
-        self.packed = torch.cat([u.T.reshape(-1), v.T.reshape(-1)]).contiguous()
+        self.packed = packed
         # set on an adjoint stack: its forward stack, and [fwd | adj] packed
         # for the Gram kernels (built once, not per launch)
         self.of = None
@@ -80,15 +82,16 @@ class SepFactors:
             self.Ku - 1 - self.ou, self.Kv - 1 - self.ov, self.device,
         )
         adj.of = self
-        adj.pair = torch.cat([self.packed, adj.packed])
+        adj.pair = np.concatenate([self.packed, adj.packed])
         return adj
 
 
-def gram_taps(fwd: SepFactors, adj: SepFactors) -> torch.Tensor:
-    """``[fwd | adj]`` packed taps for K2/K4 (cached on ``adj``)."""
+def gram_taps(fwd: SepFactors, adj: SepFactors) -> np.ndarray:
+    """``[fwd | adj]`` packed host taps for the Gram kernels (cached on
+    ``adj``)."""
     if (adj.rank, adj.Ku, adj.Kv) != (fwd.rank, fwd.Ku, fwd.Kv):
         raise ValueError("adj must be the adjoint stack of fwd (same rank and tap counts)")
-    return adj.pair if adj.of is fwd else torch.cat([fwd.packed, adj.packed])
+    return adj.pair if adj.of is fwd else np.concatenate([fwd.packed, adj.packed])
 
 
 def _check_image(t: torch.Tensor, name: str, like: torch.Tensor = None) -> None:
@@ -144,7 +147,7 @@ def sepconv2d(x: torch.Tensor, f: SepFactors) -> torch.Tensor:
     H, W = x.shape
     y = torch.empty_like(x)
     err = library().pct_sepconv2d(
-        x.data_ptr(), y.data_ptr(), H, W, f.packed.data_ptr(),
+        x.data_ptr(), y.data_ptr(), H, W, f.packed.ctypes.data,
         f.rank, f.Ku, f.Kv, f.ou, f.ov, stream_of(x),
     )
     check(err, "sepconv2d")
@@ -174,7 +177,7 @@ def sepgram2d(x: torch.Tensor, fwd: SepFactors, adj: SepFactors, atb=None) -> to
     g = torch.empty_like(x)
     err = library().pct_sepgram2d(
         x.data_ptr(), 0 if atb is None else atb.data_ptr(), g.data_ptr(), H, W,
-        taps.data_ptr(), fwd.rank, fwd.Ku, fwd.Kv, fwd.ou, fwd.ov, adj.ou, adj.ov,
+        taps.ctypes.data, fwd.rank, fwd.Ku, fwd.Kv, fwd.ou, fwd.ov, adj.ou, adj.ov,
         2.0, stream_of(x),
     )
     check(err, "sepgram2d")

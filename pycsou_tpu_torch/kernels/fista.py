@@ -76,7 +76,7 @@ def lasso_fista_step(v, x_prev, atb, mom, fwd: SepFactors, adj2: SepFactors, *, 
     mom = mom.contiguous()
     err = library().pct_lasso_fista(
         v.data_ptr(), x_prev.data_ptr(), atb.data_ptr(), mom.data_ptr(), xo.data_ptr(),
-        vo.data_ptr(), partials.data_ptr(), stats.data_ptr(), H, W, taps.data_ptr(), fwd.rank,
+        vo.data_ptr(), partials.data_ptr(), stats.data_ptr(), H, W, taps.ctypes.data, fwd.rank,
         fwd.Ku, fwd.Kv, fwd.ou, fwd.ov, adj2.ou, adj2.ov, float(tau), float(tau * lam),
         int(bool(nonneg)), stream_of(v),
     )

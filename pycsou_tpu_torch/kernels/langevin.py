@@ -157,7 +157,7 @@ def pmyula_mega_step(x, atb, m1, m2, si, wf, fwd: SepFactors, adj2: SepFactors, 
     err = library().pct_pmyula(
         x.data_ptr(), atb.data_ptr(), m1.data_ptr(), m2.data_ptr(),
         noise.data_ptr() if noise_mode == "stream" else 0, si.data_ptr(), wf.data_ptr(),
-        xo.data_ptr(), m1o.data_ptr(), m2o.data_ptr(), H, W, taps.data_ptr(), fwd.rank, fwd.Ku,
+        xo.data_ptr(), m1o.data_ptr(), m2o.data_ptr(), H, W, taps.ctypes.data, fwd.rank, fwd.Ku,
         fwd.Kv, fwd.ou, fwd.ov, adj2.ou, adj2.ov, float(gamma), c1, cp, ns, thr,
         PROX_MODES.index(prox_mode), stream_of(x),
     )

@@ -71,7 +71,7 @@ def sepgram_apply(x: torch.Tensor, us, vs) -> torch.Tensor:
     g = torch.empty_like(x)
     taps = gram_taps(fwd, adj)
     err = library().pct_sepgram2d(
-        x.data_ptr(), 0, g.data_ptr(), H, W, taps.data_ptr(), fwd.rank, fwd.Ku, fwd.Kv, fwd.ou, fwd.ov,
+        x.data_ptr(), 0, g.data_ptr(), H, W, taps.ctypes.data, fwd.rank, fwd.Ku, fwd.Kv, fwd.ou, fwd.ov,
         adj.ou, adj.ov, 2.0, stream_of(x),
     )
     check(err, "sepgram_apply")

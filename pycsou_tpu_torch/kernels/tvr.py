@@ -93,7 +93,7 @@ def _launch_megar(fn, x, z0, z1, m, atb, fwd, adj2, taps, kw):
     err = library().pct_tv_megar(
         x.data_ptr(), z0.data_ptr(), z1.data_ptr(), 0 if m is None else m.data_ptr(), atb.data_ptr(),
         xo.data_ptr(), z0o.data_ptr(), z1o.data_ptr(), partials.data_ptr(), stats.data_ptr(),
-        H, W, taps.data_ptr(), fwd.rank, fwd.Ku, fwd.Kv, fwd.ou, fwd.ov, adj2.ou, adj2.ov,
+        H, W, taps.ctypes.data, fwd.rank, fwd.Ku, fwd.Kv, fwd.ou, fwd.ov, adj2.ou, adj2.ov,
         2.0, float(kw["tau"]), float(kw["sigma"]), float(kw["rho"]), float(kw["lam"]),
         int(bool(kw["nonneg"])), int(bool(kw["iso"])), stream_of(x),
     )
@@ -172,7 +172,7 @@ def tv_pds_megar_shard_step(x, z0, z1, atb_ext, halos, fwd: SepFactors, adj2: Se
     if x.device.type == "cpu":
         return tv_pds_megar_shard_step_plain(x, z0, z1, atb_ext, halos, fwd, adj2, off, H_global=H_global,
                                              **kw)
-    args = (taps.data_ptr(), fwd.rank, fwd.Ku, fwd.Kv, fwd.ou, fwd.ov, adj2.ou, adj2.ov, 2.0)
+    args = (taps.ctypes.data, fwd.rank, fwd.Ku, fwd.Kv, fwd.ou, fwd.ov, adj2.ou, adj2.ov, 2.0)
     return _launch_shard(tv_pds_megar_shard_step, "pct_tv_megar_shard", x, (x, z0, z1, atb_ext), halos,
                          row0, H_global, args, kw)
 
@@ -257,7 +257,7 @@ def tv_pds_megar_shard2d_step(x_ext, z0_ext, z1_ext, atb_ext, halos, fwd: SepFac
         x_ext.data_ptr(), z0_ext.data_ptr(), z1_ext.data_ptr(), atb_ext.data_ptr(),
         *(t.data_ptr() for t in halos), xo.data_ptr(), z0o.data_ptr(), z1o.data_ptr(),
         partials.data_ptr(), stats.data_ptr(), row0, h_loc, R, col0, w_loc, HALO_COLS, H_global, W_global,
-        taps.data_ptr(), fwd.rank, fwd.Ku, fwd.Kv, fwd.ou, fwd.ov, adj2.ou, adj2.ov, 2.0,
+        taps.ctypes.data, fwd.rank, fwd.Ku, fwd.Kv, fwd.ou, fwd.ov, adj2.ou, adj2.ov, 2.0,
         float(tau), float(sigma), float(rho), float(lam), int(bool(nonneg)), int(bool(iso)), stream_of(x_ext),
     )
     check(err, "tv_pds_megar_shard2d_step")

@@ -708,3 +708,81 @@ def test_sepgram_apply_matches_plain_and_k2(cuda, rng, shape, rank, K0, K1):
     assert (sepgram_apply.launches, sepgram2d.launches) == (before[0] + 1, before[1])
     _close(got, sepgram_apply_plain(x, us, vs))
     _close(got, sepgram2d(x, f, f.adjoint()), rel=1e-7)
+
+
+# -- the shared Gram: every caller at every padded tap count ------------------------
+
+# (Ku, Kv): each of 1, 2, 4, 7, 8, 15, 16 and 31 taps on each axis, Ku != Kv,
+# so every padded count (7, 15, 31) runs with the PSF's own taps short of it
+GRAM_TAPS = [(1, 2), (2, 4), (4, 7), (7, 8), (8, 15), (15, 16), (16, 31), (31, 1)]
+
+
+@pytest.mark.parametrize("shape,mesh", [((100, 777), (2, 3)), ((20, 27), (1, 1))])
+@pytest.mark.parametrize("Ku,Kv", GRAM_TAPS)
+@pytest.mark.parametrize("rank", [1, 2, 3, 4])
+def test_gram_callers_match_plain(cuda, rng, shape, mesh, Ku, Kv, rank):
+    """Every kernel on the shared Gram (sepconv.cuh: K1, K2, K4, K7, K8, K9,
+    K15, K17, K18) against its plain version for random rank-``rank``
+    factors of Ku x Kv taps, on an image whose sides are not multiples of 32
+    and on one smaller than a tile; K15 on one shard and K17 on one block are
+    K4 bit for bit, K18 is K2."""
+    u, v = rng.standard_normal((Ku, rank)), rng.standard_normal((Kv, rank))
+    u, v = u / np.abs(u).sum(0), v / np.abs(v).sum(0)
+    f = SepFactors(u, v, Ku // 2, Kv // 2, cuda)
+    a, a2 = f.adjoint(), f.adjoint(2.0)
+    t = lambda arr: torch.from_numpy(arr.astype(np.float32)).to(cuda)  # noqa: E731
+    (H, W), (n0, n1) = shape, mesh
+    x, atb, xi = t(np.abs(rng.standard_normal(shape))), t(rng.standard_normal(shape)), t(rng.standard_normal(shape))
+    z0, z1 = t(0.01 * rng.standard_normal(shape)), t(0.01 * rng.standard_normal(shape))
+    m = t(rng.random(shape) < 0.7)
+    _close(sepconv2d(x, f), sepconv2d_plain(x, f))
+    _close(sepconv2d(x, a), sepconv2d_plain(x, a))
+    gram = sepgram2d(x, f, a)
+    _close(gram, sepgram2d_plain(x, f, a))
+    _close(sepgram2d(x, f, a2, atb), sepgram2d_plain(x, f, a2, atb))
+    us, vs = tuple(map(tuple, u.T)), tuple(map(tuple, v.T))
+    assert torch.equal(sepgram_apply(x, us, vs), gram)
+    k4 = tv_pds_megar_step(x, z0, z1, atb, f, a2, **KW)
+    _assert_step_close(k4, tv_pds_megar_step_plain(x, z0, z1, atb, f, a2, **KW), 2e-6)
+    _assert_step_close(tv_pds_megarm_step(x, z0, z1, m, atb, f, a2, **KW),
+                       tv_pds_megarm_step_plain(x, z0, z1, m, atb, f, a2, **KW), 2e-6)
+    mom = torch.tensor([0.3], device=cuda)
+    got = lasso_fista_step(x, z0, atb, mom, f, a2, tau=0.5, lam=0.01)
+    want = lasso_fista_step_plain(x, z0, atb, mom.reshape(()), f, a2, tau=0.5, lam=0.01)
+    for i in range(2):
+        _close(got[i], want[i])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-7)
+    si, wf = torch.tensor([3, 25], dtype=torch.int32, device=cuda), torch.tensor([1.0], device=cuda)
+    pk = dict(gamma=1 / 3, tau=1.0, lam=0.01, prox_mode="l1", noise_mode="stream", noise=xi)
+    for g, w in zip(pmyula_mega_step(x, atb, z0, z1, si, wf, f, a2, **pk),
+                    pmyula_mega_step_plain(x, atb, z0, z1, si, wf, f, a2, **pk)):
+        _close(g, w)
+    # K15 on n0 row shards and on one, K17 on the n0 x n1 blocks and on one
+    # (a mesh of one: the image is shorter than the 32 halo rows)
+    R, C = 32, HALO_COLS
+    h, w = H // n0, W // n1
+    kw = dict(KW, H_global=H)
+    xs, as_, z0s, z1s = ([v[i * h : (i + 1) * h] for i in range(n0)] for v in (x, atb, z0, z1))
+    for i, (hl, ext) in enumerate(zip(halos((xs, z0s, z1s), R), halo_extend(as_, R)) if n0 > 1 else ()):
+        c = (xs[i], z0s[i], z1s[i])
+        _assert_step_close(tv_pds_megar_shard_step(*c, ext, hl, f, a2, i * h - R, **kw),
+                           tv_pds_megar_shard_step_plain(*c, ext, hl, f, a2, i * h - R, **kw), 2e-6)
+    pad = lambda b: torch.cat([b.new_zeros((R, W)), b, b.new_zeros((R, W))])  # noqa: E731
+    zr = tuple(torch.zeros((R, W), device=cuda) for _ in range(6))
+    for g, w_ in zip(tv_pds_megar_shard_step(x, z0, z1, pad(atb), zr, f, a2, -R, **kw), k4):
+        assert torch.equal(g, w_)
+    kw2 = dict(KW, H_global=H, W_global=W)
+    if n0 > 1:
+        ext = [lane_extend(_grid(v, n0, n1), C) for v in (x, z0, z1)]
+        hl, aext = halos_2d(ext, R), halo_extend_2d(_grid(atb, n0, n1), R, C)
+    for i in range(n0 if n0 > 1 else 0):
+        for j in range(n1):
+            args = (ext[0][i][j], ext[1][i][j], ext[2][i][j], aext[i][j], hl[i][j], f, a2, (i * h - R, j * w - C))
+            _assert_step_close(tv_pds_megar_shard2d_step(*args, **kw2),
+                               tv_pds_megar_shard2d_step_plain(*args, **kw2), 2e-6)
+    cpad = lambda b: torch.cat([b.new_zeros((b.shape[0], C)), b, b.new_zeros((b.shape[0], C))], 1)  # noqa: E731
+    ae = torch.cat([atb.new_zeros((R, W + 2 * C)), cpad(atb), atb.new_zeros((R, W + 2 * C))])
+    zr = tuple(torch.zeros((R, W + 2 * C), device=cuda) for _ in range(6))
+    for g, w_ in zip(tv_pds_megar_shard2d_step(cpad(x), cpad(z0), cpad(z1), ae, zr, f, a2, (-R, -C), **kw2), k4):
+        assert torch.equal(g, w_)
+    torch.cuda.synchronize()
