@@ -93,11 +93,14 @@
    samples/s, and the main path's ``solve()`` time to a 1e-6 relative
    improvement.
 
-``python3 chip_smoke.py --gram-ab OLD_ROOT`` instead times the callers of
-the shared Gram (``csrc/sepconv.cuh``: K1, K2, K18, K4, K7, K8, K9, K15,
-K17) on both PSFs, two untouched kernels as controls, and the rates of the
-paths they carry, for the checkout at OLD_ROOT and for this one in turns
-(old, new, new, old), each run a process of its own on the same card.
+``python3 chip_smoke.py --gram-ab OLD_ROOT`` instead times, for the
+checkout at OLD_ROOT and for this one in turns (old, new, new, old), each
+run a process of its own on the same card: the callers of the shared Gram
+(``csrc/sepconv.cuh``: K1, K2, K18, K4, K7, K8, K9, K15, K17) on both
+PSFs, K10 on the Gaussian and the identity PSF, K3 and K11 as controls,
+the rates of the paths they carry (the main path on mega3, mega2 and megar
+by name, small denoising at 1024 x 1024 among them) and the main path's
+time to 1e-6.  ``--gram-times ROOT [--kernels-only]`` is one such run.
 
 Any failure exits non-zero.  On success the last two lines are a JSON
 object with the per-kernel results and the device line
@@ -1435,14 +1438,17 @@ def main():
 # -- A/B of the shared Gram's callers: python3 chip_smoke.py --gram-ab PARENT_ROOT
 
 
-def gram_times(root):
-    """``--gram-times ROOT``: with the package of the checkout at ROOT, the
-    median CUDA-event ms of every caller of the shared Gram (K1, K2, K18,
-    K4, K7, K8, K15 a middle 1024-row shard, K17 the median of the four
-    2048^2 blocks of the (2, 2) mesh at 4096^2; K9 at 2048^2) on both PSFs,
-    of K3 and K10 (untouched controls), the slope-timed rates of the paths
-    they carry and the device-idle share of the (2, 2) path and of megar;
-    one JSON line."""
+def gram_times(root, kernels_only=False):
+    """``--gram-times ROOT [--kernels-only]``: with the package of the
+    checkout at ROOT, the median CUDA-event ms of every caller of the shared
+    Gram (K1, K2, K18, K4, K7, K8, K15 a middle 1024-row shard, K17 the
+    median of the four 2048^2 blocks of the (2, 2) mesh at 4096^2; K9 at
+    2048^2) on both PSFs, of K10 on the Gaussian and the identity PSF, of K3
+    and K11 (controls); then, unless ``kernels_only``, the slope-timed rates
+    of the paths they carry (the main path on mega3, mega2 and megar by
+    name, small denoising at 1024^2 on mega3), the main path's time to
+    1e-6 and the device-idle share of the (2, 2) path, of megar and of the
+    main path; one JSON line."""
     sys.path.insert(0, str(root))
     from scipy.signal import fftconvolve
 
@@ -1452,7 +1458,7 @@ def gram_times(root):
     from pycsou_tpu_torch.kernels.fista import lasso_fista_step
     from pycsou_tpu_torch.kernels.langevin import pmyula_mega_step
     from pycsou_tpu_torch.kernels.sepgram import sepgram_apply
-    from pycsou_tpu_torch.kernels.tv import tv_pds_mega3_step, tv_pds_sweep_step_stats
+    from pycsou_tpu_torch.kernels.tv import tv_pds_mega2_step, tv_pds_mega3_step, tv_pds_sweep_step_stats
     from pycsou_tpu_torch.kernels.tvr import (
         HALO_COLS, tv_pds_megar_shard2d_step, tv_pds_megar_shard_step, tv_pds_megar_step,
     )
@@ -1489,6 +1495,7 @@ def gram_times(root):
                                  for j in range(n1)) for i in range(n0))
     ext = [lane_extend(grid(a), C) for a in (x, z0, z1)]
     block_halos, block_atb = halos_2d(ext, R), halo_extend_2d(grid(atb), R, C)
+    gram_g = Convolve2D(SHAPE, gaussian_kernel(), device=dev).gram
     for psf, h in (("gauss", gaussian_kernel()), ("rank2", rank2_kernel())):
         us, vs = lowrank_factors(h)
         f = SepFactors(us, vs, h.shape[0] // 2, h.shape[1] // 2, dev)
@@ -1511,10 +1518,15 @@ def gram_times(root):
                                                         H_global=H, W_global=W, **kw))
             for i in range(n0) for j in range(n1))
     gauss = gaussian_kernel()
-    gram = Convolve2D(SHAPE, gauss, device=dev).gram
-    ms["K10 gauss (control)"] = median_ms(lambda: tv_pds_mega3_step(x, z0, z1, atb, gram, **kw))
+    for psf, h in (("gauss", gauss), ("identity", np.ones((1, 1), np.float32))):
+        gram = Convolve2D(SHAPE, h, device=dev).gram
+        ms[f"K10 {psf}"] = median_ms(lambda: tv_pds_mega3_step(x, z0, z1, atb, gram, **kw))
+    ms["K11 gauss (control)"] = median_ms(lambda: tv_pds_mega2_step(x, z0, z1, atb, gram_g, **kw))
     ms["K3 (control)"] = median_ms(lambda: tv_pds_sweep_step_stats(x, z0, z1, atb, **kw))
     del cores, shard_halos, shard_atb, ext, block_halos, block_atb
+    if kernels_only:
+        print(json.dumps(out), flush=True)
+        return 0
 
     # the paths, each slope-timed (the same problems as main's)
     xb = blocks_image(rng)
@@ -1532,8 +1544,15 @@ def gram_times(root):
     mesh2 = make_mesh(MESH2D, ("sp0", "sp1"), devices=[dev] * (n0 * n1))
     ymc = torch.from_numpy(fftconvolve(np.abs(rng.standard_normal(SHAPE_MCMC)), gauss, mode="same")
                            .astype(np.float32)).to(dev)
+    small = (1024, 1024)
+    yd = torch.from_numpy(blocks_image(rng, small) + 0.1 * rng.standard_normal(small).astype(np.float32)).to(dev)
     paths = {
+        "main path (mega3)": lambda: pds(yg, Convolve2D(SHAPE, gauss, device=dev)),
+        "mega2 (gauss)": lambda: TVDeconvolution(SHAPE, yg, LAM, filt=gauss, stencil="mega2", max_iter=3000),
         "megar (gauss)": lambda: TVDeconvolution(SHAPE, yg, LAM, filt=gauss, stencil="megar", max_iter=3000),
+        "small denoising (1024^2)": lambda: PDS(small, F=SquaredL2Loss(small, data=yd), G=NonNegativeOrthant(small),
+                                                H=LAM * L21Norm((2,) + small, axis=0), K=Gradient(small),
+                                                max_iter=3000),
         "main path (rank-2 PSF)": lambda: pds(yr, Convolve2D(SHAPE, rank2_kernel(), device=dev)),
         "PDS fuse=False (gauss)": lambda: pds(yg, Convolve2D(SHAPE, gauss, device=dev), fuse=False),
         "blurred super-resolution": lambda: pds(ym, MA),
@@ -1549,7 +1568,17 @@ def gram_times(root):
     for name, build in paths.items():
         solver = build()
         out["iters_per_s"][name] = v = time_solver(solver)
-        if name in ("megar (gauss)", "2-D mesh (gauss)"):
+        if name == "main path (mega3)":
+            if solver._fused.stencil_mode != "mega3":
+                raise AssertionError(f"the main path runs {solver._fused.stencil_mode}, not mega3")
+            tol_solver = solver.replace(tol=1e-6, min_iter=50)
+            tol_solver.run_fixed(5)  # warm
+            torch.cuda.synchronize()
+            info = tol_solver.solve()
+            if not info.converged:
+                raise AssertionError("the main path's solve() did not reach 1e-6")
+            out["time_to_1e6_s"] = info.elapsed
+        if name in ("main path (mega3)", "megar (gauss)", "2-D mesh (gauss)"):
             busy = device_ms_per_iteration(solver)
             out["idle"][name] = None if busy is None else 1.0 - busy * v / 1e3
         del solver
@@ -1583,7 +1612,9 @@ def gram_ab(parent):
         runs.append((label, json.loads(p.stdout.strip().splitlines()[-1])))
         log(f"{label} {root}: built/loaded in {runs[-1][1]['build_s']:.2f} s")
     table = {}
-    for group in ("ms", "iters_per_s", "idle"):
+    for _, r in runs:
+        r["time_to_1e6"] = {"main path (mega3)": r.get("time_to_1e6_s")}
+    for group in ("ms", "iters_per_s", "idle", "time_to_1e6"):
         for key in runs[0][1][group]:
             vals = [r[group][key] for _, r in runs]
             par, chg = [v for (lb, _), v in zip(runs, vals) if lb == "parent"], \
@@ -1598,8 +1629,8 @@ def gram_ab(parent):
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--gram-times":
-        sys.exit(gram_times(sys.argv[2]))
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--gram-times":
+        sys.exit(gram_times(sys.argv[2], kernels_only=sys.argv[3:] == ["--kernels-only"]))
     if len(sys.argv) == 3 and sys.argv[1] == "--gram-ab":
         sys.exit(gram_ab(sys.argv[2]))
     sys.exit(main())

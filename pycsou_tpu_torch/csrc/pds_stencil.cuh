@@ -88,16 +88,35 @@ __device__ __forceinline__ PdsOut pds_stencil(int r, int c, int H, int W, const 
                 x0, z0, z1};
 }
 
-// The primal half of pds_stencil alone: its x' at (r, c), the same
-// arithmetic, without the dual update (K10's first stage away from the
-// pixels its second stage reads duals at).
-template <class FX, class FG, class FZ0, class FZ1>
-__device__ __forceinline__ float pds_primal(int r, int c, int H, int W, const PdsParams& p,
-                                            FX X, FG G, FZ0 Z0, FZ1 Z1) {
-  const MaskedDual<FZ0, FZ1> z{Z0, Z1, H, W};
-  const float x0 = X(r, c);
+// pds_stencil's arithmetic from x_t and x at (r, c) (xt, x0), one row down
+// (xtd, xd; read only when r < H - 1) and one column right (xtr, xr; read
+// only when c < W - 1), for a caller that holds each x_t once (K10) instead
+// of computing it for every pixel that reads it.  pds_stencil keeps its own
+// copy of these lines, so that the other kernels' machine code stays as it
+// was.
+template <class FZ0, class FZ1>
+__device__ __forceinline__ PdsOut pds_update(int r, int c, int H, int W, const PdsParams& p,
+                                             const MaskedDual<FZ0, FZ1>& z, float x0, float xt, float xd,
+                                             float xtd, float xr, float xtr) {
+  const float u = 2.f * xt - x0;
+  float du_r = 0.f, du_c = 0.f;
+  if (r < H - 1) du_r = (2.f * xtd - xd) - u;
+  if (c < W - 1) du_c = (2.f * xtr - xr) - u;
+  const float z0 = z.z0(r, c), z1 = z.z1(r, c);
+  const float v0 = z0 + p.sigma * du_r;
+  const float v1 = z1 + p.sigma * du_c;
+  float z0t, z1t;
+  if (p.iso) {
+    const float scale = p.lam / fmaxf(sqrtf(v0 * v0 + v1 * v1), p.lam);
+    z0t = v0 * scale;
+    z1t = v1 * scale;
+  } else {
+    z0t = fminf(fmaxf(v0, -p.lam), p.lam);
+    z1t = fminf(fmaxf(v1, -p.lam), p.lam);
+  }
   const float keep = 1.f - p.rho;
-  return p.rho * z.x_t(r, c, x0, G, p) + keep * x0;
+  return PdsOut{p.rho * xt + keep * x0, p.rho * z0t + keep * z0, p.rho * z1t + keep * z1,
+                x0, z0, z1};
 }
 
 // The data gradient of a diagonal Gram m (K5, K6): g = 2 (m x - atb),

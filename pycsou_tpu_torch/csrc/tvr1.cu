@@ -6,7 +6,8 @@
 //                        one iteration, both Gram directions in the kernel,
 //                        with the stopping-metric partial sums.
 //   K10 tv_mega3_kernel  replaces tv_pds_mega3_step (_tv_mega3_kernel): two
-//                        iterations, the partial sums of the second only.
+//                        iterations, the partial sums of the second only;
+//                        a block walks a column strip (below).
 //   K12 tv_mega_kernel   replaces tv_pds_mega_step (_tv_mega_kernel): the row
 //                        Gram of a given w = ColGram(x), then the stencil of
 //                        a stacked dual (2, H, W); no partial sums.
@@ -22,9 +23,9 @@
 // where K4 (tvr.cu) runs four of K taps.  The gradient's 2x is folded into
 // the row taps and the row corrections, so g = G x - 2 atb.
 //
-// Tiles.  Each block owns a 32 x 32 output tile and computes the gradient on
-// the tile grown by one row and column (the stencil reads x_t one pixel down
-// and right).  The last tile of an axis is shifted back to end on the
+// Tiles (K11, K12, K14).  Each block owns a 32 x 32 output tile and
+// computes the gradient on the tile grown by one row and column (the
+// stencil reads x_t one pixel down and right).  The last tile of an axis is shifted back to end on the
 // image's edge, so that its windows always hold the rows and columns the
 // edge corrections read; such a block writes (and sums) only the pixels of
 // its own tile.  The band passes are register-blocked: a thread slides a
@@ -34,17 +35,37 @@
 // PSF's reach are 0).  Shared-memory row strides are odd, so a warp's
 // column walks are free of bank conflicts.
 //
-// K10's temporal blocking (as K6 in tvm2.cu): stage 1 computes iteration 1
-// over the tile grown by a = max(R, 1) (plus the row and column its
-// gradient needs), from x read over the tile grown by 2R + a + 1 (94 x 94
-// for a 15-tap PSF); stage 2 computes iteration 2 on the tile from stage
-// 1's values, which never leave shared memory.  Stage 2 reads stage 1's x
-// over the tile grown by R (its Gram) but its duals only over the tile
-// grown by 1, so stage 1 updates the duals there alone and elsewhere only
-// x (the primal half of the stencil, the same arithmetic); this keeps the
-// block at 102 KB of shared memory, two blocks an SM.  Stage-1 values
-// outside the image are written as 0: the zero boundary of the second
-// Gram.
+// K10 walks instead of tiling, as the TPU kernel does (its grid walks
+// full-width row tiles with rings of rows in VMEM, tv.py:1604-1631).  A
+// block owns a strip of kStrip = 64 output columns (the last shifted back
+// to end on the image's edge) and a segment of rows (a multiple of the
+// step, cut so that the grid fills two blocks an SM about once), and walks
+// down it in steps of S = 16 rows.  Step k, with g = g0 + k S:
+//   1. stage 1: V = RowGram(x) on rows [g, g + S) down a ring of x rows,
+//      G1 = ColGram(V) on the strip grown by A + 1 columns each side, A =
+//      max(R, 1) (stage 2 reads the duals one column out of its strip);
+//      the Gram's passes in the other order than K11's (the same operator,
+//      other rounding); G1 kept with the row above from the last step; then
+//      iteration 1 on rows [g - 1, g + S - 1) into a ring of x1 rows (0
+//      outside the image's columns: the zero boundary of the second Gram)
+//      and, on the strip grown by 1, rings of its duals;
+//   2. stage 2, D = R + 1 rows behind: the same on the x1 ring for rows
+//      [h, h + S), h = g - D, then iteration 2 on the block's own pixels
+//      of rows [h - 1, h + S - 1), with the partial sums.
+// After stage 1 the next step's x rows and stage 1's z0, z1, atb rows, and
+// stage 2's atb rows, come in by cp.async while stage 2 runs, so no
+// stencil reads device memory.  Each stencil runs in two passes: x_t once
+// a pixel (into V, free by then), then x' and the duals from it
+// (pds_update), where pds_stencil would compute each x_t three times.
+// The segment's first steps run stage 1
+// alone (the fill); only the strip's sides (A + 1 columns of stage 1, A +
+// R + 1 of x) and the segment's ends are computed twice.  Rows outside [0, H)
+// are never stored in a ring and read as 0, so once the walk passes the
+// image's last row a ring keeps the last rows the bottom edge corrections
+// read; segments start on a multiple of S >= R + 1, so the step that
+// computes the first K - 1 rows already holds the rows [0, L) the top
+// corrections read.  At R = 15: 107 KB of shared memory, two blocks of 256
+// threads an SM.
 //
 // K14 is K11's code over a row source (the Shard of sepconv.cuh) in place
 // of the (H, W) pointers; K11 keeps its own kernel, so that its code is
@@ -61,6 +82,7 @@
 // (w, x, atb, z (2) in; x', z' (2) out).  Halo re-reads come from L2.  The
 // outputs go to buffers apart from the inputs (blocks read their
 // neighbours' values; the TPU kernels updated in place on an ordered grid).
+#include <algorithm>
 #include <cstring>
 
 #include "sepconv.cuh"
@@ -70,7 +92,9 @@ namespace pct {
 
 constexpr int kG = kTile + 1;     // gradient region: the tile grown by 1 down and right
 constexpr int kMaxReach = 15;     // padded reach R <= 15 (taps per axis <= 16)
-constexpr int kMega3Threads = 512;
+constexpr int kStrip = 64;       // K10: output columns of a block's strip
+constexpr int kMega3Step = 16;   // K10: rows a step of the walk
+constexpr int kMega3Threads = 256;
 
 // Autocorrelation taps centred at R: ar[R + d] = 2 acorr_rows[K_r - 1 + d]
 // (the gradient's 2x folded in), ac[R + d] = acorr_cols[K_c - 1 + d].
@@ -321,101 +345,319 @@ tv_mega2_shard_kernel(PCT_IMAGE(x), PCT_IMAGE(z0), PCT_IMAGE(z1), PCT_IMAGE(atb)
 
 // -- K10: two iterations ------------------------------------------------
 
+// The strip walker's geometry for padded reach R (the design is in the
+// comment at the top of this file).  Columns are relative to the strip's
+// first output column c0, rows are global.
 template <int R>
-struct Mega3Smem {
-  static constexpr int a = R > 1 ? R : 1;     // stage 1 grows the tile by a
-  static constexpr int n1 = kG + 2 * a;       // stage-1 region edge (odd)
-  static constexpr int nG1 = n1 + 1;          // stage-1 gradient region
-  static constexpr int nX = nG1 + 2 * R;      // x window
-  static constexpr int sX = nX | 1;
-  static constexpr int sW = nG1 | 1;
-  static constexpr int nW2 = kG + 2 * R;      // rows of stage 2's ColGram
-  static constexpr int nZ = kTile + 2;        // stage-1 duals: the tile grown by 1
-  // [X | W0 | G1 | x1 | z0_1 z1_1]; stage 2's W1 and G2 reuse the space of
-  // X, W0 and G1, which stage 1 is done with
-  static constexpr int stage1 = nX * sX + nX * sW + nG1 * sW;
-  static constexpr int floats = stage1 + n1 * n1 + 2 * nZ * nZ + 64;
-  static_assert(nW2 * kG + kG * kG <= stage1, "stage 2's scratch must fit in stage 1's");
+struct Mega3Geom {
+  static constexpr int S = kMega3Step;       // rows a step
+  static constexpr int D = R + 1;            // lag: stage 1 behind x, stage 2 behind stage 1
+  static constexpr int Rx = R > 1 ? R : 1;   // x rows kept above a step's first gradient row
+  static constexpr int R2 = R > 2 ? R : 2;   // x1 rows kept above stage 2's first gradient row
+  // stage 1 grows the strip by A columns each side: R for stage 2's Gram,
+  // and at least 1 for the duals stage 2 reads one column out (R = 0)
+  static constexpr int A = R > 1 ? R : 1;
+  static constexpr int N1 = kStrip + 2 * A + 1;  // x1: columns [-A, Cw + A]
+  static constexpr int NG = N1 + 1;          // G1: columns [-A, Cw + A + 1]
+  static constexpr int NXc = NG + 2 * R;     // x: columns [-A - R, Cw + A + R + 1]
+  static constexpr int NZc = kStrip + 2;     // stage-1 duals: columns [-1, Cw]
+  static constexpr int N2 = kStrip + 1;      // G2 and stage 2's atb: columns [0, Cw]
+  static constexpr int NI = N1 + 2;          // stage 1's z0, z1, atb: columns [-A - 1, Cw + A + 1]
+  static constexpr int NX = S + R + Rx;      // rows of the x ring
+  static constexpr int NX1 = S + R + R2;     // rows of the x1 ring
+  static constexpr int NZ = S + R + 2;       // rows of the stage-1 dual rings
+  static constexpr int sX = NXc | 1, sG = NG | 1, s1 = N1 | 1, sZ = NZc | 1, s2 = N2 | 1, sI = NI | 1;
+  static constexpr int K2 = (D + R2 + S - 1) / S;  // stage-1 steps before stage 2's first (at least)
+  // [x ring | V | G1 | x1 ring | z0_1 ring | z1_1 ring | G2 | stage 1's
+  // z0, z1, atb (rows [g - 2, g + S)) | stage 2's atb (rows [h - 1, h + S),
+  // two buffers)]; V holds in turn stage 1's row pass, its x_t ((S + 1)
+  // rows of stride s1), stage 2's row pass and its x_t (stride s2)
+  static constexpr int nV = S * sX > (S + 1) * s1 ? S * sX : (S + 1) * s1;
+  static constexpr int oV = NX * sX, oG1 = oV + nV, oX1 = oG1 + (S + 1) * sG;
+  static constexpr int oZ0 = oX1 + NX1 * s1, oZ1 = oZ0 + NZ * sZ, oG2 = oZ1 + NZ * sZ;
+  static constexpr int nI = (S + 2) * sI, oI = oG2 + (S + 1) * s2, nA2 = (S + 1) * s2, oA2 = oI + 3 * nI;
+  static constexpr int floats = oA2 + 2 * nA2;
+  static_assert(S * s1 + A + R + kNW <= nV && (S + 1) * s2 <= nV, "V2 (and its row pass's overrun) must fit in V");
+  static_assert(S >= R + 1 && S % kNW == 0, "a step covers the edge corrections' reach");
 };
 
+// A ring of N image rows in shared memory: row q sits at slot (q - q0) mod
+// N, stride s; rows outside [0, H) read as 0 and are never stored, so the
+// ring keeps the image's last N rows once the walk passes H.  at(lo) gives
+// the ring for a step whose rows lie within (lo - N, lo + 2N) (the window
+// [lo, lo + N) and, below it, the last rows the bottom edge corrections
+// read), where a slot costs an add and a compare, no division.
+template <int N>
+struct RowRing {
+  float* p;
+  int q0, s, H;
+  int lo = 0, base = 0;  // base: the slot of row lo
+  __device__ __forceinline__ RowRing at(int l) const {
+    RowRing r = *this;
+    r.lo = l;
+    r.base = (l - q0) % N;
+    if (r.base < 0) r.base += N;
+    return r;
+  }
+  __device__ __forceinline__ int slot(int q) const {
+    const int t = q - lo + base;
+    return t < 0 ? t + N : t >= N ? t - N : t;
+  }
+  __device__ __forceinline__ float* row(int q) const { return p + slot(q) * s; }
+  __device__ __forceinline__ bool held(int q) const { return q >= 0 && q < H; }
+};
+
+// out(i, j) = sum_t ar[t] ring(q + i + t - R, j) for i < S, j < ncols: the
+// row band pass down a ring, a thread computing NW consecutive rows of one
+// column from a register window (consecutive threads take consecutive
+// columns: no bank conflicts).
+template <int R, int NW, int S, int N>
+__device__ __forceinline__ void band_down_ring(const RowRing<N>& in, int q, float* out, int so, int ncols,
+                                               const R1Taps& tp) {
+  for (int it = threadIdx.x; it < ncols * (S / NW); it += blockDim.x) {
+    const int j = it % ncols, i0 = (it / ncols) * NW;
+    const int qa = q + i0 - R;
+    int sl = in.slot(qa);
+    float win[NW + 2 * R];
+#pragma unroll
+    for (int k = 0; k < NW + 2 * R; ++k) {
+      win[k] = in.held(qa + k) ? in.p[sl * in.s + j] : 0.f;
+      sl = sl + 1 == N ? 0 : sl + 1;
+    }
+#pragma unroll
+    for (int o = 0; o < NW; ++o) {
+      float acc = 0.f;
+#pragma unroll
+      for (int t = 0; t <= 2 * R; ++t) acc = fmaf(tp.ar[t], win[o + t], acc);
+      out[(i0 + o) * so + j] = acc;
+    }
+  }
+}
+
+// The row edge corrections (edge_fix's rows) of a band pass down a ring:
+// out row i is image row q + i (i < n), columns j < ncols; rows
+// [0, K - 1) read ring rows [0, L), rows [H - K + 1, H) ring rows
+// [H - L, H), which the ring must hold.
+template <int N>
+__device__ __forceinline__ void ring_row_fix(float* out, int so, int q, int n, int ncols, const RowRing<N>& in,
+                                             const float* __restrict__ Et, const float* __restrict__ Eb,
+                                             int K, int H) {
+  if (K <= 1) return;
+  const int k1 = K - 1, L = 2 * K - 2;
+  const int t0 = max(0, -q), t1 = min(n, k1 - q);
+  const int b0 = max(0, H - k1 - q), b1 = min(n, H - q);
+  const int nt = max(0, t1 - t0), nbot = max(0, b1 - b0);
+  for (int it = threadIdx.x; it < (nt + nbot) * ncols; it += blockDim.x) {
+    const int e = it / ncols, j = it - e * ncols;
+    const bool top = e < nt;
+    const int i = top ? t0 + e : b0 + e - nt;
+    const int g = q + i;
+    const float* row = top ? Et + g * L : Eb + (g - (H - k1)) * L;
+    const int qs = top ? 0 : H - L;
+    float acc = 0.f;
+    for (int l = 0; l < L; ++l) acc = fmaf(__ldg(row + l), in.held(qs + l) ? in.row(qs + l)[j] : 0.f, acc);
+    out[i * so + j] += acc;
+  }
+}
+
+// Copy of image rows [qa, qb) of an (H, W) image, columns [cx, cx + nc),
+// to dst(q) in shared memory by cp.async (0 outside the image's columns;
+// rows outside [0, H) skipped).  A warp copies a row at a time.  Done after
+// copy_wait().
+template <class Dst>
+__device__ __forceinline__ void rows_load(Dst dst, const float* __restrict__ src, int H, int W, int qa, int qb,
+                                          int cx, int nc) {
+  const int lane = threadIdx.x & 31;
+  for (int q = max(qa, 0) + (int)(threadIdx.x >> 5); q < min(qb, H); q += blockDim.x >> 5) {
+    float* d = dst(q);
+    const float* row = src + (size_t)q * W;
+    for (int cc = lane; cc < nc; cc += 32) {
+      const int c = cx + cc;
+      const bool in = c >= 0 && c < W;
+      copy_async(d + cc, row + (in ? c : 0), in);
+    }
+  }
+}
+
+// Origin of strip b (width kStrip) along an axis of n columns: the last is
+// shifted back to end on the edge when the axis holds a whole strip.
+__device__ __forceinline__ int strip_origin(int b, int n) {
+  const int o = b * kStrip;
+  return (n >= kStrip && o > n - kStrip) ? n - kStrip : o;
+}
+
 template <int R>
-__global__ void __launch_bounds__(kMega3Threads)
+__global__ void __launch_bounds__(kMega3Threads, 2)
 tv_mega3_kernel(const float* __restrict__ x, const float* __restrict__ z0,
                 const float* __restrict__ z1, const float* __restrict__ atb,
                 float* __restrict__ xo, float* __restrict__ z0o, float* __restrict__ z1o,
-                float* __restrict__ partials, int H, int W, R1Taps tp, R1Edges e, PdsParams p) {
-  using S = Mega3Smem<R>;
+                float* __restrict__ partials, int H, int W, int Hs, R1Taps tp, R1Edges e, PdsParams p) {
+  using G = Mega3Geom<R>;
+  constexpr int S = G::S;
   extern __shared__ float smem[];
-  float* X = smem;
-  float* W0 = X + S::nX * S::sX;
-  float* G1 = W0 + S::nX * S::sW;
-  float* X1 = G1 + S::nG1 * S::sW;
-  float* Z01 = X1 + S::n1 * S::n1;
-  float* Z11 = Z01 + S::nZ * S::nZ;
-  float* W1 = X;                   // stage 2, after stage 1 is done with X, W0, G1
-  float* G2 = X + S::nW2 * kG;
-  const int r0 = tile_origin(blockIdx.y, H), c0 = tile_origin(blockIdx.x, W);
-  const int o1r = r0 - S::a, o1c = c0 - S::a;  // stage-1 region origin
-
-  // stage 1: the gradient on the stage-1 region grown by 1, then iteration 1
-  load_window(X, S::sX, x, H, W, o1r - R, o1c - R, S::nX, S::nX);
-  __syncthreads();
-  gram_region<R, 8, 8>(X, S::sX, W0, S::sW, G1, S::sW, o1r, o1c, S::nG1, H, W, tp, e);
-  {
-    const float* px = X;
-    auto xs = [=](int r, int c) { return px[(r - o1r + R) * S::sX + (c - o1c + R)]; };
-    const float* pg = G1;
-    auto grad = [=](int r, int c) {
-      return pg[(r - o1r) * S::sW + (c - o1c)] - 2.f * __ldg(atb + (size_t)r * W + c);
-    };
-    auto at = [W](const float* a) {
-      return [a, W](int r, int c) { return __ldg(a + (size_t)r * W + c); };
-    };
-    for (int i = threadIdx.x; i < S::n1 * S::n1; i += blockDim.x) {
-      const int r = o1r + i / S::n1, c = o1c + i % S::n1;
-      const int zr = r - (r0 - 1), zc = c - (c0 - 1);  // position in the dual zone
-      const bool zone = zr >= 0 && zr < S::nZ && zc >= 0 && zc < S::nZ;
-      if (r < 0 || r >= H || c < 0 || c >= W) {
-        X1[i] = 0.f;
-        if (zone) Z01[zr * S::nZ + zc] = Z11[zr * S::nZ + zc] = 0.f;
-      } else if (zone) {
-        const PdsOut o = pds_stencil(r, c, H, W, p, xs, grad, at(z0), at(z1));
-        X1[i] = o.xn;
-        Z01[zr * S::nZ + zc] = o.z0n;
-        Z11[zr * S::nZ + zc] = o.z1n;
-      } else {
-        X1[i] = pds_primal(r, c, H, W, p, xs, grad, at(z0), at(z1));
-      }
-    }
-  }
-  __syncthreads();
-
-  // stage 2: the gradient of x1 on the tile grown by 1, then iteration 2
-  const int off = S::a - R;  // x1's window for stage 2 starts (a - R) into the stage-1 region
-  gram_region<R, 11, 11>(X1 + off * S::n1 + off, S::n1, W1, kG, G2, kG, r0, c0, kG, H, W, tp, e);
-  const float* px1 = X1;
-  const float* pz01 = Z01;
-  const float* pz11 = Z11;
-  auto mid_x = [=](int r, int c) { return px1[(r - o1r) * S::n1 + (c - o1c)]; };
-  auto mid = [=](const float* s) {  // the dual zone, origin (r0 - 1, c0 - 1)
-    return [=](int r, int c) { return s[(r - r0 + 1) * S::nZ + (c - c0 + 1)]; };
+  float* V = smem + G::oV;
+  float* G1 = smem + G::oG1;
+  float* G2 = smem + G::oG2;
+  const int c0 = strip_origin(blockIdx.x, W), cn = blockIdx.x * kStrip;  // cn: first own column
+  const int ce = min(cn + kStrip, W);
+  const int r0 = blockIdx.y * Hs, r1 = min(r0 + Hs, H);                   // own rows [r0, r1)
+  // stage-1 steps before stage 2's first: G::K2, or more where the segment
+  // ends less than 2R rows below its start, so that stage 1 makes the x1
+  // rows [H - L, H) the last rows' edge corrections read
+  const int K2 = max(G::K2, (r0 + G::D - H + 2 * R + S - 1) / S);
+  const int g0 = r0 + G::D - K2 * S;  // step k: stage 1's gradient rows [g, g + S), g = g0 + kS
+  const int nsteps = K2 + (r1 - r0 + S) / S;
+  const RowRing<G::NX> Xr{smem, g0 - G::Rx, G::sX, H};
+  const RowRing<G::NX1> X1r{smem + G::oX1, g0 - 1, G::s1, H};
+  const RowRing<G::NZ> Z0r{smem + G::oZ0, g0 - 1, G::sZ, H}, Z1r{smem + G::oZ1, g0 - 1, G::sZ, H};
+  const int Lr = 2 * e.Kr - 2, Lc = 2 * e.Kc - 2;
+  const float* Etc = e.E + 2 * (e.Kr - 1) * Lr;
+  const float* Ebc = Etc + (e.Kc - 1) * Lc;
+  constexpr int A = G::A;
+  const bool cols1 = meets_edges(c0 - A, G::NG, e.Kc, W), cols2 = meets_edges(c0, G::N2, e.Kc, W);
+  float* In = smem + G::oI;  // stage 1's z0, z1, atb: row g - 2 + i, column c0 - A - 1 + j
+  // the rows step k reads of x and of stage 1's inputs; stage 2's atb for
+  // step k goes into buffer k & 1
+  auto load_stage1 = [&](int g) {
+    const auto X = Xr.at(g - G::Rx);
+    rows_load([&](int q) { return X.row(q); }, x, H, W, g + R, g + S + R, c0 - A - R, G::NXc);
+    const float* srcs[3] = {z0, z1, atb};
+    for (int a = 0; a < 3; ++a)
+      rows_load([&](int q) { return In + a * G::nI + (q - g + 2) * G::sI; }, srcs[a], H, W, g - 2, g + S,
+                c0 - A - 1, G::NI);
   };
-  const float* pg2 = G2;
-  auto grad2 = [=](int r, int c) {
-    return pg2[(r - r0) * kG + (c - c0)] - 2.f * __ldg(atb + (size_t)r * W + c);
+  auto load_stage2 = [&](int h, int buf) {
+    float* A2 = smem + G::oA2 + buf * G::nA2;
+    rows_load([&](int q) { return A2 + (q - h + 1) * G::s2; }, atb, H, W, h - 1, h + S, c0, G::N2);
   };
-  const int rn = blockIdx.y * kTile, cn = blockIdx.x * kTile;
   Stats6 st;
   st.zero();
-  for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
-    const int r = r0 + i / kTile, c = c0 + i % kTile;
-    if (r < rn || c < cn || r >= H || c >= W) continue;
-    const PdsOut o = pds_stencil(r, c, H, W, p, mid_x, grad2, mid(pz01), mid(pz11));
-    const size_t k = (size_t)r * W + c;
-    xo[k] = o.xn;
-    z0o[k] = o.z0n;
-    z1o[k] = o.z1n;
-    st.add(o);  // the second iteration against the first
+
+  {
+    const auto X = Xr.at(g0 - G::Rx);
+    rows_load([&](int q) { return X.row(q); }, x, H, W, g0 - G::Rx, g0 + R, c0 - A - R, G::NXc);
+  }
+  load_stage1(g0);
+  for (int k = 0; k < nsteps; ++k) {
+    const int g = g0 + k * S;
+    // this step's windows of the rings: x rows [g - Rx, g + S + R); x1 rows
+    // and stage-1 duals from stage 2's first read to stage 1's last write
+    const auto X = Xr.at(g - G::Rx);
+    const auto X1 = X1r.at(g + S - 1 - G::NX1);
+    const auto Z0 = Z0r.at(g + S - 1 - G::NZ), Z1 = Z1r.at(g + S - 1 - G::NZ);
+    copy_wait();
+    __syncthreads();  // this step's x rows are in; the last step is done with every buffer
+    // stage 1: V = RowGram(x) on rows [g, g + S), G1 = ColGram(V), kept with
+    // the row above (the last step's last, slot 0); then iteration 1 on
+    // rows [g - 1, g + S - 1)
+    for (int j = threadIdx.x; j < G::NG; j += kMega3Threads) G1[j] = G1[S * G::sG + j];
+    band_down_ring<R, kNW, S>(X, g, V, G::sX, G::NXc, tp);
+    if (meets_edges(g, S, e.Kr, H)) {
+      __syncthreads();
+      ring_row_fix(V, G::sX, g, S, G::NXc, X, e.E, e.E + (e.Kr - 1) * Lr, e.Kr, H);
+    }
+    __syncthreads();
+    band_along_row<R, kNW, false>(V, G::sX, G1 + G::sG, G::sG, S, G::NG, tp);
+    if (cols1) {
+      __syncthreads();
+      edge_fix(G1 + G::sG, 1, G::sG, c0 - A, G::NG, S, V, 1, G::sX, c0 - A - R, Etc, Ebc, e.Kc, W);
+    }
+    __syncthreads();
+    {
+      // iteration 1 in two passes: x_t once a pixel on rows [g - 1, g + S]
+      // into T (V is free), then x1 and, on the dual columns, the duals
+      float* T = V;  // row r - g + 1, column c - c0 + A
+      auto xs = [=](int r, int c) { return X.row(r)[c - c0 + A + R]; };
+      auto in = [=](int a) {
+        return [=](int r, int c) { return In[a * G::nI + (r - g + 2) * G::sI + (c - c0 + A + 1)]; };
+      };
+      const auto ia = in(2);
+      const MaskedDual<decltype(in(0)), decltype(in(1))> zd{in(0), in(1), H, W};
+      auto grad = [=](int r, int c) { return G1[(r - g + 1) * G::sG + (c - c0 + A)] - 2.f * ia(r, c); };
+      for (int i = threadIdx.x; i < (S + 1) * G::N1; i += kMega3Threads) {
+        const int rr = i / G::N1, cc = i % G::N1, r = g - 1 + rr, c = c0 - A + cc;
+        if (r >= 0 && r < H && c >= 0 && c < W) T[rr * G::s1 + cc] = zd.x_t(r, c, xs(r, c), grad, p);
+      }
+      __syncthreads();
+      for (int i = threadIdx.x; i < S * G::N1; i += kMega3Threads) {
+        const int rr = i / G::N1, cc = i % G::N1, r = g - 1 + rr, c = c0 - A + cc;
+        if (r < 0 || r >= H) continue;
+        float* x1 = X1.row(r) + cc;
+        if (c < 0 || c >= W) {
+          *x1 = 0.f;
+          continue;
+        }
+        const float* t = T + rr * G::s1 + cc;
+        const float x0 = xs(r, c);
+        const int zc = c - c0 + 1;  // column in the dual rings
+        if (zc < 0 || zc >= G::NZc) {
+          *x1 = p.rho * t[0] + (1.f - p.rho) * x0;
+          continue;
+        }
+        const bool down = r < H - 1, right = c < W - 1;
+        const PdsOut o = pds_update(r, c, H, W, p, zd, x0, t[0], down ? xs(r + 1, c) : 0.f,
+                                    down ? t[G::s1] : 0.f, right ? xs(r, c + 1) : 0.f, right ? t[1] : 0.f);
+        *x1 = o.xn;
+        Z0.row(r)[zc] = o.z0n;
+        Z1.row(r)[zc] = o.z1n;
+      }
+    }
+    __syncthreads();
+    // stage 1's buffers are free: the next step's rows come in while stage 2 runs
+    if (k + 1 < nsteps) {
+      load_stage1(g + S);
+      if (k + 1 >= K2) load_stage2(g + S - G::D, (k + 1) & 1);
+    }
+    if (k < K2) continue;
+
+    // stage 2, D rows behind: the same on x1 for rows [h, h + S), then
+    // iteration 2 on the block's own rows among [h - 1, h + S - 1)
+    const int h = g - G::D;
+    for (int j = threadIdx.x; j < G::N2; j += kMega3Threads) G2[j] = G2[S * G::s2 + j];
+    band_down_ring<R, kNW, S>(X1, h, V, G::s1, G::N1, tp);
+    if (meets_edges(h, S, e.Kr, H)) {
+      __syncthreads();
+      ring_row_fix(V, G::s1, h, S, G::N1, X1, e.E, e.E + (e.Kr - 1) * Lr, e.Kr, H);
+    }
+    __syncthreads();
+    band_along_row<R, kNW, false>(V + (A - R), G::s1, G2 + G::s2, G::s2, S, G::N2, tp);  // from column c0 - R
+    if (cols2) {
+      __syncthreads();
+      edge_fix(G2 + G::s2, 1, G::s2, c0, G::N2, S, V, 1, G::s1, c0 - A, Etc, Ebc, e.Kc, W);
+    }
+    __syncthreads();
+    // iteration 2 in the same two passes: x_t on rows [h - 1, h + S) and
+    // columns [c0, c0 + Cw] into T, then the block's own pixels
+    float* T = V;  // row r - h + 1, column c - c0
+    auto mid_x = [=](int r, int c) { return X1.row(r)[c - c0 + A]; };
+    auto mid = [=](const RowRing<G::NZ>& z) {
+      return [=](int r, int c) { return z.row(r)[c - c0 + 1]; };
+    };
+    const MaskedDual<decltype(mid(Z0)), decltype(mid(Z1))> zd{mid(Z0), mid(Z1), H, W};
+    const float* A2 = smem + G::oA2 + (k & 1) * G::nA2;  // atb, rows [h - 1, h + S)
+    auto grad2 = [=](int r, int c) {
+      const int o = (r - h + 1) * G::s2 + (c - c0);
+      return G2[o] - 2.f * A2[o];
+    };
+    for (int i = threadIdx.x; i < (S + 1) * G::N2; i += kMega3Threads) {
+      const int rr = i / G::N2, cc = i % G::N2, r = h - 1 + rr, c = c0 + cc;
+      if (r >= 0 && r < H && c < W) T[rr * G::s2 + cc] = zd.x_t(r, c, mid_x(r, c), grad2, p);
+    }
+    __syncthreads();
+    const int ra = max(h - 1, r0), rb = min(h + S - 1, r1);
+    for (int i = threadIdx.x; i < (rb - ra) * kStrip; i += kMega3Threads) {
+      const int r = ra + i / kStrip, cc = i % kStrip, c = c0 + cc;
+      if (c < cn || c >= ce) continue;
+      const float* t = T + (r - h + 1) * G::s2 + cc;
+      const bool down = r < H - 1, right = c < W - 1;
+      const PdsOut o = pds_update(r, c, H, W, p, zd, mid_x(r, c), t[0], down ? mid_x(r + 1, c) : 0.f,
+                                  down ? t[G::s2] : 0.f, right ? mid_x(r, c + 1) : 0.f, right ? t[1] : 0.f);
+      const size_t q = (size_t)r * W + c;
+      xo[q] = o.xn;
+      z0o[q] = o.z0n;
+      z1o[q] = o.z1n;
+      st.add(o);  // the second iteration against the first
+    }
   }
   block_stats<kMega3Threads>(st, partials);
 }
@@ -518,16 +760,29 @@ int launch_mega2_shard(const float* const x[3], const float* const z0[3], const 
   return (int)cudaGetLastError();
 }
 
+// K10's segment height: a multiple of the step of at least 32 rows (so the
+// grid has no more blocks than the wrappers' partials of 32 x 32 tiles),
+// cut so that the strips x segments fill two blocks an SM about once.
+inline int mega3_segment(int H, int strips) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    sms = 132;
+  const int nseg = std::max(1, (2 * sms + strips / 2) / strips);
+  const int hs = (H + nseg - 1) / nseg;
+  return std::max(2 * kMega3Step, (hs + kMega3Step - 1) / kMega3Step * kMega3Step);
+}
+
 template <int R>
 int launch_mega3(const float* x, const float* z0, const float* z1, const float* atb, float* xo,
                  float* z0o, float* z1o, float* partials, float* stats, int H, int W,
                  const R1Taps& tp, const R1Edges& e, const PdsParams& p, cudaStream_t s) {
-  const size_t bytes = Mega3Smem<R>::floats * sizeof(float);
+  const size_t bytes = Mega3Geom<R>::floats * sizeof(float);
   cudaError_t err = allow_smem(tv_mega3_kernel<R>, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile);
-  tv_mega3_kernel<R><<<grid, kMega3Threads, bytes, s>>>(x, z0, z1, atb, xo, z0o, z1o, partials,
-                                                         H, W, tp, e, p);
+  const int strips = (W + kStrip - 1) / kStrip, Hs = mega3_segment(H, strips);
+  dim3 grid(strips, (H + Hs - 1) / Hs);
+  tv_mega3_kernel<R><<<grid, kMega3Threads, bytes, s>>>(x, z0, z1, atb, xo, z0o, z1o, partials, H, W, Hs,
+                                                    tp, e, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   stats_fold<<<1, kThreads, 0, s>>>(partials, grid.x * grid.y, stats);

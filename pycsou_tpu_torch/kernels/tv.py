@@ -415,8 +415,8 @@ def tv_pds_mega3_step(x, z0, z1, atb, gram, *, tau, sigma, rho, lam, nonneg=True
 
     Replaces ``pycsou_tpu/kernels/tv.py`` ``tv_pds_mega3_step``
     (``_tv_mega3_kernel``).  Bound by device memory: K11's 7 image streams
-    serve two iterations (each block reads x over its tile grown by about
-    twice the Gram's reach and keeps the first iteration in shared memory)."""
+    serve two iterations (each block walks a column strip down a segment of
+    rows and keeps the first iteration in rings of rows in shared memory)."""
     kw = dict(tau=tau, sigma=sigma, rho=rho, lam=lam, nonneg=nonneg, iso=iso)
     _check_rank1(gram, x, z0=z0, z1=z1, atb=atb)
     if x.device.type == "cpu":

@@ -472,6 +472,36 @@ def test_rank1_kernels_match_plain(cuda, rng, shape, K0, K1, iso, nonneg):
     torch.cuda.synchronize()
 
 
+# K10's strip walker: 64-column strips (the last shifted back) and segments
+# of 32 rows at these sizes, so these shapes cross every boundary of the
+# walk: W = 64 -+ 1 and 2 * 64 + 1, H = 32 -+ 1 and 2 * 32 -+ 1, H < 2R + 2,
+# widths and heights no multiple of either, each padded reach 0, 4, 8, 15.
+@pytest.mark.parametrize("shape,K0,K1", [((45, 63), 15, 15), ((65, 65), 15, 15), ((63, 129), 15, 15),
+                                         ((33, 250), 5, 5), ((31, 130), 9, 9), ((30, 65), 9, 16),
+                                         ((7, 9), 1, 1), ((100, 301), 9, 4), ((130, 70), 16, 3),
+                                         ((200, 64), 1, 1), ((100, 128), 15, 15), ((130, 132), 16, 3),
+                                         ((40, 200), 1, 1), ((130, 192), 1, 1)])
+@pytest.mark.parametrize("iso,nonneg", [(True, True), (False, False)])
+def test_mega3_walker_matches_plain(cuda, rng, shape, K0, K1, iso, nonneg):
+    """K10 against its plain version twice in a row (the second step from
+    the first's outputs), partial sums within rtol 1e-5, and two launches on
+    the same inputs bit for bit the same."""
+    gram = Convolve2D(shape, _rank1_psf(K0, K1), device=cuda).gram
+    t = lambda arr: torch.from_numpy(arr.astype(np.float32)).to(cuda)  # noqa: E731
+    x = t(np.abs(rng.standard_normal(shape)))
+    atb = t(rng.standard_normal(shape))
+    z0, z1 = t(0.01 * rng.standard_normal(shape)), t(0.01 * rng.standard_normal(shape))
+    kw = dict(KW, iso=iso, nonneg=nonneg)
+    got = tv_pds_mega3_step(x, z0, z1, atb, gram, **kw)
+    _assert_step_close(got, tv_pds_mega3_step_plain(x, z0, z1, atb, gram, **kw), 1e-5)
+    again = tv_pds_mega3_step(x, z0, z1, atb, gram, **kw)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    _assert_step_close(tv_pds_mega3_step(*got[:3], atb, gram, **kw),
+                       tv_pds_mega3_step_plain(*got[:3], atb, gram, **kw), 1e-5)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("engine", ["mega3", "mega2", "mega", "element"])
 def test_rank1_engines_on_the_card(cuda, rng, engine):
     """The README expression with a rank-1 PSF fuses onto mega3 on the card;
