@@ -98,9 +98,11 @@ checkout at OLD_ROOT and for this one in turns (old, new, new, old), each
 run a process of its own on the same card: the callers of the shared Gram
 (``csrc/sepconv.cuh``: K1, K2, K18, K4, K7, K8, K9, K15, K17) on both
 PSFs, K10 on the Gaussian and the identity PSF, K3 and K11 as controls,
-the rates of the paths they carry (the main path on mega3, mega2 and megar
-by name, small denoising at 1024 x 1024 among them) and the main path's
-time to 1e-6.  ``--gram-times ROOT [--kernels-only]`` is one such run.
+the 1-D shard kernels K14 and K16 on a middle shard, the rates of the
+paths they carry (the main path on mega3, mega2 and megar by name, small
+denoising at 1024 x 1024, the sharded megasp, megarsp and sweepsp paths
+among them) and the main path's time to 1e-6.  ``--gram-times ROOT
+[--kernels-only]`` is one such run.
 
 Any failure exits non-zero.  On success the last two lines are a JSON
 object with the per-kernel results and the device line
@@ -245,10 +247,17 @@ def blocks_problem(rng, h, shape=SHAPE, block=64):
 
 
 def median_ms(fn, reps=15, warmup=3):
-    """Median CUDA-event time of one call of ``fn``."""
+    """Median CUDA-event time of one call of ``fn`` on the device.  The
+    timed calls are queued behind a device sleep longer than their host
+    time, so that each pair of events brackets the device's work and not
+    the host's enqueue, which for a short kernel behind a Python wrapper is
+    the longer of the two."""
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    host_s = (time.perf_counter() - t0) / warmup
+    torch.cuda._sleep(int(2e9 * min(1.5 * reps * host_s + 1e-3, 1.0)))  # cycles, about 2 GHz
     events = []
     for _ in range(reps):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -258,6 +267,21 @@ def median_ms(fn, reps=15, warmup=3):
         events.append((s, e))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def host_ms(fn, n=200):
+    """Host ms of one call of ``fn`` (wrapper and launches), ``n`` calls
+    enqueued back to back: the device's queue takes them all, so that this
+    is the host's time even where the device is slower."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e3 * host / n
 
 
 def bound(streams, flops, shape=SHAPE):
@@ -922,8 +946,10 @@ def phase_pmyula_path(dev, counters):
 
 def phase_shard_kernels(dev, rng, res):
     """K14-K16 on the first, a middle and the last of SHARDS row shards of a
-    4096^2 state, halos cut from it, against their plain versions; and on a
-    one-shard mesh (the whole image, zero halos) against K11, K4 and K3."""
+    4096^2 state, halos cut from it, against their plain versions; K14 and
+    K16 across their tiles' edges on shards of 1 (K16), 16, 31, 33 and 920
+    rows of a 1000 x 4095 state; and on a one-shard mesh (the whole image,
+    zero halos) against K11, K4 and K3."""
     from pycsou_tpu_torch.kernels.tv import (
         tv_pds_mega2_shard_step, tv_pds_mega2_shard_step_plain, tv_pds_mega2_step, tv_pds_sweep_shard_step,
         tv_pds_sweep_shard_step_plain, tv_pds_sweep_step_stats,
@@ -1008,6 +1034,34 @@ def phase_shard_kernels(dev, rng, res):
         "K16": (tv_pds_sweep_shard_step(x, g, z0, z1, zeros(1, 8), -1, **kw),
                 tv_pds_sweep_step_stats(x, z0, z1, g, **kw1), "K3"),
     }
+    # the edges of K14's and K16's tiles (32 x 64): a 1000 x 4095 state (rows
+    # of no multiple of 4 floats: 4-byte copies; a shifted last column tile)
+    # cut into shards of 16, 31, 33 and 920 rows, and for K16 also 1 row
+    He, We = 1000, 4095
+    xe, ae, ge = t(np.abs(rng.standard_normal((He, We)))), t(rng.standard_normal((He, We))), \
+        t(rng.standard_normal((He, We)))
+    z0e, z1e = t(0.01 * rng.standard_normal((He, We))), t(0.01 * rng.standard_normal((He, We)))
+    kwe = dict(kw, H_global=He)
+    gauss_e = Convolve2D((He, We), gaussian_kernel(), device=dev).gram
+    for k, cuts, R in (("K14", (0, 16, 47, 80, He), 16), ("K16", (0, 1, 17, 48, 81, He), 1)):
+        cut = lambda a: [a[cuts[j]:cuts[j + 1]] for j in range(len(cuts) - 1)]  # noqa: E731
+        if k == "K14":
+            arrs, exts_e = (xe, z0e, z1e), halo_extend(cut(ae), R)
+            step = lambda j, c, hl, off: tv_pds_mega2_shard_step(*c, exts_e[j], hl, gauss_e, off, **kwe)  # noqa: E731
+            plain = lambda j, c, hl, off: tv_pds_mega2_shard_step_plain(*c, exts_e[j], hl, gauss_e, off, **kwe)  # noqa: E731
+        else:
+            arrs = (xe, ge, z0e, z1e)
+            step = lambda j, c, hl, off: tv_pds_sweep_shard_step(*c, hl, off, **kwe)  # noqa: E731
+            plain = lambda j, c, hl, off: tv_pds_sweep_shard_step_plain(*c, hl, off, **kwe)  # noqa: E731
+        cores_e = [cut(a) for a in arrs]
+        for j, hl in enumerate(halos(cores_e, R)):
+            c = [a[j] for a in cores_e]
+            check(k, f"{He} x {We}, rows [{cuts[j]}, {cuts[j + 1]})", step(j, c, hl, cuts[j] - R),
+                  plain(j, c, hl, cuts[j] - R))
+        log(f"  {k} on {len(cuts) - 1} shards of {He} x {We} ({[b - a for a, b in zip(cuts, cuts[1:])]} rows) against "
+            f"its plain version: max abs err {res[k]['max_abs_err']:.3e} (rel {res[k]['max_rel_err']:.3e})")
+    del xe, ae, ge, z0e, z1e, gauss_e
+
     for k, (got, want, single) in one.items():
         errs = [max_err(a, b) for a, b in zip(got[:3], want[:3])]
         res[k]["one_shard_max_abs_err"] = max(e[0] for e in errs)
@@ -1444,11 +1498,15 @@ def gram_times(root, kernels_only=False):
     Gram (K1, K2, K18, K4, K7, K8, K15 a middle 1024-row shard, K17 the
     median of the four 2048^2 blocks of the (2, 2) mesh at 4096^2; K9 at
     2048^2) on both PSFs, of K10 on the Gaussian and the identity PSF, of K3
-    and K11 (controls); then, unless ``kernels_only``, the slope-timed rates
-    of the paths they carry (the main path on mega3, mega2 and megar by
-    name, small denoising at 1024^2 on mega3), the main path's time to
-    1e-6 and the device-idle share of the (2, 2) path, of megar and of the
-    main path; one JSON line."""
+    and K11 (controls), of the 1-D shard kernels K14 (Gaussian PSF) and K16
+    (the keep mask's gradient) on a middle 1024-row shard, and the host ms
+    of a call of each (``host_ms``); then, unless
+    ``kernels_only``, the slope-timed rates of the paths they carry (the
+    main path on mega3, mega2 and megar by name, small denoising at 1024^2
+    on mega3, the sharded megasp, megarsp and sweepsp paths on SHARDS row
+    shards), the main path's time to 1e-6 and the device-idle share of the
+    (2, 2) path, of megar, of the main path and of sharded megasp and
+    sweepsp; one JSON line."""
     sys.path.insert(0, str(root))
     from scipy.signal import fftconvolve
 
@@ -1458,7 +1516,10 @@ def gram_times(root, kernels_only=False):
     from pycsou_tpu_torch.kernels.fista import lasso_fista_step
     from pycsou_tpu_torch.kernels.langevin import pmyula_mega_step
     from pycsou_tpu_torch.kernels.sepgram import sepgram_apply
-    from pycsou_tpu_torch.kernels.tv import tv_pds_mega2_step, tv_pds_mega3_step, tv_pds_sweep_step_stats
+    from pycsou_tpu_torch.kernels.tv import (
+        tv_pds_mega2_shard_step, tv_pds_mega2_step, tv_pds_mega3_step, tv_pds_sweep_shard_step,
+        tv_pds_sweep_step_stats,
+    )
     from pycsou_tpu_torch.kernels.tvr import (
         HALO_COLS, tv_pds_megar_shard2d_step, tv_pds_megar_shard_step, tv_pds_megar_step,
     )
@@ -1523,7 +1584,24 @@ def gram_times(root, kernels_only=False):
         ms[f"K10 {psf}"] = median_ms(lambda: tv_pds_mega3_step(x, z0, z1, atb, gram, **kw))
     ms["K11 gauss (control)"] = median_ms(lambda: tv_pds_mega2_step(x, z0, z1, atb, gram_g, **kw))
     ms["K3 (control)"] = median_ms(lambda: tv_pds_sweep_step_stats(x, z0, z1, atb, **kw))
-    del cores, shard_halos, shard_atb, ext, block_halos, block_atb
+    # the 1-D shard kernels on a middle 1024-row shard: K14 with the Gaussian
+    # PSF (16 halo rows), K16 with the keep mask's gradient 2 (m x - atb)
+    # (one halo row), as the megasp and sweepsp engines call them
+    i = SHARDS // 2
+    split = lambda a: [a[j * hs : (j + 1) * hs] for j in range(SHARDS)]  # noqa: E731
+    h14, a14 = halos(cores, 16)[i], halo_extend(split(atb), 16)[i]
+    ms["K14 gauss"] = median_ms(lambda: tv_pds_mega2_shard_step(*(c[i] for c in cores), a14, h14, gram_g, i * hs - 16,
+                                                                H_global=H, **kw))
+    g16 = 2.0 * (m * x - atb)
+    c16 = [split(a)[i] for a in (x, g16, z0, z1)]
+    h16 = halos([split(a) for a in (x, g16, z0, z1)], 1)[i]
+    ms["K16 keep mask"] = median_ms(lambda: tv_pds_sweep_shard_step(*c16, h16, i * hs - 1, H_global=H, **kw))
+    out["host_ms"] = {
+        "K14 gauss": host_ms(lambda: tv_pds_mega2_shard_step(*(c[i] for c in cores), a14, h14, gram_g, i * hs - 16,
+                                                             H_global=H, **kw)),
+        "K16 keep mask": host_ms(lambda: tv_pds_sweep_shard_step(*c16, h16, i * hs - 1, H_global=H, **kw)),
+    }
+    del cores, shard_halos, shard_atb, ext, block_halos, block_atb, h14, a14, g16, c16, h16
     if kernels_only:
         print(json.dumps(out), flush=True)
         return 0
@@ -1533,6 +1611,7 @@ def gram_times(root, kernels_only=False):
     blur = lambda h: torch.from_numpy((fftconvolve(xb, h, mode="same")  # noqa: E731
                                        + 0.01 * rng.standard_normal(SHAPE)).astype(np.float32)).to(dev)
     yg, yr = blur(gauss), blur(rank2_kernel())
+    ys = m * torch.from_numpy((xb + 0.01 * rng.standard_normal(SHAPE)).astype(np.float32)).to(dev)
 
     def pds(y, op, **k):
         return PDS(SHAPE, F=SquaredL2Loss(op.codim_shape, data=y) * op, G=NonNegativeOrthant(SHAPE),
@@ -1561,7 +1640,9 @@ def gram_times(root, kernels_only=False):
         "PMYULA": lambda: PMYULA(SHAPE_MCMC, F=SquaredL2Loss(SHAPE_MCMC, data=ymc)
                                  * Convolve2D(SHAPE_MCMC, gauss, device=dev), G=LAM_L1 * L1Norm(SHAPE_MCMC),
                                  seed=3, nb_burnin_iterations=20, max_iter=2000),
+        "sharded megasp": lambda: DistributedTVDeconv2D(SHAPE, gauss, yg, LAM, mesh=mesh1, max_iter=3000),
         "sharded megarsp": lambda: DistributedTVDeconv2D(SHAPE, rank2_kernel(), yr, LAM, mesh=mesh1, max_iter=3000),
+        "sharded sweepsp": lambda: DistributedTVDeconv2D(SHAPE, None, ys, LAM, mesh=mesh1, mask=m, max_iter=3000),
         "2-D mesh (gauss)": lambda: Spatial2DTVDeconv2D(SHAPE, gauss, yg, LAM, mesh=mesh2, max_iter=3000),
         "2-D mesh (rank2)": lambda: Spatial2DTVDeconv2D(SHAPE, rank2_kernel(), yr, LAM, mesh=mesh2, max_iter=3000),
     }
@@ -1578,7 +1659,7 @@ def gram_times(root, kernels_only=False):
             if not info.converged:
                 raise AssertionError("the main path's solve() did not reach 1e-6")
             out["time_to_1e6_s"] = info.elapsed
-        if name in ("main path (mega3)", "megar (gauss)", "2-D mesh (gauss)"):
+        if name in ("main path (mega3)", "megar (gauss)", "2-D mesh (gauss)", "sharded megasp", "sharded sweepsp"):
             busy = device_ms_per_iteration(solver)
             out["idle"][name] = None if busy is None else 1.0 - busy * v / 1e3
         del solver
@@ -1614,7 +1695,7 @@ def gram_ab(parent):
     table = {}
     for _, r in runs:
         r["time_to_1e6"] = {"main path (mega3)": r.get("time_to_1e6_s")}
-    for group in ("ms", "iters_per_s", "idle", "time_to_1e6"):
+    for group in ("ms", "host_ms", "iters_per_s", "idle", "time_to_1e6"):
         for key in runs[0][1][group]:
             vals = [r[group][key] for _, r in runs]
             par, chg = [v for (lb, _), v in zip(runs, vals) if lb == "parent"], \

@@ -12,9 +12,16 @@ run), else ``cuda``; without CUDA that last case raises.  Nothing moves
 work between CPU and GPU on its own.
 Importing the package changes no global PyTorch setting: the plain
 versions' convolutions switch TF32 off only for their own calls
-(``utils.device.full_f32``), because TF32 would change the operators.
+(``utils.device.full_f32``), because TF32 would change the operators.  It
+makes one first call of the CPU's vector math on one thread
+(``utils.device.settle_cpu_math``), so that a first parallel call cannot
+race MKL's choice of code path.
 """
 __version__ = "0.1.0"
+
+from pycsou_tpu_torch.utils.device import settle_cpu_math  # noqa: E402
+
+settle_cpu_math()
 
 from pycsou_tpu_torch.opt import (  # noqa: E402
     APGD,

@@ -13,21 +13,31 @@
 //
 // Bound by device-memory traffic: 7 image streams a step for K3 and K13 (x,
 // g, z0, z1 in; x', z0', z1' out), 8 for K5 (x, m, atb, z0, z1 in); K16
-// adds one halo row of x, g, z0 and z1 from each neighbour.  Each thread
-// updates one pixel and reads its neighbours' inputs straight from global
-// memory; the re-reads hit L1.  The outputs go to buffers separate from the
+// adds one halo row of x, g, z0 and z1 from each neighbour.  In K3, K5 and
+// K13 each thread updates one pixel and reads its neighbours' inputs
+// straight from global memory; the re-reads hit L1.  The outputs go to buffers separate from the
 // inputs: the TPU kernels updated x, z0 and z1 in place, which is safe only
 // on a grid that runs in order.  Per-block partial sums are folded by
 // stats_fold.
 //
-// K16 is K3's code over a row source (the Shard of sepconv.cuh) in place of
-// the (H, W) pointers; K3 keeps its own kernel, so that its code is that of
-// the single-device engine alone.  K16 reads the shard's core rows
-// [row0, row0 + hloc) and the neighbours' halo rows, and keys every
-// boundary (the dual masks, the zero last row of the forward difference)
-// to the global row and the global height H.
+// K16 stages its tile.  Read through sepconv.cuh's Shard, as K3's code, every
+// one of the stencil's twenty-odd reads a pixel picked the row's block (top
+// halo, core, bottom halo): two compares, a pointer choice and a 64-bit
+// multiply, and x_t was computed three times a pixel; a 1024-row shard took
+// 2.6-3.0x a quarter of K3.  Now a block owns 32 x 64 output pixels of the
+// core, resolves each row's pointer once into a table in shared memory
+// (shard_tile.cuh), copies x, g, z0 and z1 over rows [r0 - 1, r0 + 32] and
+// columns [c0 - 4, c0 + 68) by cp.async (16 bytes where the row allows, 4 at
+// the margins; rows the shard does not hold read as 0), computes x_t once a
+// pixel on the tile grown by one row and column (pass 1), then each pixel's
+// update from it (pds_update, pass 2).  Bound: the core's 7 streams; the
+// staged tile is 1.2x the core's inputs, the overlap read from L2.  48 KB of
+// shared memory, four blocks an SM.  Every boundary (the dual masks, the zero
+// last row of the forward difference) keys to the global row and the global
+// height H.  K3 keeps its own kernel and its machine code.
 #include "sepconv.cuh"
 #include "pds_stencil.cuh"
+#include "shard_tile.cuh"
 
 namespace pct {
 
@@ -55,22 +65,67 @@ tv_sweep_kernel(const float* __restrict__ x, const float* __restrict__ z0,
   block_stats(st, partials);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// K16's tile: TR x TC output pixels of the core.
+// x, g, z0 and z1 are staged over rows [r0 - 1, r0 + TR] and columns
+// [c0 - 4, c0 + TC + 4) (16-byte chunks; the stencil reads [c0 - 1, c0 +
+// TC]), x_t over rows [r0, r0 + TR] and columns [c0, c0 + TC].  The row
+// table comes first (16-byte multiple), so every staged row is 16-byte
+// aligned.  About 48 KB: four blocks an SM.
+struct SweepShardSmem {
+  static constexpr int TR = 32, TC = 64;
+  static constexpr int NR = TR + 2, NK = TC / 4 + 2, sI = 4 * NK, nI = NR * sI;
+  static constexpr int sT = TC + 1;
+  static constexpr int ptrs = 4 * NR;  // x, g, z0, z1 rows
+  static constexpr size_t bytes = ptrs * sizeof(const float*) + (4 * nI + (TR + 1) * sT) * sizeof(float);
+  static_assert(ptrs * sizeof(const float*) % 16 == 0 && ptrs <= kThreads, "one pointer a thread, aligned after");
+};
+
+__global__ void __launch_bounds__(kThreads, 4)
 tv_sweep_shard_kernel(PCT_IMAGE(x), PCT_IMAGE(z0), PCT_IMAGE(z1), PCT_IMAGE(g),
                       float* __restrict__ xo, float* __restrict__ z0o, float* __restrict__ z1o,
                       float* __restrict__ partials, int row0, int hloc, int R, int H, int W,
                       PdsParams p) {
-  const Shard X{xt, x, xb, row0, hloc, R, W};
-  const Shard Z0{z0t, z0, z0b, row0, hloc, R, W};
-  const Shard Z1{z1t, z1, z1b, row0, hloc, R, W};
-  const Shard G{gt, g, gb, row0, hloc, R, W};
+  using S = SweepShardSmem;
+  extern __shared__ float4 smem4[];
+  const float** rows = reinterpret_cast<const float**>(smem4);  // image a's row r0 - 1 + i at a * NR + i
+  float* In = reinterpret_cast<float*>(rows + S::ptrs);         // x, g, z0, z1, nI floats each
+  float* T = In + 4 * S::nI;
+  const int r0 = row0 + blockIdx.y * S::TR, c0 = blockIdx.x * S::TC;
+  if (threadIdx.x < S::ptrs) {
+    const int a = threadIdx.x / S::NR, i = threadIdx.x - a * S::NR;
+    const ShardRows src{a == 0 ? xt : a == 1 ? gt : a == 2 ? z0t : z1t, a == 0 ? x : a == 1 ? g : a == 2 ? z0 : z1,
+                        a == 0 ? xb : a == 1 ? gb : a == 2 ? z0b : z1b, row0, hloc, R, H, W};
+    rows[threadIdx.x] = src.row(r0 - 1 + i);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int a = 0; a < 4; ++a) stage_tile<S::NR, S::NK, kThreads>(In + a * S::nI, S::sI, rows + a * S::NR, c0 - 4, W);
+  copy_wait();
+  __syncthreads();
+
+  auto at = [&](int a) {
+    const float* b = In + a * S::nI;
+    return [=](int r, int c) { return b[(r - r0 + 1) * S::sI + (c - c0 + 4)]; };
+  };
+  const auto X = at(0), G = at(1);
+  const MaskedDual<decltype(at(2)), decltype(at(3))> zd{at(2), at(3), H, W};
+  // pass 1: x_t once a pixel, on the tile grown by one row and column
+  for (int i = threadIdx.x; i < (S::TR + 1) * S::sT; i += kThreads) {
+    const int rr = i / S::sT, cc = i - (i / S::sT) * S::sT, r = r0 + rr, c = c0 + cc;
+    if (r >= H || r > row0 + hloc || c >= W) continue;
+    T[i] = zd.x_t(r, c, X(r, c), G, p);
+  }
+  __syncthreads();
+  // pass 2: the update of the tile's pixels of the core
   Stats6 st;
   st.zero();
-  const int r0 = row0 + blockIdx.y * kTile, c0 = blockIdx.x * kTile;
-  for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
-    const int r = r0 + i / kTile, c = c0 + i % kTile;
+  for (int i = threadIdx.x; i < S::TR * S::TC; i += kThreads) {
+    const int rr = i / S::TC, cc = i % S::TC, r = r0 + rr, c = c0 + cc;
     if (r >= row0 + hloc || c >= W) continue;
-    const PdsOut o = pds_stencil(r, c, H, W, p, X, G, Z0, Z1);
+    const float* t = T + rr * S::sT + cc;
+    const bool down = r < H - 1, right = c < W - 1;
+    const PdsOut o = pds_update(r, c, H, W, p, zd, X(r, c), t[0], down ? X(r + 1, c) : 0.f, down ? t[S::sT] : 0.f,
+                                right ? X(r, c + 1) : 0.f, right ? t[1] : 0.f);
     const size_t k = (size_t)(r - row0) * W + c;
     xo[k] = o.xn;
     z0o[k] = o.z0n;
@@ -160,12 +215,16 @@ int pct_tv_sweep_shard(const float* x, const float* z0, const float* z1, const f
                        float* xo, float* z0o, float* z1o, float* partials, float* stats, int row0,
                        int hloc, int R, int H, int W, float tau, float sigma, float rho, float lam,
                        int nonneg, int iso, void* stream) {
-  dim3 grid((W + kTile - 1) / kTile, (hloc + kTile - 1) / kTile);
+  // at most the wrapper's (hloc / 32) x (W / 32) blocks of partials
+  using S = SweepShardSmem;
+  dim3 grid((W + S::TC - 1) / S::TC, (hloc + S::TR - 1) / S::TR);
   const PdsParams p{tau, sigma, rho, lam, nonneg, iso};
-  tv_sweep_shard_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  cudaError_t err = allow_smem(tv_sweep_shard_kernel, S::bytes);
+  if (err != cudaSuccess) return (int)err;
+  tv_sweep_shard_kernel<<<grid, kThreads, S::bytes, (cudaStream_t)stream>>>(
       xt, x, xb, z0t, z0, z0b, z1t, z1, z1b, gt, g, gb, xo, z0o, z1o, partials, row0, hloc, R, H, W,
       p);
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   stats_fold<<<1, kThreads, 0, (cudaStream_t)stream>>>(partials, grid.x * grid.y, stats);
   return (int)cudaGetLastError();

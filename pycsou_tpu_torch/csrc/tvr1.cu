@@ -12,8 +12,9 @@
 //                        Gram of a given w = ColGram(x), then the stencil of
 //                        a stacked dual (2, H, W); no partial sums.
 //   K14 tv_mega2_shard_kernel  replaces tv_pds_mega2_shard_step (the same
-//                        kernel in shard mode): K11 on a row shard's core
-//                        rows, with halo rows from its neighbours.
+//                        kernel in shard mode): K11's step on a row shard's
+//                        core rows, with halo rows from its neighbours, on
+//                        staged 32 x 64 tiles (below).
 //
 // For A = R(u) C(v) the Gram is A^H A = RowGram o ColGram, each the exact
 // 1-D 'same'-convolution Gram T^H T: the (2K - 1)-tap autocorrelation band
@@ -23,12 +24,12 @@
 // where K4 (tvr.cu) runs four of K taps.  The gradient's 2x is folded into
 // the row taps and the row corrections, so g = G x - 2 atb.
 //
-// Tiles (K11, K12, K14).  Each block owns a 32 x 32 output tile and
-// computes the gradient on the tile grown by one row and column (the
-// stencil reads x_t one pixel down and right).  The last tile of an axis is shifted back to end on the
-// image's edge, so that its windows always hold the rows and columns the
-// edge corrections read; such a block writes (and sums) only the pixels of
-// its own tile.  The band passes are register-blocked: a thread slides a
+// Tiles (K11, K12; K14's are 32 x 64).  Each block owns a 32 x 32 output
+// tile and computes the gradient on the tile grown by one row and column
+// (the stencil reads x_t one pixel down and right).  The last tile of an
+// axis is shifted back to end on the image's edge, so that its windows
+// always hold the rows and columns the edge corrections read; such a block
+// writes (and sums) only the pixels of its own tile.  The band passes are register-blocked: a thread slides a
 // window of NW + 2R values along a row (or column) of shared memory and
 // computes NW outputs, with the taps in the kernel's parameter space (R, the
 // padded reach, is a template parameter: 0, 4, 8 or 15; taps beyond the
@@ -67,15 +68,23 @@
 // corrections read.  At R = 15: 107 KB of shared memory, two blocks of 256
 // threads an SM.
 //
-// K14 is K11's code over a row source (the Shard of sepconv.cuh) in place
-// of the (H, W) pointers; K11 keeps its own kernel, so that its code is
-// that of the single-device engine alone.  K14's tiles cover the shard's
-// core rows [row0, row0 + hloc) of the (H, W) image, the last shifted back
-// to end on the core's last row (on the image's edge for the last shard, as
-// the edge corrections need).  The x window comes from the core and the
-// neighbours' R >= reach + 1 halo rows, 0 beyond them (values that only
-// reach rows the block does not write); every boundary keys to global rows
-// and the global H.
+// K14 is K11 on a row shard, staged.  Read through sepconv.cuh's Shard, as
+// K11's code, its window load and its stencil picked the row's block on
+// every read (0.2056 ms a 1024-row shard, 1.66x a quarter of K11).  Now its
+// tiles are 32 x 64 output pixels of the shard's core rows [row0, row0 +
+// hloc): the last row tile shifted back to end on the core's last row (on
+// the image's edge for the last shard, as the edge corrections need), the
+// last column tile on the image's.  A block resolves each row's pointer once
+// (shard_tile.cuh), copies the x window (63 x 95 at R = 15: 2.9x the tile,
+// from 63^2 for 32^2, 3.9x) by 4-byte cp.async into odd-stride rows for the
+// band passes, then z0, z1 and atb over the tile grown by one row and column
+// each side by 16-byte cp.async in a second group, waited for only after the
+// band passes (gram_region, K11's, on a rectangle).  The stencil runs in
+// two passes from shared memory: x_t once a pixel, then pds_update.  The x
+// window comes from the core and the neighbours' R >= reach + 1 halo rows, 0
+// beyond them (values that only reach rows the block does not write); every
+// boundary keys to global rows and the global H.  About 80 KB of shared
+// memory at R = 15, two blocks an SM.  K11 keeps its own kernel.
 //
 // Bound by device-memory traffic: 7 image streams for K11 (x, atb, z0, z1
 // in; x', z0', z1' out), the same 7 for K10's TWO iterations, 8 for K12
@@ -87,6 +96,7 @@
 
 #include "sepconv.cuh"
 #include "pds_stencil.cuh"
+#include "shard_tile.cuh"
 
 namespace pct {
 
@@ -110,11 +120,12 @@ struct R1Edges {
   int Kr, Kc;
 };
 
-// Origin of block b's tile along an axis of n pixels: the last tile is
-// shifted back to end on the edge when the axis holds a whole tile.
-__device__ __forceinline__ int tile_origin(int b, int n) {
-  const int o = b * kTile;
-  return (n >= kTile && o > n - kTile) ? n - kTile : o;
+// Origin of block b's span of len pixels (a tile's edge, K10's strip) along
+// an axis of n: the last span is shifted back to end on the edge when the
+// axis holds a whole span.
+__device__ __forceinline__ int span_origin(int b, int len, int n) {
+  const int o = b * len;
+  return (n >= len && o > n - len) ? n - len : o;
 }
 
 // Band pass along a row: out(i, j) = sum_t a[t] in(i, j + t), t in [0, 2R],
@@ -210,42 +221,31 @@ __device__ __forceinline__ void load_window(float* d, int s, const float* __rest
   }
 }
 
-// The same from a row shard; rows it does not hold, outside
-// [row0 - R, row0 + hloc + R), read as 0.
-__device__ __forceinline__ void load_window(float* d, int s, const Shard& src, int H, int W, int r0,
-                                            int c0, int nr, int nc) {
-  const int lo = max(0, src.row0 - src.R), hi = min(H, src.row0 + src.hloc + src.R);
-  for (int i = threadIdx.x; i < nr * nc; i += blockDim.x) {
-    const int rr = i / nc, cc = i - (i / nc) * nc;
-    const int r = r0 + rr, c = c0 + cc;
-    d[rr * s + cc] = (r >= lo && r < hi && c >= 0 && c < W) ? src(r, c) : 0.f;
-  }
-}
-
-// G = Gram(x) - (nothing): the exact rank-1 Gram (2x folded into the rows)
-// on the region of nG x nG pixels at (gr, gc), from X, a window of x over
-// rows [gr - R, gr + nG + R) and columns [gc - R, gc + nG + R) with stride
-// sx.  Wt: (nG + 2R) x nG scratch for ColGram(x), stride sw; G stride sg.
+// G = Gram(x): the exact rank-1 Gram (2x folded into the rows) on the
+// region of nGr x nGc pixels at (gr, gc), from X, a window of x over rows
+// [gr - R, gr + nGr + R) and columns [gc - R, gc + nGc + R) with stride sx.
+// Wt: (nGr + 2R) x nGc scratch for ColGram(x), stride sw; G stride sg.
+// Ends with a block barrier.
 template <int R, int NWc, int NWr>
-__device__ __forceinline__ void gram_region(const float* X, int sx, float* Wt, int sw, float* G,
-                                            int sg, int gr, int gc, int nG, int H, int W,
-                                            const R1Taps& tp, const R1Edges& e) {
-  const int nw = nG + 2 * R;
-  band_along_row<R, NWc, false>(X, sx, Wt, sw, nw, nG, tp);
-  if (meets_edges(gc, nG, e.Kc, W)) {
+__device__ __forceinline__ void gram_region(const float* X, int sx, float* Wt, int sw, float* G, int sg,
+                                            int gr, int gc, int nGr, int nGc, int H, int W, const R1Taps& tp,
+                                            const R1Edges& e) {
+  const int nw = nGr + 2 * R;
+  band_along_row<R, NWc, false>(X, sx, Wt, sw, nw, nGc, tp);
+  if (meets_edges(gc, nGc, e.Kc, W)) {
     __syncthreads();
     const int Lc = 2 * e.Kc - 2, Lr = 2 * e.Kr - 2;
     const float* Etc = e.E + 2 * (e.Kr - 1) * Lr;
     // columns: a = column (stride 1), b = row; X's column 0 is gc - R
-    edge_fix(Wt, 1, sw, gc, nG, nw, X + R, 1, sx, gc, Etc, Etc + (e.Kc - 1) * Lc, e.Kc, W);
+    edge_fix(Wt, 1, sw, gc, nGc, nw, X + R, 1, sx, gc, Etc, Etc + (e.Kc - 1) * Lc, e.Kc, W);
   }
   __syncthreads();
-  band_along_col<R, NWr, true>(Wt, sw, G, sg, nG, nG, tp);
-  if (meets_edges(gr, nG, e.Kr, H)) {
+  band_along_col<R, NWr, true>(Wt, sw, G, sg, nGr, nGc, tp);
+  if (meets_edges(gr, nGr, e.Kr, H)) {
     __syncthreads();
     const int Lr = 2 * e.Kr - 2;
     // rows: a = row (stride sg / sw), b = column; Wt's row 0 is gr - R
-    edge_fix(G, sg, 1, gr, nG, nG, Wt, sw, 1, gr - R, e.E, e.E + (e.Kr - 1) * Lr, e.Kr, H);
+    edge_fix(G, sg, 1, gr, nGr, nGc, Wt, sw, 1, gr - R, e.E, e.E + (e.Kr - 1) * Lr, e.Kr, H);
   }
   __syncthreads();
 }
@@ -271,10 +271,10 @@ tv_mega2_kernel(const float* __restrict__ x, const float* __restrict__ z0,
   float* X = smem;
   float* Wt = X + S::nX * S::sX;
   float* G = Wt + S::nX * S::sW;
-  const int r0 = tile_origin(blockIdx.y, H), c0 = tile_origin(blockIdx.x, W);
+  const int r0 = span_origin(blockIdx.y, kTile, H), c0 = span_origin(blockIdx.x, kTile, W);
   load_window(X, S::sX, x, H, W, r0 - R, c0 - R, S::nX, S::nX);
   __syncthreads();
-  gram_region<R, 11, 11>(X, S::sX, Wt, S::sW, G, kG, r0, c0, kG, H, W, tp, e);
+  gram_region<R, 11, 11>(X, S::sX, Wt, S::sW, G, kG, r0, c0, kG, kG, H, W, tp, e);
 
   const float* px = X;
   auto xs = [=](int r, int c) { return px[(r - r0 + R) * S::sX + (c - c0 + R)]; };
@@ -301,39 +301,99 @@ tv_mega2_kernel(const float* __restrict__ x, const float* __restrict__ z0,
   block_stats(st, partials);
 }
 
-// -- K14: K11 on a row shard --------------------------------------------
+// -- K14: K11 on a row shard, from staged tiles -------------------------
+
+// K14's geometry for padded reach R: a tile of TR x TC output pixels of
+// the core, the gradient on the tile grown by one row and column (GR x
+// GC), the x window over it grown by R each side (odd stride, for the band
+// passes), and z0, z1 and atb staged over rows [r0 - 1, r0 + TR] and
+// columns [cs, cs + TC + 8), cs = c0 - 1 rounded down to a multiple of 4
+// (16-byte chunks; the stencil reads [c0 - 1, c0 + TC]).  Shared memory:
+// the row table, then [z0, z1, atb | x window | Wt (ColGram(x), later
+// x_t) | G].  At R = 15 about 80 KB: two blocks an SM.
+template <int R>
+struct Mega2ShardSmem {
+  static constexpr int TR = kTile, TC = 64;
+  static constexpr int GR = TR + 1, GC = TC + 1;
+  static constexpr int NXr = GR + 2 * R, NXc = GC + 2 * R, sX = NXc | 1, sW = GC | 1;
+  static constexpr int NR = TR + 2, NK = TC / 4 + 2, sI = 4 * NK, nI = NR * sI;
+  static constexpr int NWc = 17, NWr = 11;  // band pass items: 4 a window row, 3 a column
+  static constexpr int ptrs = NXr + 3 * NR, ptr_bytes = (ptrs * (int)sizeof(const float*) + 15) / 16 * 16;
+  static constexpr int oX = 3 * nI;
+  static constexpr int oW = oX + NXr * sX + 4;  // + the row pass's overrun: (GC + NWc - 1) / NWc * NWc - GC
+  static constexpr int oG = oW + NXr * sW;
+  static constexpr size_t bytes = ptr_bytes + (size_t)(oG + GR * GC) * sizeof(float);
+  static_assert((GC + NWc - 1) / NWc * NWc - GC <= 4 && (GR + NWr - 1) / NWr * NWr == GR, "pass overruns");
+  static_assert(ptrs <= kThreads, "one pointer a thread");
+};
 
 template <int R>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 tv_mega2_shard_kernel(PCT_IMAGE(x), PCT_IMAGE(z0), PCT_IMAGE(z1), PCT_IMAGE(atb),
                       float* __restrict__ xo, float* __restrict__ z0o, float* __restrict__ z1o,
                       float* __restrict__ partials, int row0, int hloc, int Rh, int H, int W,
                       R1Taps tp, R1Edges e, PdsParams p) {
-  const Shard Xs{xt, x, xb, row0, hloc, Rh, W};
-  const Shard Z0{z0t, z0, z0b, row0, hloc, Rh, W};
-  const Shard Z1{z1t, z1, z1b, row0, hloc, Rh, W};
-  const Shard A{atbt, atb, atbb, row0, hloc, Rh, W};
-  using S = Mega2Smem<R>;
-  extern __shared__ float smem[];
-  float* X = smem;
-  float* Wt = X + S::nX * S::sX;
-  float* G = Wt + S::nX * S::sW;
-  const int r0 = row0 + tile_origin(blockIdx.y, hloc), c0 = tile_origin(blockIdx.x, W);
-  load_window(X, S::sX, Xs, H, W, r0 - R, c0 - R, S::nX, S::nX);
+  using S = Mega2ShardSmem<R>;
+  extern __shared__ float4 smem4[];
+  const float** rows = reinterpret_cast<const float**>(smem4);
+  float* In = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) + S::ptr_bytes);  // z0, z1, atb
+  float* X = In + S::oX;
+  float* Wt = In + S::oW;
+  float* G = In + S::oG;
+  const int r0 = row0 + span_origin(blockIdx.y, kTile, hloc), c0 = span_origin(blockIdx.x, S::TC, W);
+  const int cs = (c0 - 1) & ~3;
+  // row pointers, once a row: x's window rows r0 - R + i at i, then image a's
+  // (z0, z1, atb) staged rows r0 - 1 + i at NXr + a * NR + i
+  if (threadIdx.x < S::ptrs) {
+    const int t = threadIdx.x, a = t < S::NXr ? -1 : (t - S::NXr) / S::NR;
+    const ShardRows src{a < 0 ? xt : a == 0 ? z0t : a == 1 ? z1t : atbt, a < 0 ? x : a == 0 ? z0 : a == 1 ? z1 : atb,
+                        a < 0 ? xb : a == 0 ? z0b : a == 1 ? z1b : atbb, row0, hloc, Rh, H, W};
+    rows[t] = src.row(a < 0 ? r0 - R + t : r0 - 1 + (t - S::NXr - a * S::NR));
+  }
   __syncthreads();
-  gram_region<R, 11, 11>(X, S::sX, Wt, S::sW, G, kG, r0, c0, kG, H, W, tp, e);
+  // the x window first, then the stencil's inputs, which arrive during the band passes
+  stage_window<kThreads>(X, S::sX, S::NXr, S::NXc, rows, c0 - R, W);
+  copy_commit();
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    stage_tile<S::NR, S::NK, kThreads>(In + a * S::nI, S::sI, rows + S::NXr + a * S::NR, cs, W);
+  copy_commit();
+  copy_wait_group<1>();
+  __syncthreads();
+  gram_region<R, S::NWc, S::NWr>(X, S::sX, Wt, S::sW, G, S::GC, r0, c0, S::GR, S::GC, H, W, tp, e);
+  copy_wait_group<0>();
+  __syncthreads();
 
-  const float* px = X;
-  auto xs = [=](int r, int c) { return px[(r - r0 + R) * S::sX + (c - c0 + R)]; };
-  const float* pg = G;
-  auto grad = [=](int r, int c) { return pg[(r - r0) * kG + (c - c0)] - 2.f * A(r, c); };
-  const int rn = row0 + blockIdx.y * kTile, cn = blockIdx.x * kTile;  // this block's own pixels
+  auto in = [&](int a) {
+    const float* b = In + a * S::nI;
+    return [=](int r, int c) { return b[(r - r0 + 1) * S::sI + (c - cs)]; };
+  };
+  const auto A = in(2);
+  const MaskedDual<decltype(in(0)), decltype(in(1))> zd{in(0), in(1), H, W};
+  auto grad = [=](int r, int c) { return G[(r - r0) * S::GC + (c - c0)] - 2.f * A(r, c); };
+  const float* Xc = X + R * S::sX + R;  // x at the tile's origin
+  // pass 1: x_t once a pixel on the gradient region, into Wt (free now)
+  float* T = Wt;
+  for (int i = threadIdx.x; i < S::GR * S::GC; i += kThreads) {
+    const int rr = i / S::GC, cc = i - (i / S::GC) * S::GC, r = r0 + rr, c = c0 + cc;
+    if (r >= H || r > row0 + hloc || c >= W) continue;
+    T[i] = zd.x_t(r, c, Xc[rr * S::sX + cc], grad, p);
+  }
+  __syncthreads();
+  // pass 2: the update of this block's own pixels (a shifted last tile
+  // overlaps the one before it: rows below rn, columns left of cn are not
+  // its own)
+  const int rn = row0 + blockIdx.y * kTile, cn = blockIdx.x * S::TC;
   Stats6 st;
   st.zero();
-  for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
-    const int r = r0 + i / kTile, c = c0 + i % kTile;
+  for (int i = threadIdx.x; i < S::TR * S::TC; i += kThreads) {
+    const int rr = i / S::TC, cc = i % S::TC, r = r0 + rr, c = c0 + cc;
     if (r < rn || c < cn || r >= row0 + hloc || c >= W) continue;
-    const PdsOut o = pds_stencil(r, c, H, W, p, xs, grad, Z0, Z1);
+    const float* xp = Xc + rr * S::sX + cc;
+    const float* t = T + rr * S::GC + cc;
+    const bool down = r < H - 1, right = c < W - 1;
+    const PdsOut o = pds_update(r, c, H, W, p, zd, xp[0], t[0], down ? xp[S::sX] : 0.f, down ? t[S::GC] : 0.f,
+                                right ? xp[1] : 0.f, right ? t[1] : 0.f);
     const size_t k = (size_t)(r - row0) * W + c;
     xo[k] = o.xn;
     z0o[k] = o.z0n;
@@ -479,13 +539,6 @@ __device__ __forceinline__ void rows_load(Dst dst, const float* __restrict__ src
   }
 }
 
-// Origin of strip b (width kStrip) along an axis of n columns: the last is
-// shifted back to end on the edge when the axis holds a whole strip.
-__device__ __forceinline__ int strip_origin(int b, int n) {
-  const int o = b * kStrip;
-  return (n >= kStrip && o > n - kStrip) ? n - kStrip : o;
-}
-
 template <int R>
 __global__ void __launch_bounds__(kMega3Threads, 2)
 tv_mega3_kernel(const float* __restrict__ x, const float* __restrict__ z0,
@@ -498,7 +551,7 @@ tv_mega3_kernel(const float* __restrict__ x, const float* __restrict__ z0,
   float* V = smem + G::oV;
   float* G1 = smem + G::oG1;
   float* G2 = smem + G::oG2;
-  const int c0 = strip_origin(blockIdx.x, W), cn = blockIdx.x * kStrip;  // cn: first own column
+  const int c0 = span_origin(blockIdx.x, kStrip, W), cn = blockIdx.x * kStrip;  // cn: first own column
   const int ce = min(cn + kStrip, W);
   const int r0 = blockIdx.y * Hs, r1 = min(r0 + Hs, H);                   // own rows [r0, r1)
   // stage-1 steps before stage 2's first: G::K2, or more where the segment
@@ -680,7 +733,7 @@ tv_mega_kernel(const float* __restrict__ x, const float* __restrict__ z,
   extern __shared__ float smem[];
   float* Wt = smem;
   float* G = Wt + S::nW * kG;
-  const int r0 = tile_origin(blockIdx.y, H), c0 = tile_origin(blockIdx.x, W);
+  const int r0 = span_origin(blockIdx.y, kTile, H), c0 = span_origin(blockIdx.x, kTile, W);
   // w over rows [r0 - R, r0 + kG + R), zero outside the image (the band's
   // zero boundary), columns [c0, c0 + kG)
   load_window(Wt, kG, w, H, W, r0 - R, c0, S::nW, kG);
@@ -747,10 +800,12 @@ int launch_mega2_shard(const float* const x[3], const float* const z0[3], const 
                        const float* const atb[3], float* xo, float* z0o, float* z1o,
                        float* partials, float* stats, int row0, int hloc, int Rh, int H, int W,
                        const R1Taps& tp, const R1Edges& e, const PdsParams& p, cudaStream_t s) {
-  const size_t bytes = Mega2Smem<R>::floats * sizeof(float);
+  // at most the wrapper's (hloc / 32) x (W / 32) blocks of partials
+  using S = Mega2ShardSmem<R>;
+  const size_t bytes = S::bytes;
   cudaError_t err = allow_smem(tv_mega2_shard_kernel<R>, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((W + kTile - 1) / kTile, (hloc + kTile - 1) / kTile);
+  dim3 grid((W + S::TC - 1) / S::TC, (hloc + S::TR - 1) / S::TR);
   tv_mega2_shard_kernel<R><<<grid, kThreads, bytes, s>>>(
       x[0], x[1], x[2], z0[0], z0[1], z0[2], z1[0], z1[1], z1[2], atb[0], atb[1], atb[2], xo, z0o,
       z1o, partials, row0, hloc, Rh, H, W, tp, e, p);

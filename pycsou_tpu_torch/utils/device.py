@@ -7,6 +7,8 @@ default set by :func:`set_default_device`, and otherwise is ``cuda``.  A
 CUDA device on a machine without CUDA raises, naming ``device="cpu"``: the
 port never moves work to the CPU on its own.  PyTorch's global default
 device is not read.
+
+:func:`settle_cpu_math` runs once when the package is imported (see there).
 """
 from __future__ import annotations
 
@@ -16,7 +18,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "set_default_device", "get_default_device", "as_tensor", "full_f32"]
+__all__ = ["resolve_device", "set_default_device", "get_default_device", "as_tensor", "full_f32",
+           "settle_cpu_math"]
 
 _DEFAULT: Optional[torch.device] = None  # set_default_device; None means cuda
 
@@ -62,6 +65,24 @@ def as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
     return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def settle_cpu_math() -> None:
+    """Calls ``sqrt``, ``log``, ``cos`` and ``abs``, the unary math of the
+    plain versions, once on 8 elements of each float type, on one thread.
+
+    On the CPU, ATen hands these ops to MKL's vector math library (VML),
+    one chunk of the tensor to each OpenMP thread.  The first such call in
+    a process can race MKL's choice of code path: one thread's chunk then
+    comes out of a low-accuracy square root, far outside float32 rounding,
+    while the rest and every later call are exact.  It shows in some fresh
+    processes where threads have just run (JAX's interpret-mode kernels in
+    a test worker); it does not with ``MKL_CBWR=COMPATIBLE``, one OpenMP
+    thread, or a first call on one thread, which is what this is."""
+    for dtype in (torch.float32, torch.float64):
+        t = torch.full((8,), 2.0, dtype=dtype)
+        for op in (torch.sqrt, torch.log, torch.cos, torch.abs):
+            op(t)
 
 
 def _precision_switch(backend):

@@ -600,6 +600,57 @@ def test_shard_kernels_match_plain(cuda, rng, P, shape, K0, K1):
     torch.cuda.synchronize()
 
 
+# K16's and K14's tiles are 32 x 64 output pixels staged in shared memory
+# (16-byte copies where a row allows, 4-byte ones elsewhere): shard heights
+# of 1 (K16), 16, 31, 33 and 45 rows, widths of a multiple of 4 and a tile
+# (4096), of neither (4095, 130) and under one tile (50), the first, the
+# middle and the last shard, and one shard holding the whole image.
+SHARD_TILE_CUTS = (1, 16, 31, 33, 45)
+
+
+@pytest.mark.parametrize("W", [4096, 4095, 130, 50])
+@pytest.mark.parametrize("kernel,K", [("K16", 0), ("K14", 1), ("K14", 5), ("K14", 9), ("K14", 15)])
+def test_shard_tiles_match_plain(cuda, rng, W, kernel, K):
+    """K16, and K14 at padded reach R = 0, 4, 8 and 15 (identity, 5-, 9-
+    and 15-tap rank-1 PSFs), on shards across their tiles' edges against
+    their plain versions (the limits of test_shard_kernels_match_plain)."""
+    cuts = SHARD_TILE_CUTS if kernel == "K16" else SHARD_TILE_CUTS[1:]
+    bounds = np.cumsum((0,) + cuts)
+    H = int(bounds[-1])
+    t = lambda arr: torch.from_numpy(arr.astype(np.float32)).to(cuda)  # noqa: E731
+    x, a = t(np.abs(rng.standard_normal((H, W)))), t(rng.standard_normal((H, W)))
+    z0, z1 = t(0.01 * rng.standard_normal((H, W))), t(0.01 * rng.standard_normal((H, W)))
+    kw = dict(KW, H_global=H, iso=W != 130, nonneg=W != 130)
+    split = lambda v, b: [v[b[j] : b[j + 1]] for j in range(len(b) - 1)]  # noqa: E731
+    if kernel == "K16":
+        counter, R = tv_pds_sweep_shard_step, 1
+
+        def both(b, hl, j, c):
+            args = (*c, hl, int(b[j]) - R)
+            return tv_pds_sweep_shard_step(*args, **kw), tv_pds_sweep_shard_step_plain(*args, **kw)
+
+        arrays = (x, a, z0, z1)
+    else:
+        counter = tv_pds_mega2_shard_step
+        gram = Convolve2D((H, W), _rank1_psf(K, K), device=cuda).gram
+        R = {1: 1, 5: 5, 9: 9, 15: 16}[K]
+
+        def both(b, hl, j, c):
+            ext = halo_extend(split(a, b), R)[j]
+            args = (*c, ext, hl, gram, int(b[j]) - R)
+            return tv_pds_mega2_shard_step(*args, **kw), tv_pds_mega2_shard_step_plain(*args, **kw)
+
+        arrays = (x, z0, z1)
+    before = counter.launches
+    for b in (bounds, (0, H)):  # the cut shards, then one shard holding the image
+        cores = [split(v, b) for v in arrays]
+        for j, hl in enumerate(halos(cores, R)):
+            got, want = both(b, hl, j, [c[j] for c in cores])
+            _assert_step_close(got, want, 2e-6)
+    assert counter.launches - before == len(cuts) + 1
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("shape", [(48, 50), (256, 384), (100, 130)])
 def test_one_shard_mesh_is_the_single_device_kernel(cuda, rng, shape):
     """K14, K15 and K16 on one shard (the whole image, zero halos) equal

@@ -205,7 +205,11 @@ def _block_args(arrays, i, j, mesh, R, C):
 @pytest.mark.parametrize("psf", ["gauss7", "rank2"])
 def test_block_plain_matches_pallas(rng, psf, mesh, block):
     """K17: the wrapper's CPU route against the Pallas block kernel in
-    interpret mode, 128 lanes there and HALO_COLS columns here."""
+    interpret mode, 128 lanes there and HALO_COLS columns here.  Each side
+    runs twice and must give the same bits both times, so that a failure
+    names the side whose result moved: the port's first call runs after
+    JAX's first result is ready, its second while JAX's second call may
+    still be running (JAX dispatches asynchronously)."""
     arrays = _state(rng)
     (n0, n1), (i, j) = mesh, block
     h, w, R, C, L = H // n0, W // n1, 32, HALO_COLS, 128
@@ -215,14 +219,31 @@ def test_block_plain_matches_pallas(rng, psf, mesh, block):
     *plan, tile = make_megar_plan(us, vs, (h + 2 * R, max(w + 2 * L, 384)))
     assert tile == R
     jx, jz0, jz1, ja, jhal = _block_args(arrays, i, j, mesh, R, L)
-    want = jax_megar_shard2d(_j(jx), _j(jz0), _j(jz1), _j(ja), tuple(_j(b) for b in jhal), *plan,
-                             jnp.asarray([i * h - R, j * w - L], jnp.int32), H_global=H, W_global=W, mega_r=R,
-                             interpret=True, **KW)
     f = SepFactors(us, vs, filt.shape[0] // 2, filt.shape[1] // 2, "cpu")
     x, z0, z1, a, hal = _block_args(arrays, i, j, mesh, R, C)
-    got = tv_pds_megar_shard2d_step(_t(x), _t(z0), _t(z1), _t(a), tuple(_t(b) for b in hal), f, f.adjoint(2.0),
-                                    (i * h - R, j * w - C), H_global=H, W_global=W, **KW)
+
+    def jax_side():
+        return jax_megar_shard2d(_j(jx), _j(jz0), _j(jz1), _j(ja), tuple(_j(b) for b in jhal), *plan,
+                                 jnp.asarray([i * h - R, j * w - L], jnp.int32), H_global=H, W_global=W,
+                                 mega_r=R, interpret=True, **KW)
+
+    def port_side():
+        out = tv_pds_megar_shard2d_step(_t(x), _t(z0), _t(z1), _t(a), tuple(_t(b) for b in hal), f,
+                                        f.adjoint(2.0), (i * h - R, j * w - C), H_global=H, W_global=W, **KW)
+        return [v.numpy().copy() for v in out]
+
+    numpy_of = lambda out: [np.asarray(v) for v in jax.block_until_ready(out)]  # noqa: E731
+    want = numpy_of(jax_side())
+    got = port_side()
+    pending = jax_side()
+    got2 = port_side()
+    want2 = numpy_of(pending)
     assert tv_pds_megar_shard2d_step.launches == 0  # CPU tensors: the plain version
+    for side, first, second in (("the JAX kernel", want, want2), ("the port's plain route", got, got2)):
+        for name, u, v in zip(("x", "z0", "z1", "stats"), first, second):
+            assert np.array_equal(u, v), (
+                f"{side} gave two results for {name} on the same inputs: max abs difference "
+                f"{np.max(np.abs(u - v)):.3e} at {np.count_nonzero(u != v)} of {u.size} elements")
     for g, wv in zip(got[:3], want[:3]):
         assert g.shape == (h, w)
         _close(g, wv, 3e-5, 3e-6)
