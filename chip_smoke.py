@@ -60,8 +60,8 @@
    first, a middle and the last shard of a 4096 x 4096 state with the halos
    cut from it, against their plain versions (times per shard launch, and
    each bound from the shard's streams), and each on a one-shard mesh (the
-   whole image, zero halos) against K11, K4 and K3.  Then the three engines,
-   each built and run for 100 iterations on its own with the counters
+   whole image, zero halos) against K11 (bit for bit), K4 and K3.  Then the
+   three engines, each built and run for 100 iterations on its own with the counters
    zeroed: the Gaussian PSF on megasp (K1 four times for the shards'
    ``A^H y``, K14 four times an iteration), the rank-2 PSF on megarsp (K1
    four, K15 four an iteration), the 70% keep mask on sweepsp (K16 four an
@@ -89,19 +89,20 @@
    generic chain, of the megar, mega3, mega2, mega and element engines, of
    the three sharded paths and of the two 2-D mesh paths at 4096 x 4096,
    the device-idle share of sharded megasp, of the 2-D mesh path
-   (Gaussian PSF) and of megar from ``torch.profiler`` traces, the PMYULA
-   samples/s, and the main path's ``solve()`` time to a 1e-6 relative
-   improvement.
+   (Gaussian PSF) and of the megar, mega2 and mega engines from
+   ``torch.profiler`` traces, the PMYULA samples/s, and the main path's
+   ``solve()`` time to a 1e-6 relative improvement.
 
 ``python3 chip_smoke.py --gram-ab OLD_ROOT`` instead times, for the
 checkout at OLD_ROOT and for this one in turns (old, new, new, old), each
 run a process of its own on the same card: the callers of the shared Gram
 (``csrc/sepconv.cuh``: K1, K2, K18, K4, K7, K8, K9, K15, K17) on both
-PSFs, K10 on the Gaussian and the identity PSF, K3 and K11 as controls,
-the 1-D shard kernels K14 and K16 on a middle shard, the rates of the
-paths they carry (the main path on mega3, mega2 and megar by name, small
-denoising at 1024 x 1024, the sharded megasp, megarsp and sweepsp paths
-among them) and the main path's time to 1e-6.  ``--gram-times ROOT
+PSFs, K10 on the Gaussian and the identity PSF, K11 on both, K12 on the
+Gaussian PSF, K3 as a control, the 1-D shard kernels K14 and K16 on a
+middle shard, the rates of the paths they carry (the main path on mega3,
+mega2, mega and megar by name, small denoising at 1024 x 1024, the
+sharded megasp, megarsp and sweepsp paths among them) and the main path's
+time to 1e-6.  ``--gram-times ROOT
 [--kernels-only]`` is one such run.
 
 Any failure exits non-zero.  On success the last two lines are a JSON
@@ -949,7 +950,7 @@ def phase_shard_kernels(dev, rng, res):
     4096^2 state, halos cut from it, against their plain versions; K14 and
     K16 across their tiles' edges on shards of 1 (K16), 16, 31, 33 and 920
     rows of a 1000 x 4095 state; and on a one-shard mesh (the whole image,
-    zero halos) against K11, K4 and K3."""
+    zero halos) against K11 (bit for bit), K4 and K3."""
     from pycsou_tpu_torch.kernels.tv import (
         tv_pds_mega2_shard_step, tv_pds_mega2_shard_step_plain, tv_pds_mega2_step, tv_pds_sweep_shard_step,
         tv_pds_sweep_shard_step_plain, tv_pds_sweep_step_stats,
@@ -1070,6 +1071,8 @@ def phase_shard_kernels(dev, rng, res):
             f"stats rel err {srel:.3e}")
         if max(e[1] for e in errs) > TOL_REL or srel > TOL_STATS:
             raise AssertionError(f"{k} on a one-shard mesh disagrees with {single}")
+        if k == "K14" and not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("K14 on a one-shard mesh is not bit for bit K11")
     torch.cuda.synchronize()
     for k in ("K14", "K15", "K16"):
         log(f"  {k} bound {res[k]['bound'][0]:.4f} ms by {res[k]['bound'][1]} (a shard)")
@@ -1449,10 +1452,12 @@ def main():
     idle2d = None if busy2d is None else 1.0 - busy2d * ips[name2d] / 1e3
     log(f"{name2d}: device time {busy2d} ms an iteration in a torch.profiler trace, "
         f"device idle share {idle2d} (not measured when None)")
-    busy_r = device_ms_per_iteration(tv_solvers["megar"])
-    idle_r = None if busy_r is None else 1.0 - busy_r * ips["TVDeconvolution[megar]"] / 1e3
-    log(f"TVDeconvolution[megar]: device time {busy_r} ms an iteration in a torch.profiler trace, "
-        f"device idle share {idle_r} (not measured when None)")
+    idle_e = {}
+    for e in ("megar", "mega2", "mega"):
+        busy_e = device_ms_per_iteration(tv_solvers[e])
+        idle_e[e] = None if busy_e is None else 1.0 - busy_e * ips[f"TVDeconvolution[{e}]"] / 1e3
+        log(f"TVDeconvolution[{e}]: device time {busy_e} ms an iteration in a torch.profiler trace, "
+            f"device idle share {idle_e[e]} (not measured when None)")
 
     def entry(k, run):
         name, source, replaces = KERNELS[k]
@@ -1481,7 +1486,8 @@ def main():
         "kernels": [entry(k, run) for k, run in RUN_OF.items()],
         "copy_ms": copy_ms, "iters_per_s": ips, "pmyula_samples_per_s": sps,
         "time_to_1e6_s": info.elapsed, "sharded_megasp_device_idle_share": idle,
-        "mesh2d_gauss_device_idle_share": idle2d, "megar_device_idle_share": idle_r, "card": smi,
+        "mesh2d_gauss_device_idle_share": idle2d, "megar_device_idle_share": idle_e["megar"],
+        "mega2_device_idle_share": idle_e["mega2"], "mega_device_idle_share": idle_e["mega"], "card": smi,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -1497,16 +1503,18 @@ def gram_times(root, kernels_only=False):
     checkout at ROOT, the median CUDA-event ms of every caller of the shared
     Gram (K1, K2, K18, K4, K7, K8, K15 a middle 1024-row shard, K17 the
     median of the four 2048^2 blocks of the (2, 2) mesh at 4096^2; K9 at
-    2048^2) on both PSFs, of K10 on the Gaussian and the identity PSF, of K3
-    and K11 (controls), of the 1-D shard kernels K14 (Gaussian PSF) and K16
+    2048^2) on both PSFs, of K10 and K11 on the Gaussian and the identity
+    PSF, of K12 on the Gaussian PSF (from ``w = ColGram(x)``, as the mega
+    engine's ``_mega_colgram`` forms it), of K3 (a control), of the 1-D
+    shard kernels K14 (Gaussian PSF) and K16
     (the keep mask's gradient) on a middle 1024-row shard, and the host ms
     of a call of each (``host_ms``); then, unless
     ``kernels_only``, the slope-timed rates of the paths they carry (the
-    main path on mega3, mega2 and megar by name, small denoising at 1024^2
-    on mega3, the sharded megasp, megarsp and sweepsp paths on SHARDS row
-    shards), the main path's time to 1e-6 and the device-idle share of the
-    (2, 2) path, of megar, of the main path and of sharded megasp and
-    sweepsp; one JSON line."""
+    main path on mega3, mega2, mega and megar by name, small denoising at
+    1024^2 on mega3, the sharded megasp, megarsp and sweepsp paths on SHARDS
+    row shards), the main path's time to 1e-6 and the device-idle share of
+    the (2, 2) path, of mega2, mega and megar, of the main path and of
+    sharded megasp and sweepsp; one JSON line."""
     sys.path.insert(0, str(root))
     from scipy.signal import fftconvolve
 
@@ -1517,9 +1525,10 @@ def gram_times(root, kernels_only=False):
     from pycsou_tpu_torch.kernels.langevin import pmyula_mega_step
     from pycsou_tpu_torch.kernels.sepgram import sepgram_apply
     from pycsou_tpu_torch.kernels.tv import (
-        tv_pds_mega2_shard_step, tv_pds_mega2_step, tv_pds_mega3_step, tv_pds_sweep_shard_step,
-        tv_pds_sweep_step_stats,
+        tv_pds_mega2_shard_step, tv_pds_mega2_step, tv_pds_mega3_step, tv_pds_mega_step,
+        tv_pds_sweep_shard_step, tv_pds_sweep_step_stats,
     )
+    from pycsou_tpu_torch.kernels.band import gram_band_cols
     from pycsou_tpu_torch.kernels.tvr import (
         HALO_COLS, tv_pds_megar_shard2d_step, tv_pds_megar_shard_step, tv_pds_megar_step,
     )
@@ -1582,7 +1591,13 @@ def gram_times(root, kernels_only=False):
     for psf, h in (("gauss", gauss), ("identity", np.ones((1, 1), np.float32))):
         gram = Convolve2D(SHAPE, h, device=dev).gram
         ms[f"K10 {psf}"] = median_ms(lambda: tv_pds_mega3_step(x, z0, z1, atb, gram, **kw))
-    ms["K11 gauss (control)"] = median_ms(lambda: tv_pds_mega2_step(x, z0, z1, atb, gram_g, **kw))
+        ms[f"K11 {psf}"] = median_ms(lambda: tv_pds_mega2_step(x, z0, z1, atb, gram, **kw))
+    zs = torch.stack([z0, z1])
+    zs[0, -1] = 0.0
+    zs[1, :, -1] = 0.0
+    w = gram_band_cols(x, gram_g.band_plans()[1]).contiguous()  # the mega engine's _mega_colgram(x)
+    ms["K12 gauss"] = median_ms(lambda: tv_pds_mega_step(x, zs, w, atb, gram_g, **kw))
+    del zs, w
     ms["K3 (control)"] = median_ms(lambda: tv_pds_sweep_step_stats(x, z0, z1, atb, **kw))
     # the 1-D shard kernels on a middle 1024-row shard: K14 with the Gaussian
     # PSF (16 halo rows), K16 with the keep mask's gradient 2 (m x - atb)
@@ -1628,6 +1643,7 @@ def gram_times(root, kernels_only=False):
     paths = {
         "main path (mega3)": lambda: pds(yg, Convolve2D(SHAPE, gauss, device=dev)),
         "mega2 (gauss)": lambda: TVDeconvolution(SHAPE, yg, LAM, filt=gauss, stencil="mega2", max_iter=3000),
+        "mega (gauss)": lambda: TVDeconvolution(SHAPE, yg, LAM, filt=gauss, stencil="mega", max_iter=3000),
         "megar (gauss)": lambda: TVDeconvolution(SHAPE, yg, LAM, filt=gauss, stencil="megar", max_iter=3000),
         "small denoising (1024^2)": lambda: PDS(small, F=SquaredL2Loss(small, data=yd), G=NonNegativeOrthant(small),
                                                 H=LAM * L21Norm((2,) + small, axis=0), K=Gradient(small),
@@ -1659,7 +1675,8 @@ def gram_times(root, kernels_only=False):
             if not info.converged:
                 raise AssertionError("the main path's solve() did not reach 1e-6")
             out["time_to_1e6_s"] = info.elapsed
-        if name in ("main path (mega3)", "megar (gauss)", "2-D mesh (gauss)", "sharded megasp", "sharded sweepsp"):
+        if name in ("main path (mega3)", "mega2 (gauss)", "mega (gauss)", "megar (gauss)", "2-D mesh (gauss)",
+                    "sharded megasp", "sharded sweepsp"):
             busy = device_ms_per_iteration(solver)
             out["idle"][name] = None if busy is None else 1.0 - busy * v / 1e3
         del solver

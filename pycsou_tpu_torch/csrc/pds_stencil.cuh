@@ -1,5 +1,5 @@
 // The TV primal-dual (Condat-Vu) stencil, shared by K3, K5 and K13 (tv.cu),
-// K4 and K7 (tvr.cu), K6 (tvm2.cu) and K10-K12 (tvr1.cu), and the
+// K4 and K7 (tvr.cu), K6 (tvm2.cu), K10-K12 and K14 (tvr1.cu), and the
 // stopping-metric partial sums they emit.
 //
 // One update at pixel p = (r, c), given the data gradient g:
@@ -90,10 +90,10 @@ __device__ __forceinline__ PdsOut pds_stencil(int r, int c, int H, int W, const 
 
 // pds_stencil's arithmetic from x_t and x at (r, c) (xt, x0), one row down
 // (xtd, xd; read only when r < H - 1) and one column right (xtr, xr; read
-// only when c < W - 1), for a caller that holds each x_t once (K10) instead
-// of computing it for every pixel that reads it.  pds_stencil keeps its own
-// copy of these lines, so that the other kernels' machine code stays as it
-// was.
+// only when c < W - 1), for a caller that holds each x_t once (K10-K12,
+// K14, K16) instead of computing it for every pixel that reads it.
+// pds_stencil keeps its own copy of these lines, so that the other
+// kernels' machine code stays as it was.
 template <class FZ0, class FZ1>
 __device__ __forceinline__ PdsOut pds_update(int r, int c, int H, int W, const PdsParams& p,
                                              const MaskedDual<FZ0, FZ1>& z, float x0, float xt, float xd,

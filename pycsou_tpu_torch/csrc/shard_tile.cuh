@@ -1,5 +1,6 @@
 // Row-shard tiles staged in shared memory, for the shard kernels K14
-// (tvr1.cu) and K16 (tv.cu).
+// (tvr1.cu) and K16 (tv.cu); K11 and K12 (tvr1.cu) stage their tiles of a
+// dense image with the same stage_tile.
 //
 // A row shard holds its core rows [row0, row0 + hloc) of an (H, W) image
 // and R halo rows above and below from its neighbours, in three blocks

@@ -24,17 +24,41 @@
 // where K4 (tvr.cu) runs four of K taps.  The gradient's 2x is folded into
 // the row taps and the row corrections, so g = G x - 2 atb.
 //
-// Tiles (K11, K12; K14's are 32 x 64).  Each block owns a 32 x 32 output
-// tile and computes the gradient on the tile grown by one row and column
-// (the stencil reads x_t one pixel down and right).  The last tile of an
-// axis is shifted back to end on the image's edge, so that its windows
-// always hold the rows and columns the edge corrections read; such a block
-// writes (and sums) only the pixels of its own tile.  The band passes are register-blocked: a thread slides a
-// window of NW + 2R values along a row (or column) of shared memory and
-// computes NW outputs, with the taps in the kernel's parameter space (R, the
-// padded reach, is a template parameter: 0, 4, 8 or 15; taps beyond the
-// PSF's reach are 0).  Shared-memory row strides are odd, so a warp's
-// column walks are free of bank conflicts.
+// Tiles (K11, K12, K14).  Each block owns a 32 x 64 output tile and
+// computes the gradient on the tile grown by one row and column (the
+// stencil reads x_t one pixel down and right).  The last tile of an axis is
+// shifted back to end on the image's edge, so that its windows always hold
+// the rows and columns the edge corrections read; such a block writes (and
+// sums) only the pixels of its own tile.  The band passes are
+// register-blocked: a thread slides a window of NW + 2R values along a row
+// (or column) of shared memory and computes NW outputs, with the taps in
+// the kernel's parameter space (R, the padded reach, is a template
+// parameter: 0, 4, 8 or 15; taps beyond the PSF's reach are 0).  A pass
+// down the columns (consecutive threads on consecutive columns) is free of
+// bank conflicts at any row stride; a pass along the rows is free of them
+// on odd strides (band_along_row) or on strides of 4 x odd floats
+// (band_along_row8).
+//
+// K11 and K12 stage their tiles, as K14 does (below).  Their PR 4 versions
+// copied the window a float a thread (a division, four compares and an
+// __ldg each), read the stencil's inputs from device memory and computed
+// x_t three times a pixel, each phase waiting for the last (K11 0.4966 ms,
+// K12 0.3660 at 4096^2 with a 15 x 15 PSF on an H100 SXM at 700 W; staged,
+// 0.317 and 0.226).  Now a block resolves each
+// row's pointer once into a table in shared memory (ImageRows: nullptr
+// outside [0, H), read as 0) and copies by cp.async in two groups: first
+// the Gram's window, then x, z0, z1 and atb over the tile grown by one row
+// and column each side, which arrive while the band passes run.  K11's x
+// window (63 x 95 at R = 15) comes in by 16-byte copies into rows of
+// stride 4 x odd for band_along_row8 (K14's, from a shard's halo blocks,
+// by 4-byte copies into odd strides); K12's w window (63 x 65) needs only
+// the column pass, so it comes in at any stride.  A 16-byte copy is taken
+// where the row's 4-float chunk lies inside [0, W) on a 16-byte address
+// (every chunk when W % 4 == 0; K12's second dual, at z + H W, only when H
+// W % 4 == 0 too), four 4-byte copies with zero fill elsewhere
+// (stage_tile).  The stencil runs in two passes from shared memory:
+// x_t once a pixel, then pds_update (staged_stencil).  At R = 15 K11 takes
+// about 80 KB of shared memory (two blocks an SM), K12 about 65 KB (three).
 //
 // K10 walks instead of tiling, as the TPU kernel does (its grid walks
 // full-width row tiles with rings of rows in VMEM, tv.py:1604-1631).  A
@@ -84,7 +108,8 @@
 // window comes from the core and the neighbours' R >= reach + 1 halo rows, 0
 // beyond them (values that only reach rows the block does not write); every
 // boundary keys to global rows and the global H.  About 80 KB of shared
-// memory at R = 15, two blocks an SM.  K11 keeps its own kernel.
+// memory at R = 15, two blocks an SM.  K11 keeps its own kernel, with a
+// 16-byte x window.
 //
 // Bound by device-memory traffic: 7 image streams for K11 (x, atb, z0, z1
 // in; x', z0', z1' out), the same 7 for K10's TWO iterations, 8 for K12
@@ -100,7 +125,6 @@
 
 namespace pct {
 
-constexpr int kG = kTile + 1;     // gradient region: the tile grown by 1 down and right
 constexpr int kMaxReach = 15;     // padded reach R <= 15 (taps per axis <= 16)
 constexpr int kStrip = 64;       // K10: output columns of a block's strip
 constexpr int kMega3Step = 16;   // K10: rows a step of the walk
@@ -176,6 +200,36 @@ __device__ __forceinline__ void band_along_col(const float* in, int si, float* o
   }
 }
 
+// band_along_row<R, NW, false>'s outputs (the column taps along the rows),
+// bit for bit, with another thread map, for rows of a stride that is 4
+// times an odd number of floats (16-byte rows, K11's x window): a warp
+// takes 8 consecutive rows and the row's 4 segments of NW outputs (NW odd,
+// ncols <= 4 NW), lane l row l / 4 and segment l % 4.  Its 32 window
+// starts, 4 (si / 4) i + NW b plus an offset they share, then lie in 32
+// distinct banks: NW b mod 4 tells the segments apart, and si / 4 odd makes
+// 4 (si / 4) i distinct mod 32 over 8 rows.  The stores' starts do the same
+// when so / 4 is odd.  Reads up to in(i, 4 NW + 2R - 1).
+template <int R, int NW>
+__device__ __forceinline__ void band_along_row8(const float* in, int si, float* out, int so, int nrows,
+                                                int ncols, const R1Taps& tp) {
+  static_assert(NW % 2 == 1, "odd segments: their starts differ mod 4");
+  for (int it = threadIdx.x; it < (nrows + 7) / 8 * 32; it += blockDim.x) {
+    const int i = (it >> 5) * 8 + ((it & 31) >> 2), j0 = (it & 3) * NW;
+    if (i >= nrows) continue;
+    const float* src = in + i * si + j0;
+    float win[NW + 2 * R];
+#pragma unroll
+    for (int k = 0; k < NW + 2 * R; ++k) win[k] = src[k];
+#pragma unroll
+    for (int o = 0; o < NW; ++o) {
+      float acc = 0.f;
+#pragma unroll
+      for (int t = 0; t <= 2 * R; ++t) acc = fmaf(tp.ac[t], win[o + t], acc);
+      if (j0 + o < ncols) out[i * so + j0 + o] = acc;
+    }
+  }
+}
+
 // The edge corrections of one axis of n samples, added onto a band pass's
 // output.  Along that axis, out position a (a < na) is the sample oa0 + a
 // and in position ia is the sample ia0 + ia; b (b < nb) runs along the other
@@ -210,28 +264,21 @@ __device__ __forceinline__ bool meets_edges(int o, int len, int K, int n) {
   return K > 1 && (o < K - 1 || o + len > n - (K - 1));
 }
 
-// Zero-padded copy of the (H, W) image rows [r0, r0 + nr) x [c0, c0 + nc)
-// into shared memory with row stride s.
-__device__ __forceinline__ void load_window(float* d, int s, const float* __restrict__ src, int H,
-                                            int W, int r0, int c0, int nr, int nc) {
-  for (int i = threadIdx.x; i < nr * nc; i += blockDim.x) {
-    const int rr = i / nc, cc = i - (i / nc) * nc;
-    const int r = r0 + rr, c = c0 + cc;
-    d[rr * s + cc] = (r >= 0 && r < H && c >= 0 && c < W) ? __ldg(src + (size_t)r * W + c) : 0.f;
-  }
-}
-
 // G = Gram(x): the exact rank-1 Gram (2x folded into the rows) on the
 // region of nGr x nGc pixels at (gr, gc), from X, a window of x over rows
 // [gr - R, gr + nGr + R) and columns [gc - R, gc + nGc + R) with stride sx.
 // Wt: (nGr + 2R) x nGc scratch for ColGram(x), stride sw; G stride sg.
-// Ends with a block barrier.
-template <int R, int NWc, int NWr>
+// The row pass is band_along_row (odd sx) or, with ROW8, band_along_row8
+// (sx / 4 odd).  Ends with a block barrier.
+template <int R, int NWc, int NWr, bool ROW8 = false>
 __device__ __forceinline__ void gram_region(const float* X, int sx, float* Wt, int sw, float* G, int sg,
                                             int gr, int gc, int nGr, int nGc, int H, int W, const R1Taps& tp,
                                             const R1Edges& e) {
   const int nw = nGr + 2 * R;
-  band_along_row<R, NWc, false>(X, sx, Wt, sw, nw, nGc, tp);
+  if constexpr (ROW8)
+    band_along_row8<R, NWc>(X, sx, Wt, sw, nw, nGc, tp);
+  else
+    band_along_row<R, NWc, false>(X, sx, Wt, sw, nw, nGc, tp);
   if (meets_edges(gc, nGc, e.Kc, W)) {
     __syncthreads();
     const int Lc = 2 * e.Kc - 2, Lr = 2 * e.Kr - 2;
@@ -250,54 +297,128 @@ __device__ __forceinline__ void gram_region(const float* X, int sx, float* Wt, i
   __syncthreads();
 }
 
-// -- K11: one iteration -------------------------------------------------
+// -- K11 and K12: staged 32 x 64 tiles of a dense image -------------------
 
+// The rows of a dense (H, W) image: row r's first float, or nullptr outside
+// [0, H) (stage_tile writes such a row 0: the Gram's zero boundary).
+struct ImageRows {
+  const float* p;
+  int H, W;
+  __device__ __forceinline__ const float* row(int r) const {
+    return (r < 0 || r >= H) ? nullptr : p + (size_t)r * W;
+  }
+};
+
+// The stencil of a staged tile in two passes from shared memory (K11, K12):
+// x_t once a pixel of the gradient region (the TR x TC tile at (r0, c0)
+// grown by one row and column) into T (stride TC + 1), then pds_update on
+// the block's own pixels, each handed to out(r, c, o) (a shifted last tile
+// overlaps the one before it: rows below rn and columns left of cn are not
+// its own).  xs(r, c) reads x, grad(r, c) the data gradient, zd the duals.
+template <int TR, int TC, class FX, class Dual, class FG, class Out>
+__device__ __forceinline__ void staged_stencil(float* T, int r0, int c0, int H, int W, const PdsParams& p,
+                                               FX xs, const Dual& zd, FG grad, Out out) {
+  constexpr int GC = TC + 1;
+  for (int i = threadIdx.x; i < (TR + 1) * GC; i += kThreads) {
+    const int rr = i / GC, cc = i - rr * GC, r = r0 + rr, c = c0 + cc;
+    if (r < H && c < W) T[i] = zd.x_t(r, c, xs(r, c), grad, p);
+  }
+  __syncthreads();
+  const int rn = blockIdx.y * TR, cn = blockIdx.x * TC;
+  for (int i = threadIdx.x; i < TR * TC; i += kThreads) {
+    const int rr = i / TC, cc = i % TC, r = r0 + rr, c = c0 + cc;
+    if (r < rn || c < cn || r >= H || c >= W) continue;
+    const float* t = T + rr * GC + cc;
+    const bool down = r < H - 1, right = c < W - 1;
+    out(r, c, pds_update(r, c, H, W, p, zd, xs(r, c), t[0], down ? xs(r + 1, c) : 0.f, down ? t[GC] : 0.f,
+                         right ? xs(r, c + 1) : 0.f, right ? t[1] : 0.f));
+  }
+}
+
+// K11's geometry for padded reach R: a tile of TR x TC output pixels, the
+// gradient on the tile grown by one row and column (GR x GC), the x window
+// over it grown by R each side: rows [r0 - R, r0 + GR + R), columns from
+// cx = c0 - R rounded down to a multiple of 4, NKx 16-byte chunks a row
+// (NKx odd: band_along_row8's stride; ColGram(x)'s rows Wt likewise get
+// 4 x odd floats, for its stores); z0, z1 and atb staged over rows [r0 - 1,
+// r0 + TR] and columns [cs, cs + TC + 8), cs = c0 - 1 rounded down to 4 (the
+// stencil reads [c0 - 1, c0 + TC]), as K14's.  Shared memory: the row
+// table, then [z0, z1, atb | x window | Wt (ColGram(x), later x_t) | G].
+// At R = 15 about 80 KB: two blocks an SM.
 template <int R>
-struct Mega2Smem {
-  static constexpr int nX = kG + 2 * R;  // x window edge (odd)
-  static constexpr int sX = nX;
-  static constexpr int sW = kG;          // 33: odd
-  static constexpr int floats = nX * sX + nX * sW + kG * kG + 64;  // + window overrun
+struct Mega2Tile {
+  static constexpr int TR = kTile, TC = 64;
+  static constexpr int GR = TR + 1, GC = TC + 1;
+  static constexpr int NXr = GR + 2 * R, NXc = GC + 2 * R;
+  static constexpr int NKx = (NXc + 3 + 3) / 4 | 1;  // chunks from cx: [c0 - R, c0 + GC + R) and up to 3 before
+  static constexpr int sX = 4 * NKx, sW = 4 * ((GC + 3) / 4 | 1);
+  static constexpr int NR = TR + 2, NK = TC / 4 + 2, sI = 4 * NK, nI = NR * sI;
+  static constexpr int NWc = 17, NWr = 11;  // row pass: a window row's 4 segments; column pass: 3 a column
+  static constexpr int ptrs = NXr + 3 * NR, ptr_bytes = (ptrs * (int)sizeof(const float*) + 15) / 16 * 16;
+  static constexpr int oX = 3 * nI;
+  static constexpr int oW = oX + NXr * sX + 4;  // + the row pass's overrun past the last row
+  static constexpr int oG = oW + NXr * sW;
+  static constexpr size_t bytes = ptr_bytes + (size_t)(oG + GR * GC) * sizeof(float);
+  static_assert(GC <= 4 * NWc && (GR + NWr - 1) / NWr * NWr == GR, "a row's 4 segments; 3 a column");
+  static_assert(3 + 4 * NWc + 2 * R - sX <= 4, "the row pass's overrun");
+  static_assert(ptrs <= kThreads && GR * GC <= NXr * sW, "one pointer a thread; x_t fits in Wt");
 };
 
 template <int R>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 tv_mega2_kernel(const float* __restrict__ x, const float* __restrict__ z0,
                 const float* __restrict__ z1, const float* __restrict__ atb,
                 float* __restrict__ xo, float* __restrict__ z0o, float* __restrict__ z1o,
                 float* __restrict__ partials, int H, int W, R1Taps tp, R1Edges e, PdsParams p) {
-  using S = Mega2Smem<R>;
-  extern __shared__ float smem[];
-  float* X = smem;
-  float* Wt = X + S::nX * S::sX;
-  float* G = Wt + S::nX * S::sW;
-  const int r0 = span_origin(blockIdx.y, kTile, H), c0 = span_origin(blockIdx.x, kTile, W);
-  load_window(X, S::sX, x, H, W, r0 - R, c0 - R, S::nX, S::nX);
+  using S = Mega2Tile<R>;
+  extern __shared__ float4 smem4[];
+  const float** rows = reinterpret_cast<const float**>(smem4);
+  float* In = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) + S::ptr_bytes);  // z0, z1, atb
+  float* X = In + S::oX;
+  float* Wt = In + S::oW;
+  float* G = In + S::oG;
+  const int r0 = span_origin(blockIdx.y, S::TR, H), c0 = span_origin(blockIdx.x, S::TC, W);
+  const int cs = (c0 - 1) & ~3, cx = (c0 - R) & ~3;
+  // row pointers, once a row: x's window rows r0 - R + i at i, then image a's
+  // (z0, z1, atb) staged rows r0 - 1 + i at NXr + a * NR + i
+  if (threadIdx.x < S::ptrs) {
+    const int t = threadIdx.x, a = t < S::NXr ? -1 : (t - S::NXr) / S::NR;
+    const ImageRows src{a < 0 ? x : a == 0 ? z0 : a == 1 ? z1 : atb, H, W};
+    rows[t] = src.row(a < 0 ? r0 - R + t : r0 - 1 + (t - S::NXr - a * S::NR));
+  }
   __syncthreads();
-  gram_region<R, 11, 11>(X, S::sX, Wt, S::sW, G, kG, r0, c0, kG, kG, H, W, tp, e);
+  // the x window first, then the stencil's inputs, which arrive during the band passes
+  stage_tile<S::NXr, S::NKx, kThreads>(X, S::sX, rows, cx, W);
+  copy_commit();
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    stage_tile<S::NR, S::NK, kThreads>(In + a * S::nI, S::sI, rows + S::NXr + a * S::NR, cs, W);
+  copy_commit();
+  copy_wait_group<1>();
+  __syncthreads();
+  const float* Xw = X + (c0 - R - cx);  // x at (r0 - R, c0 - R)
+  gram_region<R, S::NWc, S::NWr, true>(Xw, S::sX, Wt, S::sW, G, S::GC, r0, c0, S::GR, S::GC, H, W, tp, e);
+  copy_wait_group<0>();
+  __syncthreads();
 
-  const float* px = X;
-  auto xs = [=](int r, int c) { return px[(r - r0 + R) * S::sX + (c - c0 + R)]; };
-  const float* pg = G;
-  auto grad = [=](int r, int c) {
-    return pg[(r - r0) * kG + (c - c0)] - 2.f * __ldg(atb + (size_t)r * W + c);
+  auto in = [&](int a) {
+    const float* b = In + a * S::nI;
+    return [=](int r, int c) { return b[(r - r0 + 1) * S::sI + (c - cs)]; };
   };
-  auto at = [W](const float* a) {
-    return [a, W](int r, int c) { return __ldg(a + (size_t)r * W + c); };
-  };
-  const int rn = blockIdx.y * kTile, cn = blockIdx.x * kTile;  // this block's own pixels
+  const auto A = in(2);
+  const MaskedDual<decltype(in(0)), decltype(in(1))> zd{in(0), in(1), H, W};
+  auto grad = [=](int r, int c) { return G[(r - r0) * S::GC + (c - c0)] - 2.f * A(r, c); };
+  const float* Xc = Xw + R * S::sX + R;  // x at the tile's origin
+  auto xs = [=](int r, int c) { return Xc[(r - r0) * S::sX + (c - c0)]; };
   Stats6 st;
   st.zero();
-  for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
-    const int r = r0 + i / kTile, c = c0 + i % kTile;
-    if (r < rn || c < cn || r >= H || c >= W) continue;
-    const PdsOut o = pds_stencil(r, c, H, W, p, xs, grad, at(z0), at(z1));
+  staged_stencil<S::TR, S::TC>(Wt, r0, c0, H, W, p, xs, zd, grad, [&](int r, int c, const PdsOut& o) {
     const size_t k = (size_t)r * W + c;
     xo[k] = o.xn;
     z0o[k] = o.z0n;
     z1o[k] = o.z1n;
     st.add(o);
-  }
+  });
   block_stats(st, partials);
 }
 
@@ -717,53 +838,84 @@ tv_mega3_kernel(const float* __restrict__ x, const float* __restrict__ z0,
 
 // -- K12: the row Gram of a given w, then the stencil ---------------------
 
+// K12's geometry for padded reach R: K11's tiles, the w window over rows
+// [r0 - R, r0 + GR + R) and columns [cw, cw + TC + 4), cw = c0 rounded down
+// to a multiple of 4 (the column pass's consecutive threads take
+// consecutive columns: any stride is free of bank conflicts), then x, z's
+// two halves and atb staged as K11's z0, z1 and atb.  Shared memory: the
+// row table, then [x, z0, z1, atb | w window (later x_t) | G].  At R = 15
+// about 65 KB: three blocks an SM.
 template <int R>
-struct MegaSmem {
-  static constexpr int nW = kG + 2 * R;
-  static constexpr int floats = nW * kG + kG * kG + 64;
+struct MegaTile {
+  static constexpr int TR = kTile, TC = 64;
+  static constexpr int GR = TR + 1, GC = TC + 1;
+  static constexpr int Nw = GR + 2 * R, NKw = TC / 4 + 1, sw = 4 * NKw;
+  static constexpr int NR = TR + 2, NK = TC / 4 + 2, sI = 4 * NK, nI = NR * sI;
+  static constexpr int NWr = 11;  // column pass: 3 items a column
+  static constexpr int ptrs = Nw + 4 * NR, ptr_bytes = (ptrs * (int)sizeof(const float*) + 15) / 16 * 16;
+  static constexpr int oW = 4 * nI, oG = oW + Nw * sw;
+  static constexpr size_t bytes = ptr_bytes + (size_t)(oG + GR * GC) * sizeof(float);
+  static_assert((GR + NWr - 1) / NWr * NWr == GR && GC + 3 <= sw, "the column pass stays in the window");
+  static_assert(ptrs <= kThreads && GR * GC <= Nw * sw, "one pointer a thread; x_t fits in the w window");
 };
 
 template <int R>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 tv_mega_kernel(const float* __restrict__ x, const float* __restrict__ z,
                const float* __restrict__ w, const float* __restrict__ atb,
                float* __restrict__ xo, float* __restrict__ zo, int H, int W, R1Taps tp,
                R1Edges e, PdsParams p) {
-  using S = MegaSmem<R>;
-  extern __shared__ float smem[];
-  float* Wt = smem;
-  float* G = Wt + S::nW * kG;
-  const int r0 = span_origin(blockIdx.y, kTile, H), c0 = span_origin(blockIdx.x, kTile, W);
-  // w over rows [r0 - R, r0 + kG + R), zero outside the image (the band's
-  // zero boundary), columns [c0, c0 + kG)
-  load_window(Wt, kG, w, H, W, r0 - R, c0, S::nW, kG);
-  __syncthreads();
-  band_along_col<R, 11, true>(Wt, kG, G, kG, kG, kG, tp);
-  if (meets_edges(r0, kG, e.Kr, H)) {
-    __syncthreads();
-    const int Lr = 2 * e.Kr - 2;
-    edge_fix(G, kG, 1, r0, kG, kG, Wt, kG, 1, r0 - R, e.E, e.E + (e.Kr - 1) * Lr, e.Kr, H);
+  using S = MegaTile<R>;
+  extern __shared__ float4 smem4[];
+  const float** rows = reinterpret_cast<const float**>(smem4);
+  float* In = reinterpret_cast<float*>(reinterpret_cast<char*>(smem4) + S::ptr_bytes);  // x, z0, z1, atb
+  float* Wn = In + S::oW;
+  float* G = In + S::oG;
+  const int r0 = span_origin(blockIdx.y, S::TR, H), c0 = span_origin(blockIdx.x, S::TC, W);
+  const int cs = (c0 - 1) & ~3, cw = c0 & ~3;
+  const size_t HW = (size_t)H * W;
+  // row pointers, once a row: w's window rows r0 - R + i at i, then image a's
+  // (x, z0 = z, z1 = z + HW, atb) staged rows r0 - 1 + i at Nw + a * NR + i
+  if (threadIdx.x < S::ptrs) {
+    const int t = threadIdx.x, a = t < S::Nw ? -1 : (t - S::Nw) / S::NR;
+    const ImageRows src{a < 0 ? w : a == 0 ? x : a == 1 ? z : a == 2 ? z + HW : atb, H, W};
+    rows[t] = src.row(a < 0 ? r0 - R + t : r0 - 1 + (t - S::Nw - a * S::NR));
   }
   __syncthreads();
+  // the w window first, then the stencil's inputs, which arrive during the band pass
+  stage_tile<S::Nw, S::NKw, kThreads>(Wn, S::sw, rows, cw, W);
+  copy_commit();
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+    stage_tile<S::NR, S::NK, kThreads>(In + a * S::nI, S::sI, rows + S::Nw + a * S::NR, cs, W);
+  copy_commit();
+  copy_wait_group<1>();
+  __syncthreads();
+  // G = RowGram(w) on the gradient region: the band pass down the columns,
+  // then the row edge corrections (the window holds the rows they read)
+  const float* Wc = Wn + (c0 - cw);  // w at (r0 - R, c0)
+  band_along_col<R, S::NWr, true>(Wc, S::sw, G, S::GC, S::GR, S::GC, tp);
+  if (meets_edges(r0, S::GR, e.Kr, H)) {
+    __syncthreads();
+    const int Lr = 2 * e.Kr - 2;
+    edge_fix(G, S::GC, 1, r0, S::GR, S::GC, Wc, S::sw, 1, r0 - R, e.E, e.E + (e.Kr - 1) * Lr, e.Kr, H);
+  }
+  copy_wait_group<0>();
+  __syncthreads();
 
-  const size_t HW = (size_t)H * W;
-  const float* pg = G;
-  auto grad = [=](int r, int c) {
-    return pg[(r - r0) * kG + (c - c0)] - 2.f * __ldg(atb + (size_t)r * W + c);
+  auto in = [&](int a) {
+    const float* b = In + a * S::nI;
+    return [=](int r, int c) { return b[(r - r0 + 1) * S::sI + (c - cs)]; };
   };
-  auto at = [W](const float* a) {
-    return [a, W](int r, int c) { return __ldg(a + (size_t)r * W + c); };
-  };
-  const int rn = blockIdx.y * kTile, cn = blockIdx.x * kTile;
-  for (int i = threadIdx.x; i < kTile * kTile; i += blockDim.x) {
-    const int r = r0 + i / kTile, c = c0 + i % kTile;
-    if (r < rn || c < cn || r >= H || c >= W) continue;
-    const PdsOut o = pds_stencil(r, c, H, W, p, at(x), grad, at(z), at(z + HW));
+  const auto X = in(0), A = in(3);
+  const MaskedDual<decltype(in(1)), decltype(in(2))> zd{in(1), in(2), H, W};
+  auto grad = [=](int r, int c) { return G[(r - r0) * S::GC + (c - c0)] - 2.f * A(r, c); };
+  staged_stencil<S::TR, S::TC>(Wn, r0, c0, H, W, p, X, zd, grad, [&](int r, int c, const PdsOut& o) {
     const size_t k = (size_t)r * W + c;
     xo[k] = o.xn;
     zo[k] = o.z0n;
     zo[HW + k] = o.z1n;
-  }
+  });
 }
 
 }  // namespace pct
@@ -782,10 +934,12 @@ template <int R>
 int launch_mega2(const float* x, const float* z0, const float* z1, const float* atb, float* xo,
                  float* z0o, float* z1o, float* partials, float* stats, int H, int W,
                  const R1Taps& tp, const R1Edges& e, const PdsParams& p, cudaStream_t s) {
-  const size_t bytes = Mega2Smem<R>::floats * sizeof(float);
+  // at most the wrapper's (H / 32) x (W / 32) blocks of partials
+  using S = Mega2Tile<R>;
+  const size_t bytes = S::bytes;
   cudaError_t err = allow_smem(tv_mega2_kernel<R>, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile);
+  dim3 grid((W + S::TC - 1) / S::TC, (H + S::TR - 1) / S::TR);
   tv_mega2_kernel<R><<<grid, kThreads, bytes, s>>>(x, z0, z1, atb, xo, z0o, z1o, partials, H, W,
                                                     tp, e, p);
   err = cudaGetLastError();
@@ -848,10 +1002,11 @@ template <int R>
 int launch_mega(const float* x, const float* z, const float* w, const float* atb, float* xo,
                 float* zo, int H, int W, const R1Taps& tp, const R1Edges& e, const PdsParams& p,
                 cudaStream_t s) {
-  const size_t bytes = MegaSmem<R>::floats * sizeof(float);
+  using S = MegaTile<R>;
+  const size_t bytes = S::bytes;
   cudaError_t err = allow_smem(tv_mega_kernel<R>, bytes);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile);
+  dim3 grid((W + S::TC - 1) / S::TC, (H + S::TR - 1) / S::TR);
   tv_mega_kernel<R><<<grid, kThreads, bytes, s>>>(x, z, w, atb, xo, zo, H, W, tp, e, p);
   return (int)cudaGetLastError();
 }

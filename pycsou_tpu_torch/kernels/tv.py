@@ -396,8 +396,12 @@ def tv_pds_mega2_step(x, z0, z1, atb, gram, *, tau, sigma, rho, lam, nonneg=True
 
     Replaces ``pycsou_tpu/kernels/tv.py`` ``tv_pds_mega2_step``
     (``_tv_mega2_kernel``, ``_mega_row_gram``, ``_lane_gram_tile``).  Bound
-    by device memory: 7 image streams; the Gram is two band passes of
-    2K - 1 taps per 32 x 32 tile in shared memory (``csrc/tvr1.cu``)."""
+    by device memory: 7 image streams.  Each block stages a 32 x 64 tile
+    in shared memory (``csrc/tvr1.cu``): the x window by 16-byte
+    ``cp.async`` where a row allows, then z0, z1 and atb, which arrive
+    during the Gram's two band passes of 2K - 1 taps; then x_t once a
+    pixel and the update.  No more blocks than the 32 x 32 tiles'
+    partial sums this wrapper allocates."""
     kw = dict(tau=tau, sigma=sigma, rho=rho, lam=lam, nonneg=nonneg, iso=iso)
     _check_rank1(gram, x, z0=z0, z1=z1, atb=atb)
     if x.device.type == "cpu":
@@ -435,7 +439,10 @@ def tv_pds_mega_step(x, z, w, atb, gram, *, tau, sigma, rho, lam, nonneg=True, i
 
     Replaces ``pycsou_tpu/kernels/tv.py`` ``tv_pds_mega_step``
     (``_tv_mega_kernel``).  Bound by device memory: 8 image streams (w, x,
-    atb, z (2) in; x', z' (2) out), plus the caller's pass for w."""
+    atb, z (2) in; x', z' (2) out), plus the caller's pass for w.  Each
+    block stages a 32 x 64 tile as K11 does (``csrc/tvr1.cu``): the w
+    window for the row band pass, then x, z's halves and atb, which
+    arrive during that pass; then x_t once a pixel and the update."""
     kw = dict(tau=tau, sigma=sigma, rho=rho, lam=lam, nonneg=nonneg, iso=iso)
     _check_stacked(x, z)
     _check_rank1(gram, x, w=w, atb=atb)

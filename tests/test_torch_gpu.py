@@ -472,6 +472,55 @@ def test_rank1_kernels_match_plain(cuda, rng, shape, K0, K1, iso, nonneg):
     torch.cuda.synchronize()
 
 
+# K11's and K12's tiles are 32 x 64 output pixels staged in shared memory
+# (16-byte copies where a row allows, 4-byte ones elsewhere), the last row
+# and column tile shifted back to end on the image's edge.  These shapes
+# cross their edges: H 3 (the least the rank-1 plan takes: H >= 3 taps), 31,
+# 32, 33 and 65; W 63, 64, 65, 130, 4095 and 4096; W % 4 != 0 and H W % 4 !=
+# 0 (K12's second dual starts off 16 bytes); an image under one tile; each
+# padded reach R 0, 4, 8, 15 with row and column taps of other counts.
+RANK1_TILE_CASES = [((3, 4096), 1, 16), ((3, 63), 1, 5), ((31, 4095), 9, 3), ((32, 64), 5, 1),
+                    ((33, 65), 3, 16), ((65, 130), 16, 9), ((7, 9), 1, 1), ((65, 4096), 1, 1),
+                    ((33, 130), 9, 4), ((32, 4095), 5, 9), ((65, 63), 9, 5), ((31, 65), 1, 5),
+                    ((65, 4095), 16, 3), ((3, 130), 1, 1)]
+
+
+@pytest.mark.parametrize("shape,K0,K1", RANK1_TILE_CASES)
+@pytest.mark.parametrize("iso,nonneg", [(True, True), (False, False)])
+def test_rank1_tiles_match_plain(cuda, rng, shape, K0, K1, iso, nonneg):
+    """K11 and K12 against their plain versions across their tiles' edges
+    (the limits of test_rank1_kernels_match_plain), each launched twice on
+    the same inputs bit for bit the same, and K14 on a one-shard mesh (the
+    whole image, zero halos) bit for bit K11."""
+    H, W = shape
+    gram = Convolve2D(shape, _rank1_psf(K0, K1), device=cuda).gram
+    t = lambda arr: torch.from_numpy(arr.astype(np.float32)).to(cuda)  # noqa: E731
+    x = t(np.abs(rng.standard_normal(shape)))
+    atb = t(rng.standard_normal(shape))
+    z0, z1 = t(0.01 * rng.standard_normal(shape)), t(0.01 * rng.standard_normal(shape))
+    kw = dict(KW, iso=iso, nonneg=nonneg)
+    before = (tv_pds_mega2_step.launches, tv_pds_mega_step.launches)
+    got = tv_pds_mega2_step(x, z0, z1, atb, gram, **kw)
+    for a, b in zip(got, tv_pds_mega2_step(x, z0, z1, atb, gram, **kw)):
+        assert torch.equal(a, b)
+    _assert_step_close(got, tv_pds_mega2_step_plain(x, z0, z1, atb, gram, **kw), 2e-6)
+    pad = torch.cat([atb.new_zeros((16, W)), atb, atb.new_zeros((16, W))])
+    halos0 = tuple(torch.zeros((16, W), device=cuda) for _ in range(6))
+    for a, b in zip(tv_pds_mega2_shard_step(x, z0, z1, pad, halos0, gram, -16, H_global=H, **kw), got):
+        assert torch.equal(a, b)
+    z = torch.stack([z0, z1])
+    z[0, -1] = 0.0
+    z[1, :, -1] = 0.0
+    w = gram_band_cols(x, gram.band_plans()[1]).contiguous()
+    out = tv_pds_mega_step(x, z, w, atb, gram, **kw)
+    for a, b in zip(out, tv_pds_mega_step(x, z, w, atb, gram, **kw)):
+        assert torch.equal(a, b)
+    for a, b in zip(out, tv_pds_mega_step_plain(x, z, w, atb, gram, **kw)):
+        _close(a, b)
+    assert (tv_pds_mega2_step.launches, tv_pds_mega_step.launches) == (before[0] + 2, before[1] + 2)
+    torch.cuda.synchronize()
+
+
 # K10's strip walker: 64-column strips (the last shifted back) and segments
 # of 32 rows at these sizes, so these shapes cross every boundary of the
 # walk: W = 64 -+ 1 and 2 * 64 + 1, H = 32 -+ 1 and 2 * 32 -+ 1, H < 2R + 2,
