@@ -89,7 +89,8 @@
    generic chain, of the megar, mega3, mega2, mega and element engines, of
    the three sharded paths and of the two 2-D mesh paths at 4096 x 4096,
    the device-idle share of sharded megasp, of the 2-D mesh path
-   (Gaussian PSF) and of the megar, mega2 and mega engines from
+   (Gaussian PSF), of the megar, mega2 and mega engines and of the
+   inpainting and denoising paths (sweepm2, K6) from
    ``torch.profiler`` traces, the PMYULA samples/s, and the main path's
    ``solve()`` time to a 1e-6 relative improvement.
 
@@ -99,10 +100,11 @@ run a process of its own on the same card: the callers of the shared Gram
 (``csrc/sepconv.cuh``: K1, K2, K18, K4, K7, K8, K9, K15, K17) on both
 PSFs, K10 on the Gaussian and the identity PSF, K11 on both, K12 on the
 Gaussian PSF, K3 as a control, the 1-D shard kernels K14 and K16 on a
-middle shard, the rates of the paths they carry (the main path on mega3,
-mega2, mega and megar by name, small denoising at 1024 x 1024, the
-sharded megasp, megarsp and sweepsp paths among them) and the main path's
-time to 1e-6.  ``--gram-times ROOT
+middle shard, K6 with the keep mask and K5 as its control, the rates of
+the paths they carry (the main path on mega3, mega2, mega and megar by
+name, small denoising at 1024 x 1024, the sharded megasp, megarsp and
+sweepsp paths, inpainting and ``PDS`` denoising on K6 among them) and the
+main path's time to 1e-6.  ``--gram-times ROOT
 [--kernels-only]`` is one such run.
 
 Any failure exits non-zero.  On success the last two lines are a JSON
@@ -1452,6 +1454,12 @@ def main():
     idle2d = None if busy2d is None else 1.0 - busy2d * ips[name2d] / 1e3
     log(f"{name2d}: device time {busy2d} ms an iteration in a torch.profiler trace, "
         f"device idle share {idle2d} (not measured when None)")
+    idle_m = {}
+    for name in ("inpainting", "denoising"):
+        busy_m = device_ms_per_iteration(solvers[name])
+        idle_m[name] = None if busy_m is None else 1.0 - busy_m * ips[name] / 1e3
+        log(f"{name} [sweepm2]: {ips[name]:.1f} iters/s, device time {busy_m} ms an iteration in a "
+            f"torch.profiler trace, device idle share {idle_m[name]} (not measured when None)")
     idle_e = {}
     for e in ("megar", "mega2", "mega"):
         busy_e = device_ms_per_iteration(tv_solvers[e])
@@ -1487,7 +1495,9 @@ def main():
         "copy_ms": copy_ms, "iters_per_s": ips, "pmyula_samples_per_s": sps,
         "time_to_1e6_s": info.elapsed, "sharded_megasp_device_idle_share": idle,
         "mesh2d_gauss_device_idle_share": idle2d, "megar_device_idle_share": idle_e["megar"],
-        "mega2_device_idle_share": idle_e["mega2"], "mega_device_idle_share": idle_e["mega"], "card": smi,
+        "mega2_device_idle_share": idle_e["mega2"], "mega_device_idle_share": idle_e["mega"],
+        "inpainting_device_idle_share": idle_m["inpainting"], "denoising_device_idle_share": idle_m["denoising"],
+        "card": smi,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
@@ -1507,14 +1517,16 @@ def gram_times(root, kernels_only=False):
     PSF, of K12 on the Gaussian PSF (from ``w = ColGram(x)``, as the mega
     engine's ``_mega_colgram`` forms it), of K3 (a control), of the 1-D
     shard kernels K14 (Gaussian PSF) and K16
-    (the keep mask's gradient) on a middle 1024-row shard, and the host ms
-    of a call of each (``host_ms``); then, unless
+    (the keep mask's gradient) on a middle 1024-row shard, of K6 and K5 (a
+    control) with the keep mask, and the host ms of a call of K14, K16 and
+    K6 (``host_ms``); then, unless
     ``kernels_only``, the slope-timed rates of the paths they carry (the
     main path on mega3, mega2, mega and megar by name, small denoising at
     1024^2 on mega3, the sharded megasp, megarsp and sweepsp paths on SHARDS
-    row shards), the main path's time to 1e-6 and the device-idle share of
-    the (2, 2) path, of mega2, mega and megar, of the main path and of
-    sharded megasp and sweepsp; one JSON line."""
+    row shards, inpainting and ``PDS`` denoising on sweepm2), the main
+    path's time to 1e-6 and the device-idle share of the (2, 2) path, of
+    mega2, mega and megar, of the main path, of sharded megasp and sweepsp,
+    and of inpainting and denoising; one JSON line."""
     sys.path.insert(0, str(root))
     from scipy.signal import fftconvolve
 
@@ -1526,7 +1538,7 @@ def gram_times(root, kernels_only=False):
     from pycsou_tpu_torch.kernels.sepgram import sepgram_apply
     from pycsou_tpu_torch.kernels.tv import (
         tv_pds_mega2_shard_step, tv_pds_mega2_step, tv_pds_mega3_step, tv_pds_mega_step,
-        tv_pds_sweep_shard_step, tv_pds_sweep_step_stats,
+        tv_pds_sweep_shard_step, tv_pds_sweep_step_stats, tv_pds_sweepm2_step, tv_pds_sweepm_step_stats,
     )
     from pycsou_tpu_torch.kernels.band import gram_band_cols
     from pycsou_tpu_torch.kernels.tvr import (
@@ -1599,6 +1611,11 @@ def gram_times(root, kernels_only=False):
     ms["K12 gauss"] = median_ms(lambda: tv_pds_mega_step(x, zs, w, atb, gram_g, **kw))
     del zs, w
     ms["K3 (control)"] = median_ms(lambda: tv_pds_sweep_step_stats(x, z0, z1, atb, **kw))
+    # the masked paths' kernels with the keep mask, as phase_kernels calls
+    # them: K6 (two iterations) and K5 (one, a control)
+    matb = m * atb
+    ms["K6 keep mask"] = median_ms(lambda: tv_pds_sweepm2_step(x, z0, z1, m, matb, **kw))
+    ms["K5 keep mask (control)"] = median_ms(lambda: tv_pds_sweepm_step_stats(x, z0, z1, m, matb, **kw))
     # the 1-D shard kernels on a middle 1024-row shard: K14 with the Gaussian
     # PSF (16 halo rows), K16 with the keep mask's gradient 2 (m x - atb)
     # (one halo row), as the megasp and sweepsp engines call them
@@ -1615,8 +1632,9 @@ def gram_times(root, kernels_only=False):
         "K14 gauss": host_ms(lambda: tv_pds_mega2_shard_step(*(c[i] for c in cores), a14, h14, gram_g, i * hs - 16,
                                                              H_global=H, **kw)),
         "K16 keep mask": host_ms(lambda: tv_pds_sweep_shard_step(*c16, h16, i * hs - 1, H_global=H, **kw)),
+        "K6 keep mask": host_ms(lambda: tv_pds_sweepm2_step(x, z0, z1, m, matb, **kw)),
     }
-    del cores, shard_halos, shard_atb, ext, block_halos, block_atb, h14, a14, g16, c16, h16
+    del cores, shard_halos, shard_atb, ext, block_halos, block_atb, h14, a14, g16, c16, h16, matb
     if kernels_only:
         print(json.dumps(out), flush=True)
         return 0
@@ -1640,6 +1658,11 @@ def gram_times(root, kernels_only=False):
                            .astype(np.float32)).to(dev)
     small = (1024, 1024)
     yd = torch.from_numpy(blocks_image(rng, small) + 0.1 * rng.standard_normal(small).astype(np.float32)).to(dev)
+    # the masked paths on K6 (phase_masked_paths' problems)
+    Mk = Masking(SHAPE, keep_mask(), device=dev)
+    y_in = Mk(torch.from_numpy(xb).to(dev)) + torch.from_numpy(
+        (0.01 * rng.standard_normal(Mk.codim_shape)).astype(np.float32)).to(dev)
+    y_dn = torch.from_numpy((xb + 0.1 * rng.standard_normal(SHAPE)).astype(np.float32)).to(dev)
     paths = {
         "main path (mega3)": lambda: pds(yg, Convolve2D(SHAPE, gauss, device=dev)),
         "mega2 (gauss)": lambda: TVDeconvolution(SHAPE, yg, LAM, filt=gauss, stencil="mega2", max_iter=3000),
@@ -1661,6 +1684,9 @@ def gram_times(root, kernels_only=False):
         "sharded sweepsp": lambda: DistributedTVDeconv2D(SHAPE, None, ys, LAM, mesh=mesh1, mask=m, max_iter=3000),
         "2-D mesh (gauss)": lambda: Spatial2DTVDeconv2D(SHAPE, gauss, yg, LAM, mesh=mesh2, max_iter=3000),
         "2-D mesh (rank2)": lambda: Spatial2DTVDeconv2D(SHAPE, rank2_kernel(), yr, LAM, mesh=mesh2, max_iter=3000),
+        "inpainting": lambda: pds(y_in, Mk),
+        "PDS denoising": lambda: PDS(SHAPE, F=SquaredL2Loss(SHAPE, data=y_dn), G=NonNegativeOrthant(SHAPE),
+                                     H=LAM * L21Norm((2,) + SHAPE, axis=0), K=Gradient(SHAPE), max_iter=3000),
     }
     for name, build in paths.items():
         solver = build()
@@ -1676,7 +1702,7 @@ def gram_times(root, kernels_only=False):
                 raise AssertionError("the main path's solve() did not reach 1e-6")
             out["time_to_1e6_s"] = info.elapsed
         if name in ("main path (mega3)", "mega2 (gauss)", "mega (gauss)", "megar (gauss)", "2-D mesh (gauss)",
-                    "sharded megasp", "sharded sweepsp"):
+                    "sharded megasp", "sharded sweepsp", "inpainting", "PDS denoising"):
             busy = device_ms_per_iteration(solver)
             out["idle"][name] = None if busy is None else 1.0 - busy * v / 1e3
         del solver

@@ -33,17 +33,19 @@ struct PdsOut {
 };
 
 // The dual masked by the invariant: z0 read as 0 on the last row, z1 on the
-// last column (and both outside the image).
-template <class FZ0, class FZ1>
+// last column (and both outside the image).  AtEdge false: the caller
+// reads only pixels clear of the image's edges (K6's inner tiles), where
+// every mask and every test for the last row or column holds; none is made.
+template <class FZ0, class FZ1, bool AtEdge = true>
 struct MaskedDual {
   FZ0 Z0;
   FZ1 Z1;
   int H, W;
   __device__ __forceinline__ float z0(int r, int c) const {
-    return (r >= 0 && r < H - 1 && c >= 0 && c < W) ? Z0(r, c) : 0.f;
+    return (!AtEdge || (r >= 0 && r < H - 1 && c >= 0 && c < W)) ? Z0(r, c) : 0.f;
   }
   __device__ __forceinline__ float z1(int r, int c) const {
-    return (r >= 0 && r < H && c >= 0 && c < W - 1) ? Z1(r, c) : 0.f;
+    return (!AtEdge || (r >= 0 && r < H && c >= 0 && c < W - 1)) ? Z1(r, c) : 0.f;
   }
   // x_t at (r, c) from x there: P(x - tau g - tau div z)
   template <class FG>
@@ -90,18 +92,18 @@ __device__ __forceinline__ PdsOut pds_stencil(int r, int c, int H, int W, const 
 
 // pds_stencil's arithmetic from x_t and x at (r, c) (xt, x0), one row down
 // (xtd, xd; read only when r < H - 1) and one column right (xtr, xr; read
-// only when c < W - 1), for a caller that holds each x_t once (K10-K12,
-// K14, K16) instead of computing it for every pixel that reads it.
+// only when c < W - 1), for a caller that holds each x_t once (K6,
+// K10-K12, K14, K16) instead of computing it for every pixel that reads it.
 // pds_stencil keeps its own copy of these lines, so that the other
 // kernels' machine code stays as it was.
-template <class FZ0, class FZ1>
+template <class FZ0, class FZ1, bool AtEdge>
 __device__ __forceinline__ PdsOut pds_update(int r, int c, int H, int W, const PdsParams& p,
-                                             const MaskedDual<FZ0, FZ1>& z, float x0, float xt, float xd,
+                                             const MaskedDual<FZ0, FZ1, AtEdge>& z, float x0, float xt, float xd,
                                              float xtd, float xr, float xtr) {
   const float u = 2.f * xt - x0;
   float du_r = 0.f, du_c = 0.f;
-  if (r < H - 1) du_r = (2.f * xtd - xd) - u;
-  if (c < W - 1) du_c = (2.f * xtr - xr) - u;
+  if (!AtEdge || r < H - 1) du_r = (2.f * xtd - xd) - u;
+  if (!AtEdge || c < W - 1) du_c = (2.f * xtr - xr) - u;
   const float z0 = z.z0(r, c), z1 = z.z1(r, c);
   const float v0 = z0 + p.sigma * du_r;
   const float v1 = z1 + p.sigma * du_c;

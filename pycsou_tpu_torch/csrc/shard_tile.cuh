@@ -1,6 +1,6 @@
 // Row-shard tiles staged in shared memory, for the shard kernels K14
-// (tvr1.cu) and K16 (tv.cu); K11 and K12 (tvr1.cu) stage their tiles of a
-// dense image with the same stage_tile.
+// (tvr1.cu) and K16 (tv.cu); K11, K12 (tvr1.cu) and K6 (tvm2.cu) stage
+// their tiles of a dense image with the same stage_tile and ImageRows.
 //
 // A row shard holds its core rows [row0, row0 + hloc) of an (H, W) image
 // and R halo rows above and below from its neighbours, in three blocks
@@ -32,6 +32,25 @@ struct ShardRows {
     return l < 0 ? top + (size_t)(l + R) * W : l < hloc ? core + (size_t)l * W : bot + (size_t)(l - hloc) * W;
   }
 };
+
+// The rows of a dense (H, W) image: row r's first float, or nullptr outside
+// [0, H) (stage_tile writes such a row 0: the Gram's zero boundary, K6's
+// zero outside the image).
+struct ImageRows {
+  const float* p;
+  int H, W;
+  __device__ __forceinline__ const float* row(int r) const {
+    return (r < 0 || r >= H) ? nullptr : p + (size_t)r * W;
+  }
+};
+
+// Origin of block b's span of len pixels (a tile's edge, K10's strip) along
+// an axis of n: the last span is shifted back to end on the edge when the
+// axis holds a whole span.
+__device__ __forceinline__ int span_origin(int b, int len, int n) {
+  const int o = b * len;
+  return (n >= len && o > n - len) ? n - len : o;
+}
 
 // 16 bytes from device to shared memory by cp.async (both 16-byte aligned;
 // L2 only: the tile is read once); done after copy_wait_group.

@@ -144,14 +144,6 @@ struct R1Edges {
   int Kr, Kc;
 };
 
-// Origin of block b's span of len pixels (a tile's edge, K10's strip) along
-// an axis of n: the last span is shifted back to end on the edge when the
-// axis holds a whole span.
-__device__ __forceinline__ int span_origin(int b, int len, int n) {
-  const int o = b * len;
-  return (n >= len && o > n - len) ? n - len : o;
-}
-
 // Band pass along a row: out(i, j) = sum_t a[t] in(i, j + t), t in [0, 2R],
 // for i < nrows, j < ncols.  A thread computes NW consecutive j of one row
 // from a register window; consecutive threads take consecutive rows (odd
@@ -298,16 +290,6 @@ __device__ __forceinline__ void gram_region(const float* X, int sx, float* Wt, i
 }
 
 // -- K11 and K12: staged 32 x 64 tiles of a dense image -------------------
-
-// The rows of a dense (H, W) image: row r's first float, or nullptr outside
-// [0, H) (stage_tile writes such a row 0: the Gram's zero boundary).
-struct ImageRows {
-  const float* p;
-  int H, W;
-  __device__ __forceinline__ const float* row(int r) const {
-    return (r < 0 || r >= H) ? nullptr : p + (size_t)r * W;
-  }
-};
 
 // The stencil of a staged tile in two passes from shared memory (K11, K12):
 // x_t once a pixel of the gradient region (the TR x TC tile at (r0, c0)

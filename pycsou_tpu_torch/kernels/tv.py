@@ -235,8 +235,10 @@ def tv_pds_sweepm2_step(x, z0, z1, m, atb, *, tau, sigma, rho, lam, nonneg=True,
 
     Replaces ``pycsou_tpu/kernels/tv.py`` ``tv_pds_sweepm2_step``
     (``_tv_sweepm2_kernel``).  Bound by device memory: K5's 8 image streams
-    serve two iterations (each block reads its inputs over its tile grown by
-    2 and keeps the first iteration in shared memory)."""
+    serve two iterations (two blocks an SM walk 32 x 64 tiles, each read
+    over the tile grown by 2, the first iteration kept in shared memory;
+    the partial sums are one slot a block, fewer than ``_launch_masked``
+    allocates)."""
     kw = dict(tau=tau, sigma=sigma, rho=rho, lam=lam, nonneg=nonneg, iso=iso)
     _check_masked(x, z0, z1, m, atb)
     if x.device.type == "cpu":

@@ -211,6 +211,45 @@ def test_masked_kernels_match_plain(cuda, rng, shape, iso, nonneg):
     torch.cuda.synchronize()
 
 
+# K6's 32 x 64 tiles: heights and widths under one tile, about one tile's
+# edge and about two (the last tiles shifted back to the edge), W % 4 != 0
+# (rows off 16 bytes); H 97 and 130 and W 130 and 131 put tiles just inside
+# and just outside the inner tiles that make no edge test.
+@pytest.mark.parametrize("H", [1, 2, 31, 33, 34, 35, 97, 130])
+@pytest.mark.parametrize("W", [3, 5, 63, 65, 67, 130, 131])
+@pytest.mark.parametrize("iso,nonneg", [(True, True), (False, False)])
+def test_sweepm2_tiles_match_plain(cuda, rng, H, W, iso, nonneg):
+    """K6 against its plain version across its tiles' edges, on images that
+    start on a 16-byte boundary and on images that start one float past one
+    (every row's chunks then off 16 bytes); each launched twice on the same
+    inputs bit for bit the same (the partial sums fold in a fixed order),
+    and a second double step chained from the first one's output.  The mask
+    takes the counts 0, 1 and 2."""
+    t = lambda arr: torch.from_numpy(arr.astype(np.float32)).to(cuda)  # noqa: E731
+
+    def off(a):  # the same image one float past a 16-byte boundary
+        v = a.new_empty(a.numel() + 1)[1:].view(a.shape)
+        v.copy_(a)
+        return v
+
+    x = t(np.abs(rng.standard_normal((H, W))))
+    m = t(rng.integers(0, 3, (H, W)))
+    atb = m * t(rng.standard_normal((H, W)))
+    z0, z1 = t(0.01 * rng.standard_normal((H, W))), t(0.01 * rng.standard_normal((H, W)))
+    kw = dict(KW, iso=iso, nonneg=nonneg)
+    before = tv_pds_sweepm2_step.launches
+    for images in ((x, z0, z1, m, atb), tuple(off(a) for a in (x, z0, z1, m, atb))):
+        assert images[0].data_ptr() % 16 == (0 if images[0] is x else 4)
+        got = tv_pds_sweepm2_step(*images, **kw)
+        for a, b in zip(got, tv_pds_sweepm2_step(*images, **kw)):
+            assert torch.equal(a, b)
+        _assert_step_close(got, tv_pds_sweepm2_step_plain(*images, **kw), 1e-5)
+        _assert_step_close(tv_pds_sweepm2_step(*got[:3], *images[3:], **kw),
+                           tv_pds_sweepm2_step_plain(*got[:3], *images[3:], **kw), 1e-5)
+    assert tv_pds_sweepm2_step.launches == before + 6
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("shape", [(5, 7), (33, 130), (100, 130), (256, 384)])
 @pytest.mark.parametrize("rank,K0,K1", [(1, 15, 15), (2, 9, 7), (4, 31, 3)])
 def test_megarm_matches_plain(cuda, rng, shape, rank, K0, K1):
