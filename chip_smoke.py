@@ -47,13 +47,29 @@
    K1 only for ``A^H y``; the generic chain (``fuse=False``, K2) must agree
    after 5 iterations; on a sparse-spike image with the same blur and noise
    the recovery must beat the observation after 100 iterations.
-6. Drives the PMYULA path at 2048 x 2048 (the benchmark's sampler: seed 3,
+6. Drives the PSFs outside the band gate at 4096 x 4096, each through
+   ``PDS`` fusion and ``TVDeconvolution`` directly with the counters
+   zeroed: bench.py's rank-6 PSF (``'bandg'``: ``TVDeconvolution[sweep]``
+   on the grouped K1 sweeps, K1 4 times and K3 once an iteration), a
+   17 x 17 full-rank PSF of bench.py's kind (rank 17: the FFT Gram
+   ``ConvGram2D`` on its wrap path, K3 once an iteration, no K1) and
+   bench.py's 15 x 15 full-rank PSF (rank 15: ``'bandg'`` in four groups,
+   K1 8 times and K3 once).  Each must recover a piecewise-constant image
+   better than its observation and agree after 5 iterations with the same
+   solver on a second route to its Gram (the FFT Gram; the padded FFT
+   Gram).  The full-rank LASSO (``APGD`` -> ``LassoDeconvolution[gram]``
+   with ``ConvGram2D``, no kernel) must recover sparse spikes and agree
+   with the generic chain.  K1 at rank 4 (a ``'bandg'`` group) against its
+   plain version and its bound; one Gram apply of each route (``ConvGram2D``
+   wrap and padded, ``A^H (A x)`` over ``torch.fft``, the ``'bandg'``
+   compositions), device and host ms.
+7. Drives the PMYULA path at 2048 x 2048 (the benchmark's sampler: seed 3,
    burn-in 20, ``G = 0.01 * L1Norm``): it must run the ``megal`` engine and
    launch K9 once per sample and K1 only for ``A^H y``; the generic chain
    (``use_pallas=False``, K2, the same Philox noise) must agree after 6
    samples; the MMSE's mean must come within 0.02 of the truth's.  K9's
    in-kernel noise must have standard normal moments at 2048 x 2048.
-7. Drives ``DistributedTVDeconv2D`` on a mesh of four row shards of
+8. Drives ``DistributedTVDeconv2D`` on a mesh of four row shards of
    4096 x 4096 on one card (``make_mesh((4,), devices=[cuda:0] * 4)``,
    1024 rows a shard).  First K14 (mega2 on a shard, the Gaussian PSF),
    K15 (megar on a shard, the rank-2 PSF) and K16 (sweep on a shard) on the
@@ -68,7 +84,7 @@
    iteration); each must recover a piecewise-constant image better than its
    observation and agree after 6 iterations with ``TVDeconvolution`` on
    mega2, megar and sweepm given the same tau and sigma.
-8. Drives ``Spatial2DTVDeconv2D`` on a 2-D ``(sp0, sp1)`` mesh of one
+9. Drives ``Spatial2DTVDeconv2D`` on a 2-D ``(sp0, sp1)`` mesh of one
    card.  First K17 (megar on a block of a 2-D mesh) on blocks (0, 0),
    (0, 2), (2, 2) and (3, 3) of a (4, 4) mesh and on the four blocks of a
    (2, 2) mesh of a 4096 x 4096 state, halos from the exchange, with both
@@ -84,15 +100,17 @@
    ``TVDeconvolution[megar]`` given the same tau and sigma; a (4, 1) mesh
    (the row-shard kernel K15) and a (1, 4) mesh (K17 with zero row halos),
    each counted and held to megar after 6 iterations.
-9. The slope-timed iterations/s of the main path (both PSFs), of the
-   inpainting, blurred super-resolution, denoising and LASSO paths, of the
-   generic chain, of the megar, mega3, mega2, mega and element engines, of
-   the three sharded paths and of the two 2-D mesh paths at 4096 x 4096,
-   the device-idle share of sharded megasp, of the 2-D mesh path
-   (Gaussian PSF), of the megar, mega2 and mega engines and of the
-   inpainting and denoising paths (sweepm2, K6) from
-   ``torch.profiler`` traces, the PMYULA samples/s, and the main path's
-   ``solve()`` time to a 1e-6 relative improvement.
+10. The slope-timed iterations/s of the main path (both PSFs), of the
+    inpainting, blurred super-resolution, denoising and LASSO paths, of
+    the other PSFs' paths and their second Gram routes, of the full-rank
+    LASSO, of the generic chain, of the megar, mega3, mega2, mega and
+    element engines, of the three sharded paths and of the two 2-D mesh
+    paths at 4096 x 4096, the device-idle share of sharded megasp, of the
+    2-D mesh path (Gaussian PSF), of the megar, mega2 and mega engines, of
+    the inpainting and denoising paths (sweepm2, K6), of the other PSFs'
+    PDS paths and of the full-rank LASSO from ``torch.profiler`` traces,
+    the PMYULA samples/s, and the main path's ``solve()`` time to a 1e-6
+    relative improvement.
 
 ``python3 chip_smoke.py --gram-ab OLD_ROOT`` instead times, for the
 checkout at OLD_ROOT and for this one in turns (old, new, new, old), each
@@ -111,9 +129,9 @@ Any failure exits non-zero.  On success the last two lines are a JSON
 object with the per-kernel results and the device line
 ``{"ok": true, "device": {...}}``.  In the results, ``kernels`` holds
 K1-K18, each with the launches of the run named in ``run``, counted with
-every counter zeroed just before that run (``RUN_OF``: the README's path
-for K1 and the ladder's engine, the same path with the rank-2 PSF for K4,
-inpainting for K6, blurred
+every counter zeroed just before that run (``RUN_OF``: the rank-6 PSF's
+``PDS`` for K1, the README's path for the ladder's engine, the same path
+with the rank-2 PSF for K4, inpainting for K6, blurred
 super-resolution for K7, the LASSO path for K8, the PMYULA path for K9,
 the sharded paths for K14-K16, the 2-D mesh path for K17, the direct
 ``sepgram_apply`` calls for K18, which no path of the package calls, and
@@ -175,7 +193,7 @@ ENGINE_KERNEL = {"mega3": "K10", "mega2": "K11", "megar": "K4", "mega": "K12", "
 # path [megaf] K8, the PMYULA path [megal] K9; the kernels no fused main
 # path runs go through the generic chain and the engines asked for by name
 # (phase_main_path puts the ladder's pick under "main path")
-RUN_OF = {"K1": "main path", "K2": "PDS fuse=False", "K3": "TVDeconvolution stencil='sweep'",
+RUN_OF = {"K1": "rank 6 PDS", "K2": "PDS fuse=False", "K3": "TVDeconvolution stencil='sweep'",
           "K4": "main path (rank-2 PSF)", "K5": "TVDeconvolution stencil='sweepm'",
           "K6": "inpainting", "K7": "blurred super-resolution", "K8": "LASSO", "K9": "PMYULA",
           "K10": "TVDeconvolution stencil='mega3'", "K11": "TVDeconvolution stencil='mega2'",
@@ -192,6 +210,7 @@ SHAPE_MCMC = (2048, 2048)  # bench.py sec_mcmc
 SHARDS = 4  # the sharded paths' mesh: four row shards on one card
 MESH2D = (2, 2)  # the 2-D mesh path's (sp0, sp1) mesh: four blocks on one card
 LAM_L1 = 0.01  # bench.py sec_lasso and sec_mcmc
+FULLRANK_FFT_K = 17  # taps of the full-rank PSF that runs the FFT Gram: rank 17, above 'bandg''s 16
 
 
 def log(*a):
@@ -907,6 +926,175 @@ def phase_lasso_path(dev, rng, counters):
     return apgd, counts
 
 
+def rank6_kernel(k=KSIZE):
+    """bench.py sec_rank6's PSF: the sum of 6 random outer products (seed
+    11), unit l1 norm."""
+    r = np.random.default_rng(11)
+    u6 = r.standard_normal((k, 6))
+    v6 = r.standard_normal((k, 6))
+    h6 = (u6 @ v6.T).astype(np.float32)
+    return h6 / np.abs(h6).sum()
+
+
+def fullrank_kernel(k=KSIZE):
+    """bench.py sec_fullrank's PSF: |N(0, 1)| taps (seed 7), unit sum.  Its
+    numerical rank is k: 15 at bench.py's 15 x 15, inside 'bandg''s 5-16,
+    17 at FULLRANK_FFT_K."""
+    r = np.random.default_rng(7)
+    hf = np.abs(r.standard_normal((k, k))).astype(np.float32)
+    return hf / hf.sum()
+
+
+def phase_other_psfs(dev, rng, counters, res):
+    """PSFs outside the band gate at 4096^2, each through PDS fusion and
+    TVDeconvolution directly with the counters zeroed just before and read
+    just after, recovering a piecewise-constant image, and held after 5
+    iterations to the same solver on a second route to its Gram: the rank-6
+    PSF ('bandg' + sweep: K1 4 and K3 once an iteration) against the FFT
+    Gram, the 17 x 17 full-rank PSF (the FFT Gram's wrap path + sweep: K3
+    once, no K1) against the padded FFT Gram, and bench.py's 15 x 15
+    full-rank PSF (rank 15: 'bandg' in 4 groups, K1 8 and K3 once) against
+    the FFT Gram; the full-rank LASSO on the "gram" engine (no kernel);
+    K1 at rank 4 (a 'bandg' group); one Gram apply of each route."""
+    from pycsou_tpu_torch.func import L1Norm, L21Norm, NonNegativeOrthant, SquaredL2Loss
+    from pycsou_tpu_torch.kernels.conv2d import sepconv2d, sepconv2d_plain
+    from pycsou_tpu_torch.ops import Convolve2D, ConvGram2D, Gradient
+    from pycsou_tpu_torch.opt import APGD, LassoDeconvolution, PDS, TVDeconvolution
+
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
+    # name -> (PSF, the Convolve2D method "auto" takes on the card, K1
+    # launches an iteration, the second route to its Gram)
+    psfs = {
+        "rank 6": (rank6_kernel(), "bandg", 4, "fft"),
+        f"full rank {FULLRANK_FFT_K}x{FULLRANK_FFT_K}": (fullrank_kernel(FULLRANK_FFT_K), "fft", 0, "padded"),
+        f"full rank {KSIZE}x{KSIZE}": (fullrank_kernel(), "bandg", 8, "fft"),
+    }
+    runs, solvers = {}, {}
+    for name, (h, method, k1, second) in psfs.items():
+        A = Convolve2D(SHAPE, h, device=dev)
+        groups = len(A.groups) if A.groups else 0
+        if A.method != method or 2 * groups != k1:
+            raise AssertionError(f"{name}: Convolve2D takes {A.method!r} with {groups} groups, expected {method!r}")
+        x_true, y = blocks_problem(rng, h)
+        xt, yt = t(x_true), t(y)
+
+        def pds(h=h, yt=yt):
+            return PDS(SHAPE, F=SquaredL2Loss(SHAPE, data=yt) * Convolve2D(SHAPE, h, device=dev),
+                       G=NonNegativeOrthant(SHAPE), H=LAM * L21Norm((2,) + SHAPE, axis=0), K=Gradient(SHAPE),
+                       max_iter=3000)
+
+        def direct(h=h, yt=yt):
+            return TVDeconvolution(SHAPE, yt, LAM, filt=h, max_iter=3000)
+
+        # K1 forms A^H y once a group (twice through PDS: LeastSquaresLoss
+        # and TVDeconvolution each form it, as in the reference)
+        for route, build, ahy in ((f"{name} PDS", pds, 2 * groups), (f"{name} TVDeconvolution", direct, groups)):
+            (solver, st), counts = count_launches(counters, built_and_run(build))
+            tv = getattr(solver, "_fused", solver)
+            gram = type(tv.gram).__name__ if tv is not None else None
+            want = "SymmetricLinearOperator" if method == "bandg" else "ConvGram2D"
+            if type(tv) is not TVDeconvolution or tv.stencil_mode != "sweep" or gram != want:
+                raise AssertionError(f"{route}: runs {type(tv).__name__}[{getattr(tv, 'stencil_mode', None)}] "
+                                     f"with a {gram} Gram, expected TVDeconvolution[sweep] with a {want}")
+            if method == "fft" and not tv.gram.wrap:
+                raise AssertionError(f"{route}: ConvGram2D took its padded path at {SHAPE}")
+            log(f"{route}: -> TVDeconvolution[sweep] with a {gram} Gram ({A.method}"
+                + (f", wrap={tv.gram.wrap}" if method == "fft" else f", {groups} groups") + ") built and run "
+                f"for {st['it']} iterations; launches {counts}")
+            expect_launches(route, counts, {"K3": ITERS, **({"K1": ahy + k1 * ITERS} if k1 else {})})
+            err, obs = recovery(st, xt, yt)
+            log(f"{route}: ||x - x_true|| = {err:.4f} < ||y - x_true|| = {obs:.4f}: {err < obs} "
+                f"(ratio {err / obs:.6f})")
+            if not err < obs:
+                raise AssertionError(f"{route}: the recovery is no better than the blurred observation")
+            runs[route], solvers[route] = counts, solver
+        n = 5
+        ref = solvers[f"{name} TVDeconvolution"].run_fixed(n)
+
+        def on_second(h=h, yt=yt, second=second):
+            s = TVDeconvolution(SHAPE, yt, LAM, filt=h, max_iter=3000)
+            if second == "fft":
+                s.gram = Convolve2D(SHAPE, h, method="fft", device=dev).gram
+            else:
+                s.gram = ConvGram2D(Convolve2D(SHAPE, h, device=dev), wrap=False)
+            return s
+
+        route = f"{name} on the {'FFT' if second == 'fft' else 'padded FFT'} Gram"
+        solvers[route] = on_second()
+        cross_check(route, counters, lambda: on_second().run_fixed(n), ref, {"K3": n}, {"K1": groups})
+
+    # the full-rank LASSO: APGD fuses onto LassoDeconvolution["gram"] with
+    # the FFT Gram; no kernel of the port runs (cuFFT and PyTorch only)
+    hf = fullrank_kernel(FULLRANK_FFT_K)
+    x_sp, ys = sparse_problem(rng, hf)
+    yst = t(ys)
+
+    def lasso(**kw):
+        return APGD(SHAPE, F=SquaredL2Loss(SHAPE, data=yst) * Convolve2D(SHAPE, hf, device=dev),
+                    G=LAM_L1 * L1Norm(SHAPE), max_iter=3000, **kw)
+
+    name = f"full-rank LASSO ({FULLRANK_FFT_K}x{FULLRANK_FFT_K})"
+    (apgd, st), counts = count_launches(counters, built_and_run(lasso))
+    fused = apgd._fused
+    if type(fused) is not LassoDeconvolution or fused.engine != "gram" or type(fused.gram) is not ConvGram2D:
+        raise AssertionError(f"{name}: APGD fused onto {type(fused).__name__}[{getattr(fused, 'engine', None)}]")
+    log(f"{name}: APGD -> LassoDeconvolution[gram] with a ConvGram2D (wrap={fused.gram.wrap}) built and run "
+        f"for {st['it']} iterations; launches {counts}")
+    expect_launches(name, counts, {})
+    err, obs = recovery(st, t(x_sp), yst, key="x_temp")
+    log(f"{name} on sparse spikes: ||x - x_true|| = {err:.4f} < ||y - x_true|| = {obs:.4f}: {err < obs} "
+        f"(ratio {err / obs:.6f})")
+    if not err < obs:
+        raise AssertionError(f"{name}: the recovery is no better than the blurred observation")
+    runs[name], solvers[name] = counts, apgd
+    cross_check(f"{name} APGD fuse=False", counters, lambda: lasso(fuse=False).run_fixed(5), apgd.run_fixed(5),
+                {}, keys=("x", "x_temp"))
+
+    # K1 at rank 4, the size of a 'bandg' group: the rank-6 PSF's first group
+    x = t(np.abs(rng.standard_normal(SHAPE)))
+    f4 = Convolve2D(SHAPE, rank6_kernel(), device=dev).groups[0][0]
+    ab, rel = max_err(sepconv2d(x, f4), sepconv2d_plain(x, f4))
+    if rel > TOL_REL:
+        raise AssertionError(f"K1 rank 4: err {ab:.3e} (rel {rel:.3e}) > {TOL_REL}")
+    r1 = res["K1"]
+    r1["max_abs_err"], r1["max_rel_err"] = max(r1["max_abs_err"], ab), max(r1["max_rel_err"], rel)
+    r1["rank4_ms"], r1["rank4_plain_ms"] = median_ms(lambda: sepconv2d(x, f4)), median_ms(lambda: sepconv2d_plain(x, f4))
+    r1["rank4_bound"] = bound(2, 2 * f4.rank * (f4.Ku + f4.Kv) * SHAPE[0] * SHAPE[1])
+    log(f"  K1 rank 4 ({f4.Ku}x{f4.Kv} taps) max abs err {ab:.3e} (rel {rel:.3e}, tol {TOL_REL:g}); kernel "
+        f"{r1['rank4_ms']:.4f} ms, plain {r1['rank4_plain_ms']:.4f} ms, bound {r1['rank4_bound'][0]:.4f} ms "
+        f"by {r1['rank4_bound'][1]}")
+
+    # one Gram apply of each route on the card, each held to the first of
+    # its PSF's (the same operator)
+    h15, h6 = fullrank_kernel(), rank6_kernel()
+    C15 = Convolve2D(SHAPE, h15, method="fft", device=dev)
+    C6 = Convolve2D(SHAPE, h6, method="fft", device=dev)
+    full = f"{KSIZE}x{KSIZE} full rank"
+    routes = {  # key -> (PSF, apply)
+        f"ConvGram2D wrap ({full})": (full, ConvGram2D(C15).apply),
+        f"ConvGram2D padded ({full})": (full, ConvGram2D(C15, wrap=False).apply),
+        f"A^H(A x) over torch.fft ({full})": (full, lambda v: C15.adjoint(C15.apply(v))),
+        f"bandg composition ({full}, 4 groups)": (full, Convolve2D(SHAPE, h15, device=dev).gram.apply),
+        "ConvGram2D wrap (rank 6)": ("rank 6", ConvGram2D(C6).apply),
+        "bandg composition (rank 6, 2 groups)": ("rank 6", Convolve2D(SHAPE, h6, device=dev).gram.apply),
+    }
+    gram_ms, gram_host_ms, first = {}, {}, {}
+    for key, (psf, fn) in routes.items():
+        got = fn(x)
+        if psf in first:
+            ab, rel = max_err(got, first[psf])
+            if rel > TOL_REL:
+                raise AssertionError(f"{key}: err {ab:.3e} (rel {rel:.3e}) against the first route > {TOL_REL}")
+        else:
+            first[psf], ab = got, 0.0
+        gram_ms[key] = median_ms(lambda: fn(x), reps=10)
+        gram_host_ms[key] = host_ms(lambda: fn(x), n=20)
+        log(f"  Gram apply {key}: {gram_ms[key]:.4f} ms on the device, {gram_host_ms[key]:.4f} ms host a call "
+            f"(max abs diff {ab:.3e} to the first route)")
+    del first, x
+    return runs, solvers, {"device_ms": gram_ms, "host_ms": gram_host_ms}
+
+
 def phase_pmyula_path(dev, counters):
     """bench.py sec_mcmc's sampler at 2048^2, counted on its own run, with
     the generic chain on the same noise."""
@@ -1398,6 +1586,9 @@ def main():
     runs.update(masked_runs)
     log("-- LASSO path")
     apgd, runs["LASSO"] = phase_lasso_path(dev, rng, counters)
+    log(f"-- other PSFs at {SHAPE[0]} x {SHAPE[1]}: rank 6 ('bandg'), full rank (the FFT Gram)")
+    other_runs, other, gram_apply = phase_other_psfs(dev, rng, counters, res)
+    runs.update(other_runs)
     log("-- PMYULA path")
     sampler, runs["PMYULA"] = phase_pmyula_path(dev, counters)
     log(f"-- sharded paths: DistributedTVDeconv2D on {SHARDS} row shards on one card")
@@ -1432,6 +1623,14 @@ def main():
         ips[name] = v = time_solver(solver)
         log(f"{name} Spatial2DTVDeconv2D at {SHAPE[0]}^2 on a {MESH2D} mesh slope-timed: {v:.1f} iters/s "
             f"({1e3 / v:.4f} ms/iteration)")
+    for name, solver in other.items():
+        if name.endswith("TVDeconvolution"):  # the PDS route's engine, timed there
+            continue
+        ips[name] = v = time_solver(solver)
+        tv = getattr(solver, "_fused", None) or solver
+        engine = getattr(tv, "stencil_mode", None) or tv.engine
+        log(f"{name} {type(solver).__name__}[{engine}, {type(tv.gram).__name__}] at {SHAPE[0]}^2 slope-timed: "
+            f"{v:.1f} iters/s ({1e3 / v:.4f} ms/iteration)")
     sps = time_solver(sampler)
     log(f"PMYULA[{sampler.engine}] at {SHAPE_MCMC[0]}^2 slope-timed: {sps:.1f} samples/s "
         f"({1e3 / sps:.4f} ms/sample)")
@@ -1460,6 +1659,13 @@ def main():
         idle_m[name] = None if busy_m is None else 1.0 - busy_m * ips[name] / 1e3
         log(f"{name} [sweepm2]: {ips[name]:.1f} iters/s, device time {busy_m} ms an iteration in a "
             f"torch.profiler trace, device idle share {idle_m[name]} (not measured when None)")
+    idle_o = {}
+    for name in ("rank 6 PDS", f"full rank {FULLRANK_FFT_K}x{FULLRANK_FFT_K} PDS", f"full rank {KSIZE}x{KSIZE} PDS",
+                 f"full-rank LASSO ({FULLRANK_FFT_K}x{FULLRANK_FFT_K})"):
+        busy_o = device_ms_per_iteration(other[name])
+        idle_o[name] = None if busy_o is None else 1.0 - busy_o * ips[name] / 1e3
+        log(f"{name}: {ips[name]:.1f} iters/s, device time {busy_o} ms an iteration in a torch.profiler trace, "
+            f"device idle share {idle_o[name]} (not measured when None)")
     idle_e = {}
     for e in ("megar", "mega2", "mega"):
         busy_e = device_ms_per_iteration(tv_solvers[e])
@@ -1477,11 +1683,12 @@ def main():
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
             "library_ms": r.get("library_ms"),
         }
-        for extra in ("rank2", "stream", "identity"):
+        for extra in ("rank2", "stream", "identity", "rank4"):
             if f"{extra}_ms" in r:
                 out[f"{extra}_ms"], out[f"{extra}_plain_ms"] = r[f"{extra}_ms"], r[f"{extra}_plain_ms"]
-        if "rank2_bound" in r:
-            out["rank2_bound_ms"] = r["rank2_bound"][0]
+        for extra in ("rank2", "rank4"):
+            if f"{extra}_bound" in r:
+                out[f"{extra}_bound_ms"] = r[f"{extra}_bound"][0]
         for extra in ("rank2_library_ms", "w_pass_ms", "one_shard_max_abs_err", "shard_ms", "shard_plain_ms",
                       "one_block_max_abs_err", "block_ms", "block_plain_ms", "k2_max_abs_err",
                       "rank2_k2_max_abs_err"):
@@ -1497,6 +1704,11 @@ def main():
         "mesh2d_gauss_device_idle_share": idle2d, "megar_device_idle_share": idle_e["megar"],
         "mega2_device_idle_share": idle_e["mega2"], "mega_device_idle_share": idle_e["mega"],
         "inpainting_device_idle_share": idle_m["inpainting"], "denoising_device_idle_share": idle_m["denoising"],
+        "rank6_iters_per_s": ips["rank 6 PDS"], "rank6_device_idle_share": idle_o["rank 6 PDS"],
+        "fullrank_iters_per_s": ips[f"full rank {FULLRANK_FFT_K}x{FULLRANK_FFT_K} PDS"],
+        "fullrank_device_idle_share": idle_o[f"full rank {FULLRANK_FFT_K}x{FULLRANK_FFT_K} PDS"],
+        "other_psfs_device_idle_share": idle_o, "gram_apply_ms": gram_apply["device_ms"],
+        "gram_apply_host_ms": gram_apply["host_ms"],
         "card": smi,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {

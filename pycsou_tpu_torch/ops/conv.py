@@ -1,18 +1,21 @@
-"""2-D convolution of the slice (counterpart of ``pycsou_tpu/ops/conv.py``).
+"""2-D convolution (counterpart of ``pycsou_tpu/ops/conv.py``).
 
-* ``Convolve2D`` — 'same', zero-boundary convolution.  ``method='band'``
-  (any PSF of rank <= 4 within 31 taps per axis) runs apply and adjoint
-  through kernel K1; ``method='fft'`` applies through ``torch.fft`` and
-  takes the autodiff adjoint.  ``'direct'`` and the grouped ``'bandg'``
-  wait for ROADMAP Queue 1 item 2.
-* ``SeparableConvGram2D`` — the exact Gram ``A^H A`` of a band convolution
+* ``Convolve2D`` -- 'same', zero-boundary convolution by four methods:
+  ``'band'`` (a PSF of rank <= 4 within 31 taps per axis) runs apply and
+  adjoint through kernel K1; ``'bandg'`` (rank 5-16 within 31 taps) runs
+  them as the sum of one K1 launch per group of at most 4 factors;
+  ``'fft'`` applies through ``torch.fft``; ``'direct'`` through
+  ``F.conv2d`` at full f32.  The last two take the autodiff adjoint.
+  ``svd_tol`` truncates an approximately low-rank PSF first.
+* ``SeparableConvGram2D`` -- the exact Gram ``A^H A`` of a band convolution
   through kernel K2, and the fused least-squares gradient; for a rank-1
   PSF also the reference's rank-1 plan (``g_meta``, the autocorrelations,
   the raw taps and the edge corrections of ``kernels/band.py``), which the
   rank-1 TV engines K10-K12 read.
-  ``ConvGram2D`` (the FFT Gram of ``ops/_gram.py``) waits for ROADMAP
-  Queue 1 item 2; until then a full-rank PSF's Gram is the composition
-  ``A^H o A``.
+* ``ConvGram2D`` -- the exact FFT Gram of any other PSF (``ops/_gram.py``):
+  one FFT round trip and thin boundary corrections in place of the four
+  FFTs of ``A^H o A``.  A ``'bandg'`` convolution's Gram is the
+  composition ``A^H o A`` of its grouped K1 sweeps.
 
 ``lowrank_factors`` and ``_fft_lipschitz`` are the reference's numpy code
 unchanged, so the factor taps and ``||A||`` (hence beta, tau and sigma)
@@ -24,14 +27,15 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from pycsou_tpu_torch.core.linop import LinearOperator, LinOpComp, SymmetricLinearOperator
 from pycsou_tpu_torch.kernels.band import make_gram_band
-from pycsou_tpu_torch.kernels.conv2d import MAX_TAPS, SepFactors, sepconv2d, sepgram2d
-from pycsou_tpu_torch.utils.device import as_tensor, resolve_device
+from pycsou_tpu_torch.kernels.conv2d import MAX_RANK, MAX_TAPS, SepFactors, sepconv2d, sepgram2d
+from pycsou_tpu_torch.utils.device import as_tensor, full_f32, resolve_device
 from pycsou_tpu_torch.utils.shapes import as_shape
 
-__all__ = ["Convolve2D", "SeparableConvGram2D", "lowrank_factors", "next_fast_len"]
+__all__ = ["Convolve2D", "ConvGram2D", "SeparableConvGram2D", "lowrank_factors", "next_fast_len"]
 
 
 def next_fast_len(n: int) -> int:
@@ -86,46 +90,95 @@ def _band_factors(filt_np: np.ndarray):
     return lowrank_factors(filt_np)
 
 
+def _grouped_sweep_plans(filt_np: np.ndarray, device, max_rank: int = 16):
+    """``(fwd, adj)`` factor stacks of a rank 5-``max_rank`` PSF within
+    MAX_TAPS taps per axis, one pair per group of at most 4 factors (K1
+    accumulates at most 4 ranks a pass), split as the reference splits them
+    (``pycsou_tpu/ops/conv.py`` ``_grouped_sweep_plans``); None when the PSF
+    does not qualify.  The reference's TPU tile gates (``W % 128 == 0``,
+    ``W >= 384``, ``H % 8 == 0``) are not copied: K1 tiles any shape."""
+    if max(filt_np.shape) > MAX_TAPS:
+        return None
+    fac = lowrank_factors(filt_np, max_rank=max_rank)
+    if fac is None:
+        return None
+    us, vs = fac
+    r = us.shape[1]
+    if r <= MAX_RANK:
+        return None
+    m0, m1 = filt_np.shape
+    groups = []
+    for g0 in range(0, r, MAX_RANK):
+        sl = slice(g0, min(g0 + MAX_RANK, r))
+        fwd = SepFactors(us[:, sl], vs[:, sl], m0 // 2, m1 // 2, device)
+        groups.append((fwd, fwd.adjoint()))
+    return tuple(groups)
+
+
 class Convolve2D(LinearOperator):
     """2-D 'same' convolution with a compact kernel, zero boundary:
     ``y[p] = sum_k h[k] x[p + o - k]`` with ``o = K // 2`` per axis.
 
-    ``method='auto'`` takes ``'band'`` when the PSF has rank <= 4 within
-    31 taps per axis, else ``'fft'``."""
+    ``method='auto'`` takes the reference's pick for the device: ``'band'``
+    when the PSF has rank <= 4 within 31 taps per axis, else ``'direct'``
+    for at most 81 taps in all, else ``'fft'`` (the reference's CPU rule);
+    on a CUDA device a PSF of rank 5-16 within 31 taps per axis then takes
+    ``'bandg'`` (the reference's accelerator rule, without its TPU tile
+    gates).
 
-    def __init__(self, dim_shape, filt, method: str = "auto", device=None):
+    ``svd_tol`` truncates the PSF's singular components ``sigma_i <= svd_tol
+    * sigma_0`` first: the operator then is the truncated PSF, and
+    ``svd_trunc_bound = ||h - h_trunc||_1`` bounds ``||A - A_trunc||_2``."""
+
+    def __init__(self, dim_shape, filt, method: str = "auto", device=None, svd_tol: float = None):
         dim_shape = as_shape(dim_shape)
         if len(dim_shape) != 2:
             raise ValueError("Convolve2D expects a 2-D domain")
         dev = resolve_device(device, filt)
         filt_np = (filt.detach().cpu().numpy() if isinstance(filt, torch.Tensor) else np.asarray(filt))
+        if np.iscomplexobj(filt_np):
+            raise ValueError("Convolve2D takes real filters only")
         filt_np = filt_np.astype(np.float32)
         if filt_np.ndim != 2:
             raise ValueError("filter must be 2-D")
-        if method in ("direct", "bandg"):
-            raise NotImplementedError(
-                f"Convolve2D method={method!r} is not ported yet (ROADMAP Queue 1 item 2)"
-            )
-        if method not in ("auto", "band", "fft"):
-            raise ValueError("method must be 'auto', 'band' or 'fft'")
+        trunc_bound = 0.0
+        if svd_tol is not None:
+            f64 = np.asarray(filt_np, np.float64)
+            U, S, Vt = np.linalg.svd(f64)
+            keep = max(1, int(np.sum(S > float(svd_tol) * S[0])))
+            f_t = (U[:, :keep] * S[:keep]) @ Vt[:keep]
+            trunc_bound = float(np.abs(f64 - f_t).sum())
+            filt_np = f_t.astype(np.float32)
+        if method not in ("auto", "band", "bandg", "fft", "direct"):
+            raise ValueError("method must be 'auto', 'band', 'bandg', 'fft' or 'direct'")
         fac = _band_factors(filt_np) if method in ("auto", "band") else None
         if method == "band" and fac is None:
             raise ValueError(f"kernel is not rank <= 4 within {MAX_TAPS} taps per axis")
-        if method == "auto":
-            method = "band" if fac is not None else "fft"
+        was_auto = method == "auto"
+        if was_auto:
+            method = "band" if fac is not None else ("direct" if filt_np.size <= 81 else "fft")
+        groups = None
+        if method == "bandg" or (was_auto and method != "band" and dev.type == "cuda"):
+            groups = _grouped_sweep_plans(filt_np, dev)
+            if groups is not None:
+                method = "bandg"
+            elif method == "bandg":
+                raise ValueError(f"method='bandg' needs a PSF of rank 5-16 within {MAX_TAPS} taps per axis")
         padded = tuple(n + k - 1 for n, k in zip(dim_shape, filt_np.shape))
         super().__init__(dim_shape, dim_shape, lipschitz=_fft_lipschitz(filt_np, padded))
         self._device = dev
         self.filt = as_tensor(filt_np, dev)
         self.method = method
+        self.svd_trunc_bound = trunc_bound
         self.factors = fac
+        self.groups = groups
         self.fwd = self.adj = None
         self.h_hat = None
         if method == "band":
             m0, m1 = filt_np.shape
             self.fwd = SepFactors(fac[0], fac[1], m0 // 2, m1 // 2, dev)
             self.adj = self.fwd.adjoint()
-        else:
+        elif method == "fft":
             s = tuple(next_fast_len(n + k - 1) for n, k in zip(dim_shape, filt_np.shape))
             self.h_hat = torch.fft.rfft2(self.filt, s=s)
 
@@ -136,24 +189,107 @@ class Convolve2D(LinearOperator):
     def apply(self, x):
         if self.method == "band":
             return sepconv2d(x, self.fwd)
+        if self.method == "bandg":
+            return _group_sum(x, (fwd for fwd, _ in self.groups))
         (n0, n1), (m0, m1) = self.dim_shape, self.filt.shape
         o0, o1 = m0 // 2, m1 // 2
-        s = (next_fast_len(n0 + m0 - 1), next_fast_len(n1 + m1 - 1))
-        full = torch.fft.irfft2(torch.fft.rfft2(x, s=s) * self.h_hat, s=s)
-        return full[o0 : o0 + n0, o1 : o1 + n1]
+        if self.method == "fft":
+            s = (next_fast_len(n0 + m0 - 1), next_fast_len(n1 + m1 - 1))
+            full = torch.fft.irfft2(torch.fft.rfft2(x, s=s) * self.h_hat, s=s)
+            return full[o0 : o0 + n0, o1 : o1 + n1]
+        # 'direct': F.conv2d correlates, so the taps are flipped and the
+        # padding is m - 1 - o before and o after (asymmetric for even m)
+        with full_f32():
+            out = F.conv2d(F.pad(x[None, None], (m1 - 1 - o1, o1, m0 - 1 - o0, o0)),
+                           self.filt.flip((0, 1))[None, None])
+        return out[0, 0]
 
     def adjoint(self, y):
+        y = torch.as_tensor(y)
         if self.method == "band":
-            return sepconv2d(torch.as_tensor(y), self.adj)
-        return super().adjoint(y)
+            return sepconv2d(y, self.adj)
+        if self.method == "bandg":
+            return _group_sum(y, (adj for _, adj in self.groups))
+        # the VJP of apply; its backward convolution at full f32 as well
+        with full_f32():
+            return super().adjoint(y)
 
     @property
     def gram(self):
-        """Exact ``A^H A``: the fused K2 Gram for a band convolution, else
-        the composition ``A^H o A``."""
+        """Exact ``A^H A``: the fused K2 Gram of a band convolution, the
+        composition ``A^H o A`` of the grouped K1 sweeps of a ``'bandg'``
+        one, else the FFT Gram :class:`ConvGram2D`."""
         if self.method == "band":
             return SeparableConvGram2D(self)
-        return SymmetricLinearOperator(LinOpComp(self.H, self))
+        if self.method == "bandg":
+            return SymmetricLinearOperator(LinOpComp(self.H, self))
+        return ConvGram2D(self)
+
+
+def _group_sum(x, stacks) -> torch.Tensor:
+    """``sum_g K1(x, stack_g)``: one K1 launch per factor group."""
+    out = None
+    for f in stacks:
+        t = sepconv2d(x, f)
+        out = t if out is None else out + t
+    return out
+
+
+class ConvGram2D(LinearOperator):
+    """Exact Gram of a 'same' 2-D convolution (self-adjoint, PSD) through
+    the FFT (``ops/_gram.py``), with the transfers cached on the
+    convolution's device.  Two equivalent paths:
+
+    * ``wrap`` -- the circular Gram at exactly the image size plus the
+      wraparound-band corrections; ``"auto"`` takes it when both image dims
+      are fast FFT sizes (:func:`next_fast_len`) and at least 4 m, with no
+      ``fft_shape``;
+    * padded -- the FFT at ``next_fast_len(n + 2m - 2)`` (or ``fft_shape``)
+      with the frame corrections."""
+
+    def __init__(self, conv: Convolve2D, fft_shape=None, wrap="auto"):
+        from pycsou_tpu_torch.ops._gram import (
+            make_conv2d_gram, make_conv2d_gram_wrap, make_pad_cache, make_wrap_cache,
+        )
+
+        super().__init__(conv.dim_shape, conv.dim_shape, lipschitz=conv.lipschitz**2)
+        self._device = conv.device
+        self.filt = conv.filt
+        (n0, n1), (m0, m1) = conv.dim_shape, tuple(conv.filt.shape)
+        if wrap == "auto":
+            use_wrap = (fft_shape is None and next_fast_len(n0) == n0 and next_fast_len(n1) == n1
+                        and n0 >= 4 * m0 and n1 >= 4 * m1)
+        else:
+            use_wrap = bool(wrap)
+            if use_wrap and (n0 < 2 * m0 - 1 or n1 < 2 * m1 - 1):
+                # the wraparound bands must hold the full unwrapped reach;
+                # a smaller image would give a wrong Gram
+                raise ValueError(
+                    f"wrap=True needs n >= 2m-1 per axis; got image {conv.dim_shape} "
+                    f"for kernel {tuple(conv.filt.shape)}"
+                )
+        self.wrap = use_wrap
+        if use_wrap:
+            self.h2_hat = make_conv2d_gram_wrap(conv.dim_shape, self.filt)
+            self.cache = make_wrap_cache(conv.dim_shape, self.filt)
+            self.L = tuple(conv.dim_shape)
+        else:
+            self.h2_hat, self.L = make_conv2d_gram(conv.dim_shape, self.filt, fft_shape=fft_shape)
+            self.cache = make_pad_cache(conv.dim_shape, self.filt)
+
+    @property
+    def device(self):
+        return self._device
+
+    def apply(self, x):
+        from pycsou_tpu_torch.ops._gram import conv2d_gram_apply, conv2d_gram_apply_wrap
+
+        if self.wrap:
+            return conv2d_gram_apply_wrap(x, self.filt, self.h2_hat, cache=self.cache)
+        return conv2d_gram_apply(x, self.filt, self.h2_hat, self.L, cache=self.cache)
+
+    def adjoint(self, y):
+        return self.apply(torch.as_tensor(y))
 
 
 _ACORR_TILE = 128  # the reference's band tile: (2m - 1)-tap bands need 2 (m - 1) <= 128

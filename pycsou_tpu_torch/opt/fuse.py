@@ -8,10 +8,10 @@ TV pattern takes a convolution (or plain) least-squares loss, a sampling
 operator's (inpainting, zero-fill super-resolution) or a sampling operator
 after a convolution (blurred super-resolution); Chambolle-Pock TV
 denoising has its own matcher, and so has the LASSO (APGD, and FBS at
-``rho = 1``).  A convolution matches only with a PSF the separable kernels
-take (rank <= 4 within 31 taps per axis): the FFT Gram of a full-rank PSF
-is not ported, so where the reference fuses such a LASSO onto its ``gram``
-engine the port runs APGD's generic chain, with the same iterates.
+``rho = 1``).  A convolution matches with any real PSF, as in the
+reference: the fused engines then take the separable kernels' Gram (rank
+<= 4 within 31 taps per axis), the grouped K1 sweeps (rank 5-16 on the
+card) or the FFT Gram.
 """
 from __future__ import annotations
 
@@ -19,8 +19,6 @@ import logging
 from typing import Optional
 
 import torch
-
-from pycsou_tpu_torch.ops.conv import _band_factors
 
 logger = logging.getLogger("pycsou_tpu_torch.fuse")
 
@@ -114,15 +112,14 @@ def _why_F(F, dim_shape) -> Optional[str]:
     ):
         return (
             f"F is {type(F).__name__}, not SquaredL2Loss (optionally composed with a "
-            "Convolve2D whose PSF has rank <= 4 within 31 taps per axis, a sampling "
-            "operator (Masking/DownSampling/SubSampling), or a sampling operator after "
-            "such a Convolve2D)"
+            "real Convolve2D, a sampling operator (Masking/DownSampling/SubSampling), "
+            "or a sampling operator after a Convolve2D)"
         )
     return None
 
 
 def _match_conv_least_squares(dim_shape, F):
-    """``||A x - y||^2`` with A a Convolve2D of a band-eligible PSF (returns
+    """``||A x - y||^2`` with A a Convolve2D of a real PSF (returns
     ``(filt, y)``), plain ``||x - y||^2`` (returns ``(None, y)``), or None."""
     from pycsou_tpu_torch.core.functional import DiffProxFuncPreComp, ProxFuncPreComp
     from pycsou_tpu_torch.func.loss import LeastSquaresLoss
@@ -133,7 +130,7 @@ def _match_conv_least_squares(dim_shape, F):
         if tuple(F.op.dim_shape) != dim_shape:
             return None
         filt = F.op.filt
-        if _band_factors(filt.cpu().numpy()) is None:
+        if torch.is_complex(filt):
             return None
         y = F.data
     elif type(F) in (ProxFuncPreComp, DiffProxFuncPreComp) and type(F.func) is SquaredL2Norm:
@@ -176,8 +173,8 @@ def _match_sampling_least_squares(dim_shape, F):
 
 def _match_masked_conv_least_squares(dim_shape, F):
     """``||M C x - y||^2`` with M a sampling operator after a Convolve2D C
-    of a band-eligible PSF: ``(filt, mask, y_img)`` for TVDeconvolution's
-    combined mode, else None."""
+    of a real PSF: ``(filt, mask, y_img)`` for TVDeconvolution's combined
+    mode, else None."""
     from pycsou_tpu_torch.core.linop import LinOpComp
     from pycsou_tpu_torch.func.loss import LeastSquaresLoss
     from pycsou_tpu_torch.ops.conv import Convolve2D
@@ -190,7 +187,7 @@ def _match_masked_conv_least_squares(dim_shape, F):
     if tuple(A.dim_shape) != tuple(dim_shape):
         return None
     filt = A.filt
-    if _band_factors(filt.cpu().numpy()) is None:
+    if torch.is_complex(filt):
         return None
     return (filt,) + _back_projection(M, F.data)
 
@@ -284,9 +281,8 @@ def match_lasso(dim_shape, F, G, tau: float, acceleration, d: float, metric_ever
 
         min_x ||A x - y||^2 + lam ||x||_1
 
-    ``F = SquaredL2Loss(y) * Convolve2D`` (a PSF the separable kernels
-    take) or plain ``SquaredL2Loss(y)``, and ``G = lam * L1Norm`` or
-    ``L1Norm``."""
+    ``F = SquaredL2Loss(y) * Convolve2D`` (a real PSF) or plain
+    ``SquaredL2Loss(y)``, and ``G = lam * L1Norm`` or ``L1Norm``."""
     from pycsou_tpu_torch.opt.lasso import LassoDeconvolution
 
     dim_shape = tuple(dim_shape)

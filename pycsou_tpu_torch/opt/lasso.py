@@ -8,8 +8,10 @@ the same automatic ``tau = 1/beta``.  Engines:
 
 * ``"megaf"``: K8 (``kernels/fista.py``), one launch an iteration with the
   stopping-metric partial sums in its epilogue (5 image streams);
-* ``"gram"``: the plain chain, the gradient through the K2 Gram of
-  ``SeparableConvGram2D`` (``grad_fused``), then the prox and the momentum.
+* ``"gram"``: the plain chain, the gradient through the operator's Gram
+  (one K2 pass, ``grad_fused``, for a band PSF; else ``2 (A^H A v - atb)``
+  through the grouped K1 sweeps of a rank 5-16 PSF or the FFT Gram
+  ``ConvGram2D``, as in the reference), then the prox and the momentum.
 """
 from __future__ import annotations
 

@@ -18,18 +18,26 @@ Engines (``stencil=``):
 * conv: the reference's ladder, in its order: ``"mega3"`` (K10, two
   iterations per launch, ``iters_per_step = 2``), ``"mega2"`` (K11),
   ``"megar"`` (K4), ``"mega"`` (K12 after the column Gram ``w`` in
-  PyTorch), ``"sweep"`` (the K2 gradient, then K3) and ``"element"`` (the
-  K2 gradient, then K13 on a stacked dual).  The three rank-1 engines need
-  :func:`rank1_gate`; the CUDA ``"auto"`` is the first eligible engine
-  (:func:`conv_engine`);
+  PyTorch), ``"sweep"`` (the gradient, then K3) and ``"element"`` (the
+  gradient, then K13 on a stacked dual).  The three rank-1 engines need
+  :func:`rank1_gate`, megar a band PSF (rank <= 4 within 31 taps per
+  axis); the CUDA ``"auto"`` is the first eligible engine
+  (:func:`conv_engine`), sweep for every other PSF.  The gradient of sweep
+  and element is one K2 pass for a band PSF, else ``2 (A^H A x - atb)``
+  through the Gram (the reference's ``_grad``): the grouped K1 sweeps of a
+  rank 5-16 PSF or the FFT Gram ``ConvGram2D``;
 * mask: ``"sweepm2"`` (K6, two iterations per launch, ``iters_per_step =
   2``; the CUDA ``"auto"``) and ``"sweepm"`` (K5, one iteration);
-* combined: ``"megarm"`` (K7; the CUDA ``"auto"``);
+* combined: ``"megarm"`` (K7; the CUDA ``"auto"`` for a band PSF) and
+  ``"sweep"`` (the gradient ``2 (C^H (m C x) - atb)``, then K3; the CUDA
+  ``"auto"`` for every other PSF, where the reference runs its XLA chain:
+  the same iterates, through K3);
 * every mode: ``"plain"``, the kernels' plain PyTorch versions one
   iteration a step, for CPU tensors only (``"auto"`` on the CPU).
 
 In mask and combined modes the CUDA ``"auto"`` is the mode's first engine
-for every shape (:func:`masked_engine`), where the reference picks by its
+for every shape (:func:`masked_engine`; sweep for a combined-mode PSF that
+is not band), where the reference picks by its
 TPU tile gates (``pycsou_tpu/opt/tv.py:314-373``): mask mode runs sweepm2
 only when an 8-, 16- or 32-row tile within the Mosaic budget divides H into
 at least two tiles, else sweepm with one tile, else its XLA chain; combined
@@ -55,7 +63,7 @@ import torch
 
 from pycsou_tpu_torch.core.solver import IterativeSolver, _rel_from_sums
 from pycsou_tpu_torch.kernels.band import gram_band_cols
-from pycsou_tpu_torch.kernels.conv2d import sepgram2d
+from pycsou_tpu_torch.kernels.conv2d import MAX_TAPS, sepgram2d
 from pycsou_tpu_torch.kernels.tv import (
     R1_REACHES,
     tv_pds_mega2_step,
@@ -63,6 +71,7 @@ from pycsou_tpu_torch.kernels.tv import (
     tv_pds_mega_step,
     tv_pds_stencil_step,
     tv_pds_sweep_step_stats,
+    tv_pds_sweep_step_stats_plain,
     tv_pds_sweepm2_step,
     tv_pds_sweepm_step_stats,
     tv_pds_sweepm_step_stats_plain,
@@ -77,16 +86,16 @@ from pycsou_tpu_torch.ops.diff import fdiff_forward
 from pycsou_tpu_torch.utils.device import as_tensor, resolve_device
 from pycsou_tpu_torch.utils.shapes import as_shape
 
-__all__ = ["TVDeconvolution", "conv_engine", "masked_engine", "rank1_gate"]
+__all__ = ["TVDeconvolution", "band_gate", "conv_engine", "masked_engine", "rank1_gate"]
 
 # each mode's CUDA engines in the order of the reference's ladder
 MODE_ENGINES = {
     "conv": ("mega3", "mega2", "megar", "mega", "sweep", "element"),
     "mask": ("sweepm2", "sweepm"),
-    "combined": ("megarm",),
+    "combined": ("megarm", "sweep"),
 }
 RANK1_ENGINES = ("mega3", "mega2", "mega")
-_CUDA_ENGINES = sum(MODE_ENGINES.values(), ())
+_CUDA_ENGINES = tuple(dict.fromkeys(sum(MODE_ENGINES.values(), ())))
 ENGINES = ("auto",) + _CUDA_ENGINES + ("plain",)
 # engines whose kernels (or plain versions) emit the metric partial sums
 _STATS_ENGINES = ("mega3", "mega2", "megar", "megarm", "sweep", "sweepm", "sweepm2", "plain")
@@ -125,27 +134,39 @@ def rank1_gate(gram) -> Optional[str]:
     return None
 
 
+def band_gate(gram) -> Optional[str]:
+    """None when the Gram is a band one (:class:`SeparableConvGram2D`: a
+    PSF of rank <= 4 within 31 taps per axis, whose factors megar, megarm
+    and K2 take), else why not."""
+    if isinstance(gram, SeparableConvGram2D):
+        return None
+    return (f"the PSF's Gram is {type(gram).__name__}, not a band one (rank <= 4 within "
+            f"{MAX_TAPS} taps per axis)")
+
+
 def conv_engine(gram, stencil: str = "auto", device_type: str = "cuda") -> str:
     """The conv-mode engine a :class:`TVDeconvolution` of this Gram runs on
     a device of ``device_type``: ``"auto"`` is the first eligible engine of
     ``MODE_ENGINES["conv"]`` on CUDA (mega3 for a rank-1 PSF within
-    :func:`rank1_gate`, else megar) and ``"plain"`` on the CPU.  An
-    explicit engine is returned when it applies and raises ``ValueError``
-    when it does not (another mode's engine, a rank-1 engine outside the
-    gate, a CUDA engine on the CPU, ``"plain"`` on CUDA)."""
+    :func:`rank1_gate`, else megar for a band PSF, else sweep) and
+    ``"plain"`` on the CPU.  An explicit engine is returned when it applies
+    and raises ``ValueError`` when it does not (another mode's engine, a
+    rank-1 engine outside the gate, megar for a PSF that is not band, a
+    CUDA engine on the CPU, ``"plain"`` on CUDA)."""
     engines = MODE_ENGINES["conv"]
-    why = rank1_gate(gram)
+    why = {e: rank1_gate(gram) for e in RANK1_ENGINES}
+    why["megar"] = band_gate(gram)
     if stencil == "auto":
         if device_type != "cuda":
             return "plain"
-        return next(e for e in engines if why is None or e not in RANK1_ENGINES)
+        return next(e for e in engines if why.get(e) is None)
     if stencil != "plain" and stencil not in engines:
         raise ValueError(
             "conv mode supports stencil 'auto', " + ", ".join(repr(e) for e in engines)
             + f" or 'plain', not {stencil!r}"
         )
-    if stencil in RANK1_ENGINES and why is not None:
-        raise ValueError(f"stencil={stencil!r} is not eligible for this PSF and shape: {why}")
+    if why.get(stencil) is not None:
+        raise ValueError(f"stencil={stencil!r} is not eligible for this PSF and shape: {why[stencil]}")
     return _on_its_device(stencil, device_type)
 
 
@@ -159,20 +180,27 @@ def _on_its_device(stencil: str, device_type: str) -> str:
     return stencil
 
 
-def masked_engine(mode: str, stencil: str = "auto", device_type: str = "cuda") -> str:
+def masked_engine(mode: str, stencil: str = "auto", device_type: str = "cuda", conv=None) -> str:
     """The engine a mask- or combined-mode :class:`TVDeconvolution` runs on a
     device of ``device_type``: ``"auto"`` is the mode's first CUDA engine
     (sweepm2, megarm) on CUDA for every shape (the module docstring says
-    where the reference picks otherwise) and ``"plain"`` on the CPU.  An
+    where the reference picks otherwise), sweep in combined mode when the
+    convolution ``conv`` is not a band one, and ``"plain"`` on the CPU.  An
     explicit engine is returned when it applies and raises ``ValueError``
-    when it does not."""
+    when it does not (megarm for a PSF that is not band among them)."""
+    band = conv is None or conv.method == "band"
     if stencil == "auto":
-        return MODE_ENGINES[mode][0] if device_type == "cuda" else "plain"
+        if device_type != "cuda":
+            return "plain"
+        return MODE_ENGINES[mode][0 if band else 1]
     if stencil != "plain" and stencil not in MODE_ENGINES[mode]:
         raise ValueError(
             f"{mode} mode supports stencil 'auto', "
             + ", ".join(repr(e) for e in MODE_ENGINES[mode]) + f" or 'plain', not {stencil!r}"
         )
+    if stencil == "megarm" and not band:
+        raise ValueError(f"stencil='megarm' needs a PSF of rank <= 4 within {MAX_TAPS} taps per axis; "
+                         f"this one takes Convolve2D method={conv.method!r}")
     return _on_its_device(stencil, device_type)
 
 
@@ -240,10 +268,10 @@ class TVDeconvolution(IterativeSolver):
             m_max = float(torch.max(m))
         if mask is not None and filt is not None:
             mode = "combined"
-            conv = self._band_conv(shape, filt, dev)
+            conv = Convolve2D(shape, filt, device=dev)
             self.conv = conv
             self.filt = conv.filt
-            self._adj2 = conv.fwd.adjoint(2.0)
+            self._adj2 = conv.fwd.adjoint(2.0) if conv.method == "band" else None
             self.atb = conv.adjoint(self.y)
             self.beta = 2.0 * m_max * conv.lipschitz**2
         elif mask is not None:
@@ -255,7 +283,7 @@ class TVDeconvolution(IterativeSolver):
             if filt is None:
                 # denoising as the identity 1x1 convolution: gram = I, atb = y
                 filt = np.ones((1, 1), np.float32)
-            conv = self._band_conv(shape, filt, dev)
+            conv = Convolve2D(shape, filt, device=dev)
             self.filt = conv.filt
             self.gram = conv.gram
             self.atb = conv.adjoint(self.y)
@@ -265,7 +293,7 @@ class TVDeconvolution(IterativeSolver):
         if mode == "conv":
             stencil = conv_engine(self.gram, stencil, dev.type)
         else:
-            stencil = masked_engine(mode, stencil, dev.type)
+            stencil = masked_engine(mode, stencil, dev.type, conv=self.conv)
         self.stencil_mode = stencil
         if stencil in ("sweepm2", "mega3"):
             self.iters_per_step = 2
@@ -277,16 +305,6 @@ class TVDeconvolution(IterativeSolver):
         self.tau = float(tau)
         self.sigma = float(tau) if sigma is None else float(sigma)
 
-    @staticmethod
-    def _band_conv(shape, filt, dev) -> Convolve2D:
-        conv = Convolve2D(shape, filt, device=dev)
-        if conv.method != "band":
-            raise NotImplementedError(
-                "TVDeconvolution needs a PSF of rank <= 4 within 31 taps per axis; the "
-                "FFT Gram for other PSFs is not ported yet (ROADMAP Queue 1 item 2)"
-            )
-        return conv
-
     # -- iteration ---------------------------------------------------------
     def initial_state(self):
         z = lambda: torch.zeros(self.y.shape, dtype=torch.float32, device=self.device)  # noqa: E731
@@ -294,6 +312,18 @@ class TVDeconvolution(IterativeSolver):
         if self.stencil_mode in _STATS_ENGINES:
             state["_stats"] = torch.zeros(6, device=self.device)
         return state
+
+    def _grad(self, x):
+        """The data gradient ``2 (A^H A x - atb)`` of the sweep, element and
+        plain engines: one K2 pass for a band PSF in conv mode, else the
+        reference's ``_grad`` through the Gram (conv mode) or through ``C``,
+        the mask and ``C^H`` (combined mode)."""
+        if self.mode == "combined":
+            return 2.0 * (self.conv.adjoint(self.mask * self.conv.apply(x)) - self.atb)
+        g = self.gram
+        if isinstance(g, SeparableConvGram2D):
+            return sepgram2d(x, g.fwd, g.adj2, self.atb)
+        return 2.0 * (g.apply(x) - self.atb)
 
     def _mega_colgram(self, x):
         """``w = ColGram(x)`` for K12: the column band pass with its edge
@@ -314,7 +344,7 @@ class TVDeconvolution(IterativeSolver):
                 if engine == "mega":
                     x, z = tv_pds_mega_step(x, z, self._mega_colgram(x), atb, g, **kw)
                 else:
-                    x, z = tv_pds_stencil_step(x, z, sepgram2d(x, g.fwd, g.adj2, atb), **kw)
+                    x, z = tv_pds_stencil_step(x, z, self._grad(x), **kw)
                 return {"x": x, "z0": z[0], "z1": z[1]}
             if engine == "mega3":
                 out = tv_pds_mega3_step(x, z0, z1, atb, g, **kw)
@@ -323,9 +353,11 @@ class TVDeconvolution(IterativeSolver):
             elif engine == "megar":
                 out = tv_pds_megar_step(x, z0, z1, atb, g.fwd, g.adj2, **kw)
             elif engine == "sweep":
-                out = tv_pds_sweep_step_stats(x, z0, z1, sepgram2d(x, g.fwd, g.adj2, atb), **kw)
-            else:
+                out = tv_pds_sweep_step_stats(x, z0, z1, self._grad(x), **kw)
+            elif isinstance(g, SeparableConvGram2D):
                 out = tv_pds_megar_step_plain(x, z0, z1, atb, g.fwd, g.adj2, **kw)
+            else:
+                out = tv_pds_sweep_step_stats_plain(x, z0, z1, self._grad(x), **kw)
         elif self.mode == "mask":
             if engine == "sweepm2":
                 out = tv_pds_sweepm2_step(x, z0, z1, m, atb, **kw)
@@ -337,8 +369,12 @@ class TVDeconvolution(IterativeSolver):
             fwd, adj2 = self.conv.fwd, self._adj2
             if engine == "megarm":
                 out = tv_pds_megar_step(x, z0, z1, atb, fwd, adj2, mask=m, **kw)
-            else:
+            elif engine == "sweep":
+                out = tv_pds_sweep_step_stats(x, z0, z1, self._grad(x), **kw)
+            elif fwd is not None:
                 out = tv_pds_megarm_step_plain(x, z0, z1, m, atb, fwd, adj2, **kw)
+            else:
+                out = tv_pds_sweep_step_stats_plain(x, z0, z1, self._grad(x), **kw)
         x, z0, z1, stats = out
         return {"x": x, "z0": z0, "z1": z1, "_stats": stats}
 

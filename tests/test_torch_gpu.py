@@ -73,7 +73,7 @@ from pycsou_tpu_torch.parallel import (
     lane_extend,
     make_mesh,
 )
-from pycsou_tpu_torch.ops import Convolve2D, DownSampling, Gradient, Masking, SubSampling
+from pycsou_tpu_torch.ops import Convolve2D, ConvGram2D, DownSampling, Gradient, Masking, SubSampling
 from pycsou_tpu_torch.ops.conv import lowrank_factors
 from pycsou_tpu_torch.opt import APGD, PDS, PMYULA, TVDeconvolution
 
@@ -955,3 +955,132 @@ def test_gram_callers_match_plain(cuda, rng, shape, mesh, Ku, Kv, rank):
     for g, w_ in zip(tv_pds_megar_shard2d_step(cpad(x), cpad(z0), cpad(z1), ae, zr, f, a2, (-R, -C), **kw2), k4):
         assert torch.equal(g, w_)
     torch.cuda.synchronize()
+
+
+# -- Convolve2D's other methods and the FFT Gram (ops/_gram.py) on the card -----
+
+
+def _rank_psf(seed, rank, K):
+    r = np.random.default_rng(seed)
+    h = (r.standard_normal((K, rank)) @ r.standard_normal((K, rank)).T).astype(np.float32)
+    return h / np.abs(h).sum()
+
+
+def _abs_psf(seed, K):
+    h = np.abs(np.random.default_rng(seed).standard_normal((K, K))).astype(np.float32)
+    return h / h.sum()
+
+
+@pytest.mark.parametrize("shape", [(4096, 4096), (333, 517)])
+@pytest.mark.parametrize("rank", [6, 12])
+def test_bandg_groups_match_plain(cuda, rng, shape, rank):
+    """"auto" on the card takes 'bandg' for a rank 5-16 PSF within 31 taps:
+    K1 once per group of at most 4 factors, forward and adjoint, against
+    the sum of K1's plain versions over the groups (2e-6 of the largest
+    magnitude)."""
+    h = _rank_psf(rank, rank, 15)
+    A = Convolve2D(shape, h, device=cuda)
+    assert A.method == "bandg" and len(A.groups) == -(-rank // 4)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+    n0 = sepconv2d.launches
+    got_f, got_a = A.apply(x), A.adjoint(x)
+    assert sepconv2d.launches == n0 + 2 * len(A.groups)
+    _close(got_f, sum(sepconv2d_plain(x, f) for f, _ in A.groups))
+    _close(got_a, sum(sepconv2d_plain(x, a) for _, a in A.groups))
+    torch.cuda.synchronize()
+
+
+def test_auto_method_on_the_card(cuda):
+    """On the card: band for rank <= 4, bandg for rank 5-16 within 31 taps
+    (bench.py's 15 x 15 full-rank PSF has rank 15; a 5 x 5 full-rank one,
+    'direct' on the CPU, rank 5), 'fft' for rank 17 or over 31 taps, with
+    the FFT Gram."""
+    S = (256, 384)
+    assert Convolve2D(S, _rank_psf(0, 2, 9), device=cuda).method == "band"
+    assert Convolve2D(S, _rank_psf(0, 6, 15), device=cuda).method == "bandg"
+    assert Convolve2D(S, _abs_psf(7, 15), device=cuda).method == "bandg"  # rank 15
+    A = Convolve2D(S, _abs_psf(7, 17), device=cuda)
+    assert A.method == "fft" and type(A.gram).__name__ == "ConvGram2D"
+    assert Convolve2D(S, _rank_psf(0, 6, 33), device=cuda).method == "fft"
+    assert Convolve2D(S, _abs_psf(3, 5), device=cuda).method == "bandg"  # rank 5
+
+
+@pytest.mark.parametrize("shape,K,wrap", [((512, 384), 15, True), ((512, 384), 15, False),
+                                         ((333, 517), 17, False), ((256, 256), 9, True)])
+def test_conv_gram_on_the_card(cuda, rng, shape, K, wrap):
+    """ConvGram2D on the card (cuFFT, the transfers cached on the card)
+    against its CPU result and against adjoint(apply(x)) of the 'fft'
+    convolution, within 1e-5 of the largest magnitude; 'direct' on the card
+    (cuDNN at full f32) against the CPU within 2e-6."""
+    h = _abs_psf(K, K)
+    x = rng.standard_normal(shape).astype(np.float32)
+    A = Convolve2D(shape, h, method="fft", device=cuda)
+    G = ConvGram2D(A, wrap=wrap)
+    assert all(v.device.type == "cuda" for v in [G.h2_hat, *G.cache.values()])
+    xc = torch.from_numpy(x).to(cuda)
+    got = G.apply(xc)
+    Gc = ConvGram2D(Convolve2D(shape, h, method="fft", device="cpu"), wrap=wrap)
+    _close(got.cpu(), Gc.apply(torch.from_numpy(x)), rel=1e-5)
+    _close(got, A.adjoint(A.apply(xc)), rel=1e-5)
+    D = Convolve2D(shape, h, method="direct", device=cuda)
+    Dc = Convolve2D(shape, h, method="direct", device="cpu")
+    _close(D.apply(xc).cpu(), Dc.apply(torch.from_numpy(x)))
+    _close(D.adjoint(xc).cpu(), Dc.adjoint(torch.from_numpy(x)))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("psf", ["rank6", "fullrank"])
+def test_other_psf_sweep_engines_on_the_card(cuda, rng, psf):
+    """The rank-6 PSF on 'bandg' + sweep (K1 4 and K3 once an iteration,
+    through PDS fusion) and the full-rank PSF on the FFT Gram + sweep (K3
+    once, no K1), each held after 5 iterations to the same solver on the
+    other's Gram route (the 'fft' Gram, the padded Gram) within 1e-4 of
+    max(1, max |x|)."""
+    S = (256, 384)
+    h = _rank_psf(11, 6, 15) if psf == "rank6" else _abs_psf(7, 17)
+    y = torch.from_numpy(rng.standard_normal(S).astype(np.float32)).to(cuda)
+    p = PDS(S, F=SquaredL2Loss(S, data=y) * Convolve2D(S, h, device=cuda), G=NonNegativeOrthant(S),
+            H=0.05 * L21Norm((2,) + S, axis=0), K=Gradient(S), max_iter=100)
+    tv = p._fused
+    assert tv.stencil_mode == "sweep"
+    n1, n3 = sepconv2d.launches, tv_pds_sweep_step_stats.launches
+    st = p.run_fixed(5)
+    assert tv_pds_sweep_step_stats.launches == n3 + 5
+    assert sepconv2d.launches == n1 + (20 if psf == "rank6" else 0)
+    alt = TVDeconvolution(S, y, 0.05, filt=h, max_iter=100)
+    if psf == "rank6":
+        assert type(alt.gram).__name__ == "SymmetricLinearOperator"
+        alt.gram = Convolve2D(S, h, method="fft", device=cuda).gram
+    else:
+        assert type(alt.gram) is ConvGram2D and alt.gram.wrap  # 256 and 384 are fast FFT sizes
+        alt.gram = ConvGram2D(Convolve2D(S, h, device=cuda), wrap=False)
+    ot = alt.run_fixed(5)
+    scale = max(1.0, float(st["x"].abs().max()))
+    for k in ("x", "z0", "z1"):
+        assert float((ot[k] - st[k]).abs().max()) <= 1e-4 * scale, k
+    torch.cuda.synchronize()
+
+
+def test_combined_fullrank_on_the_card(cuda, rng):
+    """Blurred super-resolution with a full-rank PSF runs sweep (K3 once an
+    iteration, the gradient through the FFT convolution) and agrees with
+    the plain K3 steps on the same gradient after 5 iterations."""
+    S = (128, 192)
+    h = _abs_psf(7, 17)
+    keep = np.random.default_rng(13).random(S) < 0.7
+    M = Masking(S, keep, device=cuda)
+    A = M * Convolve2D(S, h, device=cuda)
+    y = A(torch.from_numpy(np.abs(rng.standard_normal(S)).astype(np.float32)).to(cuda))
+    p = PDS(S, F=SquaredL2Loss(A.codim_shape, data=y) * A, G=NonNegativeOrthant(S),
+            H=0.05 * L21Norm((2,) + S, axis=0), K=Gradient(S), max_iter=100)
+    tv = p._fused
+    assert (tv.mode, tv.stencil_mode) == ("combined", "sweep")
+    n3 = tv_pds_sweep_step_stats.launches
+    st = p.run_fixed(5)
+    assert tv_pds_sweep_step_stats.launches == n3 + 5
+    x, z0, z1 = (torch.zeros(S, device=cuda) for _ in range(3))
+    kw = dict(tau=tv.tau, sigma=tv.sigma, rho=tv.rho, lam=tv.lam, nonneg=tv.nonneg, iso=tv.iso)
+    for _ in range(5):
+        x, z0, z1, _ = tv_pds_sweep_step_stats_plain(x, z0, z1, tv._grad(x), **kw)
+    for k, want in (("x", x), ("z0", z0), ("z1", z1)):
+        _close(st[k], want, rel=1e-5)

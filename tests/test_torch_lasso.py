@@ -28,7 +28,7 @@ import pycsou_tpu_torch.func as tfunc
 import pycsou_tpu_torch.opt as topt
 from pycsou_tpu_torch.kernels.conv2d import SepFactors
 from pycsou_tpu_torch.kernels.fista import lasso_fista_step
-from pycsou_tpu_torch.ops import Convolve2D, Masking
+from pycsou_tpu_torch.ops import Convolve2D, ConvGram2D, Masking
 from pycsou_tpu_torch.opt import fuse as tfuse
 from pycsou_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
 from pycsou_tpu_torch.utils.device import set_default_device
@@ -282,9 +282,10 @@ def test_match_lasso_as_the_reference(rng, kind):
 
 
 def test_full_rank_psf_runs_generic_and_says_why(rng, caplog):
-    """A full-rank PSF: the reference fuses it onto its FFT-Gram engine,
-    which the port lacks (ROADMAP Queue 1 item 2); the port's APGD runs the
-    generic chain, logs why, and gives the reference's iterates."""
+    """A full-rank PSF: APGD fuses it onto LassoDeconvolution's "gram"
+    engine, whose Gram is the FFT Gram ConvGram2D, as the reference fuses
+    it; no note is logged, and after 20 iterations the iterates are the
+    reference's (rtol 1e-4 / atol 1e-5 x max |x|)."""
     shape = (24, 32)
     hf = np.random.default_rng(0).random((5, 5)).astype(np.float32)
     hf /= hf.sum()
@@ -292,10 +293,12 @@ def test_full_rank_psf_runs_generic_and_says_why(rng, caplog):
     with caplog.at_level(logging.WARNING, logger="pycsou_tpu_torch.fuse"):
         t = topt.APGD(shape, F=tfunc.SquaredL2Loss(shape, data=y) * Convolve2D(shape, hf),
                       G=LAM * tfunc.L1Norm(shape), max_iter=50)
-    assert t._fused is None and any("NOT fused" in r.message for r in caplog.records)
+    assert not any("NOT fused" in r.message for r in caplog.records)
+    assert type(t._fused) is topt.LassoDeconvolution and t._fused.engine == "gram"
+    assert type(t._fused.gram) is ConvGram2D
     j = jopt.APGD(shape, F=jfunc.SquaredL2Loss(shape, data=jnp.asarray(y)) * JConv(shape, jnp.asarray(hf)),
                   G=LAM * jpen.L1Norm(shape), max_iter=50)
-    assert j._fused is not None
+    assert j._fused is not None and j._fused.engine == "gram"
     _close_state(t.run_fixed(20), j.run_fixed(20))
 
 

@@ -168,8 +168,8 @@ def test_pmyula_engine_gates(rng):
     wide = np.ones((17, 3), np.float32) / 51  # rank 1, 17 row taps
     with pytest.raises(ValueError, match="row taps"):
         topt.PMYULA(S, F=_lsq(tfunc, Convolve2D, y, wide), use_pallas="interpret")
-    full = np.random.default_rng(0).random((5, 5)).astype(np.float32)  # full rank: the FFT convolution
-    with pytest.raises(ValueError, match="F is not"):
+    full = np.random.default_rng(0).random((5, 5)).astype(np.float32)  # full rank: F matches, the gate refuses
+    with pytest.raises(ValueError, match="not rank 1"):
         topt.PMYULA(S, F=_lsq(tfunc, Convolve2D, y, full / full.sum()), use_pallas="interpret")
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="CUDA"):

@@ -75,11 +75,13 @@ def _dot_test(op, rng, rtol=1e-4):
 @pytest.mark.parametrize("name", list(PSFS))
 def test_convolve2d_matches_jax(rng, name):
     """Apply and adjoint against the JAX Convolve2D; dot test; the
-    Lipschitz bound and the factor taps are the reference's, bit for bit."""
+    Lipschitz bound and the factor taps are the reference's, bit for bit.
+    The 5 x 5 full-rank PSF takes 'direct' (25 taps <= 81), the
+    reference's pick on its CPU backend."""
     h = PSFS[name]
     A = tconv.Convolve2D(S, h)
     J = jconv.Convolve2D(S, jnp.asarray(h))
-    assert A.method == ("fft" if name == "fullrank" else "band")
+    assert A.method == J.method == ("direct" if name == "fullrank" else "band")
     assert A.lipschitz == J.lipschitz
     x = rng.standard_normal(S).astype(np.float32)
     _close(A.apply(_t(x)), J.apply(jnp.asarray(x)), rtol=3e-4, atol=3e-5)
@@ -107,12 +109,18 @@ def test_separable_gram_matches_jax(rng, name):
 
 
 def test_convolve2d_unported_methods_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconv.Convolve2D(S, _gauss(), method="direct")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tconv.Convolve2D(S, _gauss(), method="bandg")
+    """Every method is ported; what still raises is a method the PSF does
+    not fit: 'band' for a full-rank PSF, 'bandg' for a rank-1 one (and for
+    a rank-6 PSF over 31 taps), and an unknown method."""
     with pytest.raises(ValueError, match="rank"):
         tconv.Convolve2D(S, PSFS["fullrank"], method="band")
+    with pytest.raises(ValueError, match="bandg"):
+        tconv.Convolve2D(S, _gauss(), method="bandg")
+    wide = np.random.default_rng(1).standard_normal((33, 6)) @ np.random.default_rng(2).standard_normal((6, 5))
+    with pytest.raises(ValueError, match="bandg"):
+        tconv.Convolve2D((48, 40), wide, method="bandg")
+    with pytest.raises(ValueError, match="method must be"):
+        tconv.Convolve2D(S, _gauss(), method="xla")
 
 
 def test_gradient_matches_jax(rng):

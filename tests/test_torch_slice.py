@@ -245,8 +245,9 @@ def test_unported_modes_raise(rng):
     big = (2048, 1024)
     s = topt.TVDeconvolution(big, np.zeros(big, np.float32), LAM)
     assert s.mode == "mask" and tuple(s.filt.shape) == (1, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.TVDeconvolution(S, y, LAM, filt=np.random.default_rng(0).random((5, 5)))
+    # a full-rank PSF builds: the FFT Gram, the plain engine on the CPU
+    s = topt.TVDeconvolution(S, y, LAM, filt=np.random.default_rng(0).random((5, 5)))
+    assert (s.mode, s.stencil_mode, type(s.gram).__name__) == ("conv", "plain", "ConvGram2D")
     for engine in ("megar", "sweep"):  # the conv mode's kernel engines need a CUDA device
         with pytest.raises(ValueError, match="CUDA"):
             topt.TVDeconvolution(S, y, LAM, filt=_gauss(), stencil=engine, device="cpu")
@@ -269,10 +270,10 @@ def test_near_miss_is_explained(rng, caplog):
     assert "axis=0" in caplog.text
     note = explain_tv_mismatch(S, F, tfunc.NonNegativeOrthant(S), H, tops.Gradient(S))
     assert note and note.startswith("PDS expression NOT fused")
-    # a full-rank PSF is outside the fused engines' gate: generic, explained
+    # a full-rank PSF fuses, as in the reference (onto the FFT Gram)
     full = tfunc.SquaredL2Loss(S, data=y) * tops.Convolve2D(S, np.random.default_rng(0).random((5, 5)))
     p = topt.PDS(S, F=full, G=tfunc.NonNegativeOrthant(S), H=LAM * tfunc.L21Norm((2,) + S, axis=0), K=tops.Gradient(S))
-    assert p._fused is None
+    assert type(p._fused) is topt.TVDeconvolution and type(p._fused.gram) is tops.ConvGram2D
     assert p.run_fixed(3)["x"].shape == S
 
 
@@ -294,9 +295,13 @@ def test_mode_engine_validation(rng):
     for kw, msg in cases:
         with pytest.raises(ValueError, match=msg):
             topt.TVDeconvolution(S, y, LAM, **kw)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        # a full-rank PSF in combined mode
-        topt.TVDeconvolution(S, y, LAM, filt=np.random.default_rng(0).random((5, 5)), mask=m)
+    # a full-rank PSF in combined mode builds: the plain engine on the CPU
+    # (sweep on the card); megarm refuses it
+    s = topt.TVDeconvolution(S, y, LAM, filt=np.random.default_rng(0).random((5, 5)), mask=m)
+    assert (s.mode, s.stencil_mode, s.conv.method) == ("combined", "plain", "direct")
+    with pytest.raises(ValueError, match="megarm"):
+        topt.TVDeconvolution(S, y, LAM, filt=np.random.default_rng(0).random((5, 5)), mask=m,
+                             stencil="megarm")
     s = topt.TVDeconvolution(S, y, LAM, filt=h, mask=m)
     assert (s.mode, s.stencil_mode, s.gram) == ("combined", "plain", None)
     assert s.beta == pytest.approx(2.0 * s.conv.lipschitz**2)
