@@ -112,6 +112,29 @@
     the PMYULA samples/s, and the main path's ``solve()`` time to a 1e-6
     relative improvement.
 
+11. Drives the stacked operators and spectral estimates, each run counted
+    on its own: bench.py's cfg4 (``LinOpVStack([Masking, DCTOperator])``
+    with the keep mask ``default_rng(4).random < 0.3``,
+    ``compute_lipschitz_cst(maxiter=30)``, ``APGD`` with ``0.02 *
+    L1Norm``) at 512 x 512 and 4096 x 4096: ``||A||`` within 1e-5 of
+    sqrt(2) (``A^H A = diag(mask) + I``), no kernel of the port launched,
+    the 512^2 run's ``||A||`` and iterates after 20 iterations against the
+    port's CPU run, ``solve()``'s recovery within 5% of the spikes, the
+    slope-timed iters/s, the power iteration's wall ms and host reads, and
+    each size's device-idle share; a ``PDS`` whose ``K`` is the main
+    path's 4096^2 Gaussian ``Convolve2D`` with an unknown ``||K||``: K1
+    twice a Gram apply of its power iteration, ``||K|| <= 1 + 1e-5``, 20
+    iterations (K1 40), and at 512^2 the card's estimate against the CPU's;
+    ``lanczos_eigs`` and ``smallest_eig_psd`` (fold, shift-invert) of a
+    4096^2 ``DiagonalOperator`` of known spectrum; ``opnorm``,
+    ``singularvals``, ``cond`` and the Gram's ``eigenvals`` of a 4096 x 4096
+    ``DenseOperator`` against ``torch.linalg.svdvals``; 30 new operators
+    (derivatives, stacks, Kronecker, transforms, dense, sparse, diagonal,
+    polynomial) at 1024^2 against their CPU run and their adjoint identity;
+    ``todense`` of 1024 x 1024 matrices (the DCT's, by vmapped batches; a
+    band ``Convolve2D``'s, a K1 launch a column) against the CPU's, and the
+    pinv of an invertible 1024^2 x 1024^2 Kronecker product, each timed.
+
 ``python3 chip_smoke.py --gram-ab OLD_ROOT`` instead times, for the
 checkout at OLD_ROOT and for this one in turns (old, new, new, old), each
 run a process of its own on the same card: the callers of the shared Gram
@@ -138,7 +161,8 @@ the sharded paths for K14-K16, the 2-D mesh path for K17, the direct
 for the kernels no fused main path runs, the run that goes through each),
 its ``bound_ms`` and ``bound_by``, and ``library_ms`` (K1's
 ``F.conv2d``; null where no one PyTorch call computes the kernel's
-function).  Without CUDA it exits 2 and prints no result.
+function).  ``spectral`` holds phase 11's results and its seconds.
+Without CUDA it exits 2 and prints no result.
 """
 import json
 import math
@@ -211,6 +235,21 @@ SHARDS = 4  # the sharded paths' mesh: four row shards on one card
 MESH2D = (2, 2)  # the 2-D mesh path's (sp0, sp1) mesh: four blocks on one card
 LAM_L1 = 0.01  # bench.py sec_lasso and sec_mcmc
 FULLRANK_FFT_K = 17  # taps of the full-rank PSF that runs the FFT Gram: rank 17, above 'bandg''s 16
+# the stacked operators and spectral estimates
+CFG4_SIZES = (512, 4096)  # bench.py sec_cfg4_stacked's 512^2, and the main path's image size
+SHAPE_PI_CPU = (512, 512)  # the unknown-||K|| PDS's estimate held to the port's CPU run
+SHAPE_OPS = (1024, 1024)  # the new operators against their CPU run
+N_DENSE = 4096  # DenseOperator's eigenvals/singularvals/cond against torch.linalg.svdvals
+TOL_SQRT2 = 1e-5  # cfg4's ||A|| against sqrt(2)
+TOL_NORM_CPU = 1e-6  # cfg4's ||A||, card against CPU, relative
+TOL_PI_CPU = 1e-5  # the unknown-||K|| estimate, card against CPU, relative
+TOL_RECOVERY = 0.05  # cfg4's relative error of the recovered x after solve()
+TOL_OPS = 1e-5  # an operator on the card against its CPU run, x max(1, max |out|)
+TOL_ADJOINT = 1e-4  # |<A x, y> - <x, A^H y>| over ||A x|| ||y||
+TOL_SPECTRUM = 1e-3  # an estimate against the exact spectrum (the CPU tests' against numpy)
+SHAPE_DENSE = (32, 32)  # todense's images: 1024 x 1024 matrices
+N_KRON = 1024  # the Kronecker pinv's factors, N_KRON x N_KRON with singular values in [1, 2]
+TOL_PINV = 1e-4  # ||K pinv(y) - y|| over ||y|| for the invertible Kronecker product
 
 
 def log(*a):
@@ -1509,6 +1548,345 @@ def phase_spatial2d_paths(dev, rng, counters):
     return runs, solvers
 
 
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def cfg4_problem(m, device):
+    """bench.py sec_cfg4_stacked at m x m: ``A = LinOpVStack([Masking,
+    DCTOperator])`` with the keep mask ``default_rng(4).random < 0.3``,
+    ``A.compute_lipschitz_cst(maxiter=30)``, ``APGD`` on ``SquaredL2Loss(y)
+    * A`` with ``0.02 * L1Norm``, 40 spikes of 3.0.  Returns ``(A, solver,
+    x_true, power-iteration record)``."""
+    from pycsou_tpu_torch.func import L1Norm, SquaredL2Loss
+    from pycsou_tpu_torch.ops import DCTOperator, LinOpVStack, Masking
+    from pycsou_tpu_torch.opt import APGD
+    from pycsou_tpu_torch.utils.opnorm import power_iteration
+
+    rng = np.random.default_rng(4)
+    mask = (rng.random((m, m)) < 0.3).astype(np.float32)
+    A = LinOpVStack([Masking((m, m), mask, device=device), DCTOperator((m, m), device=device)])
+    reads, applies = power_iteration.host_reads, power_iteration.applies
+    _sync(device)
+    t0 = time.perf_counter()
+    A.compute_lipschitz_cst(maxiter=30)
+    pi = {"wall_ms": 1e3 * (time.perf_counter() - t0), "host_reads": power_iteration.host_reads - reads,
+          "gram_applies": power_iteration.applies - applies}
+    x_true = np.zeros((m, m), np.float32)
+    x_true[rng.choice(m, 40), rng.choice(m, 40)] = 3.0
+    xt = torch.from_numpy(x_true).to(device)
+    y = A(xt)
+    solver = APGD((m, m), F=SquaredL2Loss(A.codim_shape, data=y) * A, G=0.02 * L1Norm((m, m)),
+                  max_iter=2000, min_iter=10, accuracy_threshold=1e-6)
+    return A, solver, xt, pi
+
+
+def unknown_norm_pds(shape, h, y, device):
+    """``PDS(F=SquaredL2Loss(y), H=L1Norm, K)`` with ``K`` the Convolve2D of
+    ``h`` whose ``||K||`` is unknown (``_lipschitz=inf``): building it runs
+    the power iteration on the card (tests/test_torch_slice.py builds the
+    same)."""
+    from pycsou_tpu_torch.func import L1Norm, SquaredL2Loss
+    from pycsou_tpu_torch.ops import Convolve2D
+    from pycsou_tpu_torch.opt import PDS
+
+    K = Convolve2D(shape, h, device=device).replace(_lipschitz=float("inf"))
+    return PDS(shape, F=SquaredL2Loss(shape, data=torch.as_tensor(y).to(device)), H=L1Norm(shape), K=K)
+
+
+def spectral_operators(device):
+    """The new operators at SHAPE_OPS (derivatives, stacks, Kronecker and
+    transform operators, the structural ones), each built from the same
+    numpy inputs on ``device``."""
+    import scipy.sparse as sp
+
+    from pycsou_tpu_torch import ops
+
+    S = SHAPE_OPS
+    n = S[0] * S[1]
+    rng = np.random.default_rng(21)
+    field = rng.standard_normal((2,) + S).astype(np.float32)
+    d = rng.standard_normal(S).astype(np.float32)
+    keep = rng.random(S) < 0.3
+    fa = rng.standard_normal((S[0], S[0])).astype(np.float32) / np.sqrt(S[0])
+    fb = rng.standard_normal((S[1], S[1])).astype(np.float32) / np.sqrt(S[1])
+    ka = rng.standard_normal((S[0], 256)).astype(np.float32)
+    kb = rng.standard_normal((S[1], 256)).astype(np.float32)
+    band = sp.diags([rng.standard_normal(n - 1), rng.standard_normal(n), rng.standard_normal(n - S[1])],
+                    [1, 0, -S[1]], shape=(n, n), format="csr", dtype=np.float32)
+    dev = dict(device=device)
+    D = ops.DiagonalOperator(d, **dev)
+    dct, idct = ops.DCTOperator(S, **dev), ops.IDCTOperator(S, **dev)
+    return {
+        "FirstDerivative forward": ops.FirstDerivative(S, axis=0),
+        "FirstDerivative backward": ops.FirstDerivative(S, axis=1, kind="backward"),
+        "FirstDerivative centered": ops.FirstDerivative(S, axis=0, kind="centered", step=0.5),
+        "SecondDerivative": ops.SecondDerivative(S, axis=1),
+        "GeneralisedDerivative sobolev": ops.GeneralisedDerivative(S, axis=1, kind="sobolev", order=2,
+                                                                   alpha=1.5, **dev),
+        "GeneralisedDerivative polynomial": ops.GeneralisedDerivative(S, kind="polynomial",
+                                                                      coeffs=[1.0, -0.5, 0.25], **dev),
+        "Gradient backward": ops.Gradient(S, kind="backward"),
+        "Gradient centered": ops.Gradient(S, kind="centered"),
+        "Laplacian": ops.Laplacian(S),
+        "GeneralisedLaplacian iterated": ops.GeneralisedLaplacian(S, order=2, **dev),
+        "FirstDirectionalDerivative": ops.FirstDirectionalDerivative(S, field, **dev),
+        "SecondDirectionalDerivative": ops.SecondDirectionalDerivative(S, field, **dev),
+        "DirectionalGradient": ops.DirectionalGradient(S, [np.array([1.0, 0.0]), field], **dev),
+        "DirectionalLaplacian": ops.DirectionalLaplacian(S, [np.array([0.6, 0.8]), field], weights=[0.5, 2.0],
+                                                         **dev),
+        "Integration1D": ops.Integration1D(S, axis=1, step=0.1),
+        "LinOpVStack [Masking; DCT]": ops.LinOpVStack([ops.Masking(S, keep, **dev), dct]),
+        "LinOpVStack [DCT; IDCT]": ops.LinOpVStack([dct, idct]),
+        "LinOpHStack [DCT, Diagonal]": ops.LinOpHStack([dct, D]),
+        "BlockDiagonalOperator": ops.BlockDiagonalOperator([dct, D]),
+        "BlockOperator": ops.BlockOperator([[dct, D], [D, idct]]),
+        "KroneckerProduct": ops.KroneckerProduct(ops.DenseOperator(fa, **dev), ops.DenseOperator(fb, **dev)),
+        "KroneckerSum": ops.KroneckerSum(ops.DenseOperator(fa, **dev), ops.DiagonalOperator(fb[0], **dev)),
+        "KhatriRaoProduct": ops.KhatriRaoProduct(ka, kb, **dev),
+        "DCTOperator": dct,
+        "IDCTOperator": idct,
+        "FFTOperator": ops.FFTOperator(S),
+        "DiagonalOperator": D,
+        "PolynomialOperator": ops.PolynomialOperator(ops.Laplacian(S), [0.5, -1.0, 0.125]),
+        "SparseOperator": ops.SparseOperator(band, dim_shape=S, codim_shape=S, **dev),
+        "DenseOperator": ops.DenseOperator(fa, **dev),
+    }
+
+
+def phase_spectral(dev, counters):
+    """The stacked operators and spectral estimates: cfg4 at 512^2 and
+    4096^2 (its ||A|| against sqrt(2), the 512^2 run against the port's CPU
+    run, recovery), the PDS with an unknown ||K|| (K1's launches from the
+    power iteration), Lanczos and the smallest eigenvalue of a known
+    spectrum, DenseOperator's spectrum against torch.linalg.svdvals, and
+    every new operator on the card against its CPU run."""
+    from pycsou_tpu_torch.ops import DenseOperator, DiagonalOperator
+    from pycsou_tpu_torch.utils import opnorm
+    from pycsou_tpu_torch.utils.device import full_f32
+
+    t_phase = time.perf_counter()
+    out = {"tolerances": {"sqrt2": TOL_SQRT2, "norm_card_cpu": TOL_NORM_CPU, "path": TOL_PATH,
+                          "recovery": TOL_RECOVERY, "pi_card_cpu": TOL_PI_CPU, "ops": TOL_OPS,
+                          "adjoint": TOL_ADJOINT, "spectrum": TOL_SPECTRUM}, "cfg4": {}}
+    log(f"tolerances: {out['tolerances']}")
+    solvers = {}
+    sqrt2 = math.sqrt(2.0)
+    for m in CFG4_SIZES:
+        name = f"cfg4 {m}^2"
+        (A, solver, xt, pi), counts = count_launches(counters, lambda: cfg4_problem(m, dev))
+        expect_launches(f"{name} build", counts, {})
+        log(f"{name}: ||A|| = {A.lipschitz!r} (sqrt(2) + {A.lipschitz - sqrt2:.3e}, tol {TOL_SQRT2:g}); power "
+            f"iteration {pi['wall_ms']:.2f} ms wall, {pi['gram_applies']} Gram applies, {pi['host_reads']} host "
+            f"reads; launches {counts}")
+        if abs(A.lipschitz - sqrt2) > TOL_SQRT2:
+            raise AssertionError(f"{name}: ||A|| is not sqrt(2)")
+        st, counts = count_launches(counters, lambda: solver.run_fixed(20))
+        expect_launches(f"{name} APGD", counts, {})
+        rec = {"norm": A.lipschitz, "power_iteration": pi}
+        if m == CFG4_SIZES[0]:
+            A_c, solver_c, _, _ = cfg4_problem(m, "cpu")
+            st_c = solver_c.run_fixed(20)
+            rel = abs(A.lipschitz - A_c.lipschitz) / A_c.lipschitz
+            scale = max(1.0, float(st_c["x"].abs().max()))
+            errs = {k: float((st[k].cpu() - st_c[k]).abs().max()) for k in ("x", "x_temp")}
+            log(f"{name} card against CPU: ||A|| rel {rel:.3e} (tol {TOL_NORM_CPU:g}); after 20 iterations "
+                + ", ".join(f"max |d{k}| {e:.3e}" for k, e in errs.items()) + f" (tol {TOL_PATH:g} x {scale:.3f})")
+            if rel > TOL_NORM_CPU or any(e > TOL_PATH * scale for e in errs.values()):
+                raise AssertionError(f"{name}: the card disagrees with the CPU")
+            rec.update(norm_rel_cpu=rel, path_err_cpu=errs)
+        info = solver.solve()
+        x = info["x_temp"]
+        if tuple(x.shape) != (m, m) or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{name}: x is not a finite {m} x {m} image")
+        err = float(torch.linalg.vector_norm(x - xt) / torch.linalg.vector_norm(xt))
+        log(f"{name} solve(): {info.n_iter} iterations (converged {info.converged} at {info.converged_at}), "
+            f"{info.elapsed:.3f} s; relative error {err:.4e} (tol {TOL_RECOVERY:g})")
+        if err > TOL_RECOVERY:
+            raise AssertionError(f"{name}: the recovered x is off")
+        rec["ips"] = time_solver(solver)
+        log(f"{name} APGD (generic) slope-timed: {rec['ips']:.1f} iters/s ({1e3 / rec['ips']:.4f} ms/iteration)")
+        rec.update(recovery_rel_err=err, solve_s=info.elapsed, solve_iters=info.n_iter)
+        out["cfg4"][m] = rec
+        solvers[name] = solver
+
+    # the PDS with an unknown ||K||: the main path's Gaussian PSF at 4096^2
+    h = gaussian_kernel()
+    y = np.random.default_rng(15).standard_normal(SHAPE).astype(np.float32)
+    applies = opnorm.power_iteration.applies
+    reads = opnorm.power_iteration.host_reads
+    t0 = time.perf_counter()
+    pds, counts = count_launches(counters, lambda: unknown_norm_pds(SHAPE, h, y, dev))
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    n_gram = opnorm.power_iteration.applies - applies
+    lip = pds.K.lipschitz
+    log(f"unknown-||K|| PDS at {SHAPE[0]}^2: ||K|| = {lip!r} (bound 1 + 1e-5), {n_gram} Gram applies, "
+        f"{opnorm.power_iteration.host_reads - reads} host reads, built in {build_ms:.1f} ms; launches {counts}")
+    expect_launches("unknown-||K|| PDS build", counts, {"K1": 2 * n_gram})
+    if not (0 < lip <= 1 + 1e-5):
+        raise AssertionError("the power iteration's ||K|| is above 1 for a PSF summing to 1")
+    st, counts20 = count_launches(counters, lambda: pds.run_fixed(20))
+    log(f"unknown-||K|| PDS: 20 iterations; launches {counts20}")
+    expect_launches("unknown-||K|| PDS run", counts20, {"K1": 40})
+    if not all(bool(torch.isfinite(st[k]).all()) for k in ("x", "z")):
+        raise AssertionError("unknown-||K|| PDS: non-finite iterates")
+    y_small = y[: SHAPE_PI_CPU[0], : SHAPE_PI_CPU[1]]
+    small = unknown_norm_pds(SHAPE_PI_CPU, h, y_small, dev).K.lipschitz
+    small_cpu = unknown_norm_pds(SHAPE_PI_CPU, h, y_small, "cpu").K.lipschitz
+    rel = abs(small - small_cpu) / small_cpu
+    log(f"unknown-||K|| at {SHAPE_PI_CPU[0]}^2: card {small!r}, CPU {small_cpu!r}, rel {rel:.3e} "
+        f"(tol {TOL_PI_CPU:g})")
+    if rel > TOL_PI_CPU:
+        raise AssertionError("the unknown-||K|| estimate differs between the card and the CPU")
+    out["unknown_norm_pds"] = {"norm": lip, "gram_applies": n_gram, "k1_launches_build": counts["K1"],
+                               "k1_launches_20_iterations": counts20["K1"], "build_ms": build_ms,
+                               "norm_512": small, "norm_512_cpu": small_cpu}
+
+    # Lanczos and the smallest eigenvalue of a known spectrum at 4096^2
+    dg = np.random.default_rng(22).uniform(1.0, 2.0, SHAPE).astype(np.float32)
+    dg[0, 0], dg[0, 1] = 5.0, 0.3
+    Dg = DiagonalOperator(dg, device=dev)
+    got = {"lanczos LA": float(opnorm.lanczos_eigs(Dg, k=1, which="LA", maxiter=32)[0]),
+           "fold": opnorm.smallest_eig_psd(Dg, maxiter=32),
+           "shift-invert": opnorm.smallest_eig_psd(Dg, maxiter=16, method="shift-invert", cg_tol=1e-5)}
+    want = {"lanczos LA": 5.0, "fold": 0.3, "shift-invert": 0.3}
+    spec = {}
+    for k, v in got.items():
+        spec[k] = e = abs(v - want[k]) / want[k]
+        log(f"DiagonalOperator {SHAPE[0]}^2, {k}: {v!r} against {want[k]} (rel {e:.3e}, tol {TOL_SPECTRUM:g})")
+    # DenseOperator N x N with singular values 6, 0.4 and the rest in [1, 3]
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    U, _ = torch.linalg.qr(torch.randn(N_DENSE, N_DENSE, generator=g, device=dev))
+    V, _ = torch.linalg.qr(torch.randn(N_DENSE, N_DENSE, generator=g, device=dev))
+    sv_in = torch.cat([torch.tensor([6.0, 0.4], device=dev), 1.0 + 2.0 * torch.rand(N_DENSE - 2, generator=g, device=dev)])
+    with full_f32():
+        a = (U * sv_in) @ V.T
+    # cuSOLVER's QR-based SVD (gesvd): on an H100 80GB HBM3 (700 W) PyTorch's
+    # default method gave 6.0026 and 0.40013 for this matrix, built from 6.0
+    # and 0.4, which the power iteration and Lanczos give
+    sv = torch.linalg.svdvals(a, driver="gesvd" if a.is_cuda else None)
+    smax, smin = float(sv[0]), float(sv[-1])
+    log(f"DenseOperator {N_DENSE} x {N_DENSE}: svdvals {smax!r} ... {smin!r}; built from 6.0 ... 0.4")
+    A = DenseOperator(a)
+    got = {"opnorm": A.opnorm(), "singularvals LM": float(A.singularvals(k=1)[0]),
+           "singularvals SM": float(A.singularvals(k=1, which="SM")[0]),
+           "eigenvals of the Gram": float(A.gram.eigenvals(k=1)[0]), "cond": A.cond()}
+    want = {"opnorm": smax, "singularvals LM": smax, "singularvals SM": smin, "eigenvals of the Gram": smax**2,
+            "cond": smax / smin}
+    for k, v in got.items():
+        spec[f"dense {k}"] = e = abs(v - want[k]) / want[k]
+        log(f"DenseOperator {N_DENSE} x {N_DENSE}, {k}: {v!r} against svdvals' {want[k]!r} (rel {e:.3e}, "
+            f"tol {TOL_SPECTRUM:g})")
+    del U, V, a, A
+    if max(spec.values()) > TOL_SPECTRUM:
+        raise AssertionError("a spectral estimate is off")
+    out["spectrum_rel_err"] = spec
+
+    # every new operator on the card against its CPU run, and its adjoint identity
+    card, cpu = spectral_operators(dev), spectral_operators("cpu")
+    rng = np.random.default_rng(23)
+    worst = {}
+    for name, op in card.items():
+        op_c = cpu[name]
+
+        def draw(shape):
+            v = rng.standard_normal(shape).astype(np.float32)
+            if op.dtype.is_complex:
+                v = (v + 1j * rng.standard_normal(shape)).astype(np.complex64)
+            return torch.from_numpy(v)
+
+        x, yy = draw(op.dim_shape), draw(op.codim_shape)
+        ax, ahy = op.apply(x.to(dev)), op.adjoint(yy.to(dev))
+        ax_c, ahy_c = op_c.apply(x), op_c.adjoint(yy)
+        e = max(float((ax.cpu() - ax_c).abs().max()) / max(1.0, float(ax_c.abs().max())),
+                float((ahy.cpu() - ahy_c).abs().max()) / max(1.0, float(ahy_c.abs().max())))
+        xd, yd = x.to(dev), yy.to(dev)
+        lhs = torch.vdot(yd.reshape(-1), ax.reshape(-1))
+        rhs = torch.vdot(ahy.reshape(-1), xd.reshape(-1))
+        adj = float((lhs - rhs).abs() / (torch.linalg.vector_norm(ax) * torch.linalg.vector_norm(yd)))
+        worst[name] = {"card_cpu": e, "adjoint": adj}
+        if e > TOL_OPS or adj > TOL_ADJOINT:
+            raise AssertionError(f"{name}: card against CPU {e:.3e} (tol {TOL_OPS:g}), adjoint {adj:.3e} "
+                                 f"(tol {TOL_ADJOINT:g})")
+    log(f"{len(card)} operators at {SHAPE_OPS[0]}^2, card against CPU (tol {TOL_OPS:g} x max(1, max |out|)) "
+        f"and adjoint identity (tol {TOL_ADJOINT:g}): worst "
+        f"{max(v['card_cpu'] for v in worst.values()):.3e}, {max(v['adjoint'] for v in worst.values()):.3e}")
+    out["operators"] = worst
+    out["materialise"] = materialise_and_pinv(dev)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"stacked operators and spectral estimates: {out['seconds']:.1f} s")
+    return out, solvers
+
+
+def wall_ms(fn, reps=5):
+    """Median wall ms of a call of ``fn`` that reads the host itself,
+    the device synchronised before and after each call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def materialise_and_pinv(dev):
+    """``todense`` of 1024 x 1024 matrices on the card: the DCT of 32 x 32
+    images (8 vmapped batches of 128 columns; orthogonal, and the CPU's)
+    and a band Convolve2D (K1 not batchable: a launch a column; the CPU's);
+    and the pinv of a Kronecker product of two invertible N_KRON x N_KRON
+    dense factors (one batched CG a factor): ``K pinv(y)`` against ``y``."""
+    from pycsou_tpu_torch.ops import Convolve2D, DCTOperator, DenseOperator, KroneckerProduct
+    from pycsou_tpu_torch.utils import opnorm
+    from pycsou_tpu_torch.utils.device import full_f32
+
+    out = {}
+    h = gaussian_kernel()
+    for name, build in (("DCTOperator", lambda d: DCTOperator(SHAPE_DENSE, device=d)),
+                        ("Convolve2D band", lambda d: Convolve2D(SHAPE_DENSE, h, device=d))):
+        op = build(dev)
+        mat = op.todense().mat
+        want = build("cpu").todense().mat
+        e = float((mat.cpu() - want).abs().max()) / max(1.0, float(want.abs().max()))
+        rec = {"batchable": op.batchable, "card_cpu": e, "ms": wall_ms(lambda: op.todense())}
+        if name == "DCTOperator":
+            with full_f32():
+                rec["orthogonality"] = float((mat @ mat.T - torch.eye(op.dim, device=dev)).abs().max())
+        log(f"todense {name} ({op.codim} x {op.dim}, batchable {op.batchable}): {rec['ms']:.3f} ms wall; card "
+            f"against CPU {e:.3e} (tol {TOL_OPS:g})"
+            + (f", |M M^T - I| {rec['orthogonality']:.3e} (tol {TOL_OPS:g})" if "orthogonality" in rec else ""))
+        if e > TOL_OPS or rec.get("orthogonality", 0.0) > TOL_OPS:
+            raise AssertionError(f"todense {name} is off")
+        out[f"todense {name}"] = rec
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+
+    def factor():
+        U, _ = torch.linalg.qr(torch.randn(N_KRON, N_KRON, generator=g, device=dev, dtype=torch.float64))
+        V, _ = torch.linalg.qr(torch.randn(N_KRON, N_KRON, generator=g, device=dev, dtype=torch.float64))
+        s = 1.0 + torch.rand(N_KRON, generator=g, device=dev, dtype=torch.float64)
+        return DenseOperator(((U * s) @ V.T).to(torch.float32))
+
+    K = KroneckerProduct(factor(), factor())
+    y = torch.randn(N_KRON, N_KRON, generator=g, device=dev)
+    reads, applies = opnorm.cg.host_reads, opnorm.cg.applies
+    x = K.pinv(y, tol=1e-6)
+    rec = {"host_reads": opnorm.cg.host_reads - reads, "batched_applies": opnorm.cg.applies - applies}
+    rec["rel_residual"] = float(torch.linalg.vector_norm(K.apply(x) - y) / torch.linalg.vector_norm(y))
+    rec["ms"] = wall_ms(lambda: K.pinv(y, tol=1e-6))
+    log(f"KroneckerProduct pinv ({N_KRON} x {N_KRON} factors): {rec['ms']:.3f} ms wall, "
+        f"{rec['batched_applies']} batched applies, {rec['host_reads']} host reads; ||K x - y|| / ||y|| "
+        f"{rec['rel_residual']:.3e} (tol {TOL_PINV:g})")
+    if not rec["rel_residual"] <= TOL_PINV:
+        raise AssertionError("the Kronecker pinv is off")
+    out["kron pinv"] = rec
+    return out
+
+
 def device_ms_per_iteration(solver, n=20):
     """Device time an iteration in a ``torch.profiler`` trace of ``n``
     iterations: the summed durations of the CUDA events (kernels, copies,
@@ -1598,6 +1976,8 @@ def main():
     mesh_runs, meshed = phase_spatial2d_paths(dev, rng, counters)
     runs.update(mesh_runs)
     runs["sepgram_apply"] = runs_k18
+    log("-- stacked operators and spectral estimates: cfg4, the PDS with an unknown ||K||, the new operators")
+    spectral, cfg4_solvers = phase_spectral(dev, counters)
 
     log(f"-- throughput ({smi})")
     solvers.update({"main path": pds, "LASSO": apgd})
@@ -1666,6 +2046,13 @@ def main():
         idle_o[name] = None if busy_o is None else 1.0 - busy_o * ips[name] / 1e3
         log(f"{name}: {ips[name]:.1f} iters/s, device time {busy_o} ms an iteration in a torch.profiler trace, "
             f"device idle share {idle_o[name]} (not measured when None)")
+    for name, solver in cfg4_solvers.items():
+        m = int(name.split()[1].split("^")[0])
+        rec = spectral["cfg4"][m]
+        busy_c = device_ms_per_iteration(solver)
+        rec["device_idle_share"] = None if busy_c is None else 1.0 - busy_c * rec["ips"] / 1e3
+        log(f"{name} APGD: {rec['ips']:.1f} iters/s, device time {busy_c} ms an iteration in a torch.profiler "
+            f"trace, device idle share {rec['device_idle_share']} (not measured when None)")
     idle_e = {}
     for e in ("megar", "mega2", "mega"):
         busy_e = device_ms_per_iteration(tv_solvers[e])
@@ -1708,7 +2095,7 @@ def main():
         "fullrank_iters_per_s": ips[f"full rank {FULLRANK_FFT_K}x{FULLRANK_FFT_K} PDS"],
         "fullrank_device_idle_share": idle_o[f"full rank {FULLRANK_FFT_K}x{FULLRANK_FFT_K} PDS"],
         "other_psfs_device_idle_share": idle_o, "gram_apply_ms": gram_apply["device_ms"],
-        "gram_apply_host_ms": gram_apply["host_ms"],
+        "gram_apply_host_ms": gram_apply["host_ms"], "spectral": spectral,
         "card": smi,
     }), flush=True)
     print(json.dumps({"ok": True, "device": {

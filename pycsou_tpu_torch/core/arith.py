@@ -4,7 +4,9 @@ differentiability and proximability survive composition
 
 ``SquaredL2Loss(y) * A`` composes to :class:`LeastSquaresLoss`, whose
 gradient goes through ``A.gram``; ``lam * L21Norm`` to a
-:class:`ProxFuncPostComp`.
+:class:`ProxFuncPostComp`; ``f + <a, .>`` to a :class:`ProxFuncAffineSum`;
+``L1Norm * U`` with a unitary ``U`` to a :class:`ProxFuncPreCompUnitOp`,
+whose prox is ``U^H prox(U x)``.
 """
 from __future__ import annotations
 
@@ -12,8 +14,15 @@ from numbers import Number
 
 import torch
 
-from pycsou_tpu_torch.core.functional import ProxFuncPostComp, ProxFuncPreComp, ProximableFunctional
-from pycsou_tpu_torch.core.linop import LinearOperator, LinOpComp, LinOpSum
+from pycsou_tpu_torch.core.functional import (
+    LinearFunctional,
+    ProxFuncAffineSum,
+    ProxFuncPostComp,
+    ProxFuncPreComp,
+    ProxFuncPreCompUnitOp,
+    ProximableFunctional,
+)
+from pycsou_tpu_torch.core.linop import LinearOperator, LinOpComp, LinOpSum, UnitaryMixin
 from pycsou_tpu_torch.core.map import (
     DifferentiableMap,
     DiffMapComp,
@@ -29,6 +38,10 @@ __all__ = ["add", "compose", "scale_input", "scale_output", "shift"]
 
 
 def add(m1: Map, m2: Map) -> Map:
+    if isinstance(m1, ProximableFunctional) and isinstance(m2, LinearFunctional):
+        return ProxFuncAffineSum(m1, linear_part=m2, intercept=0.0)
+    if isinstance(m2, ProximableFunctional) and isinstance(m1, LinearFunctional):
+        return ProxFuncAffineSum(m2, linear_part=m1, intercept=0.0)
     if isinstance(m1, LinearOperator) and isinstance(m2, LinearOperator):
         return LinOpSum(m1, m2)
     if isinstance(m1, DifferentiableMap) and isinstance(m2, DifferentiableMap):
@@ -39,8 +52,11 @@ def add(m1: Map, m2: Map) -> Map:
 def compose(m1: Map, m2: Map) -> Map:
     from pycsou_tpu_torch.ops.basic import HomothetyOperator
 
-    if isinstance(m1, ProximableFunctional) and isinstance(m2, HomothetyOperator):
-        return ProxFuncPreComp(m1, scale=m2.constant, shift=0.0)
+    if isinstance(m1, ProximableFunctional):
+        if isinstance(m2, HomothetyOperator):
+            return ProxFuncPreComp(m1, scale=m2.constant, shift=0.0)
+        if isinstance(m2, UnitaryMixin):
+            return ProxFuncPreCompUnitOp(m1, m2)
     if isinstance(m2, LinearOperator):
         data = _squared_l2_data(m1, m2)
         if data is not None:

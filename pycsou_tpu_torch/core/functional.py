@@ -14,14 +14,19 @@ from typing import Optional
 
 import torch
 
+from pycsou_tpu_torch.core.linop import LinearOperator, UnitaryMixin
 from pycsou_tpu_torch.core.map import DifferentiableMap, Map, _is_arraylike
+from pycsou_tpu_torch.utils.shapes import as_shape
 
 __all__ = [
     "Functional",
     "DifferentiableFunctional",
+    "LinearFunctional",
     "ProximableFunctional",
     "ProxFuncPostComp",
+    "ProxFuncAffineSum",
     "ProxFuncPreComp",
+    "ProxFuncPreCompUnitOp",
 ]
 
 _INF = float("inf")
@@ -57,6 +62,19 @@ class DifferentiableFunctional(Functional, DifferentiableMap):
         return self.jacobianT(x)
 
 
+class LinearFunctional(LinearOperator, Functional):
+    """Linear functional ``x -> <v, x>``."""
+
+    def __init__(self, dim_shape, lipschitz: float = _INF, dtype=torch.float32):
+        LinearOperator.__init__(self, dim_shape, (), lipschitz=lipschitz, dtype=dtype)
+
+    def asvector(self) -> torch.Tensor:
+        """The Riesz representer ``v = A^H 1``."""
+        from pycsou_tpu_torch.utils.device import resolve_device
+
+        return self.adjoint(torch.ones((), dtype=self.dtype, device=resolve_device(None, self.device)))
+
+
 class ProximableFunctional(Functional):
     """Convex functional with a tractable proximity operator.
     ``fenchel_prox`` follows from Moreau's identity."""
@@ -73,6 +91,11 @@ class ProximableFunctional(Functional):
     def shifter(self, shift) -> "ProxFuncPreComp":
         return ProxFuncPreComp(self, scale=1.0, shift=shift)
 
+    def __add__(self, other):
+        if isinstance(other, LinearFunctional):
+            return ProxFuncAffineSum(self, linear_part=other, intercept=0.0)
+        return super().__add__(other)
+
     def __mul__(self, other):
         from pycsou_tpu_torch.ops.basic import HomothetyOperator
 
@@ -83,6 +106,8 @@ class ProximableFunctional(Functional):
             return ProxFuncPreComp(self, scale=torch.as_tensor(other), shift=0.0)
         if isinstance(other, HomothetyOperator):
             return ProxFuncPreComp(self, scale=other.constant, shift=0.0)
+        if isinstance(other, UnitaryMixin):
+            return ProxFuncPreCompUnitOp(self, other)
         return super().__mul__(other)
 
     def __rmul__(self, other):
@@ -135,6 +160,38 @@ class ProxFuncPostComp(ProximableFunctional):
         return abs(self.scale) * getattr(self.func, "diff_lipschitz", _INF)
 
 
+class ProxFuncAffineSum(ProximableFunctional):
+    """``f + <a, .> + c``: ``prox(x) = prox_f(x - tau a)``."""
+
+    def __new__(cls, func, *args, **kwargs):
+        return _diff_variant(cls, func)
+
+    def __init__(self, func: ProximableFunctional, linear_part: LinearFunctional, intercept: float = 0.0):
+        if as_shape(linear_part.dim_shape) != func.dim_shape:
+            raise ValueError("affine part has mismatched domain")
+        super().__init__(func.dim_shape, lipschitz=func.lipschitz + linear_part.lipschitz)
+        self.func = func
+        self.linear_part = linear_part
+        self.intercept = float(intercept)
+
+    @property
+    def device(self):
+        return self.linear_part.device or self.func.device
+
+    def apply(self, x):
+        return self.func.apply(x) + self.linear_part.apply(x) + self.intercept
+
+    def prox(self, x, tau):
+        return self.func.prox(x - tau * self.linear_part.asvector(), tau)
+
+    def gradient(self, x):
+        return self.func.gradient(x) + self.linear_part.asvector()
+
+    @property
+    def diff_lipschitz(self):
+        return getattr(self.func, "diff_lipschitz", _INF)
+
+
 class ProxFuncPreComp(ProximableFunctional):
     """``f(scale * x + shift)`` for scalar or elementwise ``scale``:
     ``prox(x, tau) = (prox_f(scale x + shift, tau scale^2) - shift)/scale``."""
@@ -179,6 +236,37 @@ class ProxFuncPreComp(ProximableFunctional):
         return self._max_scale**2 * getattr(self.func, "diff_lipschitz", _INF)
 
 
+class ProxFuncPreCompUnitOp(ProximableFunctional):
+    """``f o U`` with ``U`` unitary: ``prox = U^H prox_f(U x, tau)``."""
+
+    def __new__(cls, func, *args, **kwargs):
+        return _diff_variant(cls, func)
+
+    def __init__(self, func: ProximableFunctional, unitary: LinearOperator):
+        if not isinstance(unitary, UnitaryMixin):
+            raise TypeError("operator must be unitary for this prox rule")
+        super().__init__(unitary.dim_shape, lipschitz=func.lipschitz)
+        self.func = func
+        self.unitary = unitary
+
+    @property
+    def device(self):
+        return self.unitary.device or self.func.device
+
+    def apply(self, x):
+        return self.func.apply(self.unitary.apply(x))
+
+    def prox(self, x, tau):
+        return self.unitary.adjoint(self.func.prox(self.unitary.apply(x), tau))
+
+    def gradient(self, x):
+        return self.unitary.adjoint(self.func.gradient(self.unitary.apply(x)))
+
+    @property
+    def diff_lipschitz(self):
+        return getattr(self.func, "diff_lipschitz", _INF)
+
+
 # Differentiable variants, chosen by ``__new__`` when the wrapped functional
 # is differentiable, so composed losses stay DifferentiableMaps.
 
@@ -187,11 +275,21 @@ class DiffProxFuncPostComp(ProxFuncPostComp, DifferentiableFunctional):
     pass
 
 
+class DiffProxFuncAffineSum(ProxFuncAffineSum, DifferentiableFunctional):
+    pass
+
+
 class DiffProxFuncPreComp(ProxFuncPreComp, DifferentiableFunctional):
+    pass
+
+
+class DiffProxFuncPreCompUnitOp(ProxFuncPreCompUnitOp, DifferentiableFunctional):
     pass
 
 
 _PLAIN_TO_DIFF = {
     ProxFuncPostComp: DiffProxFuncPostComp,
+    ProxFuncAffineSum: DiffProxFuncAffineSum,
     ProxFuncPreComp: DiffProxFuncPreComp,
+    ProxFuncPreCompUnitOp: DiffProxFuncPreCompUnitOp,
 }

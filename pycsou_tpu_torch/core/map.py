@@ -34,6 +34,18 @@ def _is_arraylike(x) -> bool:
     return isinstance(x, (np.ndarray, torch.Tensor))
 
 
+def _parts(obj):
+    """The maps held in ``obj``'s attributes, directly or in lists and
+    tuples."""
+    stack = list(vars(obj).values())
+    while stack:
+        v = stack.pop()
+        if isinstance(v, Map):
+            yield v
+        elif isinstance(v, (list, tuple)):
+            stack.extend(v)
+
+
 class Map(Module):
     """A map ``f: R^{dim_shape} -> R^{codim_shape}``; subclasses implement
     :meth:`apply`."""
@@ -93,11 +105,48 @@ class Map(Module):
     def lipschitz(self, value: float):
         self._lipschitz = float(value)
 
+    @property
+    def lipschitz_cst(self) -> float:
+        """Reference-compatible alias for :attr:`lipschitz`."""
+        return self._lipschitz
+
+    @lipschitz_cst.setter
+    def lipschitz_cst(self, value: float):
+        self._lipschitz = float(value)
+
+    # -- batching ----------------------------------------------------------
+    @property
+    def batchable(self) -> bool:
+        """Whether ``apply`` runs under ``torch.func.vmap``: true unless this
+        map, or a map it is built from, launches a hand-written kernel or
+        reads the host in ``apply`` (such classes set it false)."""
+        return all(m.batchable for m in _parts(self))
+
+    def _batched(self, fn, xs: torch.Tensor) -> torch.Tensor:
+        """``fn`` over the leading axis of ``xs``: one ``torch.func.vmap``
+        call when the map is :attr:`batchable`, else one call a row."""
+        xs = torch.as_tensor(xs)
+        if self.batchable:
+            return torch.func.vmap(fn)(xs)
+        return torch.stack([fn(x) for x in xs])
+
+    def apply_batched(self, xs: torch.Tensor) -> torch.Tensor:
+        """``apply`` over a leading batch axis."""
+        return self._batched(self.apply, xs)
+
+    apply_along_axis = apply_batched  # reference-compatible alias (batch axis first)
+
     # -- arithmetic --------------------------------------------------------
     def shifter(self, shift) -> "Map":
         from pycsou_tpu_torch.core import arith
 
         return arith.shift(self, shift)
+
+    def argscale(self, scale) -> "Map":
+        """``x -> f(scale * x)``."""
+        from pycsou_tpu_torch.core import arith
+
+        return arith.scale_input(self, scale)
 
     def __add__(self, other):
         from pycsou_tpu_torch.core import arith
@@ -148,6 +197,15 @@ class Map(Module):
             return self.__add__(other.__neg__())
         return NotImplemented
 
+    def __pow__(self, power: int):
+        """``f o f o ... o f`` (``power`` times)."""
+        if not isinstance(power, int) or power < 1:
+            raise NotImplementedError("power must be a positive integer")
+        out = self
+        for _ in range(1, power):
+            out = self.__mul__(out)
+        return out
+
     def __truediv__(self, scalar):
         if isinstance(scalar, Number):
             return self.__mul__(1 / scalar)
@@ -170,6 +228,23 @@ class DifferentiableMap(Map):
     @diff_lipschitz.setter
     def diff_lipschitz(self, value: float):
         self._diff_lipschitz = float(value)
+
+    @property
+    def diff_lipschitz_cst(self) -> float:
+        """Reference-compatible alias for :attr:`diff_lipschitz`."""
+        return self._diff_lipschitz
+
+    @diff_lipschitz_cst.setter
+    def diff_lipschitz_cst(self, value: float):
+        self._diff_lipschitz = float(value)
+
+    def compute_lipschitz_cst(self, **kwargs) -> float:
+        """The known Lipschitz constant (a linear operator estimates it)."""
+        return self._lipschitz
+
+    def compute_diff_lipschitz_cst(self, **kwargs) -> float:
+        """The known Lipschitz constant of the gradient."""
+        return self._diff_lipschitz
 
     def jacobianT(self, x) -> "Map":
         from pycsou_tpu_torch.core.linop import JacobianTOperator

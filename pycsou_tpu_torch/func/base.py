@@ -1,19 +1,52 @@
-"""Base functionals of the slice: indicators, nulls, the Lp-norm prox
-machinery (counterpart of ``pycsou_tpu/func/base.py``)."""
+"""Base functionals: explicit linear functionals, indicators, nulls, the
+Lp-norm prox machinery and separable stacks (counterpart of
+``pycsou_tpu/func/base.py``)."""
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
-from pycsou_tpu_torch.core.functional import DifferentiableFunctional, ProximableFunctional
+from pycsou_tpu_torch.core.functional import DifferentiableFunctional, LinearFunctional, ProximableFunctional
+from pycsou_tpu_torch.utils.device import as_tensor, dtype_of, resolve_device
+from pycsou_tpu_torch.utils.shapes import split_flat
 
 __all__ = [
+    "ExplicitLinearFunctional",
     "IndicatorFunctional",
     "NullDifferentiableFunctional",
     "NullProximableFunctional",
     "LpNorm",
+    "ProxFuncHStack",
+    "DiffFuncHStack",
 ]
+
+_INF = float("inf")
+
+
+class ExplicitLinearFunctional(LinearFunctional):
+    """``x -> <v, x>``; ``lipschitz = ||v||``."""
+
+    def __init__(self, vec, dtype=None, device=None):
+        dev = resolve_device(device, vec)
+        vec = as_tensor(vec, dev, dtype_of(vec) if dtype is None else dtype)
+        lip = float(np.linalg.norm(vec.cpu().numpy().ravel()))  # the reference's numpy bound
+        super().__init__(tuple(vec.shape), lipschitz=lip, dtype=vec.dtype)
+        self.vec = vec
+
+    @property
+    def device(self):
+        return self.vec.device
+
+    def apply(self, x):
+        return torch.vdot(self.vec.reshape(-1), torch.as_tensor(x).reshape(-1))
+
+    def adjoint(self, alpha):
+        return self.vec * torch.as_tensor(alpha)
+
+    def asvector(self):
+        return self.vec
 
 
 class IndicatorFunctional(ProximableFunctional):
@@ -70,3 +103,48 @@ class LpNorm(ProximableFunctional):
     def prox(self, x, tau):
         x = torch.as_tensor(x)
         return x - tau * self.dual_ball_projection(x / tau)
+
+
+class ProxFuncHStack(ProximableFunctional):
+    """Separable sum ``F(x1, ..., xk) = sum_i f_i(x_i)`` over a partition of
+    a flat vector: the prox splits, proxes each block, concatenates."""
+
+    def __init__(self, funcs: Sequence[ProximableFunctional]):
+        funcs = tuple(funcs)
+        super().__init__((sum(f.dim for f in funcs),))
+        self.funcs = funcs
+
+    @property
+    def device(self):
+        return next((f.device for f in self.funcs if f.device is not None), None)
+
+    def apply(self, x):
+        blocks = split_flat(torch.as_tensor(x), [f.dim_shape for f in self.funcs])
+        return sum(f.apply(b) for f, b in zip(self.funcs, blocks))
+
+    def prox(self, x, tau):
+        blocks = split_flat(torch.as_tensor(x), [f.dim_shape for f in self.funcs])
+        return torch.cat([f.prox(b, tau).reshape(-1) for f, b in zip(self.funcs, blocks)])
+
+
+class DiffFuncHStack(DifferentiableFunctional):
+    """Separable sum of differentiable functionals; the gradient
+    concatenates the blocks' gradients."""
+
+    def __init__(self, funcs: Sequence[DifferentiableFunctional]):
+        funcs = tuple(funcs)
+        super().__init__((sum(f.dim for f in funcs),), lipschitz=sum(f.lipschitz for f in funcs),
+                         diff_lipschitz=max(f.diff_lipschitz for f in funcs))
+        self.funcs = funcs
+
+    @property
+    def device(self):
+        return next((f.device for f in self.funcs if f.device is not None), None)
+
+    def apply(self, x):
+        blocks = split_flat(torch.as_tensor(x), [f.dim_shape for f in self.funcs])
+        return sum(f.apply(b) for f, b in zip(self.funcs, blocks))
+
+    def jacobianT(self, x):
+        blocks = split_flat(torch.as_tensor(x), [f.dim_shape for f in self.funcs])
+        return torch.cat([f.gradient(b).reshape(-1) for f, b in zip(self.funcs, blocks)])

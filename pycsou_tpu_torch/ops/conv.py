@@ -186,6 +186,11 @@ class Convolve2D(LinearOperator):
     def device(self):
         return self._device
 
+    @property
+    def batchable(self) -> bool:
+        # 'band' and 'bandg' launch K1, which takes plain tensors, not vmap's
+        return self.method not in ("band", "bandg")
+
     def apply(self, x):
         if self.method == "band":
             return sepconv2d(x, self.fwd)
@@ -309,6 +314,8 @@ class SeparableConvGram2D(LinearOperator):
     (tuples of floats), and the edge corrections ``g_rows_E`` / ``g_cols_E``
     (``(E_top, E_bot)`` float32 tensors on the device, None for one tap).
     Otherwise ``g_meta`` is None."""
+
+    batchable = False  # apply launches K2, which takes plain tensors, not vmap's
 
     def __init__(self, conv: Convolve2D):
         if conv.method != "band":

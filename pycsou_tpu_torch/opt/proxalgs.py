@@ -44,7 +44,7 @@ _INF = float("inf")
 
 def _ensure_opnorm(K: LinearOperator) -> float:
     if not math.isfinite(K.lipschitz):
-        K.compute_lipschitz_cst()  # raises until utils/opnorm.py is ported
+        K.compute_lipschitz_cst()  # power iteration on K^H K (utils/opnorm.py)
     return K.lipschitz
 
 

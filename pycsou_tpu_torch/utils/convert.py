@@ -25,6 +25,12 @@ h_loc, (i + 1) h_loc)`` and columns ``[j w_loc, (j + 1) w_loc)``.
 that grid when given a 2-D mesh, and :func:`state_to_numpy` joins a tuple of
 row tuples along the columns and then the rows, so it needs no mesh.
 
+Operators take the same numpy arrays as their JAX counterparts (a
+``PolynomialOperator``'s coefficients as ``np.asarray(op.coeffs)``, a
+``DenseOperator``'s matrix).  A JAX ``SparseOperator`` holds a BCOO matrix:
+:func:`sparse_from_numpy` builds the port's from its ``data`` and
+``indices`` as numpy arrays.
+
 PMYULA's PRNG ``key`` has no counterpart: the port's sampler draws the
 noise of sample ``n`` from a counter-based generator keyed by ``(seed,
 n)`` and keeps no generator state.  :func:`state_from_numpy` drops the
@@ -40,7 +46,7 @@ import torch
 
 from pycsou_tpu_torch.utils.device import resolve_device
 
-__all__ = ["shard_state_from_numpy", "state_from_numpy", "state_to_numpy"]
+__all__ = ["shard_state_from_numpy", "sparse_from_numpy", "state_from_numpy", "state_to_numpy"]
 
 _SHARDED = ("x", "z0", "z1")  # the per-shard entries of a row-sharded solver's state
 
@@ -116,3 +122,17 @@ def state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
         return np.asarray(v, dtype=np.int32) if k == "it" else join(v)
 
     return {k: one(k, v) for k, v in state.items()}
+
+
+def sparse_from_numpy(data, indices, shape, dim_shape=None, codim_shape=None, device=None):
+    """The port's ``SparseOperator`` of the COO matrix ``(data, indices)``
+    of ``shape``: ``indices`` is ``(nnz, 2)`` (row, column), as a BCOO's
+    ``indices`` and ``data`` (``np.asarray(op.mat.indices)``,
+    ``np.asarray(op.mat.data)``)."""
+    import scipy.sparse as sp
+
+    from pycsou_tpu_torch.ops.basic import SparseOperator
+
+    idx = np.asarray(indices)
+    mat = sp.coo_matrix((np.asarray(data), (idx[:, 0], idx[:, 1])), shape=tuple(shape))
+    return SparseOperator(mat, dim_shape=dim_shape, codim_shape=codim_shape, device=device)

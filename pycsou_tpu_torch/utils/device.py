@@ -18,8 +18,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "set_default_device", "get_default_device", "as_tensor", "full_f32",
-           "settle_cpu_math"]
+__all__ = ["resolve_device", "set_default_device", "get_default_device", "as_tensor", "dtype_of",
+           "full_f32", "settle_cpu_math"]
 
 _DEFAULT: Optional[torch.device] = None  # set_default_device; None means cuda
 
@@ -63,8 +63,19 @@ def as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:
     """``x`` (tensor, numpy array or scalar) as a ``dtype`` tensor on
     ``device`` (a copy when it has to move or convert)."""
     if isinstance(x, np.ndarray):
-        x = torch.from_numpy(np.ascontiguousarray(x))
+        x = np.ascontiguousarray(x)
+        x = torch.from_numpy(x if x.flags.writeable else x.copy())
     return torch.as_tensor(x, dtype=dtype, device=device)
+
+
+def dtype_of(x) -> torch.dtype:
+    """The port's dtype for an array's values: ``complex64`` for complex
+    values, else ``float32`` (the JAX package's defaults without x64)."""
+    if isinstance(x, torch.Tensor):
+        complex_ = x.is_complex()
+    else:
+        complex_ = np.iscomplexobj(x)
+    return torch.complex64 if complex_ else torch.float32
 
 
 def settle_cpu_math() -> None:

@@ -19,3 +19,14 @@ def as_shape(s: ShapeLike) -> Tuple[int, ...]:
 
 def size_of(shape: Tuple[int, ...]) -> int:
     return int(math.prod(shape)) if shape else 1
+
+
+def split_flat(v, shapes: Sequence[Tuple[int, ...]]) -> list:
+    """Cut the flat vector ``v`` into consecutive blocks of the given
+    shapes."""
+    out, start = [], 0
+    for shape in shapes:
+        size = size_of(shape)
+        out.append(v[start : start + size].reshape(shape))
+        start += size
+    return out

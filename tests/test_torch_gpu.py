@@ -1084,3 +1084,213 @@ def test_combined_fullrank_on_the_card(cuda, rng):
         x, z0, z1, _ = tv_pds_sweep_step_stats_plain(x, z0, z1, tv._grad(x), **kw)
     for k, want in (("x", x), ("z0", z0), ("z1", z1)):
         _close(st[k], want, rel=1e-5)
+
+
+# -- the stacked operators and spectral estimates ---------------------------
+
+
+def _new_operators(device, S=(48, 40)):
+    """The new operators (derivatives, stacks, Kronecker, transforms,
+    structural) from one set of numpy inputs on ``device``."""
+    import scipy.sparse as sp
+
+    from pycsou_tpu_torch import ops
+
+    rng = np.random.default_rng(31)
+    n = S[0] * S[1]
+    field = rng.standard_normal((2,) + S).astype(np.float32)
+    d = rng.standard_normal(S).astype(np.float32)
+    fa = rng.standard_normal((S[0], S[0])).astype(np.float32)
+    fb = rng.standard_normal((S[1], S[1])).astype(np.float32)
+    kb = rng.standard_normal((S[1], 9)).astype(np.float32)
+    band = sp.diags([rng.standard_normal(n - 1), rng.standard_normal(n)], [1, 0], shape=(n, n), format="csr",
+                    dtype=np.float32)
+    dev = dict(device=device)
+    D, dct = ops.DiagonalOperator(d, **dev), ops.DCTOperator(S, **dev)
+    return {
+        "first backward": ops.FirstDerivative(S, axis=1, kind="backward"),
+        "first centered": ops.FirstDerivative(S, kind="centered"),
+        "second": ops.SecondDerivative(S),
+        "sobolev": ops.GeneralisedDerivative(S, kind="sobolev", order=2, **dev),
+        "gradient centered": ops.Gradient(S, kind="centered"),
+        "generalised laplacian": ops.GeneralisedLaplacian(S, kind="polynomial", coeffs=[1.0, 0.5], **dev),
+        "directional": ops.DirectionalGradient(S, [np.array([0.0, 1.0]), field], **dev),
+        "directional laplacian": ops.DirectionalLaplacian(S, [field], **dev),
+        "integration": ops.Integration1D(S),
+        "vstack": ops.LinOpVStack([ops.Masking(S, d > 0, **dev), dct]),
+        "hstack": ops.LinOpHStack([dct, D]),
+        "block": ops.BlockOperator([[dct, D], [D, ops.IDCTOperator(S, **dev)]]),
+        "blockdiag": ops.BlockDiagonalOperator([D, dct]),
+        "kron": ops.KroneckerProduct(ops.DenseOperator(fa, **dev), ops.DenseOperator(fb, **dev)),
+        "kronsum": ops.KroneckerSum(ops.DenseOperator(fa, **dev), ops.DiagonalOperator(fb[0], **dev)),
+        "khatri-rao": ops.KhatriRaoProduct(fa[:, :9], kb, **dev),
+        "fft": ops.FFTOperator(S),
+        "sparse": ops.SparseOperator(band, dim_shape=S, codim_shape=S, **dev),
+        "polynomial": ops.PolynomialOperator(D, [1.0, -2.0, 0.5]),
+    }
+
+
+def test_new_operators_on_the_card(cuda):
+    """Each new operator on the card against the port's CPU (2e-6 relative
+    to the largest magnitude; 1e-5 for the products summed by cuBLAS and
+    cuFFT), and the adjoint identity on the card."""
+    card, cpu = _new_operators(cuda), _new_operators("cpu")
+    rng = np.random.default_rng(32)
+    for name, op in card.items():
+        def draw(shape):
+            v = rng.standard_normal(shape).astype(np.float32)
+            if op.dtype.is_complex:
+                v = (v + 1j * rng.standard_normal(shape)).astype(np.complex64)
+            return torch.from_numpy(v)
+
+        x, y = draw(op.dim_shape), draw(op.codim_shape)
+        ax, ahy = op.apply(x.to(cuda)), op.adjoint(y.to(cuda))
+        assert ax.device.type == ahy.device.type == cuda.type, name
+        for got, want in ((ax, cpu[name].apply(x)), (ahy, cpu[name].adjoint(y))):
+            scale = max(1.0, float(want.abs().max()))
+            assert float((got.cpu() - want).abs().max()) <= 1e-5 * scale, name
+        lhs = torch.vdot(y.to(cuda).reshape(-1), ax.reshape(-1))
+        rhs = torch.vdot(ahy.reshape(-1), x.to(cuda).reshape(-1))
+        assert float((lhs - rhs).abs()) <= 1e-4 * float(ax.norm() * y.norm()), name
+
+
+def test_spectral_estimates_on_the_card(cuda, monkeypatch):
+    """The power iteration and CG read ``done`` every 16 iterations or
+    before every one: the same result, the same counted applies; the
+    estimates and the start vector equal the CPU's."""
+    from pycsou_tpu_torch.ops import DenseOperator, DiagonalOperator
+    from pycsou_tpu_torch.utils import opnorm
+
+    rng = np.random.default_rng(33)
+    d = np.concatenate([[5.0, 0.3], rng.uniform(1.0, 2.0, 4094)]).astype(np.float32).reshape(64, 64)
+    D = DiagonalOperator(d, device=cuda)
+    assert torch.equal(opnorm._rand_like(0, (64, 64), torch.float32, cuda).cpu(),
+                       opnorm._rand_like(0, (64, 64), torch.float32, "cpu"))
+    x0 = opnorm._rand_like(0, D.dim_shape, D.dtype, cuda)
+    b = torch.from_numpy(rng.standard_normal((64, 64)).astype(np.float32)).to(cuda)
+    runs = {}
+    for every in (1, 16):
+        monkeypatch.setattr(opnorm, "_SYNC_EVERY", every)
+        runs[every] = [opnorm._power_iter(D, x0, maxiter, tol) for maxiter, tol in ((128, 1e-6), (40, 0.0))]
+        runs[every].append(opnorm.cg(D.apply, b, tol=1e-6))
+    for (v1, n1), (v16, n16) in zip(runs[1][:2], runs[16][:2]):
+        assert float(v1) == float(v16) and int(n1) == int(n16)
+    x1, x16 = runs[1][2], runs[16][2]
+    assert torch.equal(x1, x16)
+    assert float((D.apply(x16) - b).norm()) <= 1.01e-6 * float(b.norm())
+    D_cpu = DiagonalOperator(d, device="cpu")
+    assert D.opnorm() == pytest.approx(D_cpu.opnorm(), rel=1e-6)
+    assert opnorm.smallest_eig_psd(D.gram, maxiter=32) == pytest.approx(0.09, rel=1e-3)
+    a = rng.standard_normal((80, 60)).astype(np.float32)
+    A, A_cpu = DenseOperator(a, device=cuda), DenseOperator(a, device="cpu")
+    assert A.opnorm(exact=False) == pytest.approx(A_cpu.opnorm(exact=False), rel=1e-5)
+    assert A.opnorm() == pytest.approx(float(np.linalg.norm(a.astype(np.float64), 2)), rel=1e-5)
+    y = torch.from_numpy(rng.standard_normal(80).astype(np.float32))
+    torch.testing.assert_close(A.pinv(y.to(cuda)).cpu(), A_cpu.pinv(y), rtol=1e-4, atol=1e-4)
+
+
+def test_dense_opnorm_near_the_exact_limit(cuda):
+    """DenseOperator's exact norm at 2000 x 2000 (4e6 entries, the most it
+    takes exactly) of a matrix built from singular values 6.0, 0.4 and the
+    rest in [1, 3]: 6.0 to 1e-5 relative."""
+    from pycsou_tpu_torch.ops import DenseOperator
+
+    n = 2000
+    g = torch.Generator(device=cuda)
+    g.manual_seed(7)
+    U, _ = torch.linalg.qr(torch.randn(n, n, generator=g, device=cuda, dtype=torch.float64))
+    V, _ = torch.linalg.qr(torch.randn(n, n, generator=g, device=cuda, dtype=torch.float64))
+    sv = torch.cat([torch.tensor([6.0, 0.4], device=cuda, dtype=torch.float64),
+                    1.0 + 2.0 * torch.rand(n - 2, generator=g, device=cuda, dtype=torch.float64)])
+    A = DenseOperator(((U * sv) @ V.T).to(torch.float32))
+    assert A.dim * A.codim == 4_000_000
+    assert A.opnorm() == pytest.approx(6.0, rel=1e-5)
+
+
+def test_todense_and_batched_pinv_on_the_card(cuda, monkeypatch):
+    """todense on the card equals the CPU's, each operator the vmapped
+    batches of its basis; a band Convolve2D (K1, not batchable) maps one
+    column a launch.  The Kronecker product's pinv (one batched CG a
+    factor) equals the CPU's and ``pinv(fa) kron pinv(fb)``, the same x
+    whether the CG reads the host every 16 iterations or every one."""
+    from pycsou_tpu_torch import ops, set_default_device
+    from pycsou_tpu_torch.utils import opnorm
+
+    card = _new_operators(cuda)
+    set_default_device("cpu")  # the operators that hold no tensor take the default device
+    try:
+        cpu = {name: op.todense().mat for name, op in _new_operators("cpu").items()}
+    finally:
+        set_default_device(None)
+    for name, op in card.items():
+        got, want = op.todense().mat, cpu[name]
+        assert got.device.type == cuda.type and want.device.type == "cpu", name
+        assert float((got.cpu() - want).abs().max()) <= 1e-5 * max(1.0, float(want.abs().max())), name
+    rng = np.random.default_rng(34)
+    S = (24, 20)
+    h = np.outer(rng.random(5), rng.random(5)).astype(np.float32)
+    C, C_cpu = ops.Convolve2D(S, h, device=cuda), ops.Convolve2D(S, h, device="cpu")
+    assert not C.batchable and C.method == "band"
+    sepconv2d.launches = 0
+    dense = C.todense().mat
+    assert sepconv2d.launches == C.dim
+    torch.testing.assert_close(dense.cpu(), C_cpu.todense().mat, rtol=1e-5, atol=1e-6)
+    fa = rng.standard_normal((12, 9)).astype(np.float32)
+    fb = rng.standard_normal((10, 7)).astype(np.float32)
+    K = ops.KroneckerProduct(ops.DenseOperator(fa, device=cuda), ops.DenseOperator(fb, device=cuda))
+    K_cpu = ops.KroneckerProduct(ops.DenseOperator(fa, device="cpu"), ops.DenseOperator(fb, device="cpu"))
+    y = torch.from_numpy(rng.standard_normal((12, 10)).astype(np.float32))
+    runs = {}
+    for every in (1, 16):
+        monkeypatch.setattr(opnorm, "_SYNC_EVERY", every)
+        runs[every] = K.pinv(y.to(cuda), tol=1e-6)
+    assert torch.equal(runs[1], runs[16])
+    want = np.kron(np.linalg.pinv(fa), np.linalg.pinv(fb)) @ y.numpy().ravel()
+    np.testing.assert_allclose(runs[16].cpu().numpy().ravel(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(runs[16].cpu(), K_cpu.pinv(y, tol=1e-6), rtol=1e-4, atol=1e-4)
+
+
+def test_cfg4_on_the_card(cuda):
+    """bench.py's cfg4 at 64 x 64 on the card: ||A|| = sqrt(2) and the
+    CPU's, 6 APGD iterations against the port's CPU run; no kernel of the
+    port runs."""
+    from pycsou_tpu_torch.ops import DCTOperator, LinOpVStack, Masking
+
+    def build(device):
+        rng = np.random.default_rng(4)
+        mask = rng.random((64, 64)) < 0.3
+        A = LinOpVStack([Masking((64, 64), mask, device=device), DCTOperator((64, 64), device=device)])
+        A.compute_lipschitz_cst(maxiter=30)
+        x_true = np.zeros((64, 64), np.float32)
+        x_true[rng.choice(64, 40), rng.choice(64, 40)] = 3.0
+        y = A(torch.from_numpy(x_true).to(device))
+        return A, APGD((64, 64), F=SquaredL2Loss(A.codim_shape, data=y) * A, G=0.02 * L1Norm((64, 64)))
+
+    A, s = build(cuda)
+    A_cpu, s_cpu = build("cpu")
+    assert A.lipschitz == pytest.approx(np.sqrt(2.0), abs=1e-5)
+    assert A.lipschitz == pytest.approx(A_cpu.lipschitz, rel=1e-6)
+    st, st_cpu = s.run_fixed(6), s_cpu.run_fixed(6)
+    for k in ("x", "x_temp"):
+        _close(st[k].cpu(), st_cpu[k], rel=1e-5)
+
+
+def test_unknown_norm_pds_on_the_card(cuda):
+    """A PDS with an unknown ||K||: the power iteration launches K1 twice a
+    Gram apply and gives the CPU's estimate."""
+    from pycsou_tpu_torch.utils import opnorm
+
+    S = (96, 128)
+    h = _psf(np.random.default_rng(34), 1, 15, 15)
+    y = np.random.default_rng(35).standard_normal(S).astype(np.float32)
+
+    def build(device):
+        K = Convolve2D(S, np.abs(h) / np.abs(h).sum(), device=device).replace(_lipschitz=float("inf"))
+        return PDS(S, F=SquaredL2Loss(S, data=torch.from_numpy(y).to(device)), H=L1Norm(S), K=K)
+
+    before, applies = sepconv2d.launches, opnorm.power_iteration.applies
+    p = build(cuda)
+    torch.cuda.synchronize()
+    assert sepconv2d.launches - before == 2 * (opnorm.power_iteration.applies - applies)
+    assert p.K.lipschitz == pytest.approx(build("cpu").K.lipschitz, rel=1e-5)
+    assert p.K.lipschitz <= 1 + 1e-5

@@ -124,16 +124,17 @@ def test_convolve2d_unported_methods_raise():
 
 
 def test_gradient_matches_jax(rng):
-    K = tdiff.Gradient(S)
-    JK = jdiff.Gradient(S)
-    assert K.lipschitz == JK.lipschitz == np.sqrt(8.0)
-    x = rng.standard_normal(S).astype(np.float32)
-    z = rng.standard_normal((2,) + S).astype(np.float32)
-    _close(K.apply(_t(x)), JK.apply(jnp.asarray(x)))
-    _close(K.adjoint(_t(z)), JK.adjoint(jnp.asarray(z)))
-    _dot_test(K, rng)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdiff.Gradient(S, kind="centered")
+    """Every kind: forward (the TV path's), backward and centered (whose
+    Lipschitz bound is 1/step an axis)."""
+    for kind, lip in (("forward", np.sqrt(8.0)), ("backward", np.sqrt(8.0)), ("centered", np.sqrt(2.0))):
+        K = tdiff.Gradient(S, kind=kind)
+        JK = jdiff.Gradient(S, kind=kind)
+        assert K.lipschitz == JK.lipschitz == lip
+        x = rng.standard_normal(S).astype(np.float32)
+        z = rng.standard_normal((2,) + S).astype(np.float32)
+        _close(K.apply(_t(x)), JK.apply(jnp.asarray(x)))
+        _close(K.adjoint(_t(z)), JK.adjoint(jnp.asarray(z)))
+        _dot_test(K, rng)
 
 
 @pytest.mark.parametrize("axis", [0, 1])

@@ -237,7 +237,11 @@ def test_unported_engines_raise(rng, engine):
         topt.TVDeconvolution(S, y, LAM, filt=_gauss(), stencil=engine)
 
 
-def test_unported_modes_raise(rng):
+def test_unported_modes_raise(rng, monkeypatch):
+    """Every mode that once raised here now builds: mask mode, the
+    large-denoise reroute, a full-rank PSF, and a PDS whose ||K|| is
+    unknown (the power iteration sets it: on JAX's start vector, the JAX
+    estimate to 1e-5)."""
     y = rng.standard_normal(S).astype(np.float32)
     # mask mode and the large-denoise reroute are ported: they build
     s = topt.TVDeconvolution(S, y, LAM, mask=np.ones(S, np.float32))
@@ -253,9 +257,20 @@ def test_unported_modes_raise(rng):
             topt.TVDeconvolution(S, y, LAM, filt=_gauss(), stencil=engine, device="cpu")
     with pytest.raises(ValueError, match="unknown stencil"):
         topt.TVDeconvolution(S, y, LAM, filt=_gauss(), stencil="xla")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        # ||K|| unknown: the power iteration is not ported
-        topt.PDS(S, F=tfunc.SquaredL2Loss(S, data=y), H=tfunc.L1Norm(S), K=tops.Convolve2D(S, _gauss()).replace(_lipschitz=float("inf")))
+    import jax
+
+    import pycsou_tpu.utils.opnorm as jopn
+    import pycsou_tpu_torch.utils.opnorm as topn
+
+    monkeypatch.setattr(topn, "_rand_like", lambda key, shape, dtype, device: torch.from_numpy(
+        np.array(jopn._rand_like(jax.random.PRNGKey(key), shape, jnp.float32))).to(device))
+    K = tops.Convolve2D(S, _gauss()).replace(_lipschitz=float("inf"))
+    p = topt.PDS(S, F=tfunc.SquaredL2Loss(S, data=y), H=tfunc.L1Norm(S), K=K)
+    JK = jconv.Convolve2D(S, jnp.asarray(_gauss())).replace(_lipschitz=float("inf"))
+    jp = jopt.PDS(S, F=jfunc.SquaredL2Loss(S, data=jnp.asarray(y)), H=jpen.L1Norm(S), K=JK)
+    assert np.isfinite(K.lipschitz) and K.lipschitz <= 1 + 1e-5
+    assert K.lipschitz == pytest.approx(jp.K.lipschitz, rel=1e-5)
+    assert p.tau == pytest.approx(jp.tau, rel=1e-5) and p.sigma == pytest.approx(jp.sigma, rel=1e-5)
 
 
 def test_near_miss_is_explained(rng, caplog):
