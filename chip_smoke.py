@@ -134,6 +134,29 @@
     ``todense`` of 1024 x 1024 matrices (the DCT's, by vmapped batches; a
     band ``Convolve2D``'s, a K1 launch a column) against the CPU's, and the
     pinv of an invertible 1024^2 x 1024^2 Kronecker product, each timed.
+12. Drives the 1-D, N-D and circular convolutions and consensus ADMM, each
+    run counted on its own: bench.py's cfg1 (``APGD`` on a 256-sample
+    ``Convolve1D`` LASSO, no kernel) to 1e-6, its warm wall time and
+    ``converged_at`` beside bench.py's numpy FISTA twin for as many
+    iterations and the card's dispatch floor (one trivial launch and one
+    host read), its slope-timed iters/s and device-idle share, and its
+    iterates after 20 iterations against the port's CPU run; ``Convolve1D``
+    on 2^20 samples with a 65-tap Gaussian on ``"auto"`` ('overlap-add')
+    and on 'fft' (agreement, adjoint identity, apply / adjoint / Gram ms)
+    and the ``APGD`` LASSO on it (iters/s, idle share); ``ConvolveND`` at
+    256^3 with a 7^3 Gaussian (``SeparableConvGramND``, also against
+    ``ConvGramND``) and a 5^3 draw (``ConvGramND``), each Gram against
+    ``adjoint(apply(x))``; ``MovingAverage2D((4096, 4096), (5, 5))``: K1
+    once an apply and once an adjoint, against K1's plain version;
+    ``CircularConvolve`` at 256^3: the pinv's residual; bench.py's cfg5
+    (``ConsensusADMM``, Fourier backend, 4 scenarios, rho 1, the default
+    mesh) at 64^3 against the CPU after 20 iterations and bench.py's numpy
+    twin, and at 256^3, each slope-timed with its idle share; the ADMM CG
+    backend on four band ``Convolve2D``s at 1024^2 (``NonNegativeOrthant``,
+    10 iterations): K1 once a scenario a step and twice a row for each
+    counted CG apply, recovery better than the first observation.  Its
+    record is printed as ``{"conv_admm": ..., "card": ...}`` on a line of
+    its own after the phase.
 
 ``python3 chip_smoke.py --gram-ab OLD_ROOT`` instead times, for the
 checkout at OLD_ROOT and for this one in turns (old, new, new, old), each
@@ -161,7 +184,8 @@ the sharded paths for K14-K16, the 2-D mesh path for K17, the direct
 for the kernels no fused main path runs, the run that goes through each),
 its ``bound_ms`` and ``bound_by``, and ``library_ms`` (K1's
 ``F.conv2d``; null where no one PyTorch call computes the kernel's
-function).  ``spectral`` holds phase 11's results and its seconds.
+function).  ``spectral`` holds phase 11's results and its seconds; phase
+12's are on the ``conv_admm`` line before.
 Without CUDA it exits 2 and prints no result.
 """
 import json
@@ -249,7 +273,15 @@ TOL_ADJOINT = 1e-4  # |<A x, y> - <x, A^H y>| over ||A x|| ||y||
 TOL_SPECTRUM = 1e-3  # an estimate against the exact spectrum (the CPU tests' against numpy)
 SHAPE_DENSE = (32, 32)  # todense's images: 1024 x 1024 matrices
 N_KRON = 1024  # the Kronecker pinv's factors, N_KRON x N_KRON with singular values in [1, 2]
-TOL_PINV = 1e-4  # ||K pinv(y) - y|| over ||y|| for the invertible Kronecker product
+TOL_PINV = 1e-4  # ||K pinv(y) - y|| over ||y|| for the invertible Kronecker product and CircularConvolve
+N_1D = 2**20  # the 1-D convolution's samples: "auto" takes 'overlap-add' there
+TAPS_1D = 65  # its Gaussian's taps (sigma 8)
+SHAPE_3D = (256, 256, 256)  # ConvolveND and CircularConvolve
+CFG5_SIZES = (64, 256)  # bench.py sec_cfg5_admm3d's 64^3 x 4 scenarios, and 256^3 for the device-bound rate
+SHAPE_CG = (1024, 1024)  # the ADMM CG backend's band Convolve2Ds
+CG_SIGMAS = (1.5, 2.0, 2.5, 3.0)  # its four scenarios' Gaussians
+TOL_CPU = 1e-5  # cfg1's x and cfg5's z on the card against the CPU after 20 iterations, x max |CPU|
+TOL_GRAM_ND = 1e-4  # an N-D Gram against adjoint(apply(x)), or the other Gram, over max |reference|
 
 
 def log(*a):
@@ -1887,6 +1919,315 @@ def materialise_and_pinv(dev):
     return out
 
 
+def dispatch_floor_ms(dev, n=200):
+    """The card's dispatch floor: median wall ms of one trivial launch and
+    one host read (bench.py sec_dispatch's card twin)."""
+    t = torch.zeros(1, device=dev)
+    for _ in range(10):
+        t.add_(1.0).item()
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        t.add_(1.0).item()
+        times.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(times)
+
+
+def cfg1_problem(y=None, device=None):
+    """bench.py sec_cfg1_lasso1d: a 256-sample signal of 12 spikes
+    (``default_rng(1)``), a 9-tap Gaussian (sigma 1.5) by ``Convolve1D``
+    ('direct'), ``y = A x + 0.01`` noise (made on the CPU unless given),
+    ``APGD`` with ``0.01 * L1Norm`` to 1e-6.  Returns ``(solver, y, g)``."""
+    from pycsou_tpu_torch.func import L1Norm, SquaredL2Loss
+    from pycsou_tpu_torch.ops import Convolve1D
+    from pycsou_tpu_torch.opt import APGD
+
+    n = 256
+    rng = np.random.default_rng(1)
+    x_true = np.zeros(n, np.float32)
+    x_true[rng.choice(n, 12, replace=False)] = rng.standard_normal(12).astype(np.float32) + 2.0
+    g = np.exp(-((np.arange(9) - 4) ** 2) / (2 * 1.5**2)).astype(np.float32)
+    g /= g.sum()
+    if y is None:
+        y = Convolve1D((n,), g, device="cpu")(torch.from_numpy(x_true)).numpy()
+        y = y + 0.01 * rng.standard_normal(n).astype(np.float32)
+    A = Convolve1D((n,), g, device=device)
+    solver = APGD((n,), F=SquaredL2Loss((n,), data=torch.from_numpy(y).to(device)) * A,
+                  G=0.01 * L1Norm((n,)), max_iter=3000, min_iter=10, accuracy_threshold=1e-6)
+    return solver, y, g
+
+
+def cfg1_numpy_ms(y, g, tau, n_iter, lam=0.01):
+    """bench.py's numpy FISTA twin of cfg1 (``np.convolve`` both ways),
+    ``n_iter`` iterations: wall ms."""
+    n = y.size
+    gr = g[::-1]
+    x = np.zeros(n, np.float32)
+    xt_old = x.copy()
+    t0 = time.perf_counter()
+    for t_n in range(n_iter):
+        grad = 2 * np.convolve(np.convolve(x, g, "same") - y, gr, "same")
+        xt = np.sign(x - tau * grad) * np.maximum(np.abs(x - tau * grad) - tau * lam, 0)
+        x = xt + t_n / (t_n + 75.0) * (xt - xt_old)
+        xt_old = xt
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def cfg5_problem(d, device, S=4):
+    """bench.py sec_cfg5_admm3d at d^3: ``x = |N(0, 1)|`` and S scenarios of
+    a random 3 x 3 x 3 PSF (normalised, in the corner: circular), their
+    transfer functions, blurred data and 0.01 noise, all drawn from
+    ``default_rng(5)`` in bench.py's order; the FFTs in float64 on
+    ``device``.  Returns ``(h_hats complex64, data float32)`` there."""
+    rng = np.random.default_rng(5)
+    x_true = torch.from_numpy(np.abs(rng.standard_normal((d, d, d))).astype(np.float32)).to(device).double()
+    X = torch.fft.rfftn(x_true)
+    h_hats, data = [], []
+    for _ in range(S):
+        psf = torch.zeros((d, d, d), dtype=torch.float64, device=device)
+        psf[:3, :3, :3] = torch.from_numpy(rng.random((3, 3, 3)).astype(np.float32).astype(np.float64))
+        H = torch.fft.rfftn(psf / psf.sum())
+        h_hats.append(H.to(torch.complex64))
+        blur = torch.fft.irfftn(X * H, s=(d, d, d)).float()
+        data.append(blur + 0.01 * torch.from_numpy(rng.standard_normal((d, d, d)).astype(np.float32)).to(device))
+    return torch.stack(h_hats), torch.stack(data)
+
+
+def cfg5_numpy_ms(h_hats, data, rho=1.0):
+    """bench.py's numpy twin of cfg5: the same Fourier x-updates and
+    averaging, best of 3 iterations, ms an iteration."""
+    Hs, Ys = h_hats.cpu().numpy().astype(np.complex128), data.cpu().numpy()
+    S, shape = Ys.shape[0], Ys.shape[1:]
+    Yh = np.stack([np.fft.rfftn(Ys[s]) for s in range(S)])
+    xs = np.zeros_like(Ys)
+    u = np.zeros_like(Ys)
+    z = np.zeros(shape, np.float32)
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for s in range(S):
+            V = np.fft.rfftn(z - u[s])
+            xs[s] = np.fft.irfftn((2 * np.conj(Hs[s]) * Yh[s] + rho * V) / (2 * np.abs(Hs[s]) ** 2 + rho), s=shape)
+        z = (xs + u).mean(axis=0)
+        u += xs - z
+        best = min(best, time.perf_counter() - t0)
+    return 1e3 * best
+
+
+def _rel(got, want):
+    """max |got - want| over max |want|."""
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def phase_conv_admm(dev, counters):
+    """The 1-D, N-D and circular convolutions and consensus ADMM: cfg1 (time
+    to 1e-6 beside its numpy twin and the dispatch floor, 20 iterations
+    against the CPU), the 2^20-sample 1-D convolution on its two methods and
+    its LASSO, ConvolveND at 256^3 on both Grams, MovingAverage2D's K1
+    launches at 4096^2, CircularConvolve's pinv at 256^3, cfg5 at 64^3 and
+    256^3 (64^3 against the CPU and bench.py's numpy twin), and the ADMM CG
+    backend on band Convolve2Ds (K1 counted against the CG's applies)."""
+    from pycsou_tpu_torch.func import L1Norm, NonNegativeOrthant, SquaredL2Loss
+    from pycsou_tpu_torch.kernels.conv2d import sepconv2d_plain
+    from pycsou_tpu_torch.ops import (CircularConvolve, Convolve1D, Convolve2D, ConvGramND, ConvolveND,
+                                      MovingAverage2D)
+    from pycsou_tpu_torch.opt import APGD, ConsensusADMM
+    from pycsou_tpu_torch.opt.admm import stack_operators
+    from pycsou_tpu_torch.parallel import make_mesh
+    from pycsou_tpu_torch.utils.opnorm import cg
+
+    t_phase = time.perf_counter()
+    out = {"tolerances": {"cpu": TOL_CPU, "methods": TOL_REL, "adjoint": TOL_ADJOINT, "gram_nd": TOL_GRAM_ND,
+                          "k1": TOL_REL, "pinv": TOL_PINV}}
+    log(f"tolerances: {out['tolerances']}")
+    cpu_mesh = make_mesh((1,), ("dp",), devices=["cpu"])
+
+    def idle_share(solver, ips):
+        busy = device_ms_per_iteration(solver)
+        return None if busy is None else 1.0 - busy * ips / 1e3
+
+    # cfg1: 256 samples, dispatch-bound
+    solver, y1, g1 = cfg1_problem(device=dev)
+    solver_c, _, _ = cfg1_problem(y=y1, device="cpu")
+    st, counts = count_launches(counters, lambda: solver.run_fixed(20))
+    expect_launches("cfg1 APGD", counts, {})
+    st_c = solver_c.run_fixed(20)
+    scale = float(st_c["x"].abs().max())
+    err = max(float((st[k].cpu() - st_c[k]).abs().max()) for k in ("x", "x_temp"))
+    log(f"cfg1 after 20 iterations: card against CPU max |dx| {err:.3e} (tol {TOL_CPU:g} x {scale:.3f}); "
+        f"tau {solver.tau!r}, Gram {type(solver.F._gram).__name__}; launches {counts}")
+    if err > TOL_CPU * scale:
+        raise AssertionError("cfg1: the card disagrees with the CPU")
+    solver.solve()  # warm
+    _sync(dev)
+    info = solver.solve()
+    if not info.converged:
+        raise AssertionError("cfg1 did not reach 1e-6")
+    floor = dispatch_floor_ms(dev)
+    np_ms = cfg1_numpy_ms(y1, g1, solver.tau, info.n_iter)
+    ips = time_solver(solver)
+    rec = {"time_to_1e6_ms": 1e3 * info.elapsed, "converged_at": info.converged_at, "n_iter": info.n_iter,
+           "numpy_ms_same_iterations": np_ms, "dispatch_floor_ms": floor, "iters_per_s": ips,
+           "device_idle_share": idle_share(solver, ips), "max_abs_err_cpu_20": err}
+    log(f"cfg1 solve() to 1e-6 (warm): {rec['time_to_1e6_ms']:.2f} ms, converged at {info.converged_at} "
+        f"({info.n_iter} run); numpy twin {np_ms:.2f} ms for {info.n_iter} iterations; dispatch floor "
+        f"{floor:.4f} ms; {ips:.1f} iters/s, device idle share {rec['device_idle_share']}")
+    out["cfg1"] = rec
+
+    # the 1-D convolution at 2^20 samples, a 65-tap Gaussian, both methods
+    h1 = np.exp(-((np.arange(TAPS_1D) - TAPS_1D // 2) ** 2) / (2 * 8.0**2)).astype(np.float32)
+    h1 /= h1.sum()
+    A_oa = Convolve1D((N_1D,), h1, device=dev)
+    A_fft = Convolve1D((N_1D,), h1, method="fft", device=dev)
+    if A_oa.method != "overlap-add":
+        raise AssertionError(f"Convolve1D 'auto' took {A_oa.method!r} at {N_1D} samples, {TAPS_1D} taps")
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    x = torch.randn(N_1D, generator=g, device=dev)
+    yy = torch.randn(N_1D, generator=g, device=dev)
+    rec = {"methods_rel_err": max(_rel(A_oa.apply(x), A_fft.apply(x)), _rel(A_oa.adjoint(yy), A_fft.adjoint(yy)))}
+    G1 = A_oa.gram
+    for name, A in (("overlap-add", A_oa), ("fft", A_fft)):
+        ax, ahy = A.apply(x), A.adjoint(yy)
+        rec[f"{name} adjoint_identity"] = float((torch.dot(yy, ax) - torch.dot(ahy, x)).abs()
+                                                / (torch.linalg.vector_norm(ax) * torch.linalg.vector_norm(yy)))
+        rec[f"{name} apply_ms"] = median_ms(lambda: A.apply(x))
+        rec[f"{name} adjoint_ms"] = median_ms(lambda: A.adjoint(yy))
+    rec["gram_ms"] = median_ms(lambda: G1.apply(x))
+    rec["gram_rel_err"] = _rel(G1.apply(x), A_fft.adjoint(A_fft.apply(x)))
+    log(f"Convolve1D at {N_1D}, {TAPS_1D} taps: 'overlap-add' against 'fft' {rec['methods_rel_err']:.3e} (tol "
+        f"{TOL_REL:g}); adjoint identity {rec['overlap-add adjoint_identity']:.3e}, "
+        f"{rec['fft adjoint_identity']:.3e} (tol {TOL_ADJOINT:g}); Gram against A^H A {rec['gram_rel_err']:.3e}; ms "
+        + ", ".join(f"{k} {v:.4f}" for k, v in rec.items() if k.endswith("_ms")))
+    if (rec["methods_rel_err"] > TOL_REL or rec["gram_rel_err"] > TOL_GRAM_ND
+            or max(rec["overlap-add adjoint_identity"], rec["fft adjoint_identity"]) > TOL_ADJOINT):
+        raise AssertionError("Convolve1D at 2^20: the methods, the adjoint or the Gram disagree")
+    rng = np.random.default_rng(17)
+    spikes = np.zeros(N_1D, np.float32)
+    spikes[rng.choice(N_1D, N_1D // 500, replace=False)] = 3.0
+    y_l = A_oa.apply(torch.from_numpy(spikes).to(dev)) + 0.01 * torch.randn(N_1D, generator=g, device=dev)
+    lasso = APGD((N_1D,), F=SquaredL2Loss((N_1D,), data=y_l) * A_oa, G=0.01 * L1Norm((N_1D,)), max_iter=1000)
+    _, counts = count_launches(counters, lambda: lasso.run_fixed(20))
+    expect_launches("1-D LASSO", counts, {})
+    rec["lasso_iters_per_s"] = time_solver(lasso)
+    rec["lasso_device_idle_share"] = idle_share(lasso, rec["lasso_iters_per_s"])
+    log(f"1-D LASSO at {N_1D} (APGD, ConvGram1D): {rec['lasso_iters_per_s']:.1f} iters/s, device idle share "
+        f"{rec['lasso_device_idle_share']}")
+    out["conv1d_2^20"] = rec
+    del A_oa, A_fft, G1, lasso, x, yy, y_l
+
+    # ConvolveND at 256^3: a 7^3 Gaussian (SeparableConvGramND) and a 5^3 draw (ConvGramND)
+    u7 = np.exp(-((np.arange(7) - 3.0) ** 2) / (2 * 1.5**2))
+    g7 = np.multiply.outer(np.multiply.outer(u7, u7), u7)
+    r5 = np.random.default_rng(18).random((5, 5, 5))
+    x3 = torch.randn(SHAPE_3D, generator=g, device=dev)
+    for name, h, want in (("gauss7", g7 / g7.sum(), "SeparableConvGramND"), ("rand5", r5 / r5.sum(), "ConvGramND")):
+        A = ConvolveND(SHAPE_3D, h.astype(np.float32), device=dev)
+        G = A.gram
+        if type(G).__name__ != want:
+            raise AssertionError(f"ConvolveND {name}: Gram {type(G).__name__}, expected {want}")
+        rec = {"gram": want, "apply_ms": median_ms(lambda: A.apply(x3)), "adjoint_ms": median_ms(lambda: A.adjoint(x3)),
+               "gram_ms": median_ms(lambda: G.apply(x3))}
+        ref = A.adjoint(A.apply(x3))
+        rec["gram_rel_err"] = _rel(G.apply(x3), ref)
+        if name == "gauss7":
+            fftg = ConvGramND(A)
+            rec["fft_gram_ms"] = median_ms(lambda: fftg.apply(x3))
+            rec["sep_vs_fft_gram_rel_err"] = _rel(G.apply(x3), fftg.apply(x3))
+            del fftg
+        log(f"ConvolveND {SHAPE_3D[0]}^3 {name} ({want}): " + ", ".join(
+            f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}" for k, v in rec.items()) + f" (tol {TOL_GRAM_ND:g})")
+        if rec["gram_rel_err"] > TOL_GRAM_ND or rec.get("sep_vs_fft_gram_rel_err", 0.0) > TOL_GRAM_ND:
+            raise AssertionError(f"ConvolveND {name}: the Gram disagrees")
+        out[f"convnd {name}"] = rec
+        del A, G, ref
+
+    # MovingAverage2D at 4096^2: a band Convolve2D, K1 once an apply and once an adjoint
+    M = MovingAverage2D(SHAPE, (5, 5), device=dev)
+    x2 = torch.randn(SHAPE, generator=g, device=dev)
+    (ym, zm), counts = count_launches(counters, lambda: (M.apply(x2), M.adjoint(x2)))
+    expect_launches("MovingAverage2D apply + adjoint", counts, {"K1": 2})
+    e_apply, e_adj = max_err(ym, sepconv2d_plain(x2, M.fwd))[1], max_err(zm, sepconv2d_plain(x2, M.adj))[1]
+    rec = {"method": M.method, "k1_launches": counts["K1"], "max_rel_err": max(e_apply, e_adj),
+           "apply_ms": median_ms(lambda: M.apply(x2))}
+    log(f"MovingAverage2D {SHAPE[0]}^2 (5, 5) ['{M.method}']: K1 {counts['K1']} for an apply and an adjoint; "
+        f"against K1's plain version {e_apply:.3e}, {e_adj:.3e} (tol {TOL_REL:g} x max(1, max)); apply "
+        f"{rec['apply_ms']:.4f} ms")
+    if rec["max_rel_err"] > TOL_REL:
+        raise AssertionError("MovingAverage2D disagrees with K1's plain version")
+    out["moving_average2d"] = rec
+    del M, x2, ym, zm
+
+    # CircularConvolve at 256^3: the exact Fourier pinv of an invertible filter (|H| >= 0.5)
+    r = np.random.default_rng(19).standard_normal((5, 5, 5))
+    hc = 0.5 * r / np.abs(r).sum()
+    hc[2, 2, 2] += 1.0
+    C = CircularConvolve(SHAPE_3D, hc.astype(np.float32), device=dev)
+    yc = C.apply(x3)
+    xr = C.pinv(yc)
+    res = float(torch.linalg.vector_norm(C.apply(xr) - yc) / torch.linalg.vector_norm(yc))
+    rec = {"pinv_residual": res, "x_rel_err": float(torch.linalg.vector_norm(xr - x3) / torch.linalg.vector_norm(x3)),
+           "lipschitz": C.lipschitz, "apply_ms": median_ms(lambda: C.apply(x3)),
+           "pinv_ms": median_ms(lambda: C.pinv(yc))}
+    log(f"CircularConvolve {SHAPE_3D[0]}^3: pinv residual {res:.3e} (tol {TOL_PINV:g}), x recovered to "
+        f"{rec['x_rel_err']:.3e}; apply {rec['apply_ms']:.4f} ms, pinv {rec['pinv_ms']:.4f} ms")
+    if res > TOL_PINV:
+        raise AssertionError("CircularConvolve's pinv misses")
+    out["circular"] = rec
+    del C, yc, xr, x3
+
+    # cfg5: ConsensusADMM, Fourier backend, 4 scenarios, rho 1, on the default mesh (one card)
+    for d in CFG5_SIZES:
+        h_hats, data = cfg5_problem(d, dev)
+        admm = ConsensusADMM((d, d, d), h_hats=h_hats, data=data, rho=1.0, max_iter=1000)
+        z, counts = count_launches(counters, lambda: admm.run(20))
+        expect_launches(f"cfg5 {d}^3", counts, {})
+        rec = {"mesh": [str(v) for v in admm.mesh.devices]}
+        if d == CFG5_SIZES[0]:
+            h_c, data_c = h_hats.cpu(), data.cpu()
+            z_c = ConsensusADMM((d, d, d), h_hats=h_c, data=data_c, rho=1.0, mesh=cpu_mesh).run(20)
+            rec["max_abs_err_cpu_20"] = err = float((z.cpu() - z_c).abs().max())
+            scale = float(z_c.abs().max())
+            log(f"cfg5 {d}^3 after 20 iterations: card against CPU max |dz| {err:.3e} (tol {TOL_CPU:g} x {scale:.3f})")
+            if err > TOL_CPU * scale:
+                raise AssertionError("cfg5: the card disagrees with the CPU")
+            rec["numpy_ms_per_iteration"] = cfg5_numpy_ms(h_c, data_c)
+        rec["iters_per_s"] = time_solver(admm)
+        rec["device_idle_share"] = idle_share(admm, rec["iters_per_s"])
+        log(f"cfg5 {d}^3 x 4 ConsensusADMM[Fourier] on {rec['mesh']}: {rec['iters_per_s']:.1f} iters/s "
+            f"({1e3 / rec['iters_per_s']:.4f} ms/iteration), device idle share {rec['device_idle_share']}"
+            + (f"; numpy twin {rec['numpy_ms_per_iteration']:.2f} ms/iteration" if "numpy_ms_per_iteration" in rec
+               else ""))
+        out[f"cfg5 {d}^3"] = rec
+        del admm, h_hats, data, z
+
+    # the CG backend: band Convolve2Ds of four Gaussians at 1024^2, NonNegativeOrthant, 10 iterations
+    ops = [Convolve2D(SHAPE_CG, gaussian_kernel(KSIZE, s), device=dev) for s in CG_SIGMAS]
+    xt = torch.from_numpy(blocks_image(np.random.default_rng(20), SHAPE_CG)).to(dev)
+    ys = torch.stack([op.apply(xt) + 0.01 * torch.randn(SHAPE_CG, generator=g, device=dev) for op in ops])
+    admm = ConsensusADMM(SHAPE_CG, ops=stack_operators(ops), data=ys, g=NonNegativeOrthant(SHAPE_CG), rho=1.0)
+    applies = cg.applies
+    _sync(dev)
+    t0 = time.perf_counter()
+    z, counts = count_launches(counters, lambda: admm.run(10))
+    wall = time.perf_counter() - t0
+    n_app = cg.applies - applies
+    S = len(ops)
+    expect_launches("ADMM CG backend", counts, {"K1": S * 10 + 2 * S * n_app})
+    err, obs = (float(torch.linalg.vector_norm(v - xt)) for v in (z, ys[0]))
+    rec = {"k1_launches": counts["K1"], "cg_applies": n_app, "wall_ms_10_iterations": 1e3 * wall,
+           "recovery_err": err, "observation_err": obs}
+    log(f"ADMM CG backend, {S} band Convolve2Ds at {SHAPE_CG[0]}^2: K1 {counts['K1']} = {S} x 10 + 2 x {S} x "
+        f"{n_app} CG applies; 10 iterations {1e3 * wall:.1f} ms; ||z - x|| {err:.2f} against the first "
+        f"observation's {obs:.2f}")
+    if not err < obs:
+        raise AssertionError("ADMM CG backend: the recovery is no better than the observation")
+    out["admm_cg"] = rec
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"convolutions and consensus ADMM: {out['seconds']:.1f} s")
+    return out
+
+
 def device_ms_per_iteration(solver, n=20):
     """Device time an iteration in a ``torch.profiler`` trace of ``n``
     iterations: the summed durations of the CUDA events (kernels, copies,
@@ -1978,6 +2319,8 @@ def main():
     runs["sepgram_apply"] = runs_k18
     log("-- stacked operators and spectral estimates: cfg4, the PDS with an unknown ||K||, the new operators")
     spectral, cfg4_solvers = phase_spectral(dev, counters)
+    log("-- 1-D, N-D and circular convolutions, consensus ADMM: cfg1, cfg5, the CG backend")
+    print(json.dumps({"conv_admm": phase_conv_admm(dev, counters), "card": smi}), flush=True)
 
     log(f"-- throughput ({smi})")
     solvers.update({"main path": pds, "LASSO": apgd})

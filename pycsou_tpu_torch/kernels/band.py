@@ -10,11 +10,14 @@ samples.  For a rank-1 PSF the 2-D Gram is ``RowGram o ColGram``: two band
 passes of 2K - 1 taps where the forward-and-adjoint form needs four of K.
 The rank-1 engines (``kernels/tv.py`` K10-K12) compute it in their kernels;
 :func:`gram_band_rows` and :func:`gram_band_cols` are its plain PyTorch
-form.
+form, and :func:`gram_band_axis` takes it along any axis of an N-D tensor
+(the per-axis passes of ``ops.conv.SeparableConvGramND``).
 
 The reference's MXU formulations of the band (``make_band_blocks``,
-``make_chanconv``, ``chanconv_cols``) are TPU tiling and have no
-counterpart here.
+``make_chanconv``, ``chanconv_cols``, ``gram_chanconv_cols``) are TPU
+tiling of the same band pass and have no counterpart here.  ``TILE`` is
+the reference's tile edge, kept because its gates read it: a (2K - 1)-tap
+band needs ``2 (K - 1) <= TILE``.
 """
 from __future__ import annotations
 
@@ -24,7 +27,9 @@ import torch.nn.functional as F
 
 from pycsou_tpu_torch.utils.device import full_f32
 
-__all__ = ["make_gram_band", "gram_band_rows", "gram_band_cols"]
+__all__ = ["TILE", "make_gram_band", "gram_band_rows", "gram_band_cols", "gram_band_axis"]
+
+TILE = 128  # the reference's band tile (``pycsou_tpu/kernels/band.py``)
 
 
 def make_gram_band(taps, n: int):
@@ -97,3 +102,17 @@ def gram_band_cols(x: torch.Tensor, gplan) -> torch.Tensor:
             top, bot = x[:, :L] @ E_top.T, x[:, -L:] @ E_bot.T
         out = torch.cat([out[:, :k1] + top, out[:, k1:-k1], out[:, -k1:] + bot], dim=1)
     return out
+
+
+def gram_band_axis(x: torch.Tensor, gplan, axis: int) -> torch.Tensor:
+    """Exact 1-D conv Gram along any ``axis`` of an N-D tensor: the other
+    axes collapsed, the band pass and edge corrections of
+    :func:`gram_band_rows` (first axis) or :func:`gram_band_cols`, the
+    shape restored."""
+    axis = axis % x.ndim
+    shp = x.shape
+    if axis == 0:
+        return gram_band_rows(x.reshape(shp[0], -1), gplan).reshape(shp)
+    xm = x.movedim(axis, -1)
+    out = gram_band_cols(xm.reshape(-1, shp[axis]), gplan).reshape(xm.shape)
+    return out.movedim(-1, axis)

@@ -1,4 +1,4 @@
-"""Exact FFT Gram of a 'same' 2-D convolution (counterpart of the 2-D half of
+"""Exact FFT Gram of a 'same' 2-D and N-D convolution (counterpart of
 ``pycsou_tpu/ops/_gram.py``).
 
 For ``A = S o conv_full(h) o P`` ('same' linear convolution, zero boundary)
@@ -12,9 +12,13 @@ convolved by small FFTs.  The wrap path (:func:`conv2d_gram_apply_wrap`)
 takes the FFT at exactly the image size and subtracts the wraparound terms,
 confined to ``(m - 1)``-wide bands, before the frame corrections.
 
+The N-D Gram (:func:`convnd_gram_apply`) is one ``rfftn``/``irfftn`` round
+trip minus 2d disjoint boundary slabs: the slabs of axis j are restricted
+to the valid window on every axis before j.
+
 The kernel transfers are computed once (:func:`make_pad_cache`,
-:func:`make_wrap_cache`) as complex tensors on the filter's device, so an
-apply spends FFTs only on data.  The corrections add into the result the
+:func:`make_wrap_cache`, :func:`make_convnd_cache`) as complex tensors on
+the filter's device, so an apply spends FFTs only on data.  The corrections add into the result the
 apply itself allocated; the input is never written.
 """
 from __future__ import annotations
@@ -34,6 +38,9 @@ __all__ = [
     "conv2d_gram_apply_wrap",
     "make_conv2d_gram_wrap",
     "make_conv2d_gram",
+    "make_convnd_gram",
+    "make_convnd_cache",
+    "convnd_gram_apply",
 ]
 
 
@@ -275,3 +282,123 @@ def make_conv2d_gram(dim_shape: Tuple[int, int], filt: torch.Tensor, fft_shape: 
             raise ValueError("fft_shape must be >= n + 2m - 2 per axis")
     H = torch.fft.rfft2(filt, s=L)
     return (H * torch.conj(H)).real, L
+
+
+# -- N-D: one rfftn round trip and the boundary slabs --------------------------
+
+
+def _conv_full_nd(a: torch.Tensor, h: torch.Tensor, h_hat=None) -> torch.Tensor:
+    """'full'-mode N-D convolution of a thin slab ``a`` by ``h`` through
+    small rFFTs; ``h_hat`` (from :func:`make_convnd_cache`) skips the
+    kernel's FFT."""
+    full = tuple(sa + sh - 1 for sa, sh in zip(a.shape, h.shape))
+    s = tuple(next_fast_len(f) for f in full)
+    axes = tuple(range(a.ndim))
+    H = torch.fft.rfftn(h, s=s, dim=axes) if h_hat is None else h_hat
+    out = torch.fft.irfftn(torch.fft.rfftn(a, s=s, dim=axes) * H, s=s, dim=axes)
+    return out[tuple(slice(0, f) for f in full)]
+
+
+def _corr_into_nd(out, strip, h, offs, c_hat=None):
+    """Subtract ``A_full^T`` of a slab at full-grid offset ``offs`` from
+    ``out``, the n-sized result the caller allocated (the N-D
+    :func:`_corr_into`); ``c_hat`` is the flipped kernel's transfer."""
+    c = _conv_full_nd(strip, h.flip(tuple(range(h.ndim))) if c_hat is None else h, h_hat=c_hat)
+    sl_out, sl_c = [], []
+    for d in range(out.ndim):
+        j_lo = offs[d] - (h.shape[d] - 1)
+        q_lo = max(0, -j_lo)
+        j_start = max(0, j_lo)
+        q_hi = min(c.shape[d], out.shape[d] - j_lo)
+        if q_hi <= q_lo:
+            return out
+        sl_c.append(slice(q_lo, q_hi))
+        sl_out.append(slice(j_start, j_start + (q_hi - q_lo)))
+    out[tuple(sl_out)] -= c[tuple(sl_c)]
+    return out
+
+
+def _slab_plan(n: Tuple[int, ...], m: Tuple[int, ...]):
+    """The boundary slabs of the N-D Gram: for each axis j and side with a
+    frame (``o_j > 0`` low, ``b_j > 0`` high), ``(j, sl_in, sel, offs)``:
+    the input slab's slice along j, the conv output's restriction (axes
+    before j to the valid window ``[o_d, o_d + n_d)``, axis j to the frame
+    rows, axes after j whole) and the strip's full-grid offsets."""
+    nd = len(n)
+    o = tuple(mk // 2 for mk in m)
+    b = tuple(mk - 1 - ok for mk, ok in zip(m, o))
+    plan = []
+    for j in range(nd):
+        for low in (True, False):
+            if (o[j] if low else b[j]) == 0:
+                continue
+            start_in = 0 if low else max(0, n[j] - (m[j] - 1))
+            sl_in = slice(0, min(m[j], n[j])) if low else slice(start_in, n[j])
+            sel, offs = [], []
+            for d in range(nd):
+                if d < j:
+                    sel.append(slice(o[d], o[d] + n[d]))
+                    offs.append(o[d])
+                elif d > j:
+                    sel.append(slice(None))
+                    offs.append(0)
+                elif low:
+                    sel.append(slice(0, o[j]))
+                    offs.append(0)
+                else:
+                    # local row r of the slab's conv is global full row start_in + r
+                    lo = (o[j] + n[j]) - start_in
+                    sel.append(slice(lo, lo + b[j]))
+                    offs.append(o[j] + n[j])
+            plan.append((j, sl_in, tuple(sel), tuple(offs)))
+    return plan
+
+
+def _slab_shapes(n, m, j, sl_in, sel):
+    """``(conv_fft, corr_fft)``: the FFT shapes of a slab's convolution and
+    of its strip's correlation."""
+    slab = [len(range(*sl_in.indices(nk))) if d == j else nk for d, nk in enumerate(n)]
+    full = [sk + mk - 1 for sk, mk in zip(slab, m)]
+    strip = [len(range(*sl.indices(fk))) for sl, fk in zip(sel, full)]
+    return (tuple(next_fast_len(f) for f in full),
+            tuple(next_fast_len(sk + mk - 1) for sk, mk in zip(strip, m)))
+
+
+def make_convnd_cache(dim_shape: Tuple[int, ...], filt: torch.Tensor) -> dict:
+    """The kernel transfers of :func:`convnd_gram_apply`'s slab
+    corrections, keyed ``("h", fft_shape)`` for the kernel and ``("c",
+    fft_shape)`` for the flipped kernel, on ``filt``'s device."""
+    n, m = tuple(dim_shape), tuple(filt.shape)
+    axes = tuple(range(filt.ndim))
+    f = filt.flip(axes)
+    cache = {}
+    for j, sl_in, sel, _ in _slab_plan(n, m):
+        s_conv, s_corr = _slab_shapes(n, m, j, sl_in, sel)
+        cache.setdefault(("h", s_conv), torch.fft.rfftn(filt, s=s_conv, dim=axes))
+        cache.setdefault(("c", s_corr), torch.fft.rfftn(f, s=s_corr, dim=axes))
+    return cache
+
+
+def make_convnd_gram(dim_shape: Tuple[int, ...], filt: torch.Tensor):
+    """``(|rfftn(filt, L)|^2, L)`` with ``L = next_fast_len(n + 2m - 2)``
+    per axis, for :func:`convnd_gram_apply`."""
+    L = tuple(next_fast_len(n + 2 * m - 2) for n, m in zip(dim_shape, filt.shape))
+    H = torch.fft.rfftn(filt, s=L, dim=tuple(range(len(L))))
+    return (H * torch.conj(H)).real, L
+
+
+def convnd_gram_apply(x: torch.Tensor, filt: torch.Tensor, h2_hat: torch.Tensor, L, cache: dict = None) -> torch.Tensor:
+    """Exact ``A^H A x`` of the 'same' N-D convolution (centre offset
+    m // 2): one rfftn/irfftn round trip (the full convolution's Gram)
+    minus the 2d disjoint boundary-slab corrections of :func:`_slab_plan`;
+    ``cache`` from :func:`make_convnd_cache` skips the kernel transfers."""
+    n, m = tuple(x.shape), tuple(filt.shape)
+    cache = cache or {}
+    axes = tuple(range(x.ndim))
+    g = torch.fft.irfftn(torch.fft.rfftn(x, s=L, dim=axes) * h2_hat, s=L, dim=axes)[tuple(slice(0, k) for k in n)]
+    for j, sl_in, sel, offs in _slab_plan(n, m):
+        s_conv, s_corr = _slab_shapes(n, m, j, sl_in, sel)
+        xs = x[tuple(sl_in if d == j else slice(None) for d in range(x.ndim))]
+        cs = _conv_full_nd(xs, filt, h_hat=cache.get(("h", s_conv)))
+        g = _corr_into_nd(g, cs[sel], filt, offs, c_hat=cache.get(("c", s_corr)))
+    return g

@@ -1,4 +1,4 @@
-"""2-D convolution (counterpart of ``pycsou_tpu/ops/conv.py``).
+"""Convolutions (counterpart of ``pycsou_tpu/ops/conv.py``).
 
 * ``Convolve2D`` -- 'same', zero-boundary convolution by four methods:
   ``'band'`` (a PSF of rank <= 4 within 31 taps per axis) runs apply and
@@ -17,9 +17,26 @@
   FFTs of ``A^H o A``.  A ``'bandg'`` convolution's Gram is the
   composition ``A^H o A`` of its grouped K1 sweeps.
 
-``lowrank_factors`` and ``_fft_lipschitz`` are the reference's numpy code
-unchanged, so the factor taps and ``||A||`` (hence beta, tau and sigma)
-come out bit-equal to the JAX package's.
+* ``Convolve1D`` -- 'same' 1-D convolution, ``'direct'`` (``F.conv1d``),
+  ``'fft'`` or ``'overlap-add'`` (chunks of a small FFT, each chunk's tail
+  added into the next); ``ConvGram1D`` its exact Gram, the 2-D FFT Gram on
+  a ``(1, n)`` view.  ``MovingAverage1D``/``MovingAverage2D`` are box
+  filters (the 2-D one a band ``Convolve2D``: K1).
+* ``ConvolveND`` -- 'same' N-D convolution through ``torch.fft``; its Gram
+  is ``SeparableConvGramND`` (one band pass a axis) for a rank-1 filter,
+  else the FFT Gram ``ConvGramND``.
+* ``CircularConvolve`` -- periodic N-D convolution, diagonal in the DFT,
+  with the exact Fourier ``pinv``.
+
+None of these launches a kernel of the port except through ``Convolve2D``.
+Adjoints are written out: the 'same' correlation is the convolution by the
+flipped filter at the mirrored offset ``m - 1 - m // 2`` (``'direct'``,
+``'overlap-add'``), or the product by ``conj(H)`` of the input placed at
+its offset on the FFT grid (``'fft'``, ``ConvolveND``).
+
+``lowrank_factors``, ``rank1_factors_nd`` and ``_fft_lipschitz`` are the
+reference's numpy code unchanged, so the factor taps and ``||A||`` (hence
+beta, tau and sigma) come out bit-equal to the JAX package's.
 """
 from __future__ import annotations
 
@@ -30,12 +47,27 @@ import torch
 import torch.nn.functional as F
 
 from pycsou_tpu_torch.core.linop import LinearOperator, LinOpComp, SymmetricLinearOperator
-from pycsou_tpu_torch.kernels.band import make_gram_band
+from pycsou_tpu_torch.kernels.band import TILE, gram_band_axis, make_gram_band
 from pycsou_tpu_torch.kernels.conv2d import MAX_RANK, MAX_TAPS, SepFactors, sepconv2d, sepgram2d
 from pycsou_tpu_torch.utils.device import as_tensor, full_f32, resolve_device
 from pycsou_tpu_torch.utils.shapes import as_shape
 
-__all__ = ["Convolve2D", "ConvGram2D", "SeparableConvGram2D", "lowrank_factors", "next_fast_len"]
+__all__ = [
+    "Convolve1D",
+    "Convolve2D",
+    "ConvolveND",
+    "CircularConvolve",
+    "MovingAverage1D",
+    "MovingAverage2D",
+    "ConvGram1D",
+    "ConvGram2D",
+    "ConvGramND",
+    "SeparableConvGram2D",
+    "SeparableConvGramND",
+    "lowrank_factors",
+    "rank1_factors_nd",
+    "next_fast_len",
+]
 
 
 def next_fast_len(n: int) -> int:
@@ -63,6 +95,35 @@ def _fft_lipschitz(filt: np.ndarray, padded_shape: Tuple[int, ...]) -> float:
     else:
         H = np.fft.rfftn(h.astype(np.float64), s=L, axes=axes)
     return float(np.max(np.abs(H)))
+
+
+def _real_filter(filt, cls: str) -> np.ndarray:
+    """``filt`` (numpy or tensor) as a float32 numpy array; a complex
+    filter raises."""
+    filt_np = filt.detach().cpu().numpy() if isinstance(filt, torch.Tensor) else np.asarray(filt)
+    if np.iscomplexobj(filt_np):
+        raise ValueError(f"{cls} takes real filters only")
+    return filt_np.astype(np.float32)
+
+
+def _fft_same(x, h_hat, s, offs, n):
+    """'same' convolution on the FFT grid ``s``: the full convolution by the
+    transfer ``h_hat``, cropped to ``n`` from ``offs``."""
+    axes = tuple(range(len(s)))
+    full = torch.fft.irfftn(torch.fft.rfftn(x, s=s, dim=axes) * h_hat, s=s, dim=axes)
+    return full[tuple(slice(o, o + k) for o, k in zip(offs, n))]
+
+
+def _fft_corr_same(y, h_hat, s, offs, n):
+    """The adjoint of :func:`_fft_same`: ``y`` placed at ``offs`` on the
+    grid ``s`` (zeros elsewhere), times ``conj(h_hat)``, cropped to the
+    first ``n``.  Exact for ``s >= n + m - 1``: the correlation's wrap
+    reads only the zero tail."""
+    axes = tuple(range(len(s)))
+    pad = [p for o, k, L in reversed(list(zip(offs, n, s))) for p in (o, L - k - o)]
+    Y = torch.fft.rfftn(F.pad(y, pad), dim=axes)
+    out = torch.fft.irfftn(Y * torch.conj(h_hat), s=s, dim=axes)
+    return out[tuple(slice(0, k) for k in n)]
 
 
 def lowrank_factors(filt_np: np.ndarray, tol: float = 1e-6, max_rank: int = 4):
@@ -135,10 +196,7 @@ class Convolve2D(LinearOperator):
         if len(dim_shape) != 2:
             raise ValueError("Convolve2D expects a 2-D domain")
         dev = resolve_device(device, filt)
-        filt_np = (filt.detach().cpu().numpy() if isinstance(filt, torch.Tensor) else np.asarray(filt))
-        if np.iscomplexobj(filt_np):
-            raise ValueError("Convolve2D takes real filters only")
-        filt_np = filt_np.astype(np.float32)
+        filt_np = _real_filter(filt, "Convolve2D")
         if filt_np.ndim != 2:
             raise ValueError("filter must be 2-D")
         trunc_bound = 0.0
@@ -369,3 +427,340 @@ class SeparableConvGram2D(LinearOperator):
         """Least-squares data gradient ``2 (A^H A x - atb)`` in one K2 pass
         (3 image streams)."""
         return sepgram2d(x, self.fwd, self.adj2, atb)
+
+
+# -- 1-D ------------------------------------------------------------------------
+
+
+def _direct1d(x, w, pad) -> torch.Tensor:
+    """``F.conv1d`` (a correlation) of ``x`` by the taps ``w`` after zero
+    padding ``pad``, at full f32."""
+    with full_f32():
+        return F.conv1d(F.pad(x[None, None], pad), w[None, None])[0, 0]
+
+
+def _overlap_add(x, h_hat, nfft: int, m: int, ofs: int) -> torch.Tensor:
+    """'same' convolution (offset ``ofs``) of ``x`` by an m-tap filter of
+    transfer ``h_hat = rfft(h, nfft)``: ``nfft - (m - 1)``-sample chunks
+    convolved by one batched rfft/irfft, each chunk's (m - 1)-sample tail
+    added into the next, the last tail appended."""
+    n = x.shape[-1]
+    L = nfft - (m - 1)
+    nb = -(-n // L)
+    xp = F.pad(x, (0, nb * L - n)).reshape(nb, L)
+    chunks = torch.fft.irfft(torch.fft.rfft(xp, n=nfft, dim=1) * h_hat, n=nfft, dim=1)
+    full = chunks[:, :L]
+    if m > 1:
+        tails = chunks[:, L:]
+        carry = torch.cat([torch.zeros_like(tails[:1]), tails[:-1]])
+        full = torch.cat([full[:, : m - 1] + carry, full[:, m - 1 :]], dim=1)
+        full = torch.cat([full.reshape(-1), tails[-1]])
+    else:
+        full = full.reshape(-1)
+    return full[ofs : ofs + n]
+
+
+class Convolve1D(LinearOperator):
+    """1-D 'same' convolution, zero boundary: ``y[i] = sum_k h[k] x[i - k +
+    o]`` with ``o = m // 2``.
+
+    ``method='auto'`` is the reference's rule: ``'direct'`` up to 32 taps,
+    ``'overlap-add'`` for ``n >= 2**18`` and ``8 m <= n``, else ``'fft'``
+    (on ``next_fast_len(n + m - 1)``, the transfer computed once).
+    ``'overlap-add'`` takes chunks of ``next_fast_len(max(8 m, 256))``.  The
+    Gram is :class:`ConvGram1D`."""
+
+    def __init__(self, dim_shape, filt, method: str = "auto", device=None):
+        dim_shape = as_shape(dim_shape)
+        if len(dim_shape) != 1:
+            raise ValueError("Convolve1D expects a 1-D domain")
+        dev = resolve_device(device, filt)
+        filt_np = _real_filter(filt, "Convolve1D")
+        if filt_np.ndim != 1:
+            raise ValueError("filter must be 1-D")
+        n, m = dim_shape[0], filt_np.shape[0]
+        if method == "auto":
+            if m <= 32:
+                method = "direct"
+            elif n >= 1 << 18 and m * 8 <= n:
+                method = "overlap-add"
+            else:
+                method = "fft"
+        if method not in ("fft", "direct", "overlap-add"):
+            raise ValueError("method must be 'auto', 'fft', 'direct' or 'overlap-add'")
+        super().__init__(dim_shape, dim_shape, lipschitz=_fft_lipschitz(filt_np, (n + m - 1,)))
+        self._device = dev
+        self.filt = as_tensor(filt_np, dev)
+        self.method = method
+        self.h_hat = self.h_hat_adj = None
+        if method == "fft":
+            self.h_hat = torch.fft.rfft(self.filt, n=next_fast_len(n + m - 1))
+        elif method == "overlap-add":
+            self.h_hat = torch.fft.rfft(self.filt, n=self._oa_nfft())
+            self.h_hat_adj = torch.fft.rfft(self.filt.flip(0), n=self._oa_nfft())
+
+    def _oa_nfft(self) -> int:
+        """Overlap-add's chunk FFT size: well above the filter, so that a
+        chunk's (m - 1)-sample tail fits in the next chunk."""
+        return next_fast_len(max(8 * self.filt.shape[0], 256))
+
+    @property
+    def device(self):
+        return self._device
+
+    def apply(self, x):
+        n, m = self.dim_shape[0], self.filt.shape[0]
+        o = m // 2
+        if self.method == "fft":
+            return _fft_same(x, self.h_hat, (next_fast_len(n + m - 1),), (o,), (n,))
+        if self.method == "overlap-add":
+            return _overlap_add(x, self.h_hat, self._oa_nfft(), m, o)
+        return _direct1d(x, self.filt.flip(0), (m - 1 - o, o))
+
+    def adjoint(self, y):
+        y = torch.as_tensor(y)
+        n, m = self.dim_shape[0], self.filt.shape[0]
+        o = m // 2
+        if self.method == "fft":
+            return _fft_corr_same(y, self.h_hat, (next_fast_len(n + m - 1),), (o,), (n,))
+        if self.method == "overlap-add":
+            return _overlap_add(y, self.h_hat_adj, self._oa_nfft(), m, m - 1 - o)
+        return _direct1d(y, self.filt, (o, m - 1 - o))
+
+    @property
+    def gram(self):
+        """The exact ``A^H A``: :class:`ConvGram1D`."""
+        return ConvGram1D(self)
+
+
+class ConvGram1D(LinearOperator):
+    """Exact Gram of a 'same' 1-D convolution: the 2-D FFT Gram
+    (``ops/_gram.py`` ``conv2d_gram_apply``, its transfers cached) on a
+    ``(1, n)`` view."""
+
+    def __init__(self, conv: Convolve1D):
+        from pycsou_tpu_torch.ops._gram import make_conv2d_gram, make_pad_cache
+
+        super().__init__(conv.dim_shape, conv.dim_shape, lipschitz=conv.lipschitz**2)
+        self._device = conv.device
+        shape2d = (1, conv.dim_shape[0])
+        self.filt = conv.filt[None, :]
+        self.h2_hat, self.L = make_conv2d_gram(shape2d, self.filt)
+        self.cache = make_pad_cache(shape2d, self.filt)
+
+    @property
+    def device(self):
+        return self._device
+
+    def apply(self, x):
+        from pycsou_tpu_torch.ops._gram import conv2d_gram_apply
+
+        return conv2d_gram_apply(x[None, :], self.filt, self.h2_hat, self.L, cache=self.cache)[0]
+
+    def adjoint(self, y):
+        return self.apply(torch.as_tensor(y))
+
+
+def MovingAverage1D(dim_shape, window: int, device=None) -> Convolve1D:
+    """Length-``window`` box filter (a ``Convolve1D``)."""
+    return Convolve1D(dim_shape, np.ones((window,), np.float32) / window, device=device)
+
+
+def MovingAverage2D(dim_shape, window: Tuple[int, int], device=None) -> Convolve2D:
+    """``w0 x w1`` box filter: a rank-1 ``Convolve2D``, so ``'band'`` (K1)."""
+    w0, w1 = window
+    return Convolve2D(dim_shape, np.ones((w0, w1), np.float32) / (w0 * w1), device=device)
+
+
+# -- N-D ------------------------------------------------------------------------
+
+
+def rank1_factors_nd(filt_np: np.ndarray, tol: float = 1e-6):
+    """Per-axis factors ``[u_0, ..., u_{d-1}]`` (float64) with ``filt = u_0
+    (x) ... (x) u_{d-1}``, or None when the filter is not rank-1 to relative
+    accuracy ``tol`` (the reference's numpy)."""
+    filt = np.asarray(filt_np, np.float64)
+    nd = filt.ndim
+    us = []
+    for k in range(nd):
+        unf = np.moveaxis(filt, k, 0).reshape(filt.shape[k], -1)
+        U, S, Vt = np.linalg.svd(unf, full_matrices=False)
+        us.append(U[:, 0])
+    # scale: project filt onto the rank-1 tensor
+    outer = us[0]
+    for u in us[1:]:
+        outer = np.multiply.outer(outer, u)
+    s = float(np.vdot(outer, filt))
+    approx = s * outer
+    if np.linalg.norm(approx - filt) > tol * max(np.linalg.norm(filt), 1e-30):
+        return None
+    us[0] = us[0] * s
+    return [u.astype(np.float64) for u in us]
+
+
+class ConvolveND(LinearOperator):
+    """N-D 'same' convolution (offset ``m // 2`` per axis), zero boundary,
+    through ``torch.fft`` on ``next_fast_len(n + m - 1)`` per axis with the
+    transfer computed once.  Its Gram is :class:`SeparableConvGramND` for a
+    rank-1 filter within the gates of its ``build``, else
+    :class:`ConvGramND`."""
+
+    def __init__(self, dim_shape, filt, device=None):
+        dim_shape = as_shape(dim_shape)
+        dev = resolve_device(device, filt)
+        filt_np = _real_filter(filt, "ConvolveND")
+        if filt_np.ndim != len(dim_shape):
+            raise ValueError("filter rank must match the domain rank")
+        padded = tuple(n + k - 1 for n, k in zip(dim_shape, filt_np.shape))
+        super().__init__(dim_shape, dim_shape, lipschitz=_fft_lipschitz(filt_np, padded))
+        self._device = dev
+        self.filt = as_tensor(filt_np, dev)
+        self._s = tuple(next_fast_len(p) for p in padded)
+        self._offs = tuple(k // 2 for k in filt_np.shape)
+        self.h_hat = torch.fft.rfftn(self.filt, s=self._s, dim=tuple(range(len(dim_shape))))
+
+    @property
+    def device(self):
+        return self._device
+
+    def apply(self, x):
+        return _fft_same(x, self.h_hat, self._s, self._offs, self.dim_shape)
+
+    def adjoint(self, y):
+        return _fft_corr_same(torch.as_tensor(y), self.h_hat, self._s, self._offs, self.dim_shape)
+
+    @property
+    def gram(self):
+        """The exact ``A^H A``: one band pass a axis for a rank-1 filter
+        (:class:`SeparableConvGramND`), else one rfftn round trip and the
+        slab corrections (:class:`ConvGramND`)."""
+        g = SeparableConvGramND.build(self)
+        return g if g is not None else ConvGramND(self)
+
+
+class ConvGramND(LinearOperator):
+    """Exact Gram of a 'same' N-D convolution (``ops/_gram.py``
+    ``convnd_gram_apply``, the transfers cached on the device)."""
+
+    def __init__(self, conv: ConvolveND):
+        from pycsou_tpu_torch.ops._gram import make_convnd_cache, make_convnd_gram
+
+        super().__init__(conv.dim_shape, conv.dim_shape, lipschitz=conv.lipschitz**2)
+        self._device = conv.device
+        self.filt = conv.filt
+        self.h2_hat, self.L = make_convnd_gram(conv.dim_shape, self.filt)
+        self.cache = make_convnd_cache(conv.dim_shape, self.filt)
+
+    @property
+    def device(self):
+        return self._device
+
+    def apply(self, x):
+        from pycsou_tpu_torch.ops._gram import convnd_gram_apply
+
+        return convnd_gram_apply(x, self.filt, self.h2_hat, self.L, cache=self.cache)
+
+    def adjoint(self, y):
+        return self.apply(torch.as_tensor(y))
+
+
+class SeparableConvGramND(LinearOperator):
+    """Exact Gram of a 'same' N-D convolution by a rank-1 filter ``u_0 (x)
+    ... (x) u_{d-1}``: the per-axis 1-D Grams composed, each one band pass
+    of 2K - 1 taps and its two edge corrections
+    (``kernels/band.py`` :func:`gram_band_axis`), no FFT."""
+
+    @staticmethod
+    def build(conv: ConvolveND, tol: float = 1e-6):
+        """The Gram when the reference takes it, else None: a real filter,
+        ``2 (m - 1) <= TILE`` and ``n >= 3 m`` on every axis, rank 1 to
+        ``tol``."""
+        if conv.dtype.is_complex:
+            return None
+        filt = conv.filt.detach().cpu().numpy()
+        if any(2 * (m - 1) > TILE for m in filt.shape):
+            return None
+        if any(n < 3 * m for n, m in zip(conv.dim_shape, filt.shape)):
+            return None
+        us = rank1_factors_nd(filt, tol=tol)
+        if us is None:
+            return None
+        return SeparableConvGramND(conv, us)
+
+    def __init__(self, conv: ConvolveND, factors):
+        super().__init__(conv.dim_shape, conv.dim_shape, lipschitz=conv.lipschitz**2)
+        dev = self._device = conv.device
+        plans = []
+        for u, n in zip(factors, conv.dim_shape):
+            acorr, Et, Eb, L = make_gram_band(u, int(n))
+            E = (None, None) if Et is None else (as_tensor(Et, dev), as_tensor(Eb, dev))
+            plans.append((as_tensor(acorr.astype(np.float32), dev), *E, L))
+        self.g_plans = tuple(plans)
+
+    @property
+    def device(self):
+        return self._device
+
+    def apply(self, x):
+        for ax, plan in enumerate(self.g_plans):
+            x = gram_band_axis(x, plan, ax)
+        return x
+
+    def adjoint(self, y):
+        return self.apply(torch.as_tensor(y))
+
+
+class CircularConvolve(LinearOperator):
+    """Periodic N-D convolution ``A = F^H diag(H) F``: the filter zero-padded
+    to the domain and rolled by ``-(k // 2)`` per axis ('same'-aligned),
+    then ``rfftn``; or ``h_hat`` (complex, the rfftn layout) given.
+    ``lipschitz = max |H|``, and ``pinv`` is the exact (damped) Fourier
+    inverse."""
+
+    def __init__(self, dim_shape, filt=None, h_hat=None, device=None):
+        dim_shape = as_shape(dim_shape)
+        axes = tuple(range(len(dim_shape)))
+        if h_hat is None:
+            if filt is None:
+                raise ValueError("pass filt or h_hat")
+            dev = resolve_device(device, filt)
+            f = as_tensor(_real_filter(filt, "CircularConvolve"), dev)
+            if f.ndim != len(dim_shape):
+                raise ValueError("filter rank must match the domain rank")
+            hfull = F.pad(f, [p for n, k in reversed(list(zip(dim_shape, f.shape))) for p in (0, n - k)])
+            hfull = torch.roll(hfull, tuple(-(k // 2) for k in f.shape), dims=axes)
+            h_hat = torch.fft.rfftn(hfull, dim=axes)
+        else:
+            dev = resolve_device(device, h_hat)
+            h_hat = as_tensor(h_hat, dev, torch.complex64)
+            want = dim_shape[:-1] + (dim_shape[-1] // 2 + 1,)
+            if tuple(h_hat.shape) != want:
+                raise ValueError(f"h_hat must have the rfftn shape {want}, got {tuple(h_hat.shape)}")
+        hh = h_hat.detach().cpu().numpy()
+        # the reference's max |H| from the float32 parts
+        super().__init__(dim_shape, dim_shape, lipschitz=float(np.max(np.hypot(hh.real, hh.imag))))
+        self._device = dev
+        self.h_hat = h_hat
+
+    @property
+    def device(self):
+        return self._device
+
+    def _axes(self):
+        return tuple(range(len(self.dim_shape)))
+
+    def apply(self, x):
+        X = torch.fft.rfftn(x, dim=self._axes())
+        return torch.fft.irfftn(X * self.h_hat, s=self.dim_shape, dim=self._axes())
+
+    def adjoint(self, y):
+        Y = torch.fft.rfftn(torch.as_tensor(y), dim=self._axes())
+        return torch.fft.irfftn(Y * torch.conj(self.h_hat), s=self.dim_shape, dim=self._axes())
+
+    def pinv(self, y, damp: float = 0.0, **kwargs):
+        """Exact (damped) inverse in the Fourier domain: ``conj(H) Y /
+        max(|H|^2 + damp, 1e-30)``."""
+        Y = torch.fft.rfftn(torch.as_tensor(y), dim=self._axes())
+        denom = torch.abs(self.h_hat) ** 2 + damp
+        X = Y * torch.conj(self.h_hat) / torch.clamp(denom, min=1e-30)
+        return torch.fft.irfftn(X, s=self.dim_shape, dim=self._axes())

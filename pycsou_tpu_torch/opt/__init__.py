@@ -1,5 +1,6 @@
 """Solvers: the proximal splittings (PDS, CPS, DRS, FBS, APGD), the fused
-TV and LASSO engines, and the PMYULA sampler."""
+TV and LASSO engines, the PMYULA sampler and consensus ADMM."""
+from pycsou_tpu_torch.opt.admm import ConsensusADMM
 from pycsou_tpu_torch.opt.lasso import LassoDeconvolution
 from pycsou_tpu_torch.opt.mcmc import PMYULA
 from pycsou_tpu_torch.opt.proxalgs import (
@@ -20,6 +21,7 @@ __all__ = [
     "APGD",
     "AcceleratedProximalGradientDescent",
     "CPS",
+    "ConsensusADMM",
     "ChambollePockSplitting",
     "DRS",
     "DouglasRachfordSplitting",

@@ -25,6 +25,13 @@ h_loc, (i + 1) h_loc)`` and columns ``[j w_loc, (j + 1) w_loc)``.
 that grid when given a 2-D mesh, and :func:`state_to_numpy` joins a tuple of
 row tuples along the columns and then the rows, so it needs no mesh.
 
+``ConsensusADMM`` keeps ``u`` as a tuple of per-block tensors, ``S /
+size`` scenarios a mesh position: :func:`consensus_state_from_numpy` cuts
+the JAX solver's ``u`` into them (``z`` and the rest on the first device),
+and :func:`state_to_numpy` joins them along the scenarios.  A JAX transfer
+function stored as re/im pairs (``h_hat_re``, ``h_hat_im`` of the JAX
+convolutions) becomes one complex tensor with :func:`transfer_from_numpy`.
+
 Operators take the same numpy arrays as their JAX counterparts (a
 ``PolynomialOperator``'s coefficients as ``np.asarray(op.coeffs)``, a
 ``DenseOperator``'s matrix).  A JAX ``SparseOperator`` holds a BCOO matrix:
@@ -46,7 +53,8 @@ import torch
 
 from pycsou_tpu_torch.utils.device import resolve_device
 
-__all__ = ["shard_state_from_numpy", "sparse_from_numpy", "state_from_numpy", "state_to_numpy"]
+__all__ = ["consensus_state_from_numpy", "shard_state_from_numpy", "sparse_from_numpy", "state_from_numpy",
+           "state_to_numpy", "transfer_from_numpy"]
 
 _SHARDED = ("x", "z0", "z1")  # the per-shard entries of a row-sharded solver's state
 
@@ -105,6 +113,29 @@ def shard_state_from_numpy(state: Dict[str, Any], mesh) -> Dict[str, Any]:
         else:
             out[k] = tuple(tuple(block(i, j) for j in range(n1)) for i in range(n0))
     return out
+
+
+def consensus_state_from_numpy(state: Dict[str, Any], mesh) -> Dict[str, Any]:
+    """A ``ConsensusADMM`` port state on ``mesh`` from the JAX solver's
+    state as numpy arrays: ``u`` (S, ...) cut into ``S / size`` scenarios a
+    mesh device, the rest (``z``, ``metric``, the histories) on the first
+    device."""
+    devices = mesh.devices
+    out = state_from_numpy({k: v for k, v in state.items() if k != "u"}, devices[0])
+    u = np.asarray(state["u"], np.float32)
+    if u.shape[0] % len(devices):
+        raise ValueError(f"u: {u.shape[0]} scenarios do not divide over {len(devices)} devices")
+    per = u.shape[0] // len(devices)
+    out["u"] = tuple(torch.from_numpy(np.array(u[b * per : (b + 1) * per])).to(dev)
+                     for b, dev in enumerate(devices))
+    return out
+
+
+def transfer_from_numpy(re, im, device=None) -> torch.Tensor:
+    """The complex64 transfer function ``re + 1j im`` on ``device`` from a
+    JAX re/im pair as numpy arrays."""
+    h = np.asarray(re, np.float32) + 1j * np.asarray(im, np.float32)
+    return torch.from_numpy(h.astype(np.complex64)).to(resolve_device(device))
 
 
 def state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:

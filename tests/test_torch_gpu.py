@@ -1294,3 +1294,96 @@ def test_unknown_norm_pds_on_the_card(cuda):
     assert sepconv2d.launches - before == 2 * (opnorm.power_iteration.applies - applies)
     assert p.K.lipschitz == pytest.approx(build("cpu").K.lipschitz, rel=1e-5)
     assert p.K.lipschitz <= 1 + 1e-5
+
+
+def _conv_nd_operators(device):
+    """The 1-D, N-D and circular convolutions (and their Grams) at small
+    shapes on ``device``."""
+    from pycsou_tpu_torch import ops
+
+    rng = np.random.default_rng(41)
+    dev = dict(device=device)
+    h1, h3 = rng.standard_normal(5).astype(np.float32), rng.standard_normal((3, 2, 3)).astype(np.float32)
+    u = [rng.standard_normal(k) for k in (3, 1, 4)]
+    sep = np.multiply.outer(np.multiply.outer(u[0], u[1]), u[2]).astype(np.float32)
+    out = {f"conv1d {m}": ops.Convolve1D((1000,), h1, method=m, **dev) for m in ("direct", "fft", "overlap-add")}
+    out.update({
+        "moving average 1d": ops.MovingAverage1D((300,), 4, **dev),
+        "convnd": ops.ConvolveND((9, 10, 11), h3, **dev),
+        "convnd rank 1": ops.ConvolveND((9, 10, 12), sep, **dev),
+        "circular": ops.CircularConvolve((8, 9), rng.standard_normal((3, 4)).astype(np.float32), **dev),
+    })
+    out.update({f"{k} gram": op.gram for k, op in list(out.items())})
+    return out
+
+
+def test_conv_nd_operators_on_the_card(cuda):
+    """The 1-D, N-D and circular convolutions and their Grams on the card
+    against the port's CPU (1e-5 relative to the largest magnitude: cuFFT
+    and cuDNN against the CPU's FFT and convolution), the Gram types equal,
+    and the adjoint identity on the card."""
+    card, cpu = _conv_nd_operators(cuda), _conv_nd_operators("cpu")
+    rng = np.random.default_rng(42)
+    for name, op in card.items():
+        assert type(op).__name__ == type(cpu[name]).__name__, name
+        x = torch.from_numpy(rng.standard_normal(op.dim_shape).astype(np.float32))
+        y = torch.from_numpy(rng.standard_normal(op.codim_shape).astype(np.float32))
+        ax, ahy = op.apply(x.to(cuda)), op.adjoint(y.to(cuda))
+        for got, want in ((ax, cpu[name].apply(x)), (ahy, cpu[name].adjoint(y))):
+            assert float((got.cpu() - want).abs().max()) <= 1e-5 * max(1.0, float(want.abs().max())), name
+        lhs = torch.vdot(y.to(cuda).reshape(-1), ax.reshape(-1))
+        rhs = torch.vdot(ahy.reshape(-1), x.to(cuda).reshape(-1))
+        assert float((lhs - rhs).abs()) <= 1e-4 * float(ax.norm() * y.norm()), name
+
+
+def test_moving_average2d_launches_k1(cuda, rng):
+    """MovingAverage2D is a band Convolve2D: one K1 launch an apply and one
+    an adjoint, each equal to K1's plain version."""
+    from pycsou_tpu_torch.ops import MovingAverage2D
+
+    M = MovingAverage2D((300, 517), (5, 5), device=cuda)
+    assert M.method == "band" and not M.batchable
+    x = torch.from_numpy(rng.standard_normal((300, 517)).astype(np.float32)).to(cuda)
+    before = sepconv2d.launches
+    y, z = M.apply(x), M.adjoint(x)
+    assert sepconv2d.launches == before + 2
+    _close(y, sepconv2d_plain(x, M.fwd))
+    _close(z, sepconv2d_plain(x, M.adj))
+
+
+def test_consensus_admm_default_mesh_on_one_card(cuda):
+    """``ConsensusADMM(mesh=None)`` takes every visible card once; on one
+    card one block.  Fourier backend against the CPU mesh after 20
+    iterations (1e-5 x max |z|); CG backend on band Convolve2Ds: K1 one a
+    scenario a step for ``A^H y`` and two a row for each counted CG apply."""
+    from pycsou_tpu_torch.opt import ConsensusADMM
+    from pycsou_tpu_torch.opt.admm import stack_operators
+    from pycsou_tpu_torch.utils.opnorm import cg
+
+    rng = np.random.default_rng(5)
+    d, S = 16, 4
+    x_true = np.abs(rng.standard_normal((d, d, d))).astype(np.float32)
+    h_hats, data = [], []
+    for _ in range(S):
+        psf = np.zeros((d, d, d), np.float32)
+        psf[:3, :3, :3] = rng.random((3, 3, 3)).astype(np.float32)
+        H = np.fft.rfftn(psf / psf.sum())
+        h_hats.append(H)
+        data.append(np.fft.irfftn(np.fft.rfftn(x_true) * H, s=(d, d, d), axes=(0, 1, 2)).astype(np.float32))
+    h_hats, data = np.stack(h_hats), np.stack(data)
+    admm = ConsensusADMM((d, d, d), h_hats=h_hats, data=data, g=NonNegativeOrthant((d, d, d)))
+    assert admm.mesh.size == torch.cuda.device_count() and admm.mesh.devices[0].type == "cuda"
+    z = admm.run(20)
+    cpu = ConsensusADMM((d, d, d), h_hats=h_hats, data=data, g=NonNegativeOrthant((d, d, d)),
+                        mesh=make_mesh((1,), ("dp",), devices=["cpu"])).run(20)
+    assert float((z.cpu() - cpu).abs().max()) <= 1e-5 * max(1.0, float(cpu.abs().max()))
+
+    n = 64
+    ops = [Convolve2D((n, n), _psf(rng, 1, 7, 7), device=cuda) for _ in range(S)]
+    xt = torch.from_numpy(np.abs(rng.standard_normal((n, n))).astype(np.float32)).to(cuda)
+    ys = torch.stack([op.apply(xt) for op in ops])
+    admm = ConsensusADMM((n, n), ops=stack_operators(ops), data=ys, g=NonNegativeOrthant((n, n)),
+                         mesh=make_mesh((1,), ("dp",), devices=[cuda]), cg_maxiter=20)
+    k1, applies = sepconv2d.launches, cg.applies
+    admm.run(3)
+    assert sepconv2d.launches - k1 == S * 3 + 2 * S * (cg.applies - applies)
