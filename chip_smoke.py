@@ -157,6 +157,30 @@
     counted CG apply, recovery better than the first observation.  Its
     record is printed as ``{"conv_admm": ..., "card": ...}`` on a line of
     its own after the phase.
+13. Drives the proximal calculus and the sampling operators, each run
+    counted on its own: Poisson-TV deblurring at 4096 x 4096 (the peaks
+    image, ``y = Poisson(A x_true)``, ``PDS`` with ``H =
+    ProxFuncHStack([KLDivergence(y), 0.5 * L21Norm])`` and ``K =
+    LinOpVStack([A, Gradient])``, started at the observation: K1 twice an
+    iteration, the generic chain), robust deblurring (``H = L1Loss(y)``,
+    ``K = A``, 5% salt: K1 twice an iteration) and the group LASSO
+    (``APGD`` with ``0.01 * L21Norm(groups=8 x 8 tiles)``: K2 once an
+    iteration, K1 for ``A^H y``), each recovering better than its
+    observation after 200 (100) iterations, slope-timed with its idle
+    share, Poisson-TV and the group LASSO against the CPU at 1024 x 1024
+    after 20 iterations; every new prox, projection and apply at 4096 x
+    4096 (a complex64 image for ``L1Norm.prox`` and ``SquaredL2Norm``)
+    against the CPU, device-timed, and run under
+    ``torch.cuda.set_sync_debug_mode("error")``; ``Pooling`` at 4096 x 4096,
+    ``NNSampling`` of 2^18 samples on a 512 x 512 grid (both adjoint
+    modes; cut from 2^20 on 1024 x 1024, where the host KD-tree took
+    4.3 s) and the degree-15 ``GeneralisedVandermonde`` at 2^20 samples
+    (apply and adjoint ms, adjoint identity, against the CPU); the two
+    problems of ``examples/rbf_interpolation.py`` (``main()``'s fit error
+    against the CPU's; ``main_large()``'s 50,000-point sparse ``APGD``:
+    kmax, iters/s, 20 iterations against the CPU, a matvec against the
+    matrix-free backend).  Its record is the ``{"prox_sampling": ...}``
+    line after phase 12's.
 
 ``python3 chip_smoke.py --gram-ab OLD_ROOT`` instead times, for the
 checkout at OLD_ROOT and for this one in turns (old, new, new, old), each
@@ -185,7 +209,8 @@ for the kernels no fused main path runs, the run that goes through each),
 its ``bound_ms`` and ``bound_by``, and ``library_ms`` (K1's
 ``F.conv2d``; null where no one PyTorch call computes the kernel's
 function).  ``spectral`` holds phase 11's results and its seconds; phase
-12's are on the ``conv_admm`` line before.
+12's are on the ``conv_admm`` line before, phase 13's on the
+``prox_sampling`` line.
 Without CUDA it exits 2 and prints no result.
 """
 import json
@@ -2228,6 +2253,414 @@ def phase_conv_admm(dev, counters):
     return out
 
 
+# -- phase 13: the proximal calculus, the sampling operators, RBF fitting
+
+SHAPE_P13_CPU = (1024, 1024)  # the stacked-K PDS and the group LASSO against the CPU after 20 iterations
+LAM_POISSON = 0.5  # the TV weight of Poisson-TV deblurring, whose PDS starts at the observation
+TILE = 8  # the group LASSO's groups: 8 x 8 tiles
+NN_GRID = (512, 512)  # NNSampling's grid nodes (cut from 1024^2 with its samples: host KD-tree time)
+NN_SAMPLES = 2**18  # NNSampling's samples (cut from 2^20)
+N_SAMPLES = 2**20  # the Vandermonde matrix's samples
+VDM_DEGREE = 15  # the Vandermonde matrix's monomials: degree 0..15
+RBF_N = 50_000  # examples/rbf_interpolation.py main_large's points
+TOL_PROX = 1e-5  # a prox, projection or apply on the card against the CPU, x max(1, max |CPU|)
+# the sort-based thresholds (an ulp in a cumulative sum of 16.7 M terms moves the
+# threshold), the fixed loops (24-60 steps compound a rounding) and index_add's
+# segment sums (atomics in no fixed order) against the CPU
+TOL_PROX_ITER = 1e-4
+TOL_RBF_FIT = 1e-3  # main()'s fit error, card against CPU, absolute
+PROX_BAND = 8  # an elementwise map is held to the CPU on the first 1/PROX_BAND of the rows
+
+
+def no_sync(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: a call
+    that reads the host (a sync) raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out
+
+
+def peaks_image(shape, device):
+    """``100 max(peaks, 0) / max`` on the [-3, 3]^2 grid of
+    examples/deconv_tv_2048.py, through the port's ``peaks``."""
+    from pycsou_tpu_torch.utils.misc import peaks
+
+    g = torch.linspace(-3, 3, shape[0], device=device)
+    xx, yy = torch.meshgrid(g, g, indexing="xy")
+    p = torch.clamp(peaks(xx, yy), min=0.0)
+    return 100.0 * p / p.max()
+
+
+def poisson_tv_problem(shape, device):
+    """Poisson-TV deblurring: the main path's band Convolve2D (15 x 15
+    Gaussian, sigma 2) on the peaks image, ``y = Poisson(A x_true)`` from
+    ``default_rng(17)``, made on ``device``.  Returns ``(build, x_true,
+    y)``: ``build(on=device)`` makes ``PDS(G=NonNegativeOrthant,
+    H=ProxFuncHStack([KLDivergence(y), lam * L21Norm]), K=LinOpVStack([A,
+    Gradient]))`` on ``on``, started at the observation."""
+    from pycsou_tpu_torch.func import KLDivergence, L21Norm, NonNegativeOrthant, ProxFuncHStack
+    from pycsou_tpu_torch.ops import Convolve2D, Gradient, LinOpVStack
+    from pycsou_tpu_torch.opt import PDS
+
+    x_true = peaks_image(shape, device)
+    ax = Convolve2D(shape, gaussian_kernel(), device=device).apply(x_true).cpu().numpy()
+    y = torch.from_numpy(np.random.default_rng(17).poisson(np.maximum(ax, 0)).astype(np.float32)).to(device)
+
+    def build(on=device):
+        yy = y.to(on)
+        H = ProxFuncHStack([KLDivergence(shape, yy), LAM_POISSON * L21Norm((2,) + shape, axis=0)])
+        K = LinOpVStack([Convolve2D(shape, gaussian_kernel(), device=on), Gradient(shape)])
+        return PDS(shape, G=NonNegativeOrthant(shape), H=H, K=K, x0=yy, max_iter=1000)
+
+    return build, x_true, y
+
+
+def salted_problem(shape, device):
+    """Robust deblurring: the same blur of the peaks image with 5% of the
+    pixels salted to 0 or to the maximum (``default_rng(18)``);
+    ``PDS(G=NonNegativeOrthant, H=L1Loss(y), K=A)``."""
+    from pycsou_tpu_torch.func import L1Loss, NonNegativeOrthant
+    from pycsou_tpu_torch.ops import Convolve2D
+    from pycsou_tpu_torch.opt import PDS
+
+    x_true = peaks_image(shape, device)
+    y = Convolve2D(shape, gaussian_kernel(), device=device).apply(x_true).cpu().numpy()
+    rng = np.random.default_rng(18)
+    salt = rng.random(shape) < 0.05
+    y[salt] = np.where(rng.random(int(salt.sum())) < 0.5, 0.0, float(x_true.max()))
+    y = torch.from_numpy(y).to(device)
+
+    def build(on=device):
+        A = Convolve2D(shape, gaussian_kernel(), device=on)
+        return PDS(shape, G=NonNegativeOrthant(shape), H=L1Loss(shape, y.to(on)), K=A, max_iter=1000)
+
+    return build, x_true, y
+
+
+def group_lasso_problem(shape, device):
+    """The group LASSO: 0.2% of the 8 x 8 tiles at 3.0 (``default_rng(19)``),
+    ``y = A x_true + 0.01 noise``; ``APGD(F=SquaredL2Loss(y) * A, G=0.01 *
+    L21Norm(groups=tile labels))``."""
+    from pycsou_tpu_torch.func import L21Norm, SquaredL2Loss
+    from pycsou_tpu_torch.ops import Convolve2D
+    from pycsou_tpu_torch.opt import APGD
+
+    rng = np.random.default_rng(19)
+    tiles = tile_labels(shape)
+    on = rng.random(int(tiles.max()) + 1) < 0.002
+    x_true = torch.from_numpy(np.where(on[tiles], 3.0, 0.0).astype(np.float32)).to(device)
+    noise = torch.from_numpy(0.01 * rng.standard_normal(shape).astype(np.float32)).to(device)
+    y = Convolve2D(shape, gaussian_kernel(), device=device).apply(x_true) + noise
+
+    def build(on=device):
+        A = Convolve2D(shape, gaussian_kernel(), device=on)
+        G = 0.01 * L21Norm(shape, groups=tiles, device=on)
+        return APGD(shape, F=SquaredL2Loss(shape, y.to(on)) * A, G=G, max_iter=1000)
+
+    return build, x_true, y
+
+
+def tile_labels(shape):
+    """The label of each pixel's ``TILE x TILE`` tile, row-major."""
+    return (np.arange(shape[0])[:, None] // TILE) * (shape[1] // TILE) + np.arange(shape[1])[None, :] // TILE
+
+
+def _rel_err(x, ref):
+    return float(torch.linalg.vector_norm(x - ref) / torch.linalg.vector_norm(ref))
+
+
+def prox_table(d):
+    """``(name, thunk, tol, elementwise)`` of every new prox, projection and
+    apply on the inputs ``d`` (``x`` N(0, 1), ``xpos`` = |N| + 1, ``z``
+    complex64, all on one device), the functionals built there;
+    ``elementwise`` marks the maps whose output at a pixel depends on that
+    pixel alone (a band of rows of their input gives that band of their
+    output)."""
+    from pycsou_tpu_torch import func as f
+    from pycsou_tpu_torch.math.prox import lambertw, proj_l1_ball
+
+    x, xpos, z = d["x"], d["xpos"], d["z"]
+    shape, n = tuple(x.shape), x.numel()
+    sort, root = f.SquaredL1Norm(shape, "sort"), f.SquaredL1Norm(shape, "root")
+    l2, l2b, linf = f.L2Norm(shape), f.L2Ball(shape, radius=1000.0), f.LInftyNorm(shape)
+    linfb, seg, logb, ent = f.LInftyBall(shape, radius=1.0), f.Segment(shape, -0.5, 0.5), f.LogBarrier(shape), \
+        f.ShannonEntropy(shape)
+    kl = f.KLDivergence(shape, torch.flip(xpos, (1,)))
+    l21 = f.L21Norm(shape, groups=tile_labels(shape), device=x.device)
+    l1, sq = f.L1Norm(shape), f.SquaredL2Norm(shape)
+    I, P = TOL_PROX_ITER, TOL_PROX
+    return [
+        ("proj_l1_ball", lambda: proj_l1_ball(x, 0.05 * n), I, False),
+        ("SquaredL1Norm.prox 'sort'", lambda: sort.prox(x, 1e-8), I, False),
+        ("SquaredL1Norm.prox 'root'", lambda: root.prox(x, 1e-8), I, False),
+        ("SquaredL1Norm.apply", lambda: sort.apply(x), P, False),
+        ("L2Norm.prox", lambda: l2.prox(x, 1000.0), P, False),
+        ("L2Norm.apply", lambda: l2.apply(x), P, False),
+        ("L2Ball.prox", lambda: l2b.prox(x, 1.0), P, False),
+        ("LInftyNorm.prox", lambda: linf.prox(x, 0.05 * n), I, False),
+        ("LInftyNorm.apply", lambda: linf.apply(x), P, False),
+        ("LInftyBall.prox", lambda: linfb.prox(x, 1.0), P, True),
+        ("Segment.prox", lambda: seg.prox(x, 1.0), P, True),
+        ("LogBarrier.prox", lambda: logb.prox(x, 0.3), P, True),
+        ("LogBarrier.apply", lambda: logb.apply(xpos), P, False),
+        ("ShannonEntropy.prox", lambda: ent.prox(xpos, 0.7), I, True),
+        ("ShannonEntropy.apply", lambda: ent.apply(xpos), P, False),
+        ("KLDivergence.prox", lambda: kl.prox(xpos, 0.4), P, True),
+        ("KLDivergence.apply", lambda: kl.apply(xpos), P, False),
+        ("L21Norm(groups=).prox", lambda: l21.prox(x, 0.5), I, False),
+        ("L21Norm(groups=).apply", lambda: l21.apply(x), I, False),
+        ("lambertw", lambda: lambertw(20.0 * xpos), I, True),
+        ("L1Norm.prox complex64", lambda: l1.prox(z, 0.5), P, True),
+        ("SquaredL2Norm.apply complex64", lambda: sq.apply(z), P, False),
+    ]
+
+
+def phase_prox_sampling(dev, counters):
+    """Phase 13: Poisson-TV deblurring, robust (L1) deblurring and the group
+    LASSO at 4096^2 (launches, rates, idle shares, recovery; the first and
+    the last against the CPU at 1024^2 after 20 iterations); every new prox,
+    projection and apply at 4096^2 against the CPU, device-timed and run
+    under the sync check; Pooling, NNSampling and GeneralisedVandermonde;
+    examples/rbf_interpolation.py's two problems."""
+    from pycsou_tpu_torch.func import SquaredL2Loss, SquaredL2Norm
+    from pycsou_tpu_torch.math.green import Matern, Wendland
+    from pycsou_tpu_torch.ops import GeneralisedVandermonde, MappedDistanceMatrix, NNSampling, Pooling
+    from pycsou_tpu_torch.opt import APGD
+
+    t_phase = t_mark = time.perf_counter()
+    out = {"tolerances": {"prox": TOL_PROX, "prox_iterative": TOL_PROX_ITER, "cpu": TOL_PATH,
+                          "sampling": TOL_REL, "adjoint": TOL_ADJOINT, "rbf_fit": TOL_RBF_FIT}}
+    log(f"tolerances: {out['tolerances']}")
+
+    def idle_share(solver, ips):
+        busy = device_ms_per_iteration(solver)
+        return None if busy is None else 1.0 - busy * ips / 1e3
+
+    sections = out["section_s"] = {}
+
+    def section(name):
+        """The wall seconds since the last section ended, kept under ``name``."""
+        nonlocal t_mark
+        now = time.perf_counter()
+        sections[name] = now - t_mark
+        t_mark = now
+
+    def against_cpu(name, problem, keys):
+        """20 iterations at SHAPE_P13_CPU on the card and on the CPU, on the same data."""
+        build = problem(SHAPE_P13_CPU, dev)[0]
+        st_d, st_c = build().run_fixed(20), build("cpu").run_fixed(20)
+        scale = max(1.0, float(st_c["x"].abs().max()))
+        err = max(float((st_d[k].cpu() - st_c[k]).abs().max()) for k in keys)
+        log(f"{name} at {SHAPE_P13_CPU[0]}^2 after 20 iterations: card against CPU max abs err {err:.3e} "
+            f"(tol {TOL_PATH:g} x {scale:.3f})")
+        if err > TOL_PATH * scale:
+            raise AssertionError(f"{name}: the card disagrees with the CPU")
+        return err
+
+    # -- the three solver paths at 4096^2
+    paths = (("Poisson-TV", poisson_tv_problem, {"K1": 400}, 200, ("x", "z")),
+             ("L1 robust", salted_problem, {"K1": 400}, 200, None),
+             ("group LASSO", group_lasso_problem, {"K2": 100}, 100, ("x", "x_temp")))
+    for name, problem, exact, n_it, cpu_keys in paths:
+        build, x_true, y = problem(SHAPE, dev)
+        section(f"{name} data")
+        solver, build_counts = count_launches(counters, build)
+        st, counts = count_launches(counters, lambda: solver.run_fixed(n_it))
+        section(f"{name} build and run")
+        log(f"{name} at {SHAPE[0]}^2: {type(solver).__name__} fused={solver._fused is not None}; construction "
+            f"launches {build_counts}; {n_it} iterations: launches {counts}")
+        if solver._fused is not None:
+            raise AssertionError(f"{name}: fused, where the generic chain must run")
+        expect_launches(name, counts, exact)
+        x = st["x"]
+        if tuple(x.shape) != SHAPE or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{name}: x is not a finite {SHAPE[0]}^2 image")
+        rec = {"construction_launches": {k: v for k, v in build_counts.items() if v},
+               "launches": {k: v for k, v in counts.items() if v}, "iterations": n_it,
+               "rel_err": _rel_err(x, x_true), "observation_rel_err": _rel_err(y, x_true)}
+        if not rec["rel_err"] < rec["observation_rel_err"]:
+            raise AssertionError(f"{name}: recovery {rec['rel_err']:.4f} no better than the observation's "
+                                 f"{rec['observation_rel_err']:.4f}")
+        rec["iters_per_s"] = time_solver(solver)
+        rec["device_idle_share"] = idle_share(solver, rec["iters_per_s"])
+        section(f"{name} rate")
+        if cpu_keys:
+            rec["max_abs_err_cpu_20"] = against_cpu(name, problem, cpu_keys)
+        log(f"{name}: relative error {rec['rel_err']:.4f} against the observation's "
+            f"{rec['observation_rel_err']:.4f}; {rec['iters_per_s']:.1f} iters/s, device idle share "
+            f"{rec['device_idle_share']}")
+        out[name] = rec
+        del solver, st, x_true, y
+        section(f"{name} against the CPU")
+
+    # -- every new prox, projection and apply at 4096^2, against the CPU, under the sync check
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    x = torch.randn(SHAPE, generator=g, device=dev)
+    xpos = torch.randn(SHAPE, generator=g, device=dev).abs() + 1.0
+    z = torch.complex(torch.randn(SHAPE, generator=g, device=dev), torch.randn(SHAPE, generator=g, device=dev))
+    on_dev = {"x": x, "xpos": xpos, "z": z}
+    band = SHAPE[0] // PROX_BAND
+    tables = (prox_table(on_dev), prox_table({k: v.cpu() for k, v in on_dev.items()}),
+              prox_table({k: v[:band].cpu() for k, v in on_dev.items()}))
+    table = {}
+    cpu_s = 0.0
+    for (name, fn, tol, elementwise), (_, fn_cpu, _, _), (_, fn_band, _, _) in zip(*tables):
+        ms = median_ms(fn)
+        got = no_sync(fn)
+        t0 = time.perf_counter()
+        want = fn_band() if elementwise else fn_cpu()
+        cpu_s += time.perf_counter() - t0
+        got = got[:band] if elementwise else got
+        err = float((got.cpu() - want).abs().max()) / max(1.0, float(want.abs().max()))
+        table[name] = {"ms": ms, "rel_err_cpu": err, "tol": tol, "cpu_rows": band if elementwise else SHAPE[0]}
+        log(f"{name} at {SHAPE[0]}^2: {ms:.4f} ms, against the CPU {err:.3e} (tol {tol:g}; "
+            f"{'the first ' + str(band) + ' rows' if elementwise else 'every row'}), no host sync")
+        if not err <= tol:
+            raise AssertionError(f"{name}: the card disagrees with the CPU")
+    del tables
+    out["prox"] = table
+    sections["prox table, CPU references"] = cpu_s
+    section("prox table")
+    del x, xpos, z, on_dev
+
+    # -- the sampling operators
+    def check_sampler(name, op, op_cpu, x, y, adjoint=True):
+        ax, ahy = op.apply(x), op.adjoint(y)
+        rec = {"apply_ms": median_ms(lambda: op.apply(x)), "adjoint_ms": median_ms(lambda: op.adjoint(y))}
+        if adjoint:  # NNSampling's 'mean' mode is no adjoint: only the CPU check holds
+            rec["adjoint_identity"] = float((torch.vdot(y.reshape(-1), ax.reshape(-1)) - torch.vdot(
+                ahy.reshape(-1), x.reshape(-1))).abs() / (torch.linalg.vector_norm(ax) * torch.linalg.vector_norm(y)))
+        rec["rel_err_cpu"] = max(max_err(ax.cpu(), op_cpu.apply(x.cpu()))[1],
+                                 max_err(ahy.cpu(), op_cpu.adjoint(y.cpu()))[1])
+        log(f"{name}: apply {rec['apply_ms']:.4f} ms, adjoint {rec['adjoint_ms']:.4f} ms; adjoint identity "
+            f"{rec.get('adjoint_identity')} (tol {TOL_ADJOINT:g}); against the CPU {rec['rel_err_cpu']:.3e} "
+            f"(tol {TOL_REL:g} x max(1, max))")
+        if rec.get("adjoint_identity", 0.0) > TOL_ADJOINT or rec["rel_err_cpu"] > TOL_REL:
+            raise AssertionError(f"{name}: the adjoint identity or the CPU check fails")
+        return rec
+
+    for kind in ("sum", "mean"):
+        P = Pooling(SHAPE, (4, 4), kind=kind)
+        xs = torch.randn(SHAPE, generator=g, device=dev)
+        ys = torch.randn(P.codim_shape, generator=g, device=dev)
+        out[f"Pooling {kind}"] = check_sampler(f"Pooling({SHAPE}, (4, 4), {kind!r})", P, P, xs, ys)
+    rng = np.random.default_rng(21)
+    gl = np.linspace(0, 1, NN_GRID[0])
+    gx, gy = np.meshgrid(gl, gl, indexing="ij")
+    t0 = time.perf_counter()
+    nn = NNSampling(np.stack([gx.ravel(), gy.ravel()], 1), rng.uniform(0, 1, (NN_SAMPLES, 2)), dim_shape=NN_GRID,
+                    device=dev)
+    build_s = time.perf_counter() - t0
+    xs = torch.randn(NN_GRID, generator=g, device=dev)
+    ys = torch.randn(NN_SAMPLES, generator=g, device=dev)
+    for mode in ("mean", "sum"):
+        op = nn.replace(adjoint_mode=mode)
+        op_cpu = op.replace(indices=op.indices.cpu(), counts=op.counts.cpu())
+        rec = check_sampler(f"NNSampling {NN_SAMPLES} samples on {NN_GRID}, {mode!r}", op, op_cpu, xs, ys,
+                            adjoint=mode == "sum")
+        rec["build_s"] = build_s
+        out[f"NNSampling {mode}"] = rec
+    zs = rng.uniform(-1, 1, N_SAMPLES)
+    monos = [lambda t, k=k: t**k for k in range(VDM_DEGREE + 1)]
+    V, V_cpu = GeneralisedVandermonde(monos, zs, device=dev), GeneralisedVandermonde(monos, zs, device="cpu")
+    xs = torch.randn(VDM_DEGREE + 1, generator=g, device=dev)
+    ys = torch.randn(N_SAMPLES, generator=g, device=dev)
+    out["GeneralisedVandermonde"] = check_sampler(
+        f"GeneralisedVandermonde, degree <= {VDM_DEGREE}, {N_SAMPLES} samples", V, V_cpu, xs, ys)
+    section("sampling operators")
+    del nn, V, V_cpu, xs, ys
+
+    # -- examples/rbf_interpolation.py main(): dense Matern fit to 1e-8, card against CPU
+    def rbf_main(device):
+        r = np.random.default_rng(0)
+        t_obs = np.sort(r.uniform(0, 1, 120)).astype(np.float32)
+        f_true = lambda t: np.sin(6 * np.pi * t) * np.exp(-t)  # noqa: E731
+        yv = (f_true(t_obs) + 0.05 * r.standard_normal(120).astype(np.float32)).astype(np.float32)
+        centers = np.linspace(0, 1, 60).astype(np.float32)
+        K = MappedDistanceMatrix(t_obs, centers, Matern(k=2, epsilon=0.08), device=device)
+        K.compute_lipschitz_cst()
+        info = APGD((60,), F=SquaredL2Loss((120,), yv, device=device) * K, G=0.05 * SquaredL2Norm((60,)),
+                    max_iter=2000, accuracy_threshold=1e-8).solve()
+        t_grid = np.linspace(0, 1, 512).astype(np.float32)
+        K_grid = MappedDistanceMatrix(t_grid, centers, Matern(k=2, epsilon=0.08), device=device)
+        f_hat = K_grid.apply(info["x_temp"]).cpu().numpy()
+        return (float(np.linalg.norm(f_hat - f_true(t_grid)) / np.linalg.norm(f_true(t_grid))), info.n_iter,
+                K.lipschitz, info.elapsed)
+
+    fit_d, it_d, lip_d, el_d = rbf_main(dev)
+    fit_c, it_c, lip_c, _ = rbf_main("cpu")
+    out["rbf main"] = {"fit_rel_err": fit_d, "cpu_fit_rel_err": fit_c, "n_iter": it_d, "cpu_n_iter": it_c,
+                       "lipschitz": lip_d, "cpu_lipschitz": lip_c, "solve_s": el_d}
+    log(f"rbf main(): ||K|| {lip_d:.4f} (CPU {lip_c:.4f}), {it_d} iterations (CPU {it_c}) in {el_d:.3f} s, "
+        f"fit error {fit_d:.5f} against the CPU's {fit_c:.5f} (tol {TOL_RBF_FIT:g})")
+    if not abs(fit_d - fit_c) <= TOL_RBF_FIT:
+        raise AssertionError("rbf main(): the card's fit disagrees with the CPU's")
+    section("rbf main")
+
+    # -- main_large(): 50,000 points, Wendland, the sparse backend
+    r = np.random.default_rng(1)
+    pts = r.uniform(size=(RBF_N, 2)).astype(np.float32)
+    f_true2 = np.sin(4 * np.pi * pts[:, 0]) * np.cos(3 * np.pi * pts[:, 1])
+    y2 = (f_true2 + 0.02 * r.standard_normal(RBF_N).astype(np.float32)).astype(np.float32)
+    t0 = time.perf_counter()
+    K = MappedDistanceMatrix(pts, pts, Wendland(k=2, epsilon=0.02), backend="sparse", device=dev)
+    build_s = time.perf_counter() - t0
+    kmax = int(K._nbr_idx.shape[1])
+    t0 = time.perf_counter()
+    K.compute_lipschitz_cst(maxiter=32)
+    lip_s = time.perf_counter() - t0
+
+    def rbf_large(op, device):
+        return APGD((RBF_N,), F=SquaredL2Loss((RBF_N,), y2, device=device) * op,
+                    G=1e-3 * SquaredL2Norm((RBF_N,)), max_iter=200, accuracy_threshold=1e-6)
+
+    solver = rbf_large(K, dev)
+    st = solver.run_fixed(200)
+    f_hat = K.apply(st["x_temp"]).cpu().numpy()
+    fit = float(np.linalg.norm(f_hat - f_true2) / np.linalg.norm(f_true2))
+    ips = time_solver(solver)
+    K_cpu = K.replace(samples1=K.samples1.cpu(), samples2=K.samples2.cpu(), _nbr_idx=K._nbr_idx.cpu(),
+                      _nbr_val=K._nbr_val.cpu())  # the same neighbour lists, on the CPU
+    st_d, st_c = solver.run_fixed(20), rbf_large(K_cpu, "cpu").run_fixed(20)
+    scale = max(1.0, float(st_c["x"].abs().max()))
+    err = max(float((st_d[k].cpu() - st_c[k]).abs().max()) for k in ("x", "x_temp"))
+    rec = {"kmax": kmax, "build_s": build_s, "lipschitz": K.lipschitz, "lipschitz_s": lip_s, "fit_rel_err_200": fit,
+           "iters_per_s": ips, "device_idle_share": idle_share(solver, ips), "max_abs_err_cpu_20": err}
+    log(f"rbf main_large(): n {RBF_N}, kmax {kmax}, built in {build_s:.2f} s, ||K|| {K.lipschitz:.4f} in "
+        f"{lip_s:.2f} s; 200 iterations: fit error {fit:.4f}; {ips:.1f} iters/s, device idle share "
+        f"{rec['device_idle_share']}; after 20 card against CPU {err:.3e} (tol {TOL_PATH:g} x {scale:.3f})")
+    if err > TOL_PATH * scale or not math.isfinite(fit):
+        raise AssertionError("rbf main_large(): the card disagrees with the CPU")
+    Kmf = MappedDistanceMatrix(pts, pts, Wendland(k=2, epsilon=0.02), backend="matrix-free", block=2048, device=dev)
+    xv = torch.randn(RBF_N, generator=g, device=dev)
+
+    def chained(op, n):
+        v = xv
+        for _ in range(n):
+            v = op.apply(v)
+        return v
+
+    rec["sparse_matvec_ms"] = wall_ms(lambda: chained(K, 5)) / 5
+    rec["matrix_free_matvec_ms"] = wall_ms(lambda: chained(Kmf, 2), reps=3) / 2
+    rec["sparse_vs_matrix_free_rel_err"] = _rel(K.apply(xv), Kmf.apply(xv))
+    log(f"rbf main_large() chained matvec: sparse {rec['sparse_matvec_ms']:.4f} ms, matrix-free (block 2048) "
+        f"{rec['matrix_free_matvec_ms']:.3f} ms; the two agree to {rec['sparse_vs_matrix_free_rel_err']:.3e}")
+    if rec["sparse_vs_matrix_free_rel_err"] > TOL_PROX_ITER:
+        raise AssertionError("rbf main_large(): the sparse and matrix-free backends disagree")
+    out["rbf main_large"] = rec
+    section("rbf main_large")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"proximal calculus, sampling and RBF: {out['seconds']:.1f} s; by section "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sections.items()))
+    return out
+
+
 def device_ms_per_iteration(solver, n=20):
     """Device time an iteration in a ``torch.profiler`` trace of ``n``
     iterations: the summed durations of the CUDA events (kernels, copies,
@@ -2321,6 +2754,8 @@ def main():
     spectral, cfg4_solvers = phase_spectral(dev, counters)
     log("-- 1-D, N-D and circular convolutions, consensus ADMM: cfg1, cfg5, the CG backend")
     print(json.dumps({"conv_admm": phase_conv_admm(dev, counters), "card": smi}), flush=True)
+    log("-- proximal calculus and sampling: Poisson-TV, L1 and group LASSO at 4096^2, the proxes, RBF fitting")
+    print(json.dumps({"prox_sampling": phase_prox_sampling(dev, counters), "card": smi}), flush=True)
 
     log(f"-- throughput ({smi})")
     solvers.update({"main path": pds, "LASSO": apgd})

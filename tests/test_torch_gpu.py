@@ -1387,3 +1387,149 @@ def test_consensus_admm_default_mesh_on_one_card(cuda):
     k1, applies = sepconv2d.launches, cg.applies
     admm.run(3)
     assert sepconv2d.launches - k1 == S * 3 + 2 * S * (cg.applies - applies)
+
+
+# -- the proximal calculus and the sampling operators on the card
+
+
+def _prox_cases(shape, groups):
+    """``(name, make)``: ``make(x, xpos, z)`` builds the functional on the
+    inputs' device and returns the call of a new prox, projection or apply."""
+    from pycsou_tpu_torch import func as f
+    from pycsou_tpu_torch.math.prox import lambertw, proj_l1_ball, proj_l2_ball, proj_segment, sign
+
+    n = int(np.prod(shape))
+
+    def stack(x, p, z):
+        F = f.ProxFuncHStack([f.KLDivergence(shape, p), f.L21Norm(shape)])
+        xx = torch.cat([x.reshape(-1), x.reshape(-1)])
+        return lambda: F.prox(xx, 0.3)
+
+    def groups_mode(x, p, z):
+        F = f.L21Norm(shape, groups=groups, device=x.device)
+        return lambda: torch.cat([F.prox(x, 0.5).reshape(-1), F.apply(x).reshape(1)])
+
+    def kl(x, p, z):
+        F = f.KLDivergence(shape, torch.flip(p, (0,)))
+        return lambda: torch.cat([F.prox(x, 0.4).reshape(-1), F.apply(p).reshape(1)])
+
+    return [
+        ("proj_l1_ball", lambda x, p, z: lambda: proj_l1_ball(x, 0.05 * n)),
+        ("proj_l2_ball", lambda x, p, z: lambda: proj_l2_ball(z, 3.0)),
+        ("proj_segment", lambda x, p, z: lambda: proj_segment(z, -0.2, 0.4)),
+        ("sign", lambda x, p, z: lambda: sign(z)),
+        ("SquaredL1Norm sort", lambda x, p, z: lambda: f.SquaredL1Norm(shape, "sort").prox(x, 1e-4)),
+        ("SquaredL1Norm root", lambda x, p, z: lambda: f.SquaredL1Norm(shape, "root").prox(x, 1e-4)),
+        ("L2Norm", lambda x, p, z: lambda: f.L2Norm(shape).prox(x, 50.0)),
+        ("L2Ball", lambda x, p, z: lambda: f.L2Ball(shape, 10.0).prox(x, 1.0)),
+        ("LInftyNorm", lambda x, p, z: lambda: f.LInftyNorm(shape).prox(x, 0.05 * n)),
+        ("LInftyBall", lambda x, p, z: lambda: f.LInftyBall(shape, 1.0).prox(z, 1.0)),
+        ("Segment", lambda x, p, z: lambda: f.Segment(shape, -0.5, 0.5).prox(x, 1.0)),
+        ("LogBarrier", lambda x, p, z: lambda: torch.cat([f.LogBarrier(shape).prox(x, 0.3).reshape(-1),
+                                                          f.LogBarrier(shape).apply(p).reshape(1)])),
+        ("ShannonEntropy", lambda x, p, z: lambda: f.ShannonEntropy(shape).prox(p, 0.7)),
+        ("KLDivergence", kl),
+        ("L21Norm groups", groups_mode),
+        ("L21Norm axis complex", lambda x, p, z: lambda: f.L21Norm(shape, axis=0).prox(z, 0.5)),
+        ("lambertw", lambda x, p, z: lambda: lambertw(20.0 * p)),
+        ("L1Norm complex", lambda x, p, z: lambda: f.L1Norm(shape).prox(z, 0.5)),
+        ("SquaredL2Norm complex", lambda x, p, z: lambda: f.SquaredL2Norm(shape).apply(z)),
+        ("ShannonEntropy apply", lambda x, p, z: lambda: f.ShannonEntropy(shape).apply(p)),
+        ("KL and L21 stack", stack),
+    ]
+
+
+@pytest.mark.parametrize("case", range(21))
+def test_prox_on_the_card_matches_cpu_without_a_sync(cuda, rng, case):
+    """Each new prox, projection and apply on CUDA tensors at 96 x 130,
+    built outside the check: within 1e-4 of the CPU (the sort-based
+    thresholds and fixed loops), and no host read
+    (``set_sync_debug_mode('error')``) once warm."""
+    shape = (96, 130)
+    groups = (np.arange(96)[:, None] // 8) * 17 + np.arange(130)[None, :] // 8
+    name, make = _prox_cases(shape, groups)[case]
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    p = x.abs() + 1.0
+    z = torch.complex(x, torch.from_numpy(rng.standard_normal(shape).astype(np.float32)))
+    want = make(x, p, z)()
+    call = make(*[v.to(cuda) for v in (x, p, z)])
+    call()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert got.device.type == "cuda", name
+    _close(got.cpu(), want, rel=1e-4)
+
+
+def test_sampling_operators_on_the_card_match_cpu(cuda, rng):
+    """Pooling (padded), NNSampling (both modes), GeneralisedVandermonde and
+    MappedDistanceMatrix (dense, sparse, matrix-free; zonal) on CUDA against
+    the same operators on the CPU, and their adjoint identity."""
+    from pycsou_tpu_torch.math.green import Matern, Wendland
+    from pycsou_tpu_torch.ops import GeneralisedVandermonde, MappedDistanceMatrix, NNSampling, Pooling
+
+    pts1, pts2 = rng.uniform(0, 1, (300, 2)), rng.uniform(0, 1, (200, 2))
+    grid = np.stack(np.meshgrid(np.linspace(0, 1, 30), np.linspace(0, 1, 20), indexing="ij"), -1).reshape(-1, 2)
+    sphere = pts1 / np.linalg.norm(pts1, axis=1, keepdims=True)
+    builds = [
+        lambda d: Pooling((70, 90), (4, 3), kind="sum"),
+        lambda d: Pooling((70, 90), (4, 3), kind="mean"),
+        lambda d: NNSampling(grid, pts1, dim_shape=(30, 20), adjoint_mode="sum", device=d),
+        lambda d: NNSampling(grid, pts1, dim_shape=(30, 20), adjoint_mode="mean", device=d),
+        lambda d: GeneralisedVandermonde([lambda t, k=k: t**k for k in range(8)], pts1[:, 0], device=d),
+        lambda d: MappedDistanceMatrix(pts1, pts2, Matern(2, 0.2), device=d),
+        lambda d: MappedDistanceMatrix(pts1, pts2, Wendland(2, 0.15), backend="sparse", device=d),
+        lambda d: MappedDistanceMatrix(pts1, pts2, Matern(1, 0.2), backend="matrix-free", block=64, device=d),
+        lambda d: MappedDistanceMatrix(sphere, sphere, Matern(1, 0.5), mode="zonal", device=d),
+    ]
+    for i, build in enumerate(builds):
+        op_d, op_c = build(cuda), build("cpu")
+        x = torch.from_numpy(rng.standard_normal(op_c.dim_shape).astype(np.float32))
+        y = torch.from_numpy(rng.standard_normal(op_c.codim_shape).astype(np.float32))
+        ax, ahy = op_d.apply(x.to(cuda)), op_d.adjoint(y.to(cuda))
+        _close(ax.cpu(), op_c.apply(x), rel=1e-5)
+        _close(ahy.cpu(), op_c.adjoint(y), rel=1e-5)
+        if i != 3:  # 'mean' is no adjoint
+            lhs, rhs = float(torch.vdot(y.to(cuda).reshape(-1), ax.reshape(-1))), float(
+                torch.vdot(ahy.reshape(-1), x.to(cuda).reshape(-1)))
+            assert abs(lhs - rhs) <= 1e-4 * max(1.0, abs(lhs)), i
+        _close(op_d.todense().mat.cpu(), op_c.todense().mat.cpu(), rel=1e-5)
+
+
+def test_stacked_pds_and_group_lasso_on_the_card(cuda, rng):
+    """Poisson-TV deblurring (``PDS`` with ``K = LinOpVStack([band
+    Convolve2D, Gradient])`` and ``H = ProxFuncHStack([KLDivergence,
+    L21Norm])``): K1 twice an iteration and nothing else; the group LASSO
+    (``APGD`` with ``L21Norm(groups=)``): K2 once an iteration; each within
+    1e-4 of the CPU after 10 iterations."""
+    from pycsou_tpu_torch.func import KLDivergence, L21Norm, ProxFuncHStack
+    from pycsou_tpu_torch.ops import LinOpVStack
+
+    S = (96, 128)
+    h = _gauss()
+    x_true = np.abs(rng.standard_normal(S)).astype(np.float32) * 10
+    y = rng.poisson(x_true).astype(np.float32)
+    tiles = (np.arange(S[0])[:, None] // 8) * 16 + np.arange(S[1])[None, :] // 8
+
+    def pds(d):
+        H = ProxFuncHStack([KLDivergence(S, y, device=d), 0.5 * L21Norm((2,) + S, axis=0)])
+        return PDS(S, G=NonNegativeOrthant(S), H=H, K=LinOpVStack([Convolve2D(S, h, device=d), Gradient(S)]))
+
+    def lasso(d):
+        return APGD(S, F=SquaredL2Loss(S, data=y, device=d) * Convolve2D(S, h, device=d),
+                    G=0.01 * L21Norm(S, groups=tiles, device=d))
+
+    kernels = [sepconv2d, sepgram2d, lasso_fista_step, tv_pds_megar_step, tv_pds_sweep_step_stats]
+    for build, want, keys in ((pds, {0: 20}, ("x", "z")), (lasso, {1: 10}, ("x", "x_temp"))):
+        solver = build(cuda)
+        assert solver._fused is None
+        before = [k.launches for k in kernels]
+        st = solver.run_fixed(10)
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(kernels, before)] == [want.get(i, 0) for i in range(len(kernels))]
+        ref = build("cpu").run_fixed(10)
+        for k in keys:
+            _close(st[k].cpu(), ref[k], rel=1e-4)
