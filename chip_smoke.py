@@ -181,6 +181,28 @@
     kmax, iters/s, 20 iterations against the CPU, a matvec against the
     matrix-free backend).  Its record is the ``{"prox_sampling": ...}``
     line after phase 12's.
+14. Drives the solver's checkpoint, objective, iterates and profiling on
+    the main path at 4096 x 4096 (``PDS`` -> mega3): a solve stopped at
+    200 iterations with ``checkpoint_dir`` (``build/phase14``, removed
+    after) and resumed by a fresh solver to 400 must equal one
+    uninterrupted 400-iteration solve bit for bit (one save's and one
+    load's seconds); ``track_objective``'s rate against the plain one, its
+    ``run_fixed(100)`` under ``set_sync_debug_mode("error")``, its last
+    entry against ``objective(x)``; ``iterates(100, stride=20)`` against
+    ``run_fixed(20 k)``; ``utils.profiling.trace`` of 20 iterations inside
+    ``annotate("phase14")`` naming K10 and the span, ``device_time``.  Then
+    the sharded chain on four 1024-row shards of one card, each built and
+    run for 20 iterations with the counters zeroed and held to
+    ``TVDeconvolution`` on one device with the same steps: a 17 x 17
+    full-rank PSF on sweepsp over the sharded FFT Gram (K16 80, nothing
+    else; K16's shard time on this path), the Gaussian on the band chain
+    and the keep mask on the diagonal chain (``use_pallas=False``, no
+    launch), the mask on a (2, 2) 2-D mesh of 2048 x 2048 blocks, and
+    ``BatchedDistributedTVDeconv2D`` with two 4096 x 4096 images on a
+    (2, 2) ``(dp, sp)`` mesh, each slope-timed with its idle share; the
+    full-rank case and the batch against the CPU at 1024 x 1024.  Its
+    record is the ``{"solver_io_chain": ...}`` line after phase 13's;
+    ``python3 chip_smoke.py --phase 14`` runs it alone.
 
 ``python3 chip_smoke.py --gram-ab OLD_ROOT`` instead times, for the
 checkout at OLD_ROOT and for this one in turns (old, new, new, old), each
@@ -210,7 +232,8 @@ its ``bound_ms`` and ``bound_by``, and ``library_ms`` (K1's
 ``F.conv2d``; null where no one PyTorch call computes the kernel's
 function).  ``spectral`` holds phase 11's results and its seconds; phase
 12's are on the ``conv_admm`` line before, phase 13's on the
-``prox_sampling`` line.
+``prox_sampling`` line, phase 14's on the ``solver_io_chain`` line (K16's
+entry adds its launches and shard time on phase 14's FFT-Gram path).
 Without CUDA it exits 2 and prints no result.
 """
 import json
@@ -539,9 +562,14 @@ def phase_kernels(dev, rng):
         if psf == "gauss":
             res["K1"]["bound"] = bound(2, 2 * taps * SHAPE[0] * SHAPE[1])
             res["K2"]["bound"] = bound(3, (4 * taps + 2) * SHAPE[0] * SHAPE[1])
+            res["K2"]["gram_bound"] = bound(2, 4 * taps * SHAPE[0] * SHAPE[1])  # A^H A x: no atb
             res["K3"]["bound"] = bound(7, STENCIL_FLOPS * SHAPE[0] * SHAPE[1])
             res["K4"]["bound"] = bound(7, (4 * taps + STENCIL_FLOPS) * SHAPE[0] * SHAPE[1])
             res["K7"]["bound"] = bound(8, (4 * taps + 1 + STENCIL_FLOPS) * SHAPE[0] * SHAPE[1])
+        else:
+            res["K1"]["rank2_bound"] = bound(2, 2 * taps * SHAPE[0] * SHAPE[1])
+            res["K2"]["rank2_bound"] = bound(3, (4 * taps + 2) * SHAPE[0] * SHAPE[1])
+            res["K4"]["rank2_bound"] = bound(7, (4 * taps + STENCIL_FLOPS) * SHAPE[0] * SHAPE[1])
     # the masked steps take no PSF
     res["K5"]["ms"], res["K5"]["plain_ms"] = note(
         "K5", "step", tv_pds_sweepm_step_stats(x, z0, z1, m, matb, **kw),
@@ -578,6 +606,8 @@ def phase_kernels(dev, rng):
         for k, (ms, pms) in times.items():
             res[k][key + "ms"], res[k][key + "plain_ms"] = ms, pms
         if psf != "gauss":
+            res["K10"]["identity_bound"] = bound(7, 2 * (bands + STENCIL_FLOPS) * SHAPE[0] * SHAPE[1])
+            res["K11"]["identity_bound"] = bound(7, (bands + STENCIL_FLOPS) * SHAPE[0] * SHAPE[1])
             continue
         res["K10"]["bound"] = bound(7, 2 * (bands + STENCIL_FLOPS) * SHAPE[0] * SHAPE[1])
         res["K11"]["bound"] = bound(7, (bands + STENCIL_FLOPS) * SHAPE[0] * SHAPE[1])
@@ -614,8 +644,8 @@ def phase_kernels(dev, rng):
             if not nonneg:
                 key = "" if psf == "gauss" else "rank2_"
                 res["K8"][key + "ms"], res["K8"][key + "plain_ms"] = ms
-        if psf == "gauss":
-            res["K8"]["bound"] = bound(5, (4 * f.rank * (f.Ku + f.Kv) + 10) * SHAPE[0] * SHAPE[1])
+        key = "" if psf == "gauss" else "rank2_"
+        res["K8"][key + "bound"] = bound(5, (4 * f.rank * (f.Ku + f.Kv) + 10) * SHAPE[0] * SHAPE[1])
     # K9 at 2048^2 with the Gaussian PSF: every prox mode, w 0 and 1, noise
     # streamed and drawn in the kernel; the times are those of the PMYULA
     # path (soft threshold, w = 1, prng)
@@ -1304,6 +1334,9 @@ def phase_shard_kernels(dev, rng, res):
         lambda i, c, hl, off: tv_pds_megar_shard_step_plain(*c, exts[i], hl, f, a2, off, **kw))
     res["K15"]["bound"] = bound(1, (4 * f.rank * (f.Ku + f.Kv) + STENCIL_FLOPS) * h * W,
                                 shape=(shard_rows(h, f.Ku - 1), W))
+    fg = gauss.fwd  # the Gaussian PSF's K15 (the A/B's control)
+    res["K15"]["gauss_bound"] = bound(1, (4 * fg.rank * (fg.Ku + fg.Kv) + STENCIL_FLOPS) * h * W,
+                                      shape=(shard_rows(h, fg.Ku - 1), W))
     run("K16", 1, (x, g, z0, z1),
         lambda i, c, hl, off: tv_pds_sweep_shard_step(c[0], c[1], c[2], c[3], hl, off, **kw),
         lambda i, c, hl, off: tv_pds_sweep_shard_step_plain(c[0], c[1], c[2], c[3], hl, off, **kw))
@@ -1526,8 +1559,7 @@ def phase_block_kernels(dev, rng, res):
         ms = median_ms(lambda: sepgram_apply(x, ut, vt))
         pms = median_ms(lambda: sepgram_apply_plain(x, ut, vt))
         res["K18"][key + "ms"], res["K18"][key + "plain_ms"] = ms, pms
-        if psf == "gauss":
-            res["K18"]["bound"] = bound(2, 4 * taps * H * W)
+        res["K18"][key + "bound"] = bound(2, 4 * taps * H * W)
         log(f"  K18 sepgram_apply {psf:<6} max abs err {ab:.3e} (rel {rel:.3e}, tol {TOL_REL:g}), to K2 {kab:.3e}; "
             f"kernel {ms:.4f} ms, plain {pms:.4f} ms")
     torch.cuda.synchronize()
@@ -2174,10 +2206,12 @@ def phase_conv_admm(dev, counters):
     expect_launches("MovingAverage2D apply + adjoint", counts, {"K1": 2})
     e_apply, e_adj = max_err(ym, sepconv2d_plain(x2, M.fwd))[1], max_err(zm, sepconv2d_plain(x2, M.adj))[1]
     rec = {"method": M.method, "k1_launches": counts["K1"], "max_rel_err": max(e_apply, e_adj),
-           "apply_ms": median_ms(lambda: M.apply(x2))}
+           "apply_ms": median_ms(lambda: M.apply(x2)), "plain_ms": median_ms(lambda: sepconv2d_plain(x2, M.fwd)),
+           "bound": bound(2, 2 * M.fwd.rank * (M.fwd.Ku + M.fwd.Kv) * SHAPE[0] * SHAPE[1])}
     log(f"MovingAverage2D {SHAPE[0]}^2 (5, 5) ['{M.method}']: K1 {counts['K1']} for an apply and an adjoint; "
         f"against K1's plain version {e_apply:.3e}, {e_adj:.3e} (tol {TOL_REL:g} x max(1, max)); apply "
-        f"{rec['apply_ms']:.4f} ms")
+        f"{rec['apply_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound {rec['bound'][0]:.4f} ms by "
+        f"{rec['bound'][1]}")
     if rec["max_rel_err"] > TOL_REL:
         raise AssertionError("MovingAverage2D disagrees with K1's plain version")
     out["moving_average2d"] = rec
@@ -2661,6 +2695,238 @@ def phase_prox_sampling(dev, counters):
     return out
 
 
+SHAPE_P14_CPU = (1024, 1024)  # phase 14's card-against-CPU runs
+N_P14 = 20  # iterations of each phase-14 comparison with one device
+N_P14_CPU = 10  # and with the CPU
+TOL_P14_CPU = 1e-5  # the card against the port's CPU run, x max(1, max |x|)
+TOL_OBJ = 1e-5  # the last obj_history entry against objective(x) afterwards, relative
+P14_DIR = "build/phase14"  # checkpoints and the trace, inside the checkout, removed after
+
+
+def phase_solver_io_chain(dev, counters, res):
+    """Phase 14: the solver's checkpoint, objective, iterates and profiling
+    on the main path at 4096^2, and the sharded chain (four 1024-row shards
+    on one card): sweepsp over the sharded FFT Gram with a 17 x 17
+    full-rank PSF, the band chain and the diagonal chain (use_pallas=False),
+    the mask on a (2, 2) 2-D mesh, BatchedDistributedTVDeconv2D on a (2, 2)
+    (dp, sp) mesh; each against TVDeconvolution on one device after N_P14
+    iterations, timed, and the full-rank case and the batch against the CPU
+    at 1024^2 after N_P14_CPU."""
+    import shutil
+    from pathlib import Path
+
+    from scipy.signal import fftconvolve
+
+    from pycsou_tpu_torch.func import L21Norm, NonNegativeOrthant, SquaredL2Loss
+    from pycsou_tpu_torch.kernels.tv import tv_pds_sweep_shard_step
+    from pycsou_tpu_torch.ops import Convolve2D, Gradient
+    from pycsou_tpu_torch.opt import PDS, TVDeconvolution
+    from pycsou_tpu_torch.parallel import (BatchedDistributedTVDeconv2D, DistributedTVDeconv2D,
+                                           Spatial2DTVDeconv2D, halos, make_mesh)
+    from pycsou_tpu_torch.utils import checkpoint, profiling
+
+    t_phase = t_mark = time.perf_counter()
+    sections = {}
+
+    def section(name):
+        nonlocal t_mark
+        now = time.perf_counter()
+        sections[name] = now - t_mark
+        t_mark = now
+    root = Path(__file__).resolve().parent / P14_DIR
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"tolerances": {"path": TOL_PATH, "cpu": TOL_P14_CPU, "objective": TOL_OBJ}}
+    rng = np.random.default_rng(SEED + 14)
+    h, x_true, y = make_problem(rng, SHAPE)
+    yt = torch.from_numpy(y).to(dev)
+
+    def pds(n, **kw):
+        return PDS(SHAPE, F=SquaredL2Loss(SHAPE, data=yt) * Convolve2D(SHAPE, h, device=dev),
+                   G=NonNegativeOrthant(SHAPE), H=LAM * L21Norm((2,) + SHAPE, axis=0), K=Gradient(SHAPE),
+                   max_iter=n, min_iter=n, accuracy_threshold=0.0, **kw)
+
+    def idle_share(solver, ips):
+        busy = device_ms_per_iteration(solver)
+        return None if busy is None else 1.0 - busy * ips / 1e3
+
+    # (a) resume: 200 iterations saved, a fresh solver resumes to 400
+    ck = str(root / "ckpt")
+    first = pds(200).solve(checkpoint_dir=ck, checkpoint_every=1)
+    names_first = [Path(p).name for p in checkpoint.checkpoint_steps(ck)]
+    resumed = pds(400).solve(checkpoint_dir=ck, checkpoint_every=1)
+    names = sorted((Path(p).name for p in checkpoint.checkpoint_steps(ck)), key=lambda n: int(n[5:]))
+    whole = pds(400).solve()
+    diff = float((resumed["x"] - whole["x"]).abs().max())
+    solver = pds(400)
+    template = solver._wrap_state(solver.initial_state())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = checkpoint.load_state(f"{ck}/step_200", template=template)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    checkpoint.save_state(str(root / "timing" / "step_200"), state)
+    save_s = time.perf_counter() - t0
+    mb = sum(t.numel() * t.element_size() for t in (state["x"], state["z0"], state["z1"])) / 1e6
+    out["resume"] = {"engine": solver._fused.stencil_mode, "first_n_iter": first.n_iter, "n_iter": resumed.n_iter,
+                     "steps_after_first": names_first, "steps": names, "max_abs_diff": diff,
+                     "save_s": save_s, "load_s": load_s, "state_mb": mb}
+    log(f"resume: PDS -> TVDeconvolution[{solver._fused.stencil_mode}] 200 iterations saved as {names_first}, "
+        f"a fresh solver resumed to {resumed.n_iter} (saves {names}); max |x - uninterrupted x| = {diff:.3e}; "
+        f"one save {save_s:.3f} s, one load {load_s:.3f} s of the {mb:.1f} MB state (x, z0, z1)")
+    if diff != 0.0 or resumed.n_iter != 400 or names != ["step_100", "step_200", "step_300", "step_400"]:
+        raise AssertionError("the resumed solve differs from the uninterrupted one")
+    shutil.rmtree(root / "timing")
+    del first, resumed, whole, state, template
+    section("resume")
+
+    # (b) the objective: rates with and without track_objective, no host sync
+    plain, tracked = pds(3000), pds(3000)
+    tracked.track_objective = True
+    rec = {}
+    for name, s_ in (("without", plain), ("with", tracked)):
+        ips = time_solver(s_)
+        rec[name] = {"iters_per_s": ips, "device_idle_share": idle_share(s_, ips)}
+    st = tracked.run_fixed(2)
+    st = no_sync(lambda: tracked.run_fixed(ITERS, state=st))
+    last = float(st["obj_history"][st["it"] - 1])
+    direct = float(tracked.objective(st["x"]))
+    rec["last_obj_history"], rec["objective_after"] = last, direct
+    rec["rel_diff"] = abs(last - direct) / abs(direct)
+    rec["cost"] = 1.0 - rec["with"]["iters_per_s"] / rec["without"]["iters_per_s"]
+    out["track_objective"] = rec
+    log(f"track_objective: {rec['without']['iters_per_s']:.1f} iters/s without (idle share "
+        f"{rec['without']['device_idle_share']}), {rec['with']['iters_per_s']:.1f} with (idle share "
+        f"{rec['with']['device_idle_share']}): cost {100 * rec['cost']:.1f}%; run_fixed({ITERS}) with it made no host "
+        f"sync; last obj_history {last:.6e} vs objective(x) {direct:.6e} (rel {rec['rel_diff']:.2e}, tol {TOL_OBJ:g})")
+    if not rec["rel_diff"] <= TOL_OBJ:
+        raise AssertionError("obj_history's last entry is not the objective at x")
+    del st
+    section("track_objective")
+
+    # (c) iterates(100, stride=20) against run_fixed(20 k)
+    it_solver = pds(3000)
+    ys = [o["x"] for o in it_solver.iterates(100, stride=20)]
+    diffs = [float((yk - it_solver.run_fixed(20 * (k + 1))["x"]).abs().max()) for k, yk in enumerate(ys)]
+    out["iterates_max_abs_diff"] = diffs
+    log(f"iterates(100, stride=20): {len(ys)} yields; max |yield_k - run_fixed(20 k) x| = {diffs}")
+    if len(ys) != 5 or any(d != 0.0 for d in diffs):
+        raise AssertionError("iterates() differs from run_fixed()")
+    del ys
+
+    # (d) profiling: a trace of 20 iterations inside annotate("phase14")
+    st = it_solver.run_fixed(2)
+    torch.cuda.synchronize()
+    with profiling.trace(str(root / "trace")), profiling.annotate("phase14"):
+        it_solver.run_fixed(20, state=st)
+        torch.cuda.synchronize()
+    with open(root / "trace" / "trace.json") as f:
+        names_in_trace = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    k10 = sorted(n for n in names_in_trace if "mega3" in n)
+    dt = profiling.device_time(it_solver.run_fixed, 20, reps=5)
+    out["profiling"] = {"k10_kernel_names": k10, "span": "phase14" in names_in_trace, "device_time_20_s": dt}
+    log(f"profiling.trace: kernels named {k10}, span 'phase14' {'phase14' in names_in_trace}; "
+        f"device_time(run_fixed(20)) = {dt * 1e3:.3f} ms")
+    if not k10 or "phase14" not in names_in_trace:
+        raise AssertionError("the trace lacks K10's kernel or the phase14 span")
+    shutil.rmtree(root, ignore_errors=True)
+    del st
+    section("iterates, profiling")
+
+    # (e), (f) the sharded chain against TVDeconvolution on one device
+    mesh = make_mesh((SHARDS,), devices=[dev] * SHARDS)
+    h17 = fullrank_kernel(FULLRANK_FFT_K)
+    y17 = torch.from_numpy((fftconvolve(x_true, h17, mode="same")
+                            + 0.01 * rng.standard_normal(SHAPE)).astype(np.float32)).to(dev)
+    m = torch.from_numpy(keep_mask(SHAPE).astype(np.float32)).to(dev)
+    y2 = torch.stack([yt, torch.flip(yt, (0,))])
+    cases = {
+        "sweepsp full rank 17x17": (lambda: DistributedTVDeconv2D(SHAPE, h17, y17, LAM, mesh=mesh, max_iter=3000),
+                                    {"K16": SHARDS * N_P14}, (y17, h17, None)),
+        "band chain (Gaussian)": (lambda: DistributedTVDeconv2D(SHAPE, h, yt, LAM, mesh=mesh, use_pallas=False,
+                                                                max_iter=3000), {}, (yt, h, None)),
+        "diagonal chain (mask)": (lambda: DistributedTVDeconv2D(SHAPE, None, m * yt, LAM, mesh=mesh, mask=m,
+                                                                use_pallas=False, max_iter=3000), {},
+                                  (m * yt, None, m)),
+        "2-D mesh mask chain": (lambda: Spatial2DTVDeconv2D(SHAPE, None, m * yt, LAM, mask=m, max_iter=3000,
+                                                            mesh=make_mesh(MESH2D, ("sp0", "sp1"), [dev] * 4)),
+                                {}, (m * yt, None, m)),
+        "batch (dp, sp) = (2, 2)": (lambda: BatchedDistributedTVDeconv2D(
+            SHAPE, h, y2, LAM, mesh=make_mesh((2, 2), ("dp", "sp"), [dev] * 4), max_iter=3000), {}, None),
+    }
+    chain = {}
+    for name, (build, exact, single) in cases.items():
+        (solver, st), counts = count_launches(counters, built_and_run(build, n=N_P14))
+        expect_launches(name, counts, exact)
+        x = solver.postprocess(st)["x"]
+        refs = []
+        for k, (yy, ff, mm) in enumerate([single] if single else [(y2[0], h, None), (y2[1], h, None)]):
+            ref = TVDeconvolution(SHAPE, yy, LAM, filt=ff, mask=mm, tau=solver.tau, sigma=solver.sigma,
+                                  rho=solver.rho, max_iter=3000).run_fixed(N_P14)
+            refs.append((ref, x if single else x[k]))
+        errs = [max_err(got, ref["x"])[0] for ref, got in refs]
+        scale = max(max(1.0, float(ref["x"].abs().max())) for ref, _ in refs)
+        engine = getattr(solver, "_sp_engine", "") or "chain"
+        route = ("band Gram" if getattr(solver, "_use_band", False) else "FFT Gram"
+                 if getattr(solver, "_use_gram", False) else "mask")
+        if name.startswith("batch"):
+            route = "band Gram" if solver._inners[0]._use_band else "FFT Gram"
+        ips = time_solver(solver, n_short=5, n_long=25, reps=2)
+        rec = {"engine": engine, "route": route, "launches": counts, "max_abs_err": errs, "tol": TOL_PATH * scale,
+               "iters_per_s": ips, "device_idle_share": idle_share(solver, ips)}
+        chain[name] = rec
+        log(f"{name}: {type(solver).__name__}[{engine}, {route}] {N_P14} iterations, launches {counts}; "
+            f"against TVDeconvolution on one device max |dx| {errs} (tol {TOL_PATH:g} x {scale:.3f}); "
+            f"{ips:.1f} iters/s slope-timed, device idle share {rec['device_idle_share']}")
+        if any(e > TOL_PATH * scale for e in errs):
+            raise AssertionError(f"{name} disagrees with TVDeconvolution on one device")
+        if name.startswith("sweepsp"):
+            # K16 on this path: a middle shard's launch at the path's inputs
+            x_s = st["x"]
+            g = tuple(solver._data_grad(x_s, solver.atb, solver.y))
+            hl = halos((x_s, g, st["z0"], st["z1"]), 1)
+            kw = dict(H_global=SHAPE[0], tau=solver.tau, sigma=solver.sigma, rho=solver.rho, lam=LAM)
+            i = 1
+            rec["k16_shard_ms"] = median_ms(lambda: tv_pds_sweep_shard_step(
+                x_s[i], g[i], st["z0"][i], st["z1"][i], hl[i], i * solver.h_loc - 1, **kw))
+            res["K16"]["fft_gram_path_launches"] = counts["K16"]
+            res["K16"]["fft_gram_path_shard_ms"] = rec["k16_shard_ms"]
+            log(f"K16 on the FFT-Gram path: {counts['K16']} launches in {N_P14} iterations, "
+                f"{rec['k16_shard_ms']:.4f} ms a shard launch")
+        del solver, st, x, refs
+    out["chain"] = chain
+    section("chain")
+
+    # (h) the card against the port's CPU run at 1024^2
+    Hc = SHAPE_P14_CPU
+    yc = (fftconvolve(x_true[: Hc[0], : Hc[1]], h17, mode="same")).astype(np.float32)
+    yb = np.stack([y[: Hc[0], : Hc[1]], y[-Hc[0]:, -Hc[1]:]]).astype(np.float32)
+    cpu = torch.device("cpu")
+    builds = {
+        "sweepsp full rank 17x17": lambda d: DistributedTVDeconv2D(
+            Hc, h17, yc, LAM, mesh=make_mesh((SHARDS,), devices=[d] * SHARDS),
+            use_pallas="auto" if d.type == "cuda" else "interpret"),
+        "batch (dp, sp) = (2, 2)": lambda d: BatchedDistributedTVDeconv2D(
+            Hc, h, yb, LAM, mesh=make_mesh((2, 2), ("dp", "sp"), [d] * 4)),
+    }
+    vs_cpu = {}
+    for name, build in builds.items():
+        card, host = build(dev), build(cpu)
+        xg = card.postprocess(card.run_fixed(N_P14_CPU))["x"].cpu()
+        xc = host.postprocess(host.run_fixed(N_P14_CPU))["x"]
+        e, rel = max_err(xg, xc)
+        vs_cpu[name] = {"max_abs_err": e, "rel": rel}
+        log(f"{name} at {Hc[0]}^2: card against CPU after {N_P14_CPU} iterations: max |dx| {e:.3e} "
+            f"({rel:.3e} of max(1, max |x|), tol {TOL_P14_CPU:g})")
+        if rel > TOL_P14_CPU:
+            raise AssertionError(f"{name}: the card disagrees with the CPU")
+    out["vs_cpu"] = vs_cpu
+    section("against the CPU")
+    out["seconds"], out["section_s"] = time.perf_counter() - t_phase, sections
+    log(f"phase 14: {out['seconds']:.1f} s; by section " + ", ".join(f"{k} {v:.1f}" for k, v in sections.items()))
+    return out
+
+
 def device_ms_per_iteration(solver, n=20):
     """Device time an iteration in a ``torch.profiler`` trace of ``n``
     iterations: the summed durations of the CUDA events (kernels, copies,
@@ -2696,6 +2962,37 @@ def time_solver(solver, n_short=20, n_long=100, reps=3):
     return 1.0 / statistics.median(slopes)
 
 
+def build_kernels():
+    """Build (or load) the CUDA kernels; the launch counters in KERNELS
+    order."""
+    from pycsou_tpu_torch.kernels import _build, conv2d, fista, langevin, sepgram, tv, tvr
+
+    t0 = time.perf_counter()
+    _build.library()
+    log(f"kernels built/loaded from {_build.build_dir()} in {time.perf_counter() - t0:.2f} s")
+    return [conv2d.sepconv2d, conv2d.sepgram2d, tv.tv_pds_sweep_step_stats, tvr.tv_pds_megar_step,
+            tv.tv_pds_sweepm_step_stats, tv.tv_pds_sweepm2_step, tvr.tv_pds_megarm_step,
+            fista.lasso_fista_step, langevin.pmyula_mega_step, tv.tv_pds_mega3_step,
+            tv.tv_pds_mega2_step, tv.tv_pds_mega_step, tv.tv_pds_stencil_step,
+            tv.tv_pds_mega2_shard_step, tvr.tv_pds_megar_shard_step, tv.tv_pds_sweep_shard_step,
+            tvr.tv_pds_megar_shard2d_step, sepgram.sepgram_apply]
+
+
+def phase14_alone():
+    """``--phase 14``: build the kernels and run phase 14 only; its record
+    is the last line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    res = {"K16": {}}
+    out = phase_solver_io_chain(torch.device("cuda", 0), build_kernels(), res)
+    print(json.dumps({"solver_io_chain": out, "K16": res["K16"], "card": smi}), flush=True)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card", file=sys.stderr)
@@ -2708,18 +3005,7 @@ def main():
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     dev = torch.device("cuda", 0)
 
-    from pycsou_tpu_torch.kernels import _build, conv2d, fista, langevin, sepgram, tv, tvr
-
-    t0 = time.perf_counter()
-    _build.library()
-    log(f"kernels built/loaded from {_build.build_dir()} in {time.perf_counter() - t0:.2f} s")
-    # in KERNELS order
-    counters = [conv2d.sepconv2d, conv2d.sepgram2d, tv.tv_pds_sweep_step_stats, tvr.tv_pds_megar_step,
-                tv.tv_pds_sweepm_step_stats, tv.tv_pds_sweepm2_step, tvr.tv_pds_megarm_step,
-                fista.lasso_fista_step, langevin.pmyula_mega_step, tv.tv_pds_mega3_step,
-                tv.tv_pds_mega2_step, tv.tv_pds_mega_step, tv.tv_pds_stencil_step,
-                tv.tv_pds_mega2_shard_step, tvr.tv_pds_megar_shard_step, tv.tv_pds_sweep_shard_step,
-                tvr.tv_pds_megar_shard2d_step, sepgram.sepgram_apply]
+    counters = build_kernels()
 
     rng = np.random.default_rng(SEED)
     log(f"-- kernels against their plain versions at {SHAPE[0]} x {SHAPE[1]}")
@@ -2756,6 +3042,8 @@ def main():
     print(json.dumps({"conv_admm": phase_conv_admm(dev, counters), "card": smi}), flush=True)
     log("-- proximal calculus and sampling: Poisson-TV, L1 and group LASSO at 4096^2, the proxes, RBF fitting")
     print(json.dumps({"prox_sampling": phase_prox_sampling(dev, counters), "card": smi}), flush=True)
+    log("-- checkpoint, objective, iterates, profiling on the main path; the sharded chain (phase 14)")
+    print(json.dumps({"solver_io_chain": phase_solver_io_chain(dev, counters, res), "card": smi}), flush=True)
 
     log(f"-- throughput ({smi})")
     solvers.update({"main path": pds, "LASSO": apgd})
@@ -2851,12 +3139,12 @@ def main():
         for extra in ("rank2", "stream", "identity", "rank4"):
             if f"{extra}_ms" in r:
                 out[f"{extra}_ms"], out[f"{extra}_plain_ms"] = r[f"{extra}_ms"], r[f"{extra}_plain_ms"]
-        for extra in ("rank2", "rank4"):
-            if f"{extra}_bound" in r:
-                out[f"{extra}_bound_ms"] = r[f"{extra}_bound"][0]
+        for extra, v in r.items():
+            if extra.endswith("_bound"):  # a variant's bound: rank 2, rank 4, identity, Gram, Gaussian
+                out[f"{extra}_ms"] = v[0]
         for extra in ("rank2_library_ms", "w_pass_ms", "one_shard_max_abs_err", "shard_ms", "shard_plain_ms",
                       "one_block_max_abs_err", "block_ms", "block_plain_ms", "k2_max_abs_err",
-                      "rank2_k2_max_abs_err"):
+                      "rank2_k2_max_abs_err", "fft_gram_path_launches", "fft_gram_path_shard_ms"):
             if extra in r:
                 out[extra] = r[extra]
         return out
@@ -3130,6 +3418,8 @@ def gram_ab(parent):
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--phase", "14"]:
+        sys.exit(phase14_alone())
     if len(sys.argv) in (3, 4) and sys.argv[1] == "--gram-times":
         sys.exit(gram_times(sys.argv[2], kernels_only=sys.argv[3:] == ["--kernels-only"]))
     if len(sys.argv) == 3 and sys.argv[1] == "--gram-ab":

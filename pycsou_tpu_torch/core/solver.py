@@ -9,6 +9,13 @@ reads them once per chunk of iterations (``solve``) or never
 the metric first fell to ``tol``: up to ``chunk - 1`` iterations past that
 point (``SolveInfo.converged_at`` records the iteration itself).
 
+``solve(checkpoint_dir=...)`` saves the whole state (``utils/checkpoint.py``,
+``torch.save`` where the reference writes Orbax) at the reference's
+iterations and resumes from the newest loadable save.  ``remat`` is taken
+for the reference's signature and changes nothing: a step here runs eagerly
+and keeps no autograd graph across iterations, so there is nothing to
+rematerialise (the reference wraps the step in ``jax.checkpoint``).
+
 An iterand is a tensor, or for a sharded solver (``parallel.solvers``) a
 tuple of per-shard tensors (a 2-D mesh: a tuple of row tuples of blocks);
 the metric, the histories and the counters live on the first shard's
@@ -23,12 +30,16 @@ import numpy as np
 import torch
 
 from pycsou_tpu_torch._module import Module
+from pycsou_tpu_torch.utils.checkpoint import load_latest_state, save_state
 
 __all__ = ["IterativeSolver", "SolveInfo"]
 
 _INF = float("inf")
 # iterations between host reads of the metric in solve() (verbose overrides)
 _SYNC_EVERY = 16
+# iterations between checkpoints of solve(checkpoint_dir=...) (verbose
+# overrides): the reference's chunk
+_CHECKPOINT_CHUNK = 100
 _HISTORY_KEYS = ("history", "var_history", "obj_history")
 
 
@@ -105,11 +116,12 @@ def _stride_body(solver, s):
 
 
 class SolveInfo:
-    """Result bundle: final iterand(s), iteration counts, metric history."""
+    """Result bundle: final iterand(s), iteration counts, metric history and,
+    with ``track_objective``, the objective's (``objective_history``)."""
 
     def __init__(self, iterand: Dict[str, Any], n_iter: int, history: np.ndarray, converged: bool,
                  elapsed: float, diagnostics: Optional[Dict[str, np.ndarray]] = None,
-                 converged_at: Optional[int] = None):
+                 converged_at: Optional[int] = None, objective_history: Optional[np.ndarray] = None):
         self.iterand = iterand
         self.n_iter = n_iter
         self.history = history
@@ -117,6 +129,7 @@ class SolveInfo:
         self.converged_at = converged_at
         self.elapsed = elapsed
         self.diagnostics = diagnostics or {}
+        self.objective_history = objective_history
 
     def __getitem__(self, key):
         return self.iterand[key]
@@ -137,18 +150,25 @@ class IterativeSolver(Module):
     relative improvement of ``x``.  Where :meth:`metrics` has an entry for
     ``primary_var``, that entry must equal :meth:`metric`: the driver takes
     the stopping metric from it rather than computing it twice, unless the
-    subclass overrides :meth:`metric` and not :meth:`metrics`."""
+    subclass overrides :meth:`metric` and not :meth:`metrics`.
+
+    ``track_objective`` fills ``obj_history`` (on the device) with
+    :meth:`objective` of the primary iterand at every measured step;
+    ``remat`` does nothing (see the module docstring)."""
 
     # iterations one step() performs (it/history/max_iter count iterations)
     iters_per_step: int = 1
     primary_var: str = "x"
 
     def __init__(self, max_iter: int = 500, min_iter: int = 10, tol: float = 1e-3,
-                 verbose: Optional[int] = None, metric_every: int = 1):
+                 verbose: Optional[int] = None, remat: bool = False, track_objective: bool = False,
+                 metric_every: int = 1):
         self.max_iter = int(max_iter)
         self.min_iter = int(min_iter)
         self.tol = float(tol)
         self.verbose = verbose
+        self.remat = bool(remat)
+        self.track_objective = bool(track_objective)
         self.metric_every = int(metric_every)
 
     # -- to implement ------------------------------------------------------
@@ -157,6 +177,10 @@ class IterativeSolver(Module):
 
     def step(self, state: Dict[str, Any]) -> Dict[str, Any]:
         raise NotImplementedError
+
+    def objective(self, x) -> torch.Tensor:
+        """The objective at the primary iterand ``x`` (``track_objective``)."""
+        raise NotImplementedError(f"{type(self).__name__} defines no objective")
 
     def metric(self, old, new) -> torch.Tensor:
         """Relative improvement of the primary iterand."""
@@ -192,13 +216,19 @@ class IterativeSolver(Module):
         dev = self._device(state)
         state.setdefault("it", 0)
         state["it"] = int(state["it"])
-        state.setdefault("metric", torch.tensor(_INF, dtype=torch.float32, device=dev))
         eff = self._stride()
         n_hist = (-(-self.max_iter // eff) + 1) * eff
-        state.setdefault("history", torch.full((n_hist,), float("nan"), device=dev))
+        # each made on the device (a fill, no copy from the host) and only
+        # when the state lacks it: a run continued from a state reads no host
+        fresh = {"metric": ((), _INF), "history": ((n_hist,), float("nan"))}
         n_vars = len(self.diagnostics_vars(state))
         if n_vars > 1:
-            state.setdefault("var_history", torch.full((n_hist, n_vars), float("nan"), device=dev))
+            fresh["var_history"] = ((n_hist, n_vars), float("nan"))
+        if self.track_objective:
+            fresh["obj_history"] = ((n_hist,), float("nan"))
+        for key, (shape, value) in fresh.items():
+            if key not in state:
+                state[key] = torch.full(shape, value, dtype=torch.float32, device=dev)
         return state
 
     @staticmethod
@@ -241,16 +271,34 @@ class IterativeSolver(Module):
             state = _advance(self, state, self.step(state))
         return state
 
-    def solve(self) -> SolveInfo:
+    def solve(self, checkpoint_dir: Optional[str] = None, checkpoint_every: int = 1) -> SolveInfo:
         """Run until the metric reaches ``tol`` (after ``min_iter``) or
-        ``max_iter``, reading the metric history once per chunk."""
+        ``max_iter``, reading the metric history once per chunk.
+
+        With ``checkpoint_dir`` the solve first resumes from the newest
+        loadable checkpoint there (``utils.checkpoint.load_latest_state``;
+        a sharded state goes back onto the template's devices), then saves
+        the whole state as ``step_{it}`` at the end of every
+        ``checkpoint_every``-th chunk of 100 iterations (``verbose`` when
+        set) counted from where it started, and when it stops: the
+        reference's iterations."""
         state = self._own(self._wrap_state(self.initial_state()))
+        if checkpoint_dir is not None:
+            resumed = load_latest_state(checkpoint_dir, template=state)
+            if resumed is not None:
+                state = resumed
         chunk = max(self._stride(), int(self.verbose or _SYNC_EVERY))
+        save_chunk = max(self._stride(), int(self.verbose or _CHECKPOINT_CHUNK))
+        checkpoint_every = max(1, int(checkpoint_every))
+        save_stop = min(state["it"] + save_chunk, self.max_iter)
+        n_chunks = 0
         converged_at = None
         t0 = time.perf_counter()
         while True:
             it0 = state["it"]
             it_stop = min(it0 + chunk, self.max_iter)
+            if checkpoint_dir is not None:
+                it_stop = min(it_stop, save_stop)
             while state["it"] < it_stop:
                 state = _stride_body(self, state)
             it = state["it"]
@@ -261,8 +309,13 @@ class IterativeSolver(Module):
                 print(f"iter {it:6d}   relative improvement {float(state['metric']):.4e}")
             if hit.size:
                 converged_at = int(rows[hit[0]])
-                break
-            if it >= self.max_iter:
+            done = converged_at is not None or it >= self.max_iter
+            if checkpoint_dir is not None and (it >= save_stop or done):
+                n_chunks += 1
+                if n_chunks % checkpoint_every == 0 or done:
+                    save_state(f"{checkpoint_dir}/step_{it}", state)
+                save_stop = min(it + save_chunk, self.max_iter)
+            if done:
                 break
         elapsed = time.perf_counter() - t0
         diagnostics = None
@@ -270,7 +323,24 @@ class IterativeSolver(Module):
             names = sorted(self.diagnostics_vars(state))
             vh = state["var_history"][:it].cpu().numpy()
             diagnostics = {name: vh[:, i] for i, name in enumerate(names)}
+        obj = state["obj_history"][:it].cpu().numpy() if "obj_history" in state else None
         return SolveInfo(
             self.postprocess(state), it, state["history"][:it].cpu().numpy(),
             converged_at is not None, elapsed, diagnostics=diagnostics, converged_at=converged_at,
+            objective_history=obj,
         )
+
+    def iterate(self) -> SolveInfo:
+        """The reference's alias of :meth:`solve`."""
+        return self.solve()
+
+    def iterates(self, n: int, stride: int = 1):
+        """Generator of ``postprocess(state)`` every ``stride`` iterations
+        over ``n`` iterations from the initial state; the stride rounds up to
+        whole steps (``iters_per_step``), so that every yield advances."""
+        ips = max(1, self.iters_per_step)
+        stride = -(-int(stride) // ips) * ips
+        state = self._wrap_state(self.initial_state())
+        for _ in range(0, int(n), stride):
+            state = self.run_fixed(stride, state=state)
+            yield self.postprocess(state)

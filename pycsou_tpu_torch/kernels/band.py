@@ -13,7 +13,10 @@ The rank-1 engines (``kernels/tv.py`` K10-K12) compute it in their kernels;
 form, and :func:`gram_band_axis` takes it along any axis of an N-D tensor
 (the per-axis passes of ``ops.conv.SeparableConvGramND``).
 
-The reference's MXU formulations of the band (``make_band_blocks``,
+:func:`band_conv` is the 'same' convolution by any K taps at an offset
+along one axis, the reference's ``band_conv_rows``/``band_conv_cols``
+(the sharded chain's separable passes, ``parallel/spatial.py``).  The
+reference's MXU formulations of the band (``make_band_blocks``,
 ``make_chanconv``, ``chanconv_cols``, ``gram_chanconv_cols``) are TPU
 tiling of the same band pass and have no counterpart here.  ``TILE`` is
 the reference's tile edge, kept because its gates read it: a (2K - 1)-tap
@@ -27,7 +30,7 @@ import torch.nn.functional as F
 
 from pycsou_tpu_torch.utils.device import full_f32
 
-__all__ = ["TILE", "make_gram_band", "gram_band_rows", "gram_band_cols", "gram_band_axis"]
+__all__ = ["TILE", "band_conv", "make_gram_band", "gram_band_rows", "gram_band_cols", "gram_band_axis"]
 
 TILE = 128  # the reference's band tile (``pycsou_tpu/kernels/band.py``)
 
@@ -66,15 +69,24 @@ def make_gram_band(taps, n: int):
     return acorr, E_top, E_bot, L
 
 
-def _band(x: torch.Tensor, acorr: torch.Tensor, axis: int) -> torch.Tensor:
-    """The zero-boundary band pass ``out[j] = sum_d acorr[K - 1 + d] x[j + d]``
-    along ``axis`` of a 2-D image (the band is symmetric, so
-    ``F.conv2d``'s correlation is the convolution)."""
-    k1 = (acorr.numel() - 1) // 2
-    shape = (1, 1, acorr.numel(), 1) if axis == 0 else (1, 1, 1, acorr.numel())
-    pad = (0, 0, k1, k1) if axis == 0 else (k1, k1, 0, 0)
+def band_conv(x: torch.Tensor, taps: torch.Tensor, offset: int, axis: int) -> torch.Tensor:
+    """The zero-boundary 'same' convolution ``out[j] = sum_k taps[k] x[j - k
+    + offset]`` along ``axis`` (0 or 1) of a 2-D image, at full f32 (the
+    reference's ``band_conv_rows``/``band_conv_cols`` with the plan
+    ``make_band_blocks(taps, offset)``); ``taps`` a float32 tensor on
+    ``x``'s device.  ``F.conv2d`` correlates, so the taps are flipped."""
+    K = taps.numel()
+    lead = K - 1 - offset
+    shape = (1, 1, K, 1) if axis == 0 else (1, 1, 1, K)
+    pad = (0, 0, lead, offset) if axis == 0 else (lead, offset, 0, 0)
     with full_f32():
-        return F.conv2d(F.pad(x[None, None], pad), acorr.reshape(shape))[0, 0]
+        return F.conv2d(F.pad(x[None, None], pad), taps.flip(0).reshape(shape))[0, 0]
+
+
+def _band(x: torch.Tensor, acorr: torch.Tensor, axis: int) -> torch.Tensor:
+    """The band pass ``out[j] = sum_d acorr[K - 1 + d] x[j + d]`` of the
+    symmetric (2K - 1)-tap autocorrelation."""
+    return band_conv(x, acorr, (acorr.numel() - 1) // 2, axis)
 
 
 def gram_band_rows(x: torch.Tensor, gplan) -> torch.Tensor:

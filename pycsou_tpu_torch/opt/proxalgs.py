@@ -84,12 +84,13 @@ class PrimalDualSplitting(IterativeSolver):
         min_iter: int = 10,
         accuracy_threshold: float = 1e-3,
         verbose: Optional[int] = None,
+        remat: bool = False,
         metric_every: int = 1,
         fuse: bool = True,
         device=None,
     ):
         super().__init__(max_iter=max_iter, min_iter=min_iter, tol=accuracy_threshold,
-                         verbose=verbose, metric_every=metric_every)
+                         verbose=verbose, remat=remat, metric_every=metric_every)
         dim_shape = as_shape(dim_shape)
         held = [m.device for m in (F, G, H, K) if m is not None]
         dev = resolve_device(device, *held, x0)
@@ -272,6 +273,14 @@ class PrimalDualSplitting(IterativeSolver):
         st = new["_stats"]
         return {"x": _rel_from_sums(st[0], st[1]), "z": _rel_from_sums(st[2] + st[4], st[3] + st[5])}
 
+    def objective(self, x):
+        """The primal objective ``F(x) + G(x) + H(K x)``, also when a fused
+        engine steps the solve."""
+        val = self.F.apply(x) + self.G.apply(x)
+        if self._has_H:
+            val = val + self.H.apply(self.K.apply(x))
+        return val
+
     def postprocess(self, state):
         """The generic contract (``x`` and a stacked ``z``) also when the
         fused engine carried split duals."""
@@ -319,12 +328,13 @@ class AcceleratedProximalGradientDescent(IterativeSolver):
         min_iter: int = 10,
         accuracy_threshold: float = 1e-3,
         verbose: Optional[int] = None,
+        remat: bool = False,
         metric_every: int = 1,
         fuse: bool = True,
         device=None,
     ):
         super().__init__(max_iter=max_iter, min_iter=min_iter, tol=accuracy_threshold,
-                         verbose=verbose, metric_every=metric_every)
+                         verbose=verbose, remat=remat, metric_every=metric_every)
         dim_shape = as_shape(dim_shape)
         dev = resolve_device(device, *[m.device for m in (F, G) if m is not None], x0)
         self.device = dev

@@ -1,8 +1,10 @@
 """Sharded solvers on a mesh of devices (counterpart of
 ``pycsou_tpu/parallel``): the mesh, the halo exchange (rows, and columns on
-a 2-D mesh), ``DistributedTVDeconv2D`` and ``Spatial2DTVDeconv2D``."""
+a 2-D mesh), the sharded operators of ``spatial.py``,
+``DistributedTVDeconv2D``, ``BatchedDistributedTVDeconv2D`` and
+``Spatial2DTVDeconv2D``."""
 from pycsou_tpu_torch.parallel.mesh import Mesh, make_mesh, make_mesh_2d, mesh_shape_2d
-from pycsou_tpu_torch.parallel.solvers import DistributedTVDeconv2D, Spatial2DTVDeconv2D
+from pycsou_tpu_torch.parallel.solvers import BatchedDistributedTVDeconv2D, DistributedTVDeconv2D, Spatial2DTVDeconv2D
 from pycsou_tpu_torch.parallel.spatial import (
     halo_extend,
     halo_extend_2d,
@@ -16,6 +18,7 @@ from pycsou_tpu_torch.parallel.spatial import (
 )
 
 __all__ = [
+    "BatchedDistributedTVDeconv2D",
     "DistributedTVDeconv2D",
     "Mesh",
     "Spatial2DTVDeconv2D",

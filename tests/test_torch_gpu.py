@@ -1533,3 +1533,107 @@ def test_stacked_pds_and_group_lasso_on_the_card(cuda, rng):
         ref = build("cpu").run_fixed(10)
         for k in keys:
             _close(st[k].cpu(), ref[k], rel=1e-4)
+
+
+def _fullrank(k=17, seed=7):
+    """bench.py's full-rank PSF kind: |N(0, 1)| taps, unit sum."""
+    h = np.abs(np.random.default_rng(seed).standard_normal((k, k))).astype(np.float32)
+    return h / h.sum()
+
+
+def test_sweepsp_over_the_fft_gram_launches_k16(cuda, rng):
+    """``DistributedTVDeconv2D`` with a full-rank PSF on four row shards of
+    one card: sweepsp over the sharded FFT Gram, K16 once a shard an
+    iteration and no other kernel; within 1e-4 of the CPU after 5
+    iterations."""
+    S = (256, 192)
+    h = _fullrank()
+    y = np.abs(rng.standard_normal(S)).astype(np.float32)
+    kernels = [sepconv2d, sepgram2d, tv_pds_sweep_shard_step, tv_pds_mega2_shard_step, tv_pds_megar_shard_step]
+
+    def build(d):
+        return DistributedTVDeconv2D(S, h, y, 0.05, mesh=make_mesh((4,), devices=[d] * 4),
+                                     use_pallas="auto" if d == cuda else "interpret")
+
+    solver = build(cuda)
+    assert solver._sp_engine == "sweepsp" and solver._use_gram and not solver._use_band
+    before = [k.launches for k in kernels]
+    st = solver.run_fixed(5)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [0, 0, 20, 0, 0]
+    ref = build(torch.device("cpu")).run_fixed(5)
+    for k in ("x", "z0", "z1"):
+        _close(solver._gather(st[k]).cpu(), torch.cat(ref[k]), rel=1e-4)
+
+
+def test_resume_on_the_card(cuda, rng, tmp_path):
+    """A checkpointed solve on the card resumed by a fresh solver: its
+    shards return to the card and the result equals the uninterrupted
+    solve's bit for bit (TVDeconvolution[mega3], and the sharded chain)."""
+    from pycsou_tpu_torch.utils.checkpoint import load_state
+
+    S = (128, 160)
+    h = _gauss()
+    y = torch.from_numpy(np.abs(rng.standard_normal(S)).astype(np.float32)).to(cuda)
+    makers = {
+        "mega3": lambda n: TVDeconvolution(S, y, 0.05, filt=h, max_iter=n, min_iter=n, accuracy_threshold=0.0),
+        "chain": lambda n: DistributedTVDeconv2D(S, h, y, 0.05, mesh=make_mesh((4,), devices=[cuda] * 4),
+                                                 use_pallas=False, max_iter=n, min_iter=n, accuracy_threshold=0.0),
+    }
+    for name, make in makers.items():
+        d = str(tmp_path / name)
+        make(40).solve(checkpoint_dir=d)
+        state = load_state(f"{d}/step_40", template=make(80)._wrap_state(make(80).initial_state()))
+        assert all(t.device.type == "cuda" for t in (state["x"] if name == "chain" else (state["x"],)))
+        resumed, whole = make(80).solve(checkpoint_dir=d), make(80).solve()
+        assert resumed.n_iter == whole.n_iter == 80
+        assert torch.equal(resumed["x"], whole["x"]), name
+
+
+def test_device_time_syncs_a_cuda_output(cuda):
+    """``utils.profiling.device_time`` waits for the card: a call that
+    sleeps ~20 ms on the device measures at least that."""
+    from pycsou_tpu_torch.utils.profiling import device_time
+
+    def slow():
+        torch.cuda._sleep(int(4e7))  # cycles: ~20 ms at about 2 GHz
+        return torch.ones(4, device=cuda)
+
+    assert device_time(slow, reps=3) >= 0.01
+
+
+def test_objectives_read_no_host(cuda, rng):
+    """``objective`` of every solver that has one, and ``run_fixed`` with
+    ``track_objective``, under ``set_sync_debug_mode("error")``: no host
+    read (the solvers are built outside it, their constructors copy from
+    the host)."""
+    S = (128, 160)
+    y = torch.from_numpy(np.abs(rng.standard_normal(S)).astype(np.float32)).to(cuda)
+    m = torch.from_numpy((rng.random(S) < 0.7).astype(np.float32)).to(cuda)
+    mesh = make_mesh((4,), devices=[cuda] * 4)
+    solvers = [
+        TVDeconvolution(S, y, 0.05, filt=_gauss()),
+        TVDeconvolution(S, y, 0.05, filt=_fullrank()),
+        TVDeconvolution(S, m * y, 0.05, mask=m),
+        TVDeconvolution(S, m * y, 0.05, filt=_gauss(), mask=m),
+        PDS(S, F=SquaredL2Loss(S, data=y) * Convolve2D(S, _gauss(), device=cuda), G=NonNegativeOrthant(S),
+            H=0.05 * L21Norm((2,) + S, axis=0), K=Gradient(S)),
+        APGD(S, F=SquaredL2Loss(S, data=y) * Convolve2D(S, _gauss(), device=cuda), G=0.01 * L1Norm(S)),
+        DistributedTVDeconv2D(S, _fullrank(), y, 0.05, mesh=mesh),
+        DistributedTVDeconv2D(S, _gauss(), y, 0.05, mesh=mesh, use_pallas=False),
+        Spatial2DTVDeconv2D(S, None, m * y, 0.05, mask=m, mesh=make_mesh((2, 2), ("sp0", "sp1"), [cuda] * 4)),
+    ]
+    states = [s.run_fixed(2) for s in solvers]
+    for s in solvers:
+        s.track_objective = True
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        values = [s.objective(st[s.primary_var]) for s, st in zip(solvers, states)]
+        tracked = [s.run_fixed(4, state=st) for s, st in zip(solvers, states)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(bool(torch.isfinite(v)) for v in values)
+    for s, st in zip(solvers, tracked):
+        last = float(st["obj_history"][st["it"] - 1])
+        assert abs(last - float(s.objective(st[s.primary_var]))) <= 1e-5 * abs(last), type(s).__name__

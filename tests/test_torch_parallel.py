@@ -383,15 +383,23 @@ def test_jax_state_continues_in_the_port(rng):
 
 
 def test_refusals(rng):
+    """The reference's errors, and the engine each former refusal now picks,
+    as the JAX solver does: sweepsp over the sharded Gram for a PSF or a
+    shard that no fused engine takes, the chain for ``use_pallas=False``
+    and ``"auto"`` on CPU devices."""
     y = np.zeros((H, W), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        DistributedTVDeconv2D((H, W), _psf("full"), y, LAM, mesh=_mesh(4), use_pallas="interpret")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        DistributedTVDeconv2D((H, W), _psf("gauss7"), y, LAM, mesh=_mesh(4), use_pallas=False)
-    with pytest.raises(NotImplementedError, match="interpret"):
-        DistributedTVDeconv2D((H, W), _psf("gauss7"), y, LAM, mesh=_mesh(4))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        DistributedTVDeconv2D((H, W), _psf("gauss7"), y, LAM, mesh=_mesh(32), use_pallas="interpret")
+
+    def engines(psf, P, use_pallas):
+        t = DistributedTVDeconv2D((H, W), _psf(psf), y, LAM, mesh=_mesh(P), use_pallas=use_pallas)
+        if P > 8:  # the conftest's JAX mesh has 8 devices
+            return t._sp_engine
+        j = JaxDistributed((H, W), _psf(psf), _j(y), LAM, mesh=_jax_mesh(P), use_pallas=use_pallas)
+        return t._sp_engine, j._sp_engine
+
+    assert engines("full", 4, "interpret") == ("sweepsp", "sweepsp")
+    assert engines("gauss7", 4, False) == ("", "")
+    assert engines("gauss7", 4, "auto") == ("", "")  # "auto" on CPU devices: the chain
+    assert engines("gauss7", 32, "interpret") == "sweepsp"  # 8-row shards: too short for megasp and megarsp
     with pytest.raises(ValueError, match="1-D mesh"):
         DistributedTVDeconv2D((H, W), _psf("gauss7"), y, LAM, use_pallas="interpret",
                               mesh=make_mesh((2, 2), ("dp", "sp"), devices=["cpu"] * 4))

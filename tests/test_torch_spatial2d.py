@@ -409,24 +409,35 @@ def test_jax_state_continues_in_the_port(rng):
 
 
 def test_refusals(rng):
+    """The reference's errors, and the engine each former refusal now
+    picks: the chain where no block kernel runs (``use_pallas=False``,
+    ``"auto"`` on CPU devices, mask mode, more than 31 taps, blocks under
+    32 rows or columns), as the JAX solver does."""
     y = np.zeros((H, W), np.float32)
     g = _psf("gauss7")
-    item8 = "ROADMAP Queue 1 item 8"
-    with pytest.raises(NotImplementedError, match=item8):
-        Spatial2DTVDeconv2D((H, W), g, y, LAM, mesh=_mesh((2, 2)), use_pallas=False)
-    with pytest.raises(NotImplementedError, match="interpret"):
-        Spatial2DTVDeconv2D((H, W), g, y, LAM, mesh=_mesh((2, 2)))
+
+    def engines(shape, filt, mesh, use_pallas="auto", mask=None):
+        kw = dict(mesh=_mesh(mesh), use_pallas=use_pallas, mask=mask)
+        t = Spatial2DTVDeconv2D(shape, filt, np.zeros(shape, np.float32), LAM, **kw)
+        if mesh[0] * mesh[1] > 8:  # the conftest's JAX mesh has 8 devices
+            return t._sp_engine
+        j = JaxSpatial2D(shape, filt, jnp.zeros(shape), LAM, mesh=_jax_mesh(mesh), use_pallas=use_pallas,
+                         mask=None if mask is None else _j(mask))
+        return t._sp_engine, j._sp_engine
+
+    assert engines((H, W), g, (2, 2), use_pallas=False) == ("", "")
+    assert engines((H, W), g, (2, 2)) == ("", "")  # "auto" on CPU devices
     with pytest.raises(ValueError, match="CPU meshes"):
         Spatial2DTVDeconv2D((H, W), g, y, LAM, mesh=_mesh((2, 2)), use_pallas=True)
-    # mask mode: the reference's XLA chain; use_pallas=True on CPU devices
-    # raises before the mode is looked at
-    with pytest.raises(NotImplementedError, match=item8):
-        Spatial2DTVDeconv2D((H, W), None, y, LAM, mesh=_mesh((2, 2)), use_pallas="interpret", mask=np.ones((H, W)))
+    # mask mode: the chain; use_pallas=True on CPU devices raises before the
+    # mode is looked at
+    assert engines((H, W), None, (2, 2), use_pallas="interpret", mask=np.ones((H, W), np.float32)) == ("", "")
     with pytest.raises(ValueError, match="CPU meshes"):
         Spatial2DTVDeconv2D((H, W), None, y, LAM, mesh=_mesh((2, 2)), use_pallas=True, mask=np.ones((H, W)))
     with pytest.raises(ValueError, match="pass filt=None"):
         Spatial2DTVDeconv2D((H, W), g, y, LAM, mesh=_mesh((2, 2)), use_pallas="interpret", mask=np.ones((H, W)))
-    # the reference's checks: rank <= 4, the block size, the mesh
+    # the reference's checks: rank <= 4, the block size, the mesh, and a
+    # rank > 1 PSF that megar2d does not take
     with pytest.raises(ValueError, match="rank <= 4"):
         Spatial2DTVDeconv2D((H, W), _psf("full"), y, LAM, mesh=_mesh((2, 2)), use_pallas="interpret")
     with pytest.raises(ValueError, match="too small"):
@@ -435,14 +446,12 @@ def test_refusals(rng):
         Spatial2DTVDeconv2D((H, W), g, y, LAM, mesh=make_mesh((4,), devices=["cpu"] * 4), use_pallas="interpret")
     with pytest.raises(ValueError, match="divide"):
         Spatial2DTVDeconv2D((H, W), g, y, LAM, mesh=_mesh((3, 1)), use_pallas="interpret")
-    # what the block kernels cannot take: more than 31 taps, short blocks
-    with pytest.raises(NotImplementedError, match=item8):
-        Spatial2DTVDeconv2D((256, W), _psf("gauss33"), np.zeros((256, W), np.float32), LAM, mesh=_mesh((2, 2)),
-                            use_pallas="interpret")
-    with pytest.raises(NotImplementedError, match=item8):
-        Spatial2DTVDeconv2D((H, W), g, y, LAM, mesh=_mesh((8, 1)), use_pallas="interpret")
-    with pytest.raises(NotImplementedError, match=item8):
-        Spatial2DTVDeconv2D((H, W), g, y, LAM, mesh=_mesh((1, 32)), use_pallas="interpret")
+    with pytest.raises(ValueError, match="megar2d"):
+        Spatial2DTVDeconv2D((H, W), _psf("rank2"), y, LAM, mesh=_mesh((2, 2)), use_pallas=False)
+    # what the block kernels cannot take: more than 31 taps, short blocks -> the chain
+    assert engines((256, W), _psf("gauss33"), (2, 2), use_pallas="interpret")[0] == ""
+    assert engines((H, W), g, (8, 1), use_pallas="interpret") == ("", "")
+    assert engines((H, W), g, (1, 32), use_pallas="interpret") == ""
     # the 1-D solver names this one for a (rows, cols) mesh
     with pytest.raises(ValueError, match="Spatial2DTVDeconv2D"):
         DistributedTVDeconv2D((H, W), g, y, LAM, mesh=_mesh((2, 2)), use_pallas="interpret")
