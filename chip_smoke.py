@@ -203,6 +203,30 @@
     full-rank case and the batch against the CPU at 1024 x 1024.  Its
     record is the ``{"solver_io_chain": ...}`` line after phase 13's;
     ``python3 chip_smoke.py --phase 14`` runs it alone.
+15. Drives the sharded entry points at 4096 x 4096 on one card, each run
+    counted on its own: ``PDS(...).with_shardings(x=shard_along(mesh, "sp",
+    2, 0))`` on four row shards routes the main path onto
+    ``DistributedTVDeconv2D[megasp]`` (K14 80 in 20 iterations, K1 4), the
+    rank-2 PSF onto megarsp (K15 80, K1 4) and inpainting onto sweepsp (K16
+    80), and ``PartitionSpec("sp0", "sp1")`` on a (2, 2) mesh the main path
+    onto ``Spatial2DTVDeconv2D[megar2d]`` (K17 80, K1 4): each routed x bit
+    for bit the hand-built solver's and within 1e-4 of ``TVDeconvolution``
+    on one device; tau != sigma and a combined-mode problem decline to the
+    generic chain with a warning and no shard kernel, and a constructor's
+    ``RuntimeError`` (patched in) propagates; ``TVDeconvolution``'s sharded
+    copy runs mega2 (K11 21 in ``run_fixed(21)``, bit for bit; the rank-2
+    PSF's megar, K4 21), PMYULA's at
+    2048^2 and the LASSO ``APGD``'s launch no K9 and no K8 and agree with
+    the fused engines; ``ShardedDenseOperator`` at 16384^2 (rows,
+    ``from_blocks``, a (2, 2) mesh) against ``torch.matmul``, slope-timed
+    beside its bound; ``ShardedBlockDiagonalOperator`` of 8 band
+    ``Convolve2D`` blocks of 1024^2 (K1 8 an apply); ``PencilCircularConv2D``
+    at 4096^2 against ``CircularConvolve`` (apply, adjoint, gram, pinv, the
+    dot test, device and host ms) and a circular deconvolution by
+    ``APGD.with_shardings`` over it; ``distributed_init()`` of one process;
+    the routed and hand-built rates alternately, with the routed idle
+    share.  Its record is the ``{"sharded_entry": ...}`` line after phase
+    14's; ``python3 chip_smoke.py --phase 15`` runs it alone.
 
 ``python3 chip_smoke.py --gram-ab OLD_ROOT`` instead times, for the
 checkout at OLD_ROOT and for this one in turns (old, new, new, old), each
@@ -233,9 +257,13 @@ its ``bound_ms`` and ``bound_by``, and ``library_ms`` (K1's
 function).  ``spectral`` holds phase 11's results and its seconds; phase
 12's are on the ``conv_admm`` line before, phase 13's on the
 ``prox_sampling`` line, phase 14's on the ``solver_io_chain`` line (K16's
-entry adds its launches and shard time on phase 14's FFT-Gram path).
+entry adds its launches and shard time on phase 14's FFT-Gram path),
+phase 15's on the ``sharded_entry`` line (K14-K17's entries add their
+launches on the routed paths, K11's and K4's under ``TVDeconvolution.with_shardings``
+and K1's in one ``ShardedBlockDiagonalOperator`` apply).
 Without CUDA it exits 2 and prints no result.
 """
+import functools
 import json
 import math
 import statistics
@@ -2927,6 +2955,366 @@ def phase_solver_io_chain(dev, counters, res):
     return out
 
 
+N_P15 = 20  # iterations of each routed case (K14-K17: SHARDS launches each)
+N_DENSE_P15 = 16384  # ShardedDenseOperator's matrix: 16384^2 f32, 1 GiB
+SHAPE_BLOCK_P15 = (1024, 1024)  # ShardedBlockDiagonalOperator's band Convolve2D blocks
+N_BLOCKS_P15 = 8
+N_PENCIL_APGD = 50  # the circular deconvolution through APGD.with_shardings
+N_MCMC_P15 = 20  # PMYULA samples of the twin
+TOL_OP_P15 = 1e-5  # a mesh operator against its single-device counterpart, x max |out|
+HBM_MEASURED_BYTES_PER_S = 2988.6e9  # the card's copy rate measured in phase 1 (PERF.md): context, not a floor
+
+
+def slope_ms(fn, n_short=5, n_long=25):
+    """Wall ms of one call of ``fn``, slope-timed: ``n_long`` and
+    ``n_short`` calls, each run synchronised, their difference over the
+    difference of the counts (the constant cost cancels)."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for n in (n_short, n_long):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return 1e3 * (out[1] - out[0]) / (n_long - n_short)
+
+
+def phase_sharded_entry(dev, counters):
+    """Phase 15: the sharded entry points at full width on one card.  (a)
+    ``PDS.with_shardings`` routes the main path (K14), the rank-2 PSF
+    (K15), inpainting (K16) on a 4-position mesh and the main path on a
+    (2, 2) mesh (K17), each launching its kernel SHARDS x N_P15 times in
+    N_P15 iterations, bit for bit the hand-built solver and within TOL_PATH
+    of ``TVDeconvolution`` on one device; (b) tau != sigma and combined
+    mode take the generic chain with a warning and no shard kernel, and a
+    constructor's RuntimeError propagates; (c) the twins:
+    ``TVDeconvolution.with_shardings`` on mega2 (K11) and, for the rank-2
+    PSF, megar (K4), ``PMYULA`` without K9,
+    the LASSO ``APGD`` without K8; (d) ``ShardedDenseOperator`` at 16384^2;
+    (e) ``ShardedBlockDiagonalOperator`` of 8 band ``Convolve2D``s (K1);
+    (f) ``PencilCircularConv2D`` at 4096^2 and a circular deconvolution by
+    ``APGD.with_shardings``; (g) ``distributed_init()`` of one process; (h)
+    the rates, routed and hand-built alternately."""
+    import logging
+
+    from scipy.signal import fftconvolve
+
+    from pycsou_tpu_torch.func import L1Norm, L21Norm, NonNegativeOrthant, SquaredL2Loss
+    from pycsou_tpu_torch.ops import CircularConvolve, Convolve2D, Gradient, Masking
+    from pycsou_tpu_torch.opt import APGD, PDS, PMYULA, TVDeconvolution
+    from pycsou_tpu_torch.opt.admm import stack_operators
+    from pycsou_tpu_torch.parallel import (DistributedTVDeconv2D, NamedSharding, PartitionSpec,
+                                           PencilCircularConv2D, ShardedBlockDiagonalOperator,
+                                           ShardedDenseOperator, Spatial2DTVDeconv2D, distributed_init,
+                                           make_mesh, shard_along, solvers)
+    from pycsou_tpu_torch.utils.device import full_f32
+
+    t_phase = t_mark = time.perf_counter()
+    sections = {}
+
+    def section(name):
+        nonlocal t_mark
+        now = time.perf_counter()
+        sections[name] = now - t_mark
+        t_mark = now
+
+    out = {"tolerances": {"path": TOL_PATH, "operators": TOL_OP_P15}}
+    rng = np.random.default_rng(SEED + 15)
+    h, _, y = make_problem(rng, SHAPE)
+    yt = torch.from_numpy(y).to(dev)
+    h2 = rank2_kernel()
+    y2 = torch.from_numpy(fftconvolve(np.abs(rng.standard_normal(SHAPE)), h2, mode="same").astype(np.float32)).to(dev)
+    keep = keep_mask(SHAPE)
+    M = Masking(SHAPE, keep, device=dev)
+    y_in = M(yt)
+    mesh = make_mesh((SHARDS,), devices=[dev] * SHARDS)
+    mesh2 = make_mesh(MESH2D, ("sp0", "sp1"), devices=[dev] * (MESH2D[0] * MESH2D[1]))
+    rows, grid = shard_along(mesh, "sp", 2, 0), NamedSharding(mesh2, PartitionSpec("sp0", "sp1"))
+
+    def tv_pds(op, data, **kw):
+        return PDS(SHAPE, F=SquaredL2Loss(op.codim_shape, data=data) * op, G=NonNegativeOrthant(SHAPE),
+                   H=LAM * L21Norm((2,) + SHAPE, axis=0), K=Gradient(SHAPE), max_iter=3000, **kw)
+
+    def conv(psf):
+        return Convolve2D(SHAPE, psf, device=dev)
+
+    def idle_share(solver, ips):
+        busy = device_ms_per_iteration(solver)
+        return None if busy is None else 1.0 - busy * ips / 1e3
+
+    # (a) routing: name -> (expression, sharding, delegate class, engine, kernel, K1 launches, single engine)
+    cases = {
+        "main path -> megasp": (lambda: tv_pds(conv(h), yt), rows, DistributedTVDeconv2D, "megasp", "K14",
+                                SHARDS, "mega2"),
+        "rank-2 PSF -> megarsp": (lambda: tv_pds(conv(h2), y2), rows, DistributedTVDeconv2D, "megarsp", "K15",
+                                  SHARDS, "megar"),
+        "inpainting -> sweepsp": (lambda: tv_pds(M, y_in), rows, DistributedTVDeconv2D, "sweepsp", "K16", 0,
+                                  "sweepm"),
+        "main path (2, 2) -> megar2d": (lambda: tv_pds(conv(h), yt), grid, Spatial2DTVDeconv2D, "megar2d", "K17",
+                                        SHARDS, "megar"),
+    }
+    routed_runs, routed = {}, {}
+    for name, (build, sh, cls, engine, kernel, k1, single) in cases.items():
+        pds = build()
+
+        def route_and_run(pds=pds, sh=sh):
+            s = pds.with_shardings(x=sh)
+            return s, s.run_fixed(N_P15)
+
+        (s, st), counts = count_launches(counters, route_and_run)
+        d = s._fused
+        if type(d) is not cls or d._sp_engine != engine or s.iters_per_step != 1:
+            raise AssertionError(f"{name}: routed onto {type(d).__name__}[{getattr(d, '_sp_engine', None)}]")
+        exact = {kernel: SHARDS * N_P15, **({"K1": k1} if k1 else {})}
+        log(f"{name}: PDS.with_shardings -> {cls.__name__}[{engine}] run for {st['it']} iterations; "
+            f"launches {counts}")
+        expect_launches(name, counts, exact)
+        fused = pds._fused
+        kw = dict(tau=fused.tau, rho=pds.rho, max_iter=3000)
+        hand = cls(SHAPE, fused.filt, fused.y, LAM, mesh=mesh2 if cls is Spatial2DTVDeconv2D else mesh,
+                   mask=fused.mask, **kw)
+        x = s.postprocess(st)["x"]
+        x_hand = hand.postprocess(hand.run_fixed(N_P15))["x"]
+        same = bool(torch.equal(x, x_hand))
+        ref = TVDeconvolution(SHAPE, fused.y, LAM, filt=fused.filt, mask=fused.mask, stencil=single, tau=fused.tau, sigma=fused.sigma,
+                              max_iter=3000).run_fixed(N_P15)["x"]
+        err = max_err(x, ref)[0]
+        scale = max(1.0, float(ref.abs().max()))
+        log(f"{name}: routed x bit for bit the hand-built {cls.__name__}: {same}; against "
+            f"TVDeconvolution[{single}] after {N_P15}: max |dx| {err:.3e} (tol {TOL_PATH:g} x {scale:.3f})")
+        if not same or err > TOL_PATH * scale:
+            raise AssertionError(f"{name}: the routed solve disagrees with the hand-built or one-device solver")
+        routed_runs[kernel] = {"run": name, "launches": counts[kernel]}
+        routed[name] = (s, hand)
+        del st, x, x_hand, ref
+    out["routed"] = routed_runs
+    section("routing")
+
+    # (b) declines, and an error that is not a gate
+    class Catch(logging.Handler):
+        def __init__(self):
+            super().__init__()
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    catch = Catch()
+    flog = logging.getLogger("pycsou_tpu_torch.fuse")
+    flog.addHandler(catch)
+    declines = {}
+    shard_kernels = {"K14": 0, "K15": 0, "K16": 0, "K17": 0}
+    try:
+        MA = M * conv(h)
+        for name, build in (("tau != sigma", lambda: tv_pds(conv(h), yt, tau=0.5, sigma=0.25)),
+                            ("combined mode", lambda: tv_pds(MA, MA(yt)))):
+            pds = build()
+            catch.messages.clear()
+
+            def decline_and_step(pds=pds):
+                s = pds.with_shardings(x=rows)
+                return s, s.run_fixed(2)
+
+            (s, st), counts = count_launches(counters, decline_and_step)
+            ok = s._fused is None and s.state_shardings is not None and len(catch.messages) == 1
+            bad = {k: counts[k] for k in shard_kernels if counts[k]}
+            log(f"decline ({name}): generic chain {ok}, warning {catch.messages}, launches {counts}")
+            if not ok or bad:
+                raise AssertionError(f"decline ({name}): routed, no warning, or shard kernels launched {bad}")
+            declines[name] = {"warning": catch.messages[0], "launches": counts}
+    finally:
+        flog.removeHandler(catch)
+    real_init = DistributedTVDeconv2D.__init__
+
+    def broken(self, *a, **k):
+        raise RuntimeError("kernel build failed (patched in chip_smoke)")
+
+    solvers.DistributedTVDeconv2D.__init__ = broken
+    try:
+        tv_pds(conv(h), yt).with_shardings(x=rows)
+        raise AssertionError("with_shardings swallowed a constructor's RuntimeError")
+    except RuntimeError as e:
+        log(f"a constructor's RuntimeError propagates out of with_shardings: {e}")
+        declines["RuntimeError propagates"] = True
+    finally:
+        solvers.DistributedTVDeconv2D.__init__ = real_init
+    out["declines"] = declines
+    section("declines")
+
+    # (c) the twins
+    twins = {}
+    for psf, data, engine, kernel in ((h, yt, "mega2", "K11"), (h2, y2, "megar", "K4")):
+        tv = TVDeconvolution(SHAPE, data, LAM, filt=psf, max_iter=3000)
+        (tw, st), counts = count_launches(counters,
+                                          lambda: (lambda t: (t, t.run_fixed(21)))(tv.with_shardings(x=rows)))
+        ref = TVDeconvolution(SHAPE, data, LAM, filt=psf, stencil=engine, max_iter=3000).run_fixed(21)
+        same = bool(torch.equal(st["x"], ref["x"]))
+        log(f"TVDeconvolution.with_shardings: [{tv.stencil_mode}] -> [{tw.stencil_mode}], {st['it']} iterations in "
+            f"run_fixed(21); launches {counts}; x bit for bit TVDeconvolution[{engine}]: {same}")
+        expect_launches("TVDeconvolution.with_shardings", counts, {kernel: 21})
+        if tw.stencil_mode != engine or st["it"] != 21 or not same:
+            raise AssertionError(f"TVDeconvolution.with_shardings is not {engine} one iteration a step")
+        twins[f"TVDeconvolution[{engine}]"] = {"engine": tw.stencil_mode, "launches": counts}
+        if engine == "mega2":
+            twin_solver = tw
+        del st, ref
+    prng = np.random.default_rng(6)
+    xm = np.abs(prng.standard_normal(SHAPE_MCMC)).astype(np.float32)
+    ym = torch.from_numpy(fftconvolve(xm, h, mode="same").astype(np.float32)).to(dev)
+    sampler = PMYULA(SHAPE_MCMC, F=SquaredL2Loss(SHAPE_MCMC, data=ym) * Convolve2D(SHAPE_MCMC, h, device=dev),
+                     G=LAM_L1 * L1Norm(SHAPE_MCMC), seed=3, nb_burnin_iterations=5, max_iter=2000)
+    (ms, sst), counts = count_launches(
+        counters, lambda: (lambda t: (t, t.run_fixed(N_MCMC_P15)))(sampler.with_shardings(x=rows)))
+    fref = sampler.run_fixed(N_MCMC_P15)
+    err = max(max_err(sst[k], fref[k])[0] / max(1.0, float(fref[k].abs().max())) for k in ("x", "mmse_raw"))
+    log(f"PMYULA.with_shardings: [{sampler.engine}] -> [{ms.engine or 'generic chain'}], {N_MCMC_P15} samples; "
+        f"launches {counts}; against the fused engine max rel err {err:.3e} (tol {TOL_PATH:g})")
+    if counts["K9"] or ms.engine or err > TOL_PATH:
+        raise AssertionError("PMYULA.with_shardings launched K9 or disagrees with the fused engine")
+    twins["PMYULA"] = {"launches": counts, "rel_err": err}
+    apgd = APGD(SHAPE, F=SquaredL2Loss(SHAPE, data=yt) * conv(h), G=LAM_L1 * L1Norm(SHAPE), max_iter=3000)
+    (la, lst), counts = count_launches(counters, lambda: (lambda t: (t, t.run_fixed(N_P15)))(apgd.with_shardings(x=rows)))
+    lref = apgd.run_fixed(N_P15)
+    err = max_err(lst["x_temp"], lref["x_temp"])[0] / max(1.0, float(lref["x_temp"].abs().max()))
+    log(f"LASSO APGD.with_shardings: fused {type(apgd._fused).__name__}[{apgd._fused.engine}] dropped "
+        f"({la._fused is None}); launches {counts}; against the fused run max rel err {err:.3e} (tol {TOL_PATH:g})")
+    if counts["K8"] or la._fused is not None or err > TOL_PATH:
+        raise AssertionError("APGD.with_shardings launched K8 or disagrees with the fused run")
+    twins["LASSO APGD"] = {"launches": counts, "rel_err": err}
+    out["twins"] = twins
+    del sampler, ms, sst, fref, la, lst, lref
+    section("twins")
+
+    # (d) ShardedDenseOperator at 16384^2
+    n = N_DENSE_P15
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    A = torch.randn((n, n), generator=gen, device=dev)
+    v = torch.randn((n,), generator=gen, device=dev)
+    w = torch.randn((n,), generator=gen, device=dev)
+    with full_f32():
+        want_v, want_w = A @ v, A.T @ w
+    # the bound: one read of the matrix at the peak rate (a read-only stream beats the copy rate)
+    dense = {"bound_ms": 1e3 * n * n * 4 / PEAK_BYTES_PER_S,
+             "copy_rate_ms": 1e3 * n * n * 4 / HBM_MEASURED_BYTES_PER_S}
+    ops = {
+        "rows": ShardedDenseOperator(A, mesh=mesh, row_axis="sp"),
+        "from_blocks": ShardedDenseOperator.from_blocks(list(A.chunk(SHARDS)), mesh=mesh),
+        "2-D (2, 2)": ShardedDenseOperator(A, mesh=make_mesh(MESH2D, ("r", "c"), [dev] * SHARDS), row_axis="r",
+                                           col_axis="c"),
+    }
+    for name, op in ops.items():
+        ea = max_err(op.apply(v), want_v)[0] / float(want_v.abs().max())
+        eh = max_err(op.adjoint(w), want_w)[0] / float(want_w.abs().max())
+        rec = {"apply_rel_err": ea, "adjoint_rel_err": eh}
+        if name != "from_blocks":
+            rec["apply_ms"], rec["adjoint_ms"] = slope_ms(lambda: op.apply(v)), slope_ms(lambda: op.adjoint(w))
+        dense[name] = rec
+        log(f"ShardedDenseOperator {name} {n}^2 on {SHARDS} blocks: apply rel err {ea:.3e}, adjoint {eh:.3e} "
+            f"(tol {TOL_OP_P15:g})" + (f"; slope-timed apply {rec['apply_ms']:.4f} ms, adjoint "
+                                        f"{rec['adjoint_ms']:.4f} ms" if "apply_ms" in rec else ""))
+        if max(ea, eh) > TOL_OP_P15:
+            raise AssertionError(f"ShardedDenseOperator {name} disagrees with torch.matmul")
+    with full_f32():
+        dense["matmul_ms"] = slope_ms(lambda: A @ v)
+    log(f"torch.matmul of the whole matrix: {dense['matmul_ms']:.4f} ms; bound {dense['bound_ms']:.4f} ms "
+        f"(one read of {n * n * 4 / 2**30:.3g} GiB at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s; "
+        f"{dense['copy_rate_ms']:.4f} ms at the measured copy rate {HBM_MEASURED_BYTES_PER_S / 1e9:.1f} GB/s)")
+    out["dense"] = dense
+    del A, ops
+    torch.cuda.empty_cache()
+    section("dense")
+
+    # (e) ShardedBlockDiagonalOperator of band Convolve2Ds (K1)
+    blocks = stack_operators([Convolve2D(SHAPE_BLOCK_P15, gaussian_kernel(KSIZE, 1.0 + 0.25 * i), device=dev)
+                              for i in range(N_BLOCKS_P15)])
+    B = ShardedBlockDiagonalOperator(blocks, n_blocks=N_BLOCKS_P15, mesh=make_mesh((SHARDS,), ("dp",), [dev] * SHARDS))
+    xb = torch.randn((N_BLOCKS_P15,) + SHAPE_BLOCK_P15, generator=gen, device=dev)
+    got, counts = count_launches(counters, lambda: B.apply(xb))
+    want = torch.stack([op.apply(xb[i]) for i, op in enumerate(blocks)])
+    same = bool(torch.equal(got, want))
+    log(f"ShardedBlockDiagonalOperator of {N_BLOCKS_P15} band Convolve2D {SHAPE_BLOCK_P15[0]}^2 blocks on "
+        f"{SHARDS} positions: one apply's launches {counts}; bit for bit the blocks one by one: {same}")
+    expect_launches("ShardedBlockDiagonalOperator", counts, {"K1": N_BLOCKS_P15})
+    if not same:
+        raise AssertionError("ShardedBlockDiagonalOperator disagrees with its blocks")
+    out["block_diagonal"] = {"launches": counts, "apply_ms": median_ms(lambda: B.apply(xb))}
+    block_k1 = counts["K1"]
+    section("block diagonal")
+
+    # (f) the pencil FFT at 4096^2
+    pen = PencilCircularConv2D(SHAPE, h, mesh=mesh)
+    cc = CircularConvolve(SHAPE, h, device=dev)
+    xp = torch.randn(SHAPE, generator=gen, device=dev)
+    yp = torch.randn(SHAPE, generator=gen, device=dev)
+    pencil = {}
+    for name, a, b in (("apply", pen.apply(xp), cc.apply(xp)), ("adjoint", pen.adjoint(xp), cc.adjoint(xp)),
+                       ("gram", pen.gram.apply(xp), cc.adjoint(cc.apply(xp))),
+                       ("pinv", pen.pinv(xp, damp=1e-3), cc.pinv(xp, damp=1e-3))):
+        pencil[f"{name}_rel_err"] = e = max_err(a, b)[0] / float(b.abs().max())
+        if e > TOL_OP_P15:
+            raise AssertionError(f"PencilCircularConv2D.{name} disagrees with CircularConvolve ({e:.3e})")
+    lhs, rhs = float(torch.sum(pen.apply(xp) * yp)), float(torch.sum(xp * pen.adjoint(yp)))
+    pencil["dot_test"] = abs(lhs - rhs) / (float(torch.linalg.vector_norm(pen.apply(xp)))
+                                           * float(torch.linalg.vector_norm(yp)))
+    if pencil["dot_test"] > TOL_ADJOINT:
+        raise AssertionError("PencilCircularConv2D fails the dot test")
+    pencil["apply_ms"], pencil["circular_apply_ms"] = median_ms(lambda: pen.apply(xp)), median_ms(lambda: cc.apply(xp))
+    pencil["apply_host_ms"] = host_ms(lambda: pen.apply(xp), n=50)
+    pencil["circular_apply_host_ms"] = host_ms(lambda: cc.apply(xp), n=50)
+    x_circ = blocks_image(rng, SHAPE)
+    yc = cc.apply(torch.from_numpy(x_circ).to(dev))
+
+    def circ_apgd(op):
+        return APGD(SHAPE, F=SquaredL2Loss(SHAPE, data=yc) * op, x0=torch.zeros(SHAPE, device=dev),
+                    G=NonNegativeOrthant(SHAPE), max_iter=3000)
+
+    xs = circ_apgd(pen).with_shardings(x=rows).run_fixed(N_PENCIL_APGD)["x"]
+    xr = circ_apgd(cc).run_fixed(N_PENCIL_APGD)["x"]
+    pencil["apgd_rel_err"] = e = max_err(xs, xr)[0] / max(1.0, float(xr.abs().max()))
+    log(f"PencilCircularConv2D {SHAPE[0]}^2 on {SHARDS} shards against CircularConvolve: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in pencil.items() if k.endswith("err") or k == "dot_test")
+        + f"; apply {pencil['apply_ms']:.4f} ms device, {pencil['apply_host_ms']:.4f} ms host (CircularConvolve "
+        f"{pencil['circular_apply_ms']:.4f} ms, {pencil['circular_apply_host_ms']:.4f} ms host)")
+    if e > TOL_PATH:
+        raise AssertionError("APGD.with_shardings over the pencil operator disagrees with the unsharded APGD")
+    out["pencil"] = pencil
+    del pen, cc, xp, yp, xs, xr
+    section("pencil")
+
+    # (g) distributed_init of one process
+    distributed_init()
+    distributed_init(num_processes=1)
+    init = bool(torch.distributed.is_available() and torch.distributed.is_initialized())
+    log(f"distributed_init() of one process: torch.distributed.is_initialized() = {init} (no second rank on "
+        "one card: no NCCL run)")
+    if init:
+        raise AssertionError("distributed_init of one process initialised torch.distributed")
+    out["distributed_init_noop"] = True
+
+    # (h) rates: routed and hand-built alternately
+    rates = {}
+    timed = functools.partial(time_solver, n_short=10, n_long=60, reps=2)
+    for name, (s, hand) in routed.items():
+        r1, h1, r2, h2_ = timed(s), timed(hand), timed(s), timed(hand)
+        rec = {"routed_iters_per_s": [r1, r2], "hand_iters_per_s": [h1, h2_]}
+        rec["routed_device_idle_share"] = idle_share(s, statistics.mean([r1, r2]))
+        rates[name] = rec
+        log(f"{name}: routed {r1:.1f}, {r2:.1f} iters/s, hand-built {h1:.1f}, {h2_:.1f} iters/s (alternately); "
+            f"routed device idle share {rec['routed_device_idle_share']}")
+    ips = timed(twin_solver)
+    rates["TVDeconvolution.with_shardings (mega2)"] = {"iters_per_s": ips,
+                                                       "device_idle_share": idle_share(twin_solver, ips)}
+    log(f"TVDeconvolution.with_shardings [mega2] at {SHAPE[0]}^2: {ips:.1f} iters/s")
+    out["rates"] = rates
+    section("rates")
+    out["block_k1"] = block_k1
+    out["seconds"], out["section_s"] = time.perf_counter() - t_phase, sections
+    log(f"phase 15: {out['seconds']:.1f} s; by section " + ", ".join(f"{k} {v:.1f}" for k, v in sections.items()))
+    return out
+
+
 def device_ms_per_iteration(solver, n=20):
     """Device time an iteration in a ``torch.profiler`` trace of ``n``
     iterations: the summed durations of the CUDA events (kernels, copies,
@@ -2993,6 +3381,20 @@ def phase14_alone():
     return 0
 
 
+def phase15_alone():
+    """``--phase 15``: build the kernels and run phase 15 only; its record
+    is the last line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    out = phase_sharded_entry(torch.device("cuda", 0), build_kernels())
+    print(json.dumps({"sharded_entry": out, "card": smi}), flush=True)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card", file=sys.stderr)
@@ -3044,6 +3446,15 @@ def main():
     print(json.dumps({"prox_sampling": phase_prox_sampling(dev, counters), "card": smi}), flush=True)
     log("-- checkpoint, objective, iterates, profiling on the main path; the sharded chain (phase 14)")
     print(json.dumps({"solver_io_chain": phase_solver_io_chain(dev, counters, res), "card": smi}), flush=True)
+    log("-- the sharded entry points: with_shardings, the sharded dense and block operators, the pencil FFT "
+        "(phase 15)")
+    p15 = phase_sharded_entry(dev, counters)
+    print(json.dumps({"sharded_entry": p15, "card": smi}), flush=True)
+    for k, rec in p15["routed"].items():
+        res[k]["routed_launches"], res[k]["routed_run"] = rec["launches"], rec["run"]
+    res["K11"]["with_shardings_launches"] = p15["twins"]["TVDeconvolution[mega2]"]["launches"]["K11"]
+    res["K4"]["with_shardings_launches"] = p15["twins"]["TVDeconvolution[megar]"]["launches"]["K4"]
+    res["K1"]["block_diagonal_launches"] = p15["block_k1"]
 
     log(f"-- throughput ({smi})")
     solvers.update({"main path": pds, "LASSO": apgd})
@@ -3144,7 +3555,8 @@ def main():
                 out[f"{extra}_ms"] = v[0]
         for extra in ("rank2_library_ms", "w_pass_ms", "one_shard_max_abs_err", "shard_ms", "shard_plain_ms",
                       "one_block_max_abs_err", "block_ms", "block_plain_ms", "k2_max_abs_err",
-                      "rank2_k2_max_abs_err", "fft_gram_path_launches", "fft_gram_path_shard_ms"):
+                      "rank2_k2_max_abs_err", "fft_gram_path_launches", "fft_gram_path_shard_ms",
+                      "routed_launches", "routed_run", "with_shardings_launches", "block_diagonal_launches"):
             if extra in r:
                 out[extra] = r[extra]
         return out
@@ -3420,6 +3832,8 @@ def gram_ab(parent):
 if __name__ == "__main__":
     if sys.argv[1:] == ["--phase", "14"]:
         sys.exit(phase14_alone())
+    if sys.argv[1:] == ["--phase", "15"]:
+        sys.exit(phase15_alone())
     if len(sys.argv) in (3, 4) and sys.argv[1] == "--gram-times":
         sys.exit(gram_times(sys.argv[2], kernels_only=sys.argv[3:] == ["--kernels-only"]))
     if len(sys.argv) == 3 and sys.argv[1] == "--gram-ab":

@@ -9,6 +9,10 @@ reads them once per chunk of iterations (``solve``) or never
 the metric first fell to ``tol``: up to ``chunk - 1`` iterations past that
 point (``SolveInfo.converged_at`` records the iteration itself).
 
+``with_shardings`` records a sharded solve (see there): the port has no SPMD
+partitioner, so the generic chain keeps its state whole on the mesh's first
+device; ``PDS`` routes a fused TV problem onto the sharded solvers.
+
 ``solve(checkpoint_dir=...)`` saves the whole state (``utils/checkpoint.py``,
 ``torch.save`` where the reference writes Orbax) at the reference's
 iterations and resumes from the newest loadable save.  ``remat`` is taken
@@ -31,6 +35,7 @@ import torch
 
 from pycsou_tpu_torch._module import Module
 from pycsou_tpu_torch.utils.checkpoint import load_latest_state, save_state
+from pycsou_tpu_torch.utils.device import same_device
 
 __all__ = ["IterativeSolver", "SolveInfo"]
 
@@ -159,6 +164,8 @@ class IterativeSolver(Module):
     # iterations one step() performs (it/history/max_iter count iterations)
     iters_per_step: int = 1
     primary_var: str = "x"
+    # {state key -> NamedSharding} asked for by with_shardings (None: none)
+    state_shardings: Optional[Dict[str, Any]] = None
 
     def __init__(self, max_iter: int = 500, min_iter: int = 10, tol: float = 1e-3,
                  verbose: Optional[int] = None, remat: bool = False, track_objective: bool = False,
@@ -170,6 +177,48 @@ class IterativeSolver(Module):
         self.remat = bool(remat)
         self.track_objective = bool(track_objective)
         self.metric_every = int(metric_every)
+
+    # -- sharded solves -----------------------------------------------------
+    def _check_shardings(self, shardings) -> None:
+        """The checks every ``with_shardings`` makes of ``shardings``
+        (``parallel.mesh.NamedSharding``s keyed by state entry): meshes
+        within one process, whose first device is the solver's own."""
+        from pycsou_tpu_torch.parallel.mesh import NamedSharding, require_local
+
+        meshes = []
+        for key, sh in shardings.items():
+            if not isinstance(sh, NamedSharding):
+                raise TypeError(f"with_shardings({key}=...) takes a parallel.NamedSharding, not {type(sh).__name__}")
+            if all(m is not sh.mesh for m in meshes):
+                meshes.append(sh.mesh)
+        for m in meshes:
+            require_local(m, f"{type(self).__name__}.with_shardings")
+        own = getattr(self, "device", None)
+        for m in meshes:
+            if own is not None and not same_device(m.devices[0], own):
+                raise ValueError(f"with_shardings: the mesh's first device is {m.devices[0]}, the "
+                                 f"{type(self).__name__}'s device is {own}; build the solver on {m.devices[0]} "
+                                 "or give a mesh that starts on its device")
+
+    def with_shardings(self, **shardings) -> "IterativeSolver":
+        """A copy of the solver whose ``state_shardings`` records
+        ``shardings`` (``parallel.NamedSharding``s keyed by state entry).
+
+        The reference partitions the whole solve with GSPMD.  The port has no
+        SPMD partitioner, so on the generic chain each state entry stays
+        whole on the mesh's first device, which must be the solver's own
+        (``ValueError`` otherwise), and :meth:`postprocess` returns whole
+        tensors: the iterates are the unsharded chain's, bit for bit.  The
+        work spreads over the mesh only through mesh-aware operators
+        (``parallel.ShardedDenseOperator``, ``ShardedBlockDiagonalOperator``,
+        ``PencilCircularConv2D``), and an operator keeps its kernels: the
+        reference's ``strip_pallas`` has no counterpart, since its only
+        cause, a ``pallas_call`` that does not partition, is absent here.
+        ``PDS``, ``APGD``, ``TVDeconvolution``, ``PMYULA`` and
+        ``LassoDeconvolution`` route or switch engines first (see theirs).
+        A mesh that spans processes raises ``NotImplementedError``."""
+        self._check_shardings(shardings)
+        return self.replace(state_shardings=dict(shardings))
 
     # -- to implement ------------------------------------------------------
     def initial_state(self) -> Dict[str, Any]:
@@ -213,6 +262,13 @@ class IterativeSolver(Module):
 
     def _wrap_state(self, state: Dict[str, Any]) -> Dict[str, Any]:
         state = dict(state)
+        for key, sh in (self.state_shardings or {}).items():
+            v = state.get(key)
+            if isinstance(v, torch.Tensor):
+                # the reference's device_put: a shape that does not divide
+                # raises; the entry stays whole on the mesh's first device
+                sh.check_shape(tuple(v.shape))
+                state[key] = v.to(sh.mesh.devices[0])
         dev = self._device(state)
         state.setdefault("it", 0)
         state["it"] = int(state["it"])

@@ -34,7 +34,7 @@ from typing import Optional
 import torch
 
 from pycsou_tpu_torch.core.solver import IterativeSolver, _rel_from_sums, _rel_improvement
-from pycsou_tpu_torch.parallel.mesh import Mesh, make_mesh
+from pycsou_tpu_torch.parallel.mesh import Mesh, make_mesh, require_local
 from pycsou_tpu_torch.utils.device import as_tensor
 from pycsou_tpu_torch.utils.opnorm import cg
 from pycsou_tpu_torch.utils.shapes import as_shape
@@ -119,6 +119,7 @@ class ConsensusADMM(IterativeSolver):
             raise ValueError("pass exactly one of h_hats (Fourier) or ops (CG)")
         self.dim_shape = as_shape(dim_shape)
         self.mesh = mesh if mesh is not None else make_mesh(axis_names=(axis_name,))
+        require_local(self.mesh, "ConsensusADMM")
         self.axis_name = self.mesh.axis_names[0]
         devices = self.mesh.devices
         S = int(data.shape[0])

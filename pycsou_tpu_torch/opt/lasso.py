@@ -130,6 +130,19 @@ class LassoDeconvolution(IterativeSolver):
         if self.engine == "megaf":
             self._adj2 = self.gram.adj2
 
+    def _sharded_twin(self) -> "LassoDeconvolution":
+        """The copy ``with_shardings`` steps: the ``"gram"`` engine in place
+        of megaf (K8), as the reference's ``_without_pallas``
+        (``pycsou_tpu/opt/lasso.py``) drops its fused FISTA kernel."""
+        if self.engine != "megaf":
+            return self
+        return self.replace(engine="gram")
+
+    def with_shardings(self, **shardings) -> "LassoDeconvolution":
+        """The generic sharded copy (``IterativeSolver.with_shardings``) of
+        :meth:`_sharded_twin`."""
+        return IterativeSolver.with_shardings(self._sharded_twin(), **shardings)
+
     # -- iteration -----------------------------------------------------------
     def initial_state(self):
         z = torch.zeros(self.y.shape, dtype=torch.float32, device=self.device)

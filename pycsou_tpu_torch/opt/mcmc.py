@@ -177,6 +177,21 @@ class PMYULA(IterativeSolver):
         self.engine = "megal"
         return None
 
+    def _sharded_twin(self) -> "PMYULA":
+        """The copy ``with_shardings`` steps: the generic chain in place of
+        the fused engine (K9), as the reference's ``_without_pallas``
+        (``pycsou_tpu/opt/mcmc.py``) drops its fused Langevin kernel.  The
+        chain draws the same noise (``normal_noise(seed, n)``), so its
+        samples are the fused engine's up to float32 rounding."""
+        if not self.engine:
+            return self
+        return self.replace(engine="", _lg_fwd=None, _lg_adj2=None, _lg_atb=None)
+
+    def with_shardings(self, **shardings) -> "PMYULA":
+        """The generic sharded copy (``IterativeSolver.with_shardings``) of
+        :meth:`_sharded_twin`."""
+        return IterativeSolver.with_shardings(self._sharded_twin(), **shardings)
+
     # -- state ---------------------------------------------------------------
     def initial_state(self):
         dev = self.device

@@ -9,7 +9,9 @@ the fused TV engine (TV deconvolution, inpainting and super-resolution,
 Chambolle-Pock TV denoising), an APGD, or an FBS at ``rho = 1``, onto the
 fused LASSO engine; ``fuse=False`` steps the expression generically and is
 the oracle the fused path is held against.  A fusion that raises is not
-caught: the error reaches the caller.
+caught: the error reaches the caller.  ``with_shardings`` routes a fused TV
+problem onto the sharded solvers of ``parallel/solvers.py``
+(``PDS.with_shardings``) and otherwise steps the generic chain.
 """
 from __future__ import annotations
 
@@ -204,12 +206,19 @@ class PrimalDualSplitting(IterativeSolver):
     def initial_state(self):
         if self._fused is not None:
             # the fused engine's layout: split duals (TV), or no dual at all
-            # (the LASSO engine an FBS routes to)
+            # (the LASSO engine an FBS routes to); a sharded delegate
+            # (with_shardings) holds shards, so the seeds are cut into them
+            def seed(tmpl, val):
+                val = val.clone()
+                return self._fused._scatter(val) if isinstance(tmpl, tuple) else val
+
             state = self._fused.initial_state()
-            state["x"] = self.x0.clone()
+            state["x"] = seed(state["x"], self.x0)
             if "z0" in state:
-                state["z0"] = self.z0[0].clone()
-                state["z1"] = self.z0[1].clone()
+                state["z0"] = seed(state["z0"], self.z0[0])
+                state["z1"] = seed(state["z1"], self.z0[1])
+            elif "z" in state and self._has_H:
+                state["z"] = seed(state["z"], self.z0)
             return state
         state = {"x": self.x0, "z": self.z0}
         if self._instats:
@@ -275,7 +284,9 @@ class PrimalDualSplitting(IterativeSolver):
 
     def objective(self, x):
         """The primal objective ``F(x) + G(x) + H(K x)``, also when a fused
-        engine steps the solve."""
+        engine steps the solve (a sharded one's shards joined first)."""
+        if isinstance(x, tuple):
+            x = self._fused._gather(x)
         val = self.F.apply(x) + self.G.apply(x)
         if self._has_H:
             val = val + self.H.apply(self.K.apply(x))
@@ -283,11 +294,83 @@ class PrimalDualSplitting(IterativeSolver):
 
     def postprocess(self, state):
         """The generic contract (``x`` and a stacked ``z``) also when the
-        fused engine carried split duals."""
+        fused engine carried split duals, each sharded entry of a sharded
+        delegate joined on its mesh's first device."""
         out = super().postprocess(state)
-        if self._fused is not None and "z0" in out:
-            out["z"] = torch.stack([out.pop("z0"), out.pop("z1")], dim=0)
+        if self._fused is not None:
+            out = {k: self._fused._gather(v) if isinstance(v, tuple) else v for k, v in out.items()}
+            if "z0" in out:
+                out["z"] = torch.stack([out.pop("z0"), out.pop("z1")], dim=0)
         return out
+
+    # -- sharded solves ------------------------------------------------------
+    def with_shardings(self, **shardings):
+        """A sharded solve of the expression.  A fused TV problem whose ``x``
+        sharding cuts the image spatially (``PartitionSpec("sp", None)`` on
+        a 1-D mesh, ``PartitionSpec("sp0", "sp1")`` on a 2-D one) is routed
+        onto ``parallel.DistributedTVDeconv2D`` or ``Spatial2DTVDeconv2D``
+        (:meth:`_route_sharded_fused`): on CUDA their shard kernels
+        (K14-K17), on CPU devices their chain.  Any other request drops the
+        fused delegate and steps the generic chain
+        (``IterativeSolver.with_shardings``)."""
+        self._check_shardings(shardings)
+        if self._fused is not None:
+            routed = self._route_sharded_fused(shardings)
+            if routed is not None:
+                return routed
+            return self.replace(_fused=None, iters_per_step=1).with_shardings(**shardings)
+        return super().with_shardings(**shardings)
+
+    def _route_sharded_fused(self, shardings):
+        """The copy stepped by a sharded TV solver, or None when the request
+        does not map, with the reference's gates in its order: a delegate
+        that is not ``TVDeconvolution``, combined mode (blur and mask), a
+        delegate whose ``tau != sigma`` (a CPS-routed denoise), an ``x``
+        sharding missing or not a plain spatial split, and a mesh whose axis
+        names are not the spec's.  The reference catches every exception of
+        the sharded constructors and falls back; here only their gates'
+        ``ValueError``s fall back, so that an error in building or launching
+        a kernel reaches the caller.  Each decline of a TV delegate logs its
+        reason (the ``pycsou_tpu_torch.fuse`` logger), where the reference
+        warns for the constructors' only."""
+        from pycsou_tpu_torch.opt.fuse import logger
+        from pycsou_tpu_torch.opt.tv import TVDeconvolution
+
+        def decline(why):
+            logger.warning(f"sharded TV re-dispatch unavailable ({why}); running the generic chain")
+
+        fused = self._fused
+        if not isinstance(fused, TVDeconvolution):
+            return None
+        if fused.conv is not None:
+            return decline("combined blur and mask mode has no sharded engine")
+        mask_mode = fused.filt is None
+        if fused.tau != fused.sigma:
+            return decline(f"the delegate's tau {fused.tau} != sigma {fused.sigma}; the sharded engines "
+                           "take one step size")
+        sh = shardings.get("x")
+        spec = () if sh is None else tuple(sh.spec) + (None,) * (2 - len(sh.spec))
+        if sh is None or any(e is not None and not isinstance(e, str) for e in spec):
+            return decline(f"x sharding {sh} is not a plain spatial split")
+        mesh, axes = sh.mesh, tuple(sh.mesh.axis_names)
+        kw = dict(nonneg=fused.nonneg, mesh=mesh, tau=fused.tau, rho=self.rho, max_iter=self.max_iter,
+                  min_iter=self.min_iter, accuracy_threshold=self.tol, isotropic=fused.iso,
+                  mask=fused.mask if mask_mode else None)
+        args = (tuple(fused.y.shape), None if mask_mode else fused.filt, fused.y, fused.lam)
+        try:
+            if spec[0] is not None and spec[1] is None and axes == (spec[0],):
+                from pycsou_tpu_torch.parallel.solvers import DistributedTVDeconv2D
+
+                dist = DistributedTVDeconv2D(*args, axis_name=spec[0], **kw)
+            elif spec[0] is not None and spec[1] is not None and axes == spec[:2]:
+                from pycsou_tpu_torch.parallel.solvers import Spatial2DTVDeconv2D
+
+                dist = Spatial2DTVDeconv2D(*args, **kw)
+            else:
+                return decline(f"{sh.spec} does not name the axes {axes} of its mesh")
+        except ValueError as e:  # the constructors' gates (rank, divisibility, halo reach)
+            return decline(e)
+        return self.replace(_fused=dist, iters_per_step=1)
 
 
 PDS = PrimalDualSplitting
@@ -430,6 +513,14 @@ class AcceleratedProximalGradientDescent(IterativeSolver):
     def objective(self, x):
         """``F(x) + G(x)``."""
         return self.F.apply(x) + self.G.apply(x)
+
+    def with_shardings(self, **shardings):
+        """A sharded solve of the expression: the fused LASSO delegate is
+        dropped and the generic chain steps it (the reference's rule; see
+        ``IterativeSolver.with_shardings``)."""
+        if self._fused is not None:
+            return self.replace(_fused=None).with_shardings(**shardings)
+        return super().with_shardings(**shardings)
 
 
 APGD = AcceleratedProximalGradientDescent

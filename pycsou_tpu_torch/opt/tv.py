@@ -305,6 +305,30 @@ class TVDeconvolution(IterativeSolver):
         self.tau = float(tau)
         self.sigma = float(tau) if sigma is None else float(sigma)
 
+    def with_shardings(self, **shardings) -> "TVDeconvolution":
+        """The generic sharded copy (``IterativeSolver.with_shardings``: the
+        state whole on the mesh's first device) on the first single-step
+        engine of its mode's ladder, one iteration a step, so that
+        ``run_fixed(n)`` runs exactly n iterations for odd n too, as the
+        reference's copy does.  The reference runs its XLA stencil there
+        (``stencil_mode="xla"``); here conv mode runs mega2 (K11) for a
+        rank-1 PSF within :func:`rank1_gate`, else megar (K4) for a band
+        PSF, else sweep (K2 or the Gram, then K3); mask mode sweepm (K5);
+        combined mode megarm (K7) for a band convolution, else sweep; CPU
+        tensors ``"plain"``.  For the solve cut over the mesh use
+        ``parallel.DistributedTVDeconv2D`` (or ``PDS.with_shardings``)."""
+        out = super().with_shardings(**shardings)
+        if self.device.type != "cuda":
+            engine = "plain"
+        elif self.mode == "conv":
+            engine = "mega2" if rank1_gate(self.gram) is None else "megar" if band_gate(self.gram) is None \
+                else "sweep"
+        elif self.mode == "mask":
+            engine = "sweepm"
+        else:
+            engine = "megarm" if self.conv.method == "band" else "sweep"
+        return out.replace(stencil_mode=engine, iters_per_step=1)
+
     # -- iteration ---------------------------------------------------------
     def initial_state(self):
         z = lambda: torch.zeros(self.y.shape, dtype=torch.float32, device=self.device)  # noqa: E731

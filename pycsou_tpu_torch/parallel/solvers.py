@@ -24,8 +24,8 @@ w_loc)`` blocks on a 2-D mesh) and the metric from the shards' sums.
 when the columns are not cut); its state holds a tuple of row tuples of
 blocks.  :class:`BatchedDistributedTVDeconv2D` runs a batch of images on a
 ``(dp, sp)`` mesh: each image on the chain of one mesh row, no exchange
-between rows.  Meshes across processes are not ported yet (ROADMAP Queue 1
-item 8).
+between rows.  A mesh that spans processes raises ``NotImplementedError``
+(ROADMAP Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -43,7 +43,7 @@ from pycsou_tpu_torch.kernels.tvr import HALO_COLS, tv_pds_megar_shard2d_step, t
 from pycsou_tpu_torch.ops._gram import conv_full_direct
 from pycsou_tpu_torch.ops.conv import Convolve2D, lowrank_factors
 from pycsou_tpu_torch.opt.tv import rank1_gate
-from pycsou_tpu_torch.parallel.mesh import Mesh, make_mesh, make_mesh_2d
+from pycsou_tpu_torch.parallel.mesh import Mesh, make_mesh, make_mesh_2d, require_local
 from pycsou_tpu_torch.parallel.spatial import (
     conv_transfer,
     halo_extend,
@@ -279,6 +279,7 @@ class DistributedTVDeconv2D(_BlockedTV):
         self.iso = bool(isotropic)
         H, W = as_shape(shape)
         self.mesh = mesh if mesh is not None else make_mesh(axis_names=(axis_name,))
+        require_local(self.mesh, "DistributedTVDeconv2D")
         if len(self.mesh.axis_names) != 1:
             raise ValueError(
                 f"DistributedTVDeconv2D shards rows over a 1-D mesh; got axes {self.mesh.axis_names} "
@@ -530,6 +531,7 @@ class BatchedDistributedTVDeconv2D(_BlockedTV):
     ):
         super().__init__(max_iter=max_iter, min_iter=min_iter, tol=accuracy_threshold, verbose=verbose)
         self.mesh = mesh if mesh is not None else make_mesh((1, len(make_mesh().devices)), ("dp", "sp"))
+        require_local(self.mesh, "BatchedDistributedTVDeconv2D")
         if len(self.mesh.axis_names) != 2:
             raise ValueError("mesh must be 2-D (dp, sp)")
         self.dp, self.sp = self.mesh.axis_names
@@ -686,6 +688,7 @@ class Spatial2DTVDeconv2D(_BlockedTV):
         self.iso = bool(isotropic)
         H, W = as_shape(shape)
         self.mesh = mesh if mesh is not None else make_mesh_2d()
+        require_local(self.mesh, "Spatial2DTVDeconv2D")
         if len(self.mesh.axis_names) != 2:
             raise ValueError("Spatial2DTVDeconv2D needs a 2-D (rows, cols) mesh")
         self.ax_r, self.ax_c = self.mesh.axis_names

@@ -33,13 +33,14 @@ blocks), the band Gram of a rank-1 PSF (``kernels/band.py``: ``K - 1``
 halo rows, the edge corrections on the first and last blocks; on a 2-D
 mesh also along the columns) and the separable band convolution of a 2-D
 mesh; :func:`pdot` and :func:`pnorm` add the blocks' sums on the first
-block's device (the reference's ``psum``).  A filter, transfer or plan is
+block's device (the reference's ``psum``), and across processes too when
+given a mesh that spans them.  A filter, transfer or plan is
 given once, or for a transfer as a dict of one copy a device: where a
 block lives on another device, a lone copy is copied there.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import functools
 
@@ -49,6 +50,7 @@ from pycsou_tpu_torch.kernels.band import band_conv, gram_band_cols
 from pycsou_tpu_torch.ops._gram import conv_full_direct
 from pycsou_tpu_torch.ops.conv import next_fast_len
 from pycsou_tpu_torch.ops.diff import fdiff_forward, fdiff_forward_adjoint
+from pycsou_tpu_torch.parallel.mesh import Mesh, psum
 from pycsou_tpu_torch.utils.device import full_f32
 
 __all__ = [
@@ -394,16 +396,20 @@ def sharded_sepgram_rank1(blocks, g_rows, g_cols) -> tuple:
     return _gram_band_rows_halo([gram_band_cols(b, cols_on(b.device)) for b in blocks], g_rows)
 
 
-def pdot(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor]) -> torch.Tensor:
+def pdot(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor], mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The inner product of two sharded arrays (real), the blocks' sums
-    added on the first block's device."""
+    added on the first block's device; given a mesh that spans processes,
+    ``a`` and ``b`` are this process's blocks and the sums go through
+    :func:`~pycsou_tpu_torch.parallel.mesh.psum`."""
+    if mesh is not None:
+        return psum([torch.sum(x * y) for x, y in zip(a, b)], mesh)
     dev = a[0].device
     return functools.reduce(torch.add, [_on(torch.sum(x * y), dev) for x, y in zip(a, b)])
 
 
-def pnorm(a: Sequence[torch.Tensor]) -> torch.Tensor:
+def pnorm(a: Sequence[torch.Tensor], mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The 2-norm of a sharded array."""
-    return torch.sqrt(pdot(a, a))
+    return torch.sqrt(pdot(a, a, mesh))
 
 
 # -- the 2-D mesh: grids of blocks ---------------------------------------------------

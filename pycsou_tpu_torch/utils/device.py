@@ -18,8 +18,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "set_default_device", "get_default_device", "as_tensor", "dtype_of",
-           "full_f32", "settle_cpu_math"]
+__all__ = ["resolve_device", "same_device", "set_default_device", "get_default_device", "as_tensor",
+           "dtype_of", "full_f32", "settle_cpu_math"]
 
 _DEFAULT: Optional[torch.device] = None  # set_default_device; None means cuda
 
@@ -57,6 +57,17 @@ def resolve_device(device=None, *sources) -> torch.device:
             'pycsou_tpu_torch.set_default_device("cpu")'
         )
     return dev
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one (``cuda`` is the current CUDA device)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type == "cuda":
+        cur = torch.cuda.current_device() if torch.cuda.is_available() else 0
+        return (cur if a.index is None else a.index) == (cur if b.index is None else b.index)
+    return a.index == b.index or None in (a.index, b.index)
 
 
 def as_tensor(x, device, dtype=torch.float32) -> torch.Tensor:

@@ -1637,3 +1637,65 @@ def test_objectives_read_no_host(cuda, rng):
     for s, st in zip(solvers, tracked):
         last = float(st["obj_history"][st["it"] - 1])
         assert abs(last - float(s.objective(st[s.primary_var]))) <= 1e-5 * abs(last), type(s).__name__
+
+
+# -- the sharded entry points: with_shardings, the sharded dense operator, the pencil FFT
+
+
+def test_with_shardings_routes_onto_k14(cuda, rng):
+    """``PDS(...).with_shardings(x=shard_along(mesh, "sp", 2, 0))`` on four
+    shards of one card builds ``DistributedTVDeconv2D`` on megasp: K14
+    four times an iteration (K1 four times for A^H y), and the hand-built
+    solver's iterates bit for bit."""
+    from pycsou_tpu_torch.parallel import shard_along
+
+    S, P = (512, 384), 4
+    y = torch.from_numpy(np.abs(rng.standard_normal(S)).astype(np.float32)).to(cuda)
+    mesh = make_mesh((P,), devices=[cuda] * P)
+    pds = PDS(S, F=SquaredL2Loss(S, data=y) * Convolve2D(S, _gauss(), device=cuda), G=NonNegativeOrthant(S),
+              H=0.05 * L21Norm((2,) + S, axis=0), K=Gradient(S), max_iter=100)
+    counters = [sepconv2d, tv_pds_mega2_shard_step, tv_pds_mega3_step, tv_pds_mega2_step]
+    before = [c.launches for c in counters]
+    routed = pds.with_shardings(x=shard_along(mesh, "sp", 2, 0))
+    st = routed.run_fixed(5)
+    assert isinstance(routed._fused, DistributedTVDeconv2D) and routed._fused._sp_engine == "megasp"
+    assert [c.launches - b for c, b in zip(counters, before)] == [P, 5 * P, 0, 0]
+    hand = DistributedTVDeconv2D(S, pds._fused.filt, y, 0.05, mesh=mesh, tau=pds._fused.tau, rho=pds.rho,
+                                 max_iter=100)
+    assert torch.equal(routed.postprocess(st)["x"], hand.postprocess(hand.run_fixed(5))["x"])
+
+
+@pytest.mark.parametrize("row_axis,col_axis,mesh", [("sp", None, (4,)), (None, "sp", (4,)), ("r", "c", (2, 2))])
+def test_sharded_dense_on_the_card(cuda, rng, row_axis, col_axis, mesh):
+    """``ShardedDenseOperator`` on four blocks of one card against
+    ``torch.matmul`` of the whole matrix (full f32), apply and adjoint."""
+    from pycsou_tpu_torch.parallel import ShardedDenseOperator
+    from pycsou_tpu_torch.utils.device import full_f32
+
+    names = ("sp",) if len(mesh) == 1 else ("r", "c")
+    M = torch.from_numpy(rng.standard_normal((1024, 768)).astype(np.float32)).to(cuda)
+    op = ShardedDenseOperator(M, mesh=make_mesh(mesh, names, devices=[cuda] * 4), row_axis=row_axis,
+                              col_axis=col_axis)
+    x = torch.from_numpy(rng.standard_normal(768).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.standard_normal(1024).astype(np.float32)).to(cuda)
+    with full_f32():
+        want_x, want_y = M @ x, M.T @ y
+    _close(op.apply(x), want_x, rel=1e-5)
+    _close(op.adjoint(y), want_y, rel=1e-5)
+    assert op.apply(x).device.type == "cuda"
+
+
+def test_pencil_conv_on_the_card(cuda, rng):
+    """``PencilCircularConv2D`` on four shards of one card against
+    ``CircularConvolve``: apply, adjoint, gram and the damped pinv."""
+    from pycsou_tpu_torch.ops import CircularConvolve
+    from pycsou_tpu_torch.parallel import PencilCircularConv2D
+
+    S = (256, 384)
+    op = PencilCircularConv2D(S, _gauss(), mesh=make_mesh((4,), devices=[cuda] * 4))
+    ref = CircularConvolve(S, _gauss(), device=cuda)
+    x = torch.from_numpy(rng.standard_normal(S).astype(np.float32)).to(cuda)
+    _close(op.apply(x), ref.apply(x), rel=1e-5)
+    _close(op.adjoint(x), ref.adjoint(x), rel=1e-5)
+    _close(op.gram.apply(x), ref.adjoint(ref.apply(x)), rel=1e-5)
+    _close(op.pinv(x, damp=1e-3), ref.pinv(x, damp=1e-3), rel=1e-5)
