@@ -227,6 +227,25 @@
     the routed and hand-built rates alternately, with the routed idle
     share.  Its record is the ``{"sharded_entry": ...}`` line after phase
     14's; ``python3 chip_smoke.py --phase 15`` runs it alone.
+16. Drives the sharded solvers and operators on a mesh that spans two
+    processes on the card.  The parent runs each case on a one-process
+    mesh of four positions of ``cuda:0`` (K14-K17 80 launches in 20
+    iterations), then starts two worker processes
+    (``--phase16-worker``) joined by ``distributed_init(...,
+    backend="gloo")`` (CUDA tensors through pinned host buffers: NCCL
+    refuses two ranks on one card), each driving two of the positions at
+    4096 x 4096: megasp (Gaussian PSF), megarsp (rank-2 PSF), sweepsp
+    (inpainting), ``Spatial2DTVDeconv2D`` on (2, 2) with the process
+    boundary along the rows and then along the columns, cfg5-style
+    ``ConsensusADMM`` (4 scenarios at 128^3), ``ShardedDenseOperator`` at
+    16384^2 (``from_blocks``: each process draws its own blocks) and
+    ``PencilCircularConv2D``.  Each worker's joined x and z (ADMM's z and
+    u) must hash as the parent's (bit for bit), K14-K17 launch exactly 2
+    times a worker an iteration (40 in ``run_fixed(20)``), the operators
+    agree within 1e-6; each worker reports its iters/s, device-idle share
+    and the bytes it sent an iteration.  A worker that fails or times out
+    fails the script.  Its record is the ``{"multiprocess": ...}`` line
+    after phase 15's; ``python3 chip_smoke.py --phase 16`` runs it alone.
 
 ``python3 chip_smoke.py --gram-ab OLD_ROOT`` instead times, for the
 checkout at OLD_ROOT and for this one in turns (old, new, new, old), each
@@ -260,7 +279,9 @@ function).  ``spectral`` holds phase 11's results and its seconds; phase
 entry adds its launches and shard time on phase 14's FFT-Gram path),
 phase 15's on the ``sharded_entry`` line (K14-K17's entries add their
 launches on the routed paths, K11's and K4's under ``TVDeconvolution.with_shardings``
-and K1's in one ``ShardedBlockDiagonalOperator`` apply).
+and K1's in one ``ShardedBlockDiagonalOperator`` apply), phase 16's on
+the ``multiprocess`` line (K14-K17's entries add each worker's launches
+across processes, K1's each worker's ``A^H y`` launches).
 Without CUDA it exits 2 and prints no result.
 """
 import functools
@@ -3315,6 +3336,270 @@ def phase_sharded_entry(dev, counters):
     return out
 
 
+# -- phase 16: the sharded solvers and operators across two processes on one card
+
+P16_ITERS = 20  # iterations of each counted run
+P16_ADMM_D = 128  # the cfg5-style cube's edge (cfg5_problem: bench.py sec_cfg5_admm3d's draws)
+N_DENSE_P16 = 16384
+TOL_OP_P16 = 1e-6  # an operator across processes against the one-process mesh, x max |out|
+P16_TIMEOUT = 300  # seconds for the two workers, their start on the card included
+# case: (solver, data, mesh shape, ranks of the two processes, the kernel it launches once a position)
+P16_TV = {
+    "megasp": ("dist", "gauss", (4,), (0, 0, 1, 1), "K14"),
+    "megarsp": ("dist", "rank2", (4,), (0, 0, 1, 1), "K15"),
+    "sweepsp": ("dist", "mask", (4,), (0, 0, 1, 1), "K16"),
+    "megar2d rows": ("2d", "gauss", (2, 2), (0, 0, 1, 1), "K17"),
+    "megar2d cols": ("2d", "gauss", (2, 2), (0, 1, 0, 1), "K17"),
+}
+
+
+def _p16_mesh(dev, shape, ranks, names=None):
+    """Four positions on ``dev``: within this process (``ranks`` None) or
+    over two processes."""
+    from pycsou_tpu_torch.parallel import Mesh
+
+    names = names or (("sp",) if len(shape) == 1 else ("sp0", "sp1"))
+    return Mesh([dev] * 4, names, shape, ranks=ranks)
+
+
+def _p16_data(dev):
+    """The TV problems at SHAPE, made on the card alike in every process:
+    the piecewise-constant image blurred by K1 (Gaussian and rank-2 PSFs)
+    or kept by the keep mask (inpainting), plus 0.01 noise."""
+    from pycsou_tpu_torch.ops import Convolve2D
+
+    rng = np.random.default_rng(SEED + 16)
+    x = torch.from_numpy(blocks_image(rng, SHAPE)).to(dev)
+    noise = torch.from_numpy((0.01 * rng.standard_normal(SHAPE)).astype(np.float32)).to(dev)
+    m = torch.from_numpy(keep_mask(SHAPE).astype(np.float32)).to(dev)
+    data = {psf: (h, Convolve2D(SHAPE, h, device=dev)(x) + noise, None)
+            for psf, h in (("gauss", gaussian_kernel()), ("rank2", rank2_kernel()))}
+    data["mask"] = (None, m * (x + noise), m)
+    return data
+
+
+def _p16_tv(case, dev, data, ranks):
+    from pycsou_tpu_torch.parallel import DistributedTVDeconv2D, Spatial2DTVDeconv2D
+
+    kind, psf, shape, _, _ = P16_TV[case]
+    h, y, m = data[psf]
+    mesh = _p16_mesh(dev, shape, ranks)
+    if kind == "dist":
+        return DistributedTVDeconv2D(SHAPE, h, y, LAM, mesh=mesh, mask=m, max_iter=3000)
+    return Spatial2DTVDeconv2D(SHAPE, h, y, LAM, mesh=mesh, max_iter=3000)
+
+
+def _p16_admm(dev, ranks):
+    """cfg5's consensus ADMM (4 scenarios, Fourier x-updates, nonnegative z)
+    at P16_ADMM_D^3, one scenario a position."""
+    from pycsou_tpu_torch.func import NonNegativeOrthant
+    from pycsou_tpu_torch.opt import ConsensusADMM
+
+    d = P16_ADMM_D
+    h_hats, data = cfg5_problem(d, dev)
+    return ConsensusADMM((d,) * 3, h_hats, data, g=NonNegativeOrthant((d,) * 3), rho=1.0,
+                         mesh=_p16_mesh(dev, (4,), ranks, ("dp",)), max_iter=3000)
+
+
+def _p16_operators(dev, ranks):
+    """``ShardedDenseOperator.from_blocks`` at N_DENSE_P16^2 (each row block
+    drawn on the card from its position's seed, only this process's) and
+    ``PencilCircularConv2D`` at SHAPE, with their inputs."""
+    from pycsou_tpu_torch.parallel import PencilCircularConv2D, ShardedDenseOperator
+
+    mesh = _p16_mesh(dev, (4,), ranks)
+    n, rows = N_DENSE_P16, N_DENSE_P16 // 4
+
+    def draw(shape, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn(shape, generator=g, device=dev)
+
+    dense = ShardedDenseOperator.from_blocks([draw((rows, n), SEED + 100 + p) / math.sqrt(n)
+                                              for p in mesh.local_positions], mesh=mesh)
+    pencil = PencilCircularConv2D(SHAPE, gaussian_kernel(), mesh=mesh)
+    return dense, pencil, draw((n,), SEED + 200), draw((n,), SEED + 201), draw(SHAPE, SEED + 202)
+
+
+def _p16_outputs(dense, pencil, v, w, img):
+    return {"dense apply": dense.apply(v), "dense adjoint": dense.adjoint(w), "pencil apply": pencil.apply(img),
+            "pencil adjoint": pencil.adjoint(img)}
+
+
+def _sha(t):
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _z_of(out):
+    return out["z"] if "z" in out else torch.stack([out["z0"], out["z1"]])
+
+
+def phase16_worker(coord, rank, out_dir, dev=None):
+    """``--phase16-worker COORD RANK DIR``: one of phase 16's two processes
+    on ``cuda:0``, joined over gloo (CUDA tensors through host buffers:
+    NCCL refuses two ranks on one card).  Each case as the parent ran it
+    on one process, its positions of the mesh here: the joined results'
+    hashes, the launches of the counted run, iters/s, the idle share and
+    the bytes sent to the other process an iteration; the operators'
+    outputs against the parent's.  Its record is the last line."""
+    from pathlib import Path
+
+    from pycsou_tpu_torch.parallel import distributed_init
+    from pycsou_tpu_torch.parallel.mesh import transfer
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    counters = build_kernels()  # the parent's build, loaded
+    distributed_init(coordinator_address=coord, num_processes=2, process_id=rank, backend="gloo")
+    t0 = time.perf_counter()
+    rep = {"rank": rank, "backend": torch.distributed.get_backend(), "tv": {}}
+    data = _p16_data(dev)
+
+    def counted(fn):
+        sent = transfer.sent_bytes
+        out, counts = count_launches(counters, fn)
+        return out, {k: v for k, v in counts.items() if v}, transfer.sent_bytes - sent
+
+    def rates(solver):
+        ips = time_solver(solver, n_short=10, n_long=40, reps=1)
+        busy = device_ms_per_iteration(solver, n=10)
+        return ips, None if busy is None else 1.0 - busy * ips / 1e3
+
+    for case, (_, _, _, ranks, _) in P16_TV.items():
+        solver, built, _ = counted(lambda: _p16_tv(case, dev, data, ranks))
+        st, counts, sent = counted(lambda: solver.run_fixed(P16_ITERS))
+        out = solver.postprocess(st)
+        ips, idle = rates(solver)
+        rep["tv"][case] = {"x": _sha(out["x"]), "z": _sha(_z_of(out)), "built": built, "launches": counts,
+                           "sent_bytes_per_iteration": sent / P16_ITERS, "iters_per_s": ips,
+                           "device_idle_share": idle}
+        del solver, st, out
+    admm = _p16_admm(dev, (0, 0, 1, 1))
+    st, counts, sent = counted(lambda: admm.run_fixed(P16_ITERS))
+    out = admm.postprocess(st)
+    ips, idle = rates(admm)
+    rep["admm"] = {"z": _sha(out["z"]), "u": _sha(out["u"]), "launches": counts,
+                   "sent_bytes_per_iteration": sent / P16_ITERS, "iters_per_s": ips, "device_idle_share": idle}
+    del admm, st, out
+    dense, pencil, v, w, img = _p16_operators(dev, (0, 0, 1, 1))
+    ref = torch.load(Path(out_dir) / "refs.pt", map_location=dev)
+    got = _p16_outputs(dense, pencil, v, w, img)
+    rep["operators"] = {k: max_err(got[k], ref[k])[0] / max(1.0, float(ref[k].abs().max())) for k in ref}
+    rep["operators_ms"] = {"dense apply": slope_ms(lambda: dense.apply(v)),
+                           "pencil apply": slope_ms(lambda: pencil.apply(img))}
+    rep["seconds"] = time.perf_counter() - t0
+    torch.distributed.destroy_process_group()
+    print(json.dumps(rep), flush=True)
+    return 0
+
+
+def _p16_worker_cmd(coord, rank, out_dir):
+    from pathlib import Path
+
+    return [sys.executable, str(Path(__file__).resolve()), "--phase16-worker", coord, str(rank), str(out_dir)]
+
+
+def phase_multiprocess(dev, counters):
+    """Phase 16: the sharded solvers and operators on a mesh that spans two
+    processes on this card.  The parent runs each case on a one-process
+    mesh of four positions of ``dev`` (the reference), then starts two
+    worker processes (``--phase16-worker``), each driving two of the
+    positions over gloo; each joined x and z must hash as the parent's (bit
+    for bit), each shard kernel launch 2 a worker an iteration, the
+    operators agree within TOL_OP_P16.  Returns the record."""
+    import shutil
+    import socket
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    out_dir = Path(__file__).resolve().parent / "build" / "phase16"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    data = _p16_data(dev)
+    ref = {"tv": {}}
+    for case, (_, _, _, _, kernel) in P16_TV.items():
+        solver = _p16_tv(case, dev, data, None)
+        st, counts = count_launches(counters, lambda: solver.run_fixed(P16_ITERS))
+        expect_launches(f"one-process {case}", counts, {kernel: 4 * P16_ITERS})
+        out = solver.postprocess(st)
+        ref["tv"][case] = {"x": _sha(out["x"]), "z": _sha(_z_of(out))}
+        del solver, st, out
+    admm = _p16_admm(dev, None)
+    out = admm.postprocess(admm.run_fixed(P16_ITERS))
+    ref["admm"] = {"z": _sha(out["z"]), "u": _sha(out["u"])}
+    del admm, out
+    ops = _p16_operators(dev, None)
+    torch.save(_p16_outputs(*ops), out_dir / "refs.pt")
+    del ops
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sock.getsockname()[1]}"
+    procs = [subprocess.Popen(_p16_worker_cmd(coord, r, out_dir), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=P16_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(o[-8000:], file=sys.stderr)
+            raise AssertionError(f"phase 16: worker {r} exited {p.returncode}")
+    reps = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    for rep in reps:
+        r = rep["rank"]
+        if rep["backend"] != "gloo":
+            raise AssertionError(f"phase 16: worker {r} joined over {rep['backend']}")
+        for case, (_, _, _, _, kernel) in P16_TV.items():
+            got = rep["tv"][case]
+            for k in ("x", "z"):
+                if got[k] != ref["tv"][case][k]:
+                    raise AssertionError(f"phase 16: worker {r}'s joined {k} of {case} differs from the one-process "
+                                         "mesh's")
+            expect_launches(f"phase 16 worker {r} {case}", {k: got["launches"].get(k, 0) for k in KERNELS},
+                            {kernel: 2 * P16_ITERS})
+            log(f"phase 16 worker {r} {case}: x, z bit for bit the one-process mesh's; launches {got['launches']} "
+                f"in {P16_ITERS} iterations (construction {got['built']}); {got['iters_per_s']:.1f} iters/s, "
+                f"device idle share {got['device_idle_share']}, "
+                f"{got['sent_bytes_per_iteration']:.0f} bytes sent an iteration")
+        for k in ("z", "u"):
+            if rep["admm"][k] != ref["admm"][k]:
+                raise AssertionError(f"phase 16: worker {r}'s ADMM {k} differs from the one-process mesh's")
+        expect_launches(f"phase 16 worker {r} ADMM", {k: rep["admm"]["launches"].get(k, 0) for k in KERNELS}, {})
+        log(f"phase 16 worker {r} ConsensusADMM at {P16_ADMM_D}^3, 4 scenarios: z, u bit for bit; "
+            f"{rep['admm']['iters_per_s']:.1f} iters/s, idle {rep['admm']['device_idle_share']}, "
+            f"{rep['admm']['sent_bytes_per_iteration']:.0f} bytes sent an iteration")
+        for k, e in rep["operators"].items():
+            if not e <= TOL_OP_P16:
+                raise AssertionError(f"phase 16: worker {r}'s {k} differs by {e:.3e} (x max |out|)")
+        log(f"phase 16 worker {r} operators against the one-process mesh (x max |out|): {rep['operators']}; "
+            f"ms {rep['operators_ms']}; worker {rep['seconds']:.1f} s")
+    return {"iters": P16_ITERS, "reference_s": ref_s, "seconds": time.perf_counter() - t0, "workers": reps}
+
+
+def phase16_alone():
+    """``--phase 16``: build the kernels and run phase 16 only; its record
+    is the last line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    out = phase_multiprocess(torch.device("cuda", 0), build_kernels())
+    print(json.dumps({"multiprocess": out, "card": smi}), flush=True)
+    return 0
+
+
 def device_ms_per_iteration(solver, n=20):
     """Device time an iteration in a ``torch.profiler`` trace of ``n``
     iterations: the summed durations of the CUDA events (kernels, copies,
@@ -3455,6 +3740,14 @@ def main():
     res["K11"]["with_shardings_launches"] = p15["twins"]["TVDeconvolution[mega2]"]["launches"]["K11"]
     res["K4"]["with_shardings_launches"] = p15["twins"]["TVDeconvolution[megar]"]["launches"]["K4"]
     res["K1"]["block_diagonal_launches"] = p15["block_k1"]
+    log("-- the sharded solvers and operators across two processes on the card (phase 16)")
+    p16 = phase_multiprocess(dev, counters)
+    print(json.dumps({"multiprocess": p16, "card": smi}), flush=True)
+    for case, (_, _, _, _, k) in P16_TV.items():
+        res[k].setdefault("multiprocess_launches", {})[case] = [w["tv"][case]["launches"].get(k, 0)
+                                                                for w in p16["workers"]]
+    res["K1"]["multiprocess_launches"] = {case: [w["tv"][case]["built"].get("K1", 0) for w in p16["workers"]]
+                                          for case in P16_TV}
 
     log(f"-- throughput ({smi})")
     solvers.update({"main path": pds, "LASSO": apgd})
@@ -3556,7 +3849,8 @@ def main():
         for extra in ("rank2_library_ms", "w_pass_ms", "one_shard_max_abs_err", "shard_ms", "shard_plain_ms",
                       "one_block_max_abs_err", "block_ms", "block_plain_ms", "k2_max_abs_err",
                       "rank2_k2_max_abs_err", "fft_gram_path_launches", "fft_gram_path_shard_ms",
-                      "routed_launches", "routed_run", "with_shardings_launches", "block_diagonal_launches"):
+                      "routed_launches", "routed_run", "with_shardings_launches", "block_diagonal_launches",
+                      "multiprocess_launches"):
             if extra in r:
                 out[extra] = r[extra]
         return out
@@ -3834,6 +4128,10 @@ if __name__ == "__main__":
         sys.exit(phase14_alone())
     if sys.argv[1:] == ["--phase", "15"]:
         sys.exit(phase15_alone())
+    if sys.argv[1:] == ["--phase", "16"]:
+        sys.exit(phase16_alone())
+    if len(sys.argv) == 5 and sys.argv[1] == "--phase16-worker":
+        sys.exit(phase16_worker(sys.argv[2], int(sys.argv[3]), sys.argv[4]))
     if len(sys.argv) in (3, 4) and sys.argv[1] == "--gram-times":
         sys.exit(gram_times(sys.argv[2], kernels_only=sys.argv[3:] == ["--kernels-only"]))
     if len(sys.argv) == 3 and sys.argv[1] == "--gram-ab":

@@ -10,8 +10,9 @@ the metric first fell to ``tol``: up to ``chunk - 1`` iterations past that
 point (``SolveInfo.converged_at`` records the iteration itself).
 
 ``with_shardings`` records a sharded solve (see there): the port has no SPMD
-partitioner, so the generic chain keeps its state whole on the mesh's first
-device; ``PDS`` routes a fused TV problem onto the sharded solvers.
+partitioner, so the generic chain keeps its state whole on the first device
+of this process's mesh positions; ``PDS`` routes a fused TV problem onto
+the sharded solvers.
 
 ``solve(checkpoint_dir=...)`` saves the whole state (``utils/checkpoint.py``,
 ``torch.save`` where the reference writes Orbax) at the reference's
@@ -21,9 +22,13 @@ and keeps no autograd graph across iterations, so there is nothing to
 rematerialise (the reference wraps the step in ``jax.checkpoint``).
 
 An iterand is a tensor, or for a sharded solver (``parallel.solvers``) a
-tuple of per-shard tensors (a 2-D mesh: a tuple of row tuples of blocks);
-the metric, the histories and the counters live on the first shard's
-device.
+tuple of per-shard tensors (a 2-D mesh: a tuple of row tuples of blocks;
+on a mesh that spans processes a ``Remote`` for a block another process
+holds); the metric, the histories and the counters live on the first local
+shard's device.  On such a mesh every process steps the same solve and
+reads the same metric history, so they stop together; a checkpoint holds
+every position's blocks (gathered), written by the first process, so that
+a save resumes under another number of processes.
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ import torch
 
 from pycsou_tpu_torch._module import Module
 from pycsou_tpu_torch.utils.checkpoint import load_latest_state, save_state
-from pycsou_tpu_torch.utils.device import same_device
+from pycsou_tpu_torch.utils.device import Remote, same_device
 
 __all__ = ["IterativeSolver", "SolveInfo"]
 
@@ -50,10 +55,42 @@ _HISTORY_KEYS = ("history", "var_history", "obj_history")
 
 def _is_iterand(v) -> bool:
     """A tensor of at least one dimension, or a tuple of such (the shards of
-    one variable)."""
+    one variable, a ``Remote`` for another process's)."""
     if isinstance(v, tuple):
-        return len(v) > 0 and all(_is_iterand(t) for t in v)
+        return len(v) > 0 and all(isinstance(t, Remote) or _is_iterand(t) for t in v)
     return isinstance(v, torch.Tensor) and v.ndim >= 1
+
+
+def _first_tensor(v) -> torch.Tensor:
+    """The first tensor of a (nested) tuple of blocks, skipping ``Remote``
+    entries."""
+    if isinstance(v, tuple):
+        return next((t for t in map(_first_tensor, v) if t is not None), None)
+    return None if isinstance(v, Remote) else v
+
+
+def _has_remote(v) -> bool:
+    if isinstance(v, Remote):
+        return True
+    if isinstance(v, (tuple, list)):
+        return any(_has_remote(e) for e in v)
+    if isinstance(v, dict):
+        return any(_has_remote(e) for e in v.values())
+    return False
+
+
+def _gathered(v):
+    """``v`` with every tuple that holds ``Remote`` entries filled with the
+    other processes' blocks (every process must call it)."""
+    from pycsou_tpu_torch.parallel.mesh import gather_positions
+
+    if isinstance(v, dict):
+        return {k: _gathered(e) for k, e in v.items()}
+    if isinstance(v, (tuple, list)):
+        if any(isinstance(e, Remote) for e in v):
+            return type(v)(gather_positions(v))
+        return type(v)(_gathered(e) for e in v)
+    return v
 
 
 def _rel_from_sums(d2, o2) -> torch.Tensor:
@@ -181,9 +218,9 @@ class IterativeSolver(Module):
     # -- sharded solves -----------------------------------------------------
     def _check_shardings(self, shardings) -> None:
         """The checks every ``with_shardings`` makes of ``shardings``
-        (``parallel.mesh.NamedSharding``s keyed by state entry): meshes
-        within one process, whose first device is the solver's own."""
-        from pycsou_tpu_torch.parallel.mesh import NamedSharding, require_local
+        (``parallel.mesh.NamedSharding``s keyed by state entry): each mesh's
+        first device among this process's positions is the solver's own."""
+        from pycsou_tpu_torch.parallel.mesh import NamedSharding
 
         meshes = []
         for key, sh in shardings.items():
@@ -191,14 +228,13 @@ class IterativeSolver(Module):
                 raise TypeError(f"with_shardings({key}=...) takes a parallel.NamedSharding, not {type(sh).__name__}")
             if all(m is not sh.mesh for m in meshes):
                 meshes.append(sh.mesh)
-        for m in meshes:
-            require_local(m, f"{type(self).__name__}.with_shardings")
         own = getattr(self, "device", None)
         for m in meshes:
-            if own is not None and not same_device(m.devices[0], own):
-                raise ValueError(f"with_shardings: the mesh's first device is {m.devices[0]}, the "
-                                 f"{type(self).__name__}'s device is {own}; build the solver on {m.devices[0]} "
-                                 "or give a mesh that starts on its device")
+            first = m.local_device
+            if own is not None and not same_device(first, own):
+                raise ValueError(f"with_shardings: the first device of this process's mesh positions is {first}, "
+                                 f"the {type(self).__name__}'s device is {own}; build the solver on {first} "
+                                 "or give a mesh whose positions here start on its device")
 
     def with_shardings(self, **shardings) -> "IterativeSolver":
         """A copy of the solver whose ``state_shardings`` records
@@ -216,7 +252,10 @@ class IterativeSolver(Module):
         cause, a ``pallas_call`` that does not partition, is absent here.
         ``PDS``, ``APGD``, ``TVDeconvolution``, ``PMYULA`` and
         ``LassoDeconvolution`` route or switch engines first (see theirs).
-        A mesh that spans processes raises ``NotImplementedError``."""
+        On a mesh that spans processes, "the mesh's first device" is the
+        first device of this process's positions: the generic chain runs
+        whole on every process there, and its checkpoints are written by
+        the first process."""
         self._check_shardings(shardings)
         return self.replace(state_shardings=dict(shardings))
 
@@ -252,10 +291,27 @@ class IterativeSolver(Module):
 
     # -- driver ------------------------------------------------------------
     def _device(self, state) -> torch.device:
-        v = state[self.primary_var]
-        while isinstance(v, tuple):
-            v = v[0]
-        return v.device
+        """The device of the primary iterand's first local block."""
+        return _first_tensor(state[self.primary_var]).device
+
+    def _spans_processes(self, state) -> bool:
+        """Whether the solve runs on a mesh that spans processes: its state
+        holds another process's blocks, or a sharding names such a mesh."""
+        meshes = [sh.mesh for sh in (self.state_shardings or {}).values()]
+        return _has_remote(state) or any(m.spans_processes for m in meshes)
+
+    def _save(self, path: str, state) -> None:
+        """``save_state`` of ``state``; on a mesh that spans processes every
+        position's blocks gathered first, then written by the first process
+        between two barriers (so that no process reads a save in flight)."""
+        if not self._spans_processes(state):
+            save_state(path, state)
+            return
+        full = _gathered(state)
+        torch.distributed.barrier()
+        if torch.distributed.get_rank() == 0:
+            save_state(path, full)
+        torch.distributed.barrier()
 
     def _stride(self) -> int:
         return max(1, self.metric_every) * max(1, self.iters_per_step)
@@ -268,7 +324,7 @@ class IterativeSolver(Module):
                 # the reference's device_put: a shape that does not divide
                 # raises; the entry stays whole on the mesh's first device
                 sh.check_shape(tuple(v.shape))
-                state[key] = v.to(sh.mesh.devices[0])
+                state[key] = v.to(sh.mesh.local_device)
         dev = self._device(state)
         state.setdefault("it", 0)
         state["it"] = int(state["it"])
@@ -337,7 +393,9 @@ class IterativeSolver(Module):
         the whole state as ``step_{it}`` at the end of every
         ``checkpoint_every``-th chunk of 100 iterations (``verbose`` when
         set) counted from where it started, and when it stops: the
-        reference's iterations."""
+        reference's iterations.  On a mesh that spans processes every
+        process loads the save and keeps its own positions' blocks, and the
+        first process writes (:meth:`_save`)."""
         state = self._own(self._wrap_state(self.initial_state()))
         if checkpoint_dir is not None:
             resumed = load_latest_state(checkpoint_dir, template=state)
@@ -369,7 +427,7 @@ class IterativeSolver(Module):
             if checkpoint_dir is not None and (it >= save_stop or done):
                 n_chunks += 1
                 if n_chunks % checkpoint_every == 0 or done:
-                    save_state(f"{checkpoint_dir}/step_{it}", state)
+                    self._save(f"{checkpoint_dir}/step_{it}", state)
                 save_stop = min(it + save_chunk, self.max_iter)
             if done:
                 break

@@ -8,12 +8,15 @@ y_i||^2`` split over the devices of a mesh.  One iteration::
     u_i = u_i + x_i - z                                             (a block's)
 
 The reference runs the blocks under ``shard_map`` and sums them with
-``psum``.  Here one process drives a :class:`~pycsou_tpu_torch.parallel.Mesh`:
-mesh position b holds its ``S / size`` scenarios (data, transfer
-functions, ``u``) on its device; each block's ``x + u`` is summed there,
-the block sums are added on the first device (``z``'s), the prox runs
-there, and the new ``z`` goes back to each block.  On one card that is one
-block and no copy.
+``psum``.  Here mesh position b holds its ``S / size`` scenarios (data,
+transfer functions, ``u``) on its device; each block's ``x + u`` is summed
+there, the block sums are added in mesh order on the first local device
+(``z``'s), the prox runs there, and the new ``z`` goes back to each block.
+On one card that is one block and no copy.  On a mesh that spans processes
+each process runs the blocks of its own positions and gathers the others'
+block sums (``parallel.mesh.fold``) before adding them in the same order,
+so that every process holds the same ``z``, bit for bit that of the same
+mesh driven by one process; the metric's sums fold the same way.
 
 Two x-update backends:
 
@@ -34,8 +37,8 @@ from typing import Optional
 import torch
 
 from pycsou_tpu_torch.core.solver import IterativeSolver, _rel_from_sums, _rel_improvement
-from pycsou_tpu_torch.parallel.mesh import Mesh, make_mesh, require_local
-from pycsou_tpu_torch.utils.device import as_tensor
+from pycsou_tpu_torch.parallel.mesh import Mesh, each, fold, gather_positions, make_mesh
+from pycsou_tpu_torch.utils.device import Remote, as_tensor
 from pycsou_tpu_torch.utils.opnorm import cg
 from pycsou_tpu_torch.utils.shapes import as_shape
 
@@ -90,10 +93,10 @@ class ConsensusADMM(IterativeSolver):
                 over its size.
     cg_tol / cg_maxiter : the inner CG's controls (CG backend).
 
-    The state is ``{"z", "u"}``: ``z`` on the mesh's first device, ``u`` a
-    tuple of per-block ``(S / size, *dim_shape)`` tensors;
-    ``postprocess`` joins ``u`` on the first device and adds ``"x"``, an
-    alias of ``z``."""
+    The state is ``{"z", "u"}``: ``z`` on the mesh's first local device,
+    ``u`` a tuple of per-block ``(S / size, *dim_shape)`` tensors (a
+    ``Remote`` for another process's block); ``postprocess`` joins ``u`` on
+    the first local device and adds ``"x"``, an alias of ``z``."""
 
     primary_var = "z"
 
@@ -119,7 +122,6 @@ class ConsensusADMM(IterativeSolver):
             raise ValueError("pass exactly one of h_hats (Fourier) or ops (CG)")
         self.dim_shape = as_shape(dim_shape)
         self.mesh = mesh if mesh is not None else make_mesh(axis_names=(axis_name,))
-        require_local(self.mesh, "ConsensusADMM")
         self.axis_name = self.mesh.axis_names[0]
         devices = self.mesh.devices
         S = int(data.shape[0])
@@ -132,13 +134,18 @@ class ConsensusADMM(IterativeSolver):
         self.cg_maxiter = int(cg_maxiter)
         per = S // len(devices)
         self._rows = [slice(b * per, (b + 1) * per) for b in range(len(devices))]
-        self.data = tuple(as_tensor(data[r], dev) for r, dev in zip(self._rows, devices))
+        # this process's blocks' data (a Remote for another process's)
+        self.data = self.mesh.place([as_tensor(data[self._rows[b]], devices[b]) for b in self.mesh.local_positions])
         self.ops = ops
         self._num = self._den = None
         if h_hats is not None:
             axes = self._axes()
             self._num, self._den = [], []
             for r, dev, y in zip(self._rows, devices, self.data):
+                if isinstance(y, Remote):
+                    self._num.append(y)
+                    self._den.append(y)
+                    continue
                 h = as_tensor(h_hats[r], dev, torch.complex64)
                 self._num.append(2.0 * torch.conj(h) * torch.fft.rfftn(y, dim=axes))
                 self._den.append(2.0 * torch.abs(h) ** 2 + self.rho)
@@ -166,48 +173,42 @@ class ConsensusADMM(IterativeSolver):
 
     # -- IterativeSolver protocol ------------------------------------------------
     def initial_state(self):
-        devices = self.mesh.devices
-        z = torch.zeros(self.dim_shape, device=devices[0])
-        u = tuple(torch.zeros((r.stop - r.start,) + self.dim_shape, device=dev)
-                  for r, dev in zip(self._rows, devices))
+        devices, rows = self.mesh.devices, self._rows
+        z = torch.zeros(self.dim_shape, device=self.mesh.local_device)
+        u = self.mesh.place([torch.zeros((rows[b].stop - rows[b].start,) + self.dim_shape, device=devices[b])
+                             for b in self.mesh.local_positions])
         return {"z": z, "u": u}
 
     def step(self, state):
         z, us = state["z"], state["u"]
         update = self._x_update_fourier if self.ops is None else self._x_update_cg
-        xs = []
-        for b, (dev, u) in enumerate(zip(self.mesh.devices, us)):
-            v = z.to(dev, non_blocking=True)[None] - u
-            xs.append(update(b, v))
+        xs = each(lambda u, b, dev: update(b, z.to(dev, non_blocking=True)[None] - u),
+                  us, range(len(us)), self.mesh.devices)
         return self._consensus(xs, us, z)
 
     def _consensus(self, xs, us, z_prev):
         """The z-update (the reference's ``psum``: each block's sum of ``x +
-        u``, the block sums added on z's device) and the dual ascent."""
+        u``, the block sums added in mesh order on z's device, another
+        process's gathered first) and the dual ascent."""
         dev0 = z_prev.device
-        total = None
-        for x, u in zip(xs, us):
-            part = torch.sum(x + u, dim=0).to(dev0, non_blocking=True)
-            total = part if total is None else total + part
+        total = fold(each(lambda x, u: torch.sum(x + u, dim=0).to(dev0, non_blocking=True), xs, us))
         mean = total / self.S
         z = self.g.prox(mean, 1.0 / (self.S * self.rho)) if self.g is not None else mean
-        u_new = tuple(u + x - z.to(x.device, non_blocking=True)[None] for x, u in zip(xs, us))
+        u_new = tuple(each(lambda x, u: u + x - z.to(x.device, non_blocking=True)[None], xs, us))
         return {"z": z, "u": u_new}
 
     def metrics(self, old, new):
         """Relative improvements of ``z`` and of all the blocks of ``u``."""
         dev0 = new["z"].device
-        d2 = o2 = None
-        for uo, un in zip(old["u"], new["u"]):
-            d = un - uo
-            dd, oo = torch.sum(d * d).to(dev0), torch.sum(uo * uo).to(dev0)
-            d2, o2 = (dd, oo) if d2 is None else (d2 + dd, o2 + oo)
+        sums = each(lambda uo, un: torch.stack([torch.sum((un - uo) * (un - uo)), torch.sum(uo * uo)]).to(dev0),
+                    old["u"], new["u"])
+        d2, o2 = fold(sums)
         return {"z": _rel_improvement(old["z"], new["z"]), "u": _rel_from_sums(d2, o2)}
 
     def postprocess(self, state):
         out = dict(super().postprocess(state))
         dev0 = out["z"].device
-        out["u"] = torch.cat([u.to(dev0) for u in out["u"]])
+        out["u"] = torch.cat([u.to(dev0) for u in gather_positions(out["u"])])
         out["x"] = out["z"]  # the reference's primal alias
         return out
 
@@ -218,5 +219,5 @@ class ConsensusADMM(IterativeSolver):
         state = None
         if z0 is not None:
             state = self.initial_state()
-            state["z"] = as_tensor(z0, self.mesh.devices[0])
+            state["z"] = as_tensor(z0, self.mesh.local_device)
         return self.run_fixed(n_iters, state=state)["z"]

@@ -6,10 +6,14 @@ row block, an all-to-all that turns the row blocks into column pencils,
 and a local ``fft`` along the rows of each pencil: each mesh position ends
 up with a column pencil of the whole half-spectrum, on which a spectral
 multiply needs no communication; the inverse mirrors it.  Where the
-reference's ``lax.all_to_all`` runs inside ``shard_map``, here one process
-holds every position's block: position j receives column chunk j of every
-source block (copied where the two devices differ), concatenated along the
-rows in source order.
+reference's ``lax.all_to_all`` runs inside ``shard_map``, here position j
+receives column chunk j of every source block (copied where the two
+devices of one process differ, sent by ``parallel.mesh.all_to_all`` where
+another process holds the source), concatenated along the rows in source
+order.  On a mesh that spans processes the functions take and return the
+blocks of this process's positions (as ``NamedSharding.split`` gives
+them), and the operator's ``apply`` gathers the output blocks so that
+every process holds the whole image.
 
 :class:`PencilCircularConv2D` is the distributed twin of
 ``ops.conv.CircularConvolve`` for 2-D images: its transfer is cut into the
@@ -27,8 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from pycsou_tpu_torch.core.linop import LinearOperator
-from pycsou_tpu_torch.parallel.mesh import Mesh, make_mesh, require_local
-from pycsou_tpu_torch.utils.device import as_tensor, resolve_device
+from pycsou_tpu_torch.parallel.mesh import Mesh, all_to_all, each, gather_positions, make_mesh
+from pycsou_tpu_torch.utils.device import Remote, as_tensor, resolve_device
 from pycsou_tpu_torch.utils.shapes import as_shape
 
 __all__ = ["pencil_cols", "pencil_rfft2", "pencil_irfft2", "PencilCircularConv2D"]
@@ -39,42 +43,38 @@ def pencil_cols(W: int, n: int) -> int:
     return -(-(W // 2 + 1) // n)
 
 
-def _devices(mesh: Mesh, n: int) -> tuple:
-    if mesh.size != n:
-        raise ValueError(f"{n} blocks for a mesh of {mesh.size} positions")
-    return mesh.devices
+def _local(entries) -> tuple:
+    return tuple(e for e in entries if not isinstance(e, Remote))
 
 
 def pencil_rfft2(blocks: Sequence[torch.Tensor], mesh: Mesh) -> tuple:
     """The 2-D real FFT of a row-sharded image: ``blocks`` the ``(H / n,
-    W)`` row blocks in mesh order, each on its position's device; returns
-    the ``(H, wl)`` complex column pencils of the half-spectrum
-    (``wl = pencil_cols(W, n)``; columns past ``W // 2 + 1`` are zeros)."""
+    W)`` row blocks of this process's positions in mesh order (every
+    position's on a mesh within one process), each on its position's
+    device; returns the ``(H, wl)`` complex column pencils of the
+    half-spectrum of the same positions (``wl = pencil_cols(W, n)``;
+    columns past ``W // 2 + 1`` are zeros)."""
+    blocks = mesh.place(blocks)
     n = len(blocks)
-    devs = _devices(mesh, n)
-    W = blocks[0].shape[1]
+    W = _local(blocks)[0].shape[1]
     wl = pencil_cols(W, n)
-    X = [torch.fft.rfft(b, dim=1) for b in blocks]
-    X = [F.pad(x, (0, n * wl - x.shape[1])) for x in X]
-    return tuple(
-        torch.fft.fft(torch.cat([x[:, j * wl : (j + 1) * wl].to(d, non_blocking=True) for x in X]), dim=0)
-        for j, d in enumerate(devs)
-    )
+    X = each(lambda b: torch.fft.rfft(b, dim=1), blocks)
+    X = each(lambda x: F.pad(x, (0, n * wl - x.shape[1])), X)
+    chunks = each(lambda x: [x[:, j * wl : (j + 1) * wl] for j in range(n)], X)
+    return _local(each(lambda got: torch.fft.fft(torch.cat(got), dim=0), all_to_all(chunks, mesh.devices)))
 
 
 def pencil_irfft2(pencils: Sequence[torch.Tensor], mesh: Mesh, W: int) -> tuple:
     """The inverse of :func:`pencil_rfft2`: column pencils to the ``(H / n,
-    W)`` real row blocks."""
+    W)`` real row blocks (of this process's positions)."""
+    pencils = mesh.place(pencils)
     n = len(pencils)
-    devs = _devices(mesh, n)
-    hl = pencils[0].shape[0] // n
-    Y = [torch.fft.ifft(p, dim=0) for p in pencils]
+    hl = _local(pencils)[0].shape[0] // n
+    Y = each(lambda p: torch.fft.ifft(p, dim=0), pencils)
+    chunks = each(lambda y: [y[i * hl : (i + 1) * hl] for i in range(n)], Y)
     Wf = W // 2 + 1
-    return tuple(
-        torch.fft.irfft(torch.cat([y[i * hl : (i + 1) * hl].to(d, non_blocking=True) for y in Y], dim=1)[:, :Wf],
-                        n=W, dim=1)
-        for i, d in enumerate(devs)
-    )
+    return _local(each(lambda got: torch.fft.irfft(torch.cat(got, dim=1)[:, :Wf], n=W, dim=1),
+                       all_to_all(chunks, mesh.devices)))
 
 
 class PencilCircularConv2D(LinearOperator):
@@ -101,12 +101,13 @@ class PencilCircularConv2D(LinearOperator):
             raise ValueError("PencilCircularConv2D is 2-D; use CircularConvolve for other ranks")
         H, W = dim_shape
         mesh = mesh if mesh is not None else make_mesh(axis_names=(axis,))
-        require_local(mesh, "PencilCircularConv2D")
         n = mesh.axis_size(axis)
         if H % n:
             raise ValueError(f"rows {H} must divide over {n} devices")
-        devs = mesh.axis_devices(axis)
-        dev0 = devs[0]
+        positions = mesh.axis_positions(axis)
+        devs = tuple(mesh.devices[p] for p in positions)
+        self._sub = Mesh(devs, (axis,), ranks=[mesh.ranks[p] for p in positions])
+        dev0 = self._sub.local_device
         if h_hat is None:
             if filt is None:
                 raise ValueError("pass filt or h_hat")
@@ -123,27 +124,30 @@ class PencilCircularConv2D(LinearOperator):
         super().__init__(dim_shape, dim_shape, lipschitz=float(np.max(np.hypot(hh.real, hh.imag))), dtype=dtype)
         wl = pencil_cols(W, n)
         h_hat = F.pad(h_hat, (0, n * wl - h_hat.shape[1]))
-        self.h_pencils = tuple(h_hat[:, j * wl : (j + 1) * wl].to(d).contiguous() for j, d in enumerate(devs))
+        local = self._sub.local_positions
+        self.h_pencils = tuple(h_hat[:, j * wl : (j + 1) * wl].to(devs[j]).contiguous() for j in local)
         self.h2_pencils = tuple((h * torch.conj(h)).real for h in self.h_pencils)
         self.mesh, self.axis = mesh, axis
-        self._sub = Mesh(devs, (axis,))
         self._devices = devs
 
     @property
     def device(self):
-        return self._devices[0]
+        return self._sub.local_device
 
     def _spectral(self, x, fn):
         """``x`` (whole, on the caller's device) through the pencil FFT, the
-        spectral map ``fn(pencil, j)`` on each pencil, and back."""
+        spectral map ``fn(pencil, k)`` on each of this process's pencils
+        (the k-th), and back; the other processes' output blocks gathered."""
         x = torch.as_tensor(x)
         H, W = self.dim_shape
         n = len(self._devices)
         h = H // n
-        blocks = [x[i * h : (i + 1) * h].to(d, non_blocking=True) for i, d in enumerate(self._devices)]
+        local = self._sub.local_positions
+        blocks = [x[i * h : (i + 1) * h].to(self._devices[i], non_blocking=True) for i in local]
         spec = pencil_rfft2(blocks, self._sub)
-        out = pencil_irfft2([fn(s, j) for j, s in enumerate(spec)], self._sub, W)
-        return torch.cat([b.to(x.device, non_blocking=True) for b in out]).to(self.dtype)
+        out = self._sub.place(pencil_irfft2([fn(s, k) for k, s in enumerate(spec)], self._sub, W))
+        out = each(lambda b: b.to(x.device, non_blocking=True), out)
+        return torch.cat(gather_positions(out)).to(self.dtype)
 
     def apply(self, x):
         return self._spectral(x, lambda S, j: S * self.h_pencils[j])

@@ -7,10 +7,10 @@ The image, the data and the duals are cut into row shards over a 1-D
 shard's neighbour halos (``parallel/spatial.py``) and launches one fused
 shard kernel per shard, in mesh order, as the reference's ``shard_map``
 runs its per-shard Pallas kernel on every device.  The six metric partial
-sums are added over the shards on the first mesh device (the reference's
-``psum``).  The state is a dict of per-shard tuples (``x``, ``z0``, ``z1``)
-and ``_stats``, so ``IterativeSolver``'s metric, histories and ``solve()``
-apply unchanged.
+sums are added over the shards in mesh order on the first local mesh
+device (the reference's ``psum``, ``parallel.mesh.fold``).  The state is a
+dict of per-shard tuples (``x``, ``z0``, ``z1``) and ``_stats``, so
+``IterativeSolver``'s metric, histories and ``solve()`` apply unchanged.
 
 Where no fused engine runs (``use_pallas=False``, or ``"auto"`` on CPU
 devices) the solvers step the reference's chain of sharded operators
@@ -24,8 +24,17 @@ w_loc)`` blocks on a 2-D mesh) and the metric from the shards' sums.
 when the columns are not cut); its state holds a tuple of row tuples of
 blocks.  :class:`BatchedDistributedTVDeconv2D` runs a batch of images on a
 ``(dp, sp)`` mesh: each image on the chain of one mesh row, no exchange
-between rows.  A mesh that spans processes raises ``NotImplementedError``
-(ROADMAP Queue 1 item 8).
+between rows.
+
+On a mesh that spans processes (``parallel.distributed_init``) each
+process builds the solver from the same whole inputs and keeps the blocks
+of its own positions: a sharded entry has a ``Remote`` where another
+process holds the block, and each process launches one kernel for each of
+its positions.  The halos that cross a process boundary, the partial sums
+and the joins (``postprocess``, ``run``, ``objective``) go through
+``torch.distributed``; the sums fold in mesh order, so the iterates, the
+metric history and ``converged_at`` are bit for bit those of the same mesh
+driven by one process, and every process holds the joined result.
 """
 from __future__ import annotations
 
@@ -43,7 +52,7 @@ from pycsou_tpu_torch.kernels.tvr import HALO_COLS, tv_pds_megar_shard2d_step, t
 from pycsou_tpu_torch.ops._gram import conv_full_direct
 from pycsou_tpu_torch.ops.conv import Convolve2D, lowrank_factors
 from pycsou_tpu_torch.opt.tv import rank1_gate
-from pycsou_tpu_torch.parallel.mesh import Mesh, make_mesh, make_mesh_2d, require_local
+from pycsou_tpu_torch.parallel.mesh import Mesh, each, fold, gather_positions, make_mesh, make_mesh_2d
 from pycsou_tpu_torch.parallel.spatial import (
     conv_transfer,
     halo_extend,
@@ -64,7 +73,7 @@ from pycsou_tpu_torch.parallel.spatial import (
     sharded_sepgram_rank1,
     sharded_sepgram_rank1_2d,
 )
-from pycsou_tpu_torch.utils.device import as_tensor
+from pycsou_tpu_torch.utils.device import Remote, as_tensor
 from pycsou_tpu_torch.utils.shapes import as_shape
 
 __all__ = ["DistributedTVDeconv2D", "BatchedDistributedTVDeconv2D", "Spatial2DTVDeconv2D"]
@@ -80,21 +89,37 @@ def _flat(v) -> list:
     return [t for e in v for t in _flat(e)] if isinstance(v, tuple) else [v]
 
 
-def _sum_on(terms, device) -> torch.Tensor:
-    """The sum of per-shard device scalars, added in mesh order on
-    ``device`` (the reference's ``psum``)."""
-    out = None
-    for t in terms:
-        t = t.to(device)
-        out = t if out is None else out + t
-    return out
+def _field(outs, k: int) -> tuple:
+    """Entry ``k`` of each position's kernel result (a :class:`Remote`
+    position stays one)."""
+    return tuple(o if isinstance(o, Remote) else o[k] for o in outs)
+
+
+def _positions(mesh: Mesh, fn) -> tuple:
+    """``fn(i, device)`` (a 2-D mesh: ``fn(i, j, device)``) for each of this
+    process's positions, a :class:`Remote` for the others: a tuple over a
+    1-D mesh, a grid (a tuple of row tuples) over a 2-D one."""
+    me, n1 = mesh.process_index, mesh.shape[-1]
+
+    def at(p):
+        if mesh.ranks[p] != me:
+            return Remote(mesh.ranks[p])
+        return fn(*(divmod(p, n1) if len(mesh.shape) == 2 else (p,)), mesh.devices[p])
+
+    flat = [at(p) for p in range(mesh.size)]
+    return tuple(flat) if len(mesh.shape) == 1 else tuple(tuple(flat[i : i + n1]) for i in range(0, mesh.size, n1))
+
+
+def _local_devices(mesh: Mesh) -> list:
+    """The devices of this process's positions, each once, in mesh order."""
+    return list(dict.fromkeys(mesh.devices[p] for p in mesh.local_positions))
 
 
 def _rel_blocks(old, new) -> torch.Tensor:
     """The relative improvement ``||new - old|| / ||old||`` of a sharded
     variable, its sums added over the shards on the first shard's device."""
     o = _flat(old)
-    d = [b - a for a, b in zip(o, _flat(new))]
+    d = each(lambda a, b: b - a, o, _flat(new))
     return _rel_from_sums(pdot(d, d), pdot(o, o))
 
 
@@ -111,20 +136,21 @@ def _pds_prox(x, z, grad, adjz, gu_fn, tau, sigma, rho, lam, nonneg, iso):
     """The chain's Condat-Vu update on every shard: ``x_temp`` from the data
     gradient ``grad`` and ``K^H z`` (``adjz``), the dual from
     ``gu_fn(2 x_temp - x)`` (``K u``), both relaxed by ``rho``."""
-    x_temp = [xi - tau * g - tau * a for xi, g, a in zip(x, grad, adjz)]
+    x_temp = each(lambda xi, g, a: xi - tau * g - tau * a, x, grad, adjz)
     if nonneg:
-        x_temp = [torch.clamp(t, min=0.0) for t in x_temp]
-    ku = gu_fn([2.0 * t - xi for t, xi in zip(x_temp, x)])
-    z_new = []
-    for zi, k in zip(z, ku):
+        x_temp = each(lambda t: torch.clamp(t, min=0.0), x_temp)
+    ku = gu_fn(each(lambda t, xi: 2.0 * t - xi, x_temp, x))
+
+    def dual(zi, k):
         v = zi + sigma * k
         if iso:
             mag = torch.sqrt(torch.sum(v * v, dim=0, keepdim=True))
             zt = v * (lam / torch.clamp(mag, min=lam))
         else:
             zt = torch.clamp(v, -lam, lam)
-        z_new.append(rho * zt + (1 - rho) * zi)
-    return [rho * t + (1 - rho) * xi for t, xi in zip(x_temp, x)], z_new
+        return rho * zt + (1 - rho) * zi
+
+    return each(lambda t, xi: rho * t + (1 - rho) * xi, x_temp, x), each(dual, z, ku)
 
 
 def _tau(beta: float, tau) -> float:
@@ -183,15 +209,16 @@ class _BlockedTV(IterativeSolver):
 
     def postprocess(self, state):
         """The user-facing iterand, each sharded variable joined into one
-        tensor on the first mesh device."""
+        tensor on the first local mesh device (on every process)."""
         return {k: self._gather(v) if isinstance(v, tuple) else v
                 for k, v in super().postprocess(state).items()}
 
     def run(self, n_iters: int, x=None, z=None):
         """``n_iters`` iterations from ``x`` (H, W) and ``z`` (2, H, W) (zero
-        by default); returns ``(x, z)`` joined on the first mesh device."""
+        by default); returns ``(x, z)`` joined on the first local mesh
+        device."""
         state = self.initial_state()
-        dev0 = self.devices[0]
+        dev0 = self.mesh.local_device
         if x is not None:
             state["x"] = self._scatter(as_tensor(x, dev0))
         if z is not None:
@@ -208,8 +235,8 @@ class _BlockedTV(IterativeSolver):
     def _tv_blocks(self, grads) -> list:
         """Each block's TV term from its (2, h, w) gradient."""
         if self.iso:
-            return [torch.sum(torch.sqrt(g[0] * g[0] + g[1] * g[1])) for g in grads]
-        return [torch.sum(g[0].abs()) + torch.sum(g[1].abs()) for g in grads]
+            return each(lambda g: torch.sum(torch.sqrt(g[0] * g[0] + g[1] * g[1])), grads)
+        return each(lambda g: torch.sum(g[0].abs()) + torch.sum(g[1].abs()), grads)
 
 
 class DistributedTVDeconv2D(_BlockedTV):
@@ -249,9 +276,10 @@ class DistributedTVDeconv2D(_BlockedTV):
     ``A^H y`` is K1's adjoint on each shard grown by ``m0 - 1`` rows for
     megasp and megarsp, else the overlap-save FFT adjoint
     (``sharded_conv2d_adjoint``), as in the reference.  The state's ``x``,
-    ``z0`` and ``z1`` (or ``z``) are tuples of shards on the mesh's devices;
+    ``z0`` and ``z1`` (or ``z``) are tuples of shards on the mesh's devices
+    (a ``Remote`` for a position of another process);
     :meth:`postprocess` (the result of ``solve()``) joins them on the first
-    mesh device."""
+    local mesh device."""
 
     def __init__(
         self,
@@ -279,7 +307,6 @@ class DistributedTVDeconv2D(_BlockedTV):
         self.iso = bool(isotropic)
         H, W = as_shape(shape)
         self.mesh = mesh if mesh is not None else make_mesh(axis_names=(axis_name,))
-        require_local(self.mesh, "DistributedTVDeconv2D")
         if len(self.mesh.axis_names) != 1:
             raise ValueError(
                 f"DistributedTVDeconv2D shards rows over a 1-D mesh; got axes {self.mesh.axis_names} "
@@ -290,7 +317,7 @@ class DistributedTVDeconv2D(_BlockedTV):
         n = len(self.devices)
         if H % n:
             raise ValueError(f"image height {H} must divide over {n} devices")
-        kinds = {d.type for d in self.devices}
+        kinds = {d.type for d in _local_devices(self.mesh)}
         if kinds not in ({"cuda"}, {"cpu"}):
             raise ValueError(f"the mesh must hold CUDA devices or CPU devices, got {self.devices}")
         self.shape = (H, W)
@@ -300,7 +327,7 @@ class DistributedTVDeconv2D(_BlockedTV):
         self.rho = float(rho)
         fused = self._check_use_pallas(use_pallas, kinds == {"cuda"})
 
-        dev0 = self.devices[0]
+        dev0 = self.mesh.local_device
         y = as_tensor(y, dev0)
         if tuple(y.shape) != (H, W):
             raise ValueError(f"y has shape {tuple(y.shape)}, expected {(H, W)}")
@@ -343,10 +370,8 @@ class DistributedTVDeconv2D(_BlockedTV):
             if self._sp_engine in ("megasp", "megarsp"):
                 # A^H y per shard: K1's adjoint on the shard's y grown by
                 # m0 - 1 rows of its neighbours (zeros beyond the image), cropped
-                self.atb = tuple(
-                    sepconv2d(e, self._grams[d].adj)[m0 - 1 : m0 - 1 + h]
-                    for d, e in zip(self.devices, halo_extend(self.y, m0 - 1))
-                )
+                self.atb = tuple(each(lambda e, d: sepconv2d(e, self._grams[d].adj)[m0 - 1 : m0 - 1 + h],
+                                      halo_extend(self.y, m0 - 1), self.devices))
                 self._atb_ext = tuple(halo_extend(self.atb, _HALO[self._sp_engine]))
             else:
                 self.atb = sharded_conv2d_adjoint(self.y, self.filt, self._h_hat_adj)
@@ -359,7 +384,7 @@ class DistributedTVDeconv2D(_BlockedTV):
         ``_use_gram``) and their transfers and band plans, one copy a
         device."""
         (H, W), h, (m0, m1) = self.shape, self.h_loc, filt_np.shape
-        devs = self.devices
+        devs = _local_devices(self.mesh)
         f = torch.flip(self.filt, (0, 1))
         self._h_hat_fwd = _on_each(conv_transfer(self.filt, (h + m0 - 1, W)), devs)
         self._h_hat_adj = _on_each(conv_transfer(f, (h + m0 - 1, W)), devs)
@@ -372,7 +397,7 @@ class DistributedTVDeconv2D(_BlockedTV):
         if self._use_band:
             def plan(taps, n):
                 acorr_t, Et, Eb, L = make_gram_band(taps, n)
-                cast = lambda a: None if a is None else as_tensor(np.asarray(a, np.float32), self.devices[0])  # noqa: E731
+                cast = lambda a: None if a is None else as_tensor(np.asarray(a, np.float32), self.filt.device)  # noqa: E731
                 return cast(acorr_t), cast(Et), cast(Eb), L
 
             self._band_rows, self._band_cols = plan(fac[0][:, 0], H), plan(fac[1][:, 0], W)
@@ -381,12 +406,13 @@ class DistributedTVDeconv2D(_BlockedTV):
         """megasp, else megarsp, by the reference's mathematical gates, for a
         band PSF; else sweepsp over the sharded Gram."""
         h, m0 = self.h_loc, filt_np.shape[0]
-        convs = {d: Convolve2D(self.shape, filt_np, device=d) for d in dict.fromkeys(self.devices)}
-        if convs[self.devices[0]].method != "band":
+        dev0 = self.mesh.local_device
+        convs = {d: Convolve2D(self.shape, filt_np, device=d) for d in _local_devices(self.mesh)}
+        if convs[dev0].method != "band":
             return "sweepsp"
         # the Gram on each device: its rank-1 plan (K14) and factor taps (K1, K15)
         self._grams = {d: c.gram for d, c in convs.items()}
-        if rank1_gate(self._grams[self.devices[0]]) is None and h >= 2 * m0 - 2 and h >= _HALO["megasp"]:
+        if rank1_gate(self._grams[dev0]) is None and h >= 2 * m0 - 2 and h >= _HALO["megasp"]:
             return "megasp"
         if h >= _HALO["megarsp"]:
             return "megarsp"
@@ -397,35 +423,37 @@ class DistributedTVDeconv2D(_BlockedTV):
     def _scatter(self, a: torch.Tensor):
         """The (..., H, W) tensor ``a`` as row shards on the mesh's devices."""
         h = self.h_loc
-        return tuple(a[..., i * h : (i + 1) * h, :].to(d).contiguous() for i, d in enumerate(self.devices))
+        return _positions(self.mesh, lambda i, d: a[..., i * h : (i + 1) * h, :].to(d).contiguous())
 
     def _gather(self, shards) -> torch.Tensor:
-        """The shards joined along their rows on the first mesh device."""
-        return torch.cat([s.to(self.devices[0]) for s in shards], dim=-2)
+        """The shards joined along their rows on the first local mesh
+        device (the other processes' gathered first)."""
+        dev0 = self.mesh.local_device
+        return torch.cat([s.to(dev0) for s in gather_positions(shards)], dim=-2)
 
     # -- IterativeSolver protocol -----------------------------------------
     def initial_state(self):
-        zeros = lambda *lead: tuple(torch.zeros(lead + (self.h_loc, self.shape[1]), device=d)  # noqa: E731
-                                    for d in self.devices)
+        zeros = lambda *lead: _positions(  # noqa: E731
+            self.mesh, lambda i, d: torch.zeros(lead + (self.h_loc, self.shape[1]), device=d))
         if not self._sp_engine:
             return {"x": zeros(), "z": zeros(2)}
         return {"x": zeros(), "z0": zeros(), "z1": zeros(),
-                "_stats": torch.zeros(6, device=self.devices[0])}
+                "_stats": torch.zeros(6, device=self.mesh.local_device)}
 
     def _data_grad(self, x, atb, y) -> list:
         """Each shard's data gradient ``2 (A^H A x - A^H y)``: the band Gram
         of a rank-1 PSF, else the fused FFT Gram, else the FFT forward and
         adjoint (``2 A^H (A x - y)``); mask mode ``2 (m x - atb)``."""
         if self.mask is not None:
-            return [2.0 * (m * xi - a) for m, xi, a in zip(self.mask, x, atb)]
+            return each(lambda m, xi, a: 2.0 * (m * xi - a), self.mask, x, atb)
         if self._use_band:
             g = sharded_sepgram_rank1(x, self._band_rows, self._band_cols)
         elif self._use_gram:
             g = sharded_conv2d_gram(x, self.filt, self._acorr_hat)
         else:
-            r = [a - b for a, b in zip(sharded_conv2d(x, self.filt, self._h_hat_fwd), y)]
-            return [2.0 * t for t in sharded_conv2d_adjoint(r, self.filt, self._h_hat_adj)]
-        return [2.0 * (gi - a) for gi, a in zip(g, atb)]
+            r = each(lambda a, b: a - b, sharded_conv2d(x, self.filt, self._h_hat_fwd), y)
+            return each(lambda t: 2.0 * t, sharded_conv2d_adjoint(r, self.filt, self._h_hat_adj))
+        return each(lambda gi, a: 2.0 * (gi - a), g, atb)
 
     def _local_step(self, x, z, atb, y):
         """One iteration of the chain on every shard of one image: ``(x, z)``
@@ -451,9 +479,13 @@ class DistributedTVDeconv2D(_BlockedTV):
         if engine == "sweepsp":
             g = tuple(self._data_grad(x, self.atb, self.y))
             for i, hl in enumerate(halos((x, g, z0, z1), R)):
-                outs.append(tv_pds_sweep_shard_step(x[i], g[i], z0[i], z1[i], hl, i * h - R, **kw))
+                outs.append(hl if isinstance(hl, Remote) else
+                            tv_pds_sweep_shard_step(x[i], g[i], z0[i], z1[i], hl, i * h - R, **kw))
         else:
             for i, (hl, d) in enumerate(zip(halos((x, z0, z1), R), self.devices)):
+                if isinstance(hl, Remote):
+                    outs.append(hl)
+                    continue
                 gram, a = self._grams[d], self._atb_ext[i]
                 if engine == "megasp":
                     o = tv_pds_mega2_shard_step(x[i], z0[i], z1[i], a, hl, gram, i * h - R, **kw)
@@ -461,8 +493,7 @@ class DistributedTVDeconv2D(_BlockedTV):
                     o = tv_pds_megar_shard_step(x[i], z0[i], z1[i], a, hl, gram.fwd, gram.adj2, i * h - R,
                                                 **kw)
                 outs.append(o)
-        return {"x": tuple(o[0] for o in outs), "z0": tuple(o[1] for o in outs),
-                "z1": tuple(o[2] for o in outs), "_stats": _sum_on((o[3] for o in outs), self.devices[0])}
+        return {"x": _field(outs, 0), "z0": _field(outs, 1), "z1": _field(outs, 2), "_stats": fold(_field(outs, 3))}
 
     # -- the reference's attribute API -------------------------------------
     @property
@@ -476,24 +507,23 @@ class DistributedTVDeconv2D(_BlockedTV):
         init = self.initial_state()
         if "z" in init:
             return init["z"]
-        return tuple(torch.stack([a, b]) for a, b in zip(init["z0"], init["z1"]))
+        return tuple(each(lambda a, b: torch.stack([a, b]), init["z0"], init["z1"]))
 
     def objective(self, x) -> torch.Tensor:
         """``||h * x - y||^2 + lam TV(x)`` (mask mode: observed pixels only,
         as ``TVDeconvolution.objective``) from ``x`` as shards (or one
         tensor, cut into shards): the overlap-save FFT convolution and the
-        sharded gradient on each shard, the sums added on the first mesh
-        device.  No host read."""
-        dev0 = self.devices[0]
+        sharded gradient on each shard, the sums added in mesh order on the
+        first local mesh device.  No host read."""
         if not isinstance(x, tuple):
-            x = self._scatter(as_tensor(x, dev0))
+            x = self._scatter(as_tensor(x, self.mesh.local_device))
         if self.mask is not None:
-            data = _sum_on([torch.sum(m * (xi - a / torch.clamp(m, min=1.0)) ** 2)
-                            for m, xi, a in zip(self.mask, x, self.atb)], dev0)
+            data = fold(each(lambda m, xi, a: torch.sum(m * (xi - a / torch.clamp(m, min=1.0)) ** 2),
+                             self.mask, x, self.atb))
         else:
-            r = [a - b for a, b in zip(sharded_conv2d(x, self.filt, self._h_hat_fwd), self.y)]
+            r = each(lambda a, b: a - b, sharded_conv2d(x, self.filt, self._h_hat_fwd), self.y)
             data = pdot(r, r)
-        return data + self.lam * _sum_on(self._tv_blocks(sharded_grad2d(x)), dev0)
+        return data + self.lam * fold(self._tv_blocks(sharded_grad2d(x)))
 
 
 class BatchedDistributedTVDeconv2D(_BlockedTV):
@@ -531,13 +561,12 @@ class BatchedDistributedTVDeconv2D(_BlockedTV):
     ):
         super().__init__(max_iter=max_iter, min_iter=min_iter, tol=accuracy_threshold, verbose=verbose)
         self.mesh = mesh if mesh is not None else make_mesh((1, len(make_mesh().devices)), ("dp", "sp"))
-        require_local(self.mesh, "BatchedDistributedTVDeconv2D")
         if len(self.mesh.axis_names) != 2:
             raise ValueError("mesh must be 2-D (dp, sp)")
         self.dp, self.sp = self.mesh.axis_names
         n_dp, n_sp = self.mesh.shape
         self.devices = self.mesh.devices
-        y = as_tensor(y, self.devices[0])
+        y = as_tensor(y, self.mesh.local_device)
         if y.ndim != 3:
             raise ValueError("y must be (batch, H, W)")
         B = y.shape[0]
@@ -546,77 +575,98 @@ class BatchedDistributedTVDeconv2D(_BlockedTV):
             raise ValueError(f"batch {B} must divide over {n_dp} and height {H} over {n_sp}")
         self.batch, self.shape = B, (H, W)
         self.b_loc = B // n_dp
-        # one per-image chain a mesh row: its transfers and band plans live
-        # on that row's devices
-        self._inners = tuple(
-            DistributedTVDeconv2D(
-                (H, W), filt, torch.zeros((H, W), device=self.devices[i * n_sp]), lam, nonneg=nonneg,
-                mesh=Mesh(self.devices[i * n_sp : (i + 1) * n_sp], (self.sp,)), tau=tau, rho=rho,
-                dtype=dtype, max_iter=max_iter, use_pallas=False, isotropic=isotropic,
+        # one per-image chain a mesh row that holds a position of this
+        # process (None for another process's rows): its transfers and band
+        # plans live on that row's devices
+        ranks, me = self.mesh.ranks, self.mesh.process_index
+
+        def inner(i):
+            row = slice(i * n_sp, (i + 1) * n_sp)
+            if me not in ranks[row]:
+                return None
+            sub = Mesh(self.devices[row], (self.sp,), ranks=ranks[row])
+            return DistributedTVDeconv2D(
+                (H, W), filt, torch.zeros((H, W), device=sub.local_device), lam, nonneg=nonneg, mesh=sub,
+                tau=tau, rho=rho, dtype=dtype, max_iter=max_iter, use_pallas=False, isotropic=isotropic,
             )
-            for i in range(n_dp)
-        )
-        inner = self._inners[0]
-        self.tau, self.sigma, self.rho, self.lam, self.iso = inner.tau, inner.sigma, inner.rho, inner.lam, inner.iso
+
+        self._inners = tuple(inner(i) for i in range(n_dp))
+        first = next(t for t in self._inners if t is not None)
+        self.tau, self.sigma, self.rho, self.lam, self.iso = first.tau, first.sigma, first.rho, first.lam, first.iso
         self.y = self._scatter(y)
+
         # A^H y of each image, by its mesh row's sharded adjoint
         def adjoint(i, k):
             inner = self._inners[i]
-            return (sharded_conv2d_adjoint([brick[k] for brick in self.y[i]], inner.filt, inner._h_hat_adj),)
+            return (sharded_conv2d_adjoint(self._image(self.y, i, k), inner.filt, inner._h_hat_adj),)
 
         (self.atb,) = self._per_image(adjoint)
 
     # -- bricks ------------------------------------------------------------
     def _scatter(self, a: torch.Tensor):
         """The (B, ..., H, W) tensor ``a`` as the grid of bricks."""
-        n_dp, n_sp = self.mesh.shape
-        b, h = self.b_loc, self.shape[0] // n_sp
-        return tuple(tuple(a[i * b : (i + 1) * b, ..., j * h : (j + 1) * h, :].to(self.devices[i * n_sp + j])
-                           .contiguous() for j in range(n_sp)) for i in range(n_dp))
+        b, h = self.b_loc, self.shape[0] // self.mesh.shape[1]
+        return _positions(self.mesh,
+                          lambda i, j, d: a[i * b : (i + 1) * b, ..., j * h : (j + 1) * h, :].to(d).contiguous())
 
     def _gather(self, grid) -> torch.Tensor:
-        """The bricks joined into one tensor on the first mesh device."""
-        dev0 = self.devices[0]
-        return torch.cat([torch.cat([b.to(dev0) for b in row], dim=-2) for row in grid])
+        """The bricks joined into one tensor on the first local mesh device
+        (the other processes' gathered first)."""
+        dev0 = self.mesh.local_device
+        n_sp = self.mesh.shape[1]
+        flat = [b.to(dev0) for b in gather_positions(_flat(grid))]
+        return torch.cat([torch.cat(flat[i : i + n_sp], dim=-2) for i in range(0, len(flat), n_sp)])
+
+    @staticmethod
+    def _image(grid, i: int, k: int) -> list:
+        """Image ``k`` of mesh row ``i``'s bricks: its row shards."""
+        return each(lambda brick: brick[k], grid[i])
 
     def _per_image(self, fn) -> tuple:
         """``fn(i, k)``, a tuple of per-shard sequences for image ``k`` of
-        mesh row ``i``, over every image; each result's shards stacked back
-        into a grid of bricks."""
-        rows = [[fn(i, k) for k in range(self.b_loc)] for i in range(len(self._inners))]
-        n_out = len(rows[0][0])
-        return tuple(tuple(tuple(torch.stack([res[r][j] for res in per]) for j in range(len(per[0][r])))
-                           for per in rows) for r in range(n_out))
+        mesh row ``i``, over every image of the rows this process holds a
+        position of; each result's shards stacked back into a grid of
+        bricks (a :class:`Remote` for another process's positions)."""
+        n_sp = self.mesh.shape[1]
+        rows = [None if t is None else [fn(i, k) for k in range(self.b_loc)] for i, t in enumerate(self._inners)]
+        n_out = len(next(r for r in rows if r is not None)[0])
+
+        def bricks(i, r):
+            if rows[i] is None:
+                return tuple(Remote(self.mesh.ranks[i * n_sp + j]) for j in range(n_sp))
+            per = rows[i]
+            return tuple(each(lambda *imgs: torch.stack(imgs), *[res[r] for res in per]))
+
+        return tuple(tuple(bricks(i, r) for i in range(len(rows))) for r in range(n_out))
 
     # -- IterativeSolver protocol -----------------------------------------
     def initial_state(self):
-        n_dp, n_sp = self.mesh.shape
-        h, W = self.shape[0] // n_sp, self.shape[1]
+        h, W = self.shape[0] // self.mesh.shape[1], self.shape[1]
 
         def zeros(*mid):
-            return tuple(tuple(torch.zeros((self.b_loc,) + mid + (h, W), device=self.devices[i * n_sp + j])
-                               for j in range(n_sp)) for i in range(n_dp))
+            return _positions(self.mesh, lambda i, j, d: torch.zeros((self.b_loc,) + mid + (h, W), device=d))
 
         return {"x": zeros(), "z": zeros(2)}
 
     def step(self, state):
         """One iteration of every image's chain, mesh row by mesh row."""
         def image(i, k):
-            pick = lambda g: [brick[k] for brick in g[i]]  # noqa: E731
-            return self._inners[i]._local_step(pick(state["x"]), pick(state["z"]), pick(self.atb), pick(self.y))
+            return self._inners[i]._local_step(*(self._image(state[v], i, k) for v in ("x", "z")),
+                                               self._image(self.atb, i, k), self._image(self.y, i, k))
 
         x, z = self._per_image(image)
         return {"x": x, "z": z}
 
     def run(self, n_iters: int, x=None, z=None):
         """``n_iters`` iterations from ``x`` (B, H, W) and ``z`` (B, 2, H, W)
-        (zero by default); returns ``(x, z)`` joined on the first mesh
-        device."""
+        (zero by default); returns ``(x, z)`` joined on the first local
+        mesh device."""
         state = self.initial_state()
+        dev0 = self.mesh.local_device
         if x is not None:
-            state["x"] = self._scatter(as_tensor(x, self.devices[0]))
+            state["x"] = self._scatter(as_tensor(x, dev0))
         if z is not None:
-            state["z"] = self._scatter(as_tensor(z, self.devices[0]))
+            state["z"] = self._scatter(as_tensor(z, dev0))
         state = self.run_fixed(n_iters, state=state)
         return self._gather(state["x"]), self._gather(state["z"])
 
@@ -688,7 +738,6 @@ class Spatial2DTVDeconv2D(_BlockedTV):
         self.iso = bool(isotropic)
         H, W = as_shape(shape)
         self.mesh = mesh if mesh is not None else make_mesh_2d()
-        require_local(self.mesh, "Spatial2DTVDeconv2D")
         if len(self.mesh.axis_names) != 2:
             raise ValueError("Spatial2DTVDeconv2D needs a 2-D (rows, cols) mesh")
         self.ax_r, self.ax_c = self.mesh.axis_names
@@ -696,7 +745,7 @@ class Spatial2DTVDeconv2D(_BlockedTV):
         if H % n0 or W % n1:
             raise ValueError(f"image {H}x{W} must divide over the {n0}x{n1} mesh")
         self.devices = self.mesh.devices
-        kinds = {d.type for d in self.devices}
+        kinds = {d.type for d in _local_devices(self.mesh)}
         if kinds not in ({"cuda"}, {"cpu"}):
             raise ValueError(f"the mesh must hold CUDA devices or CPU devices, got {self.devices}")
         self.shape = (H, W)
@@ -705,7 +754,7 @@ class Spatial2DTVDeconv2D(_BlockedTV):
         self.nonneg = bool(nonneg)
         self.rho = float(rho)
         fused = self._check_use_pallas(use_pallas, kinds == {"cuda"})
-        dev0 = self.devices[0]
+        dev0 = self.mesh.local_device
         y = as_tensor(y, dev0)
         if tuple(y.shape) != (H, W):
             raise ValueError(f"y has shape {tuple(y.shape)}, expected {(H, W)}")
@@ -779,7 +828,7 @@ class Spatial2DTVDeconv2D(_BlockedTV):
         # the factor taps on each device: forward (K1, K15, K17), adjoint
         # (A^H y), adjoint with the gradient's 2x (K15, K17)
         self._taps = {}
-        for d in dict.fromkeys(self.devices):
+        for d in _local_devices(self.mesh):
             fwd = SepFactors(fac[0], fac[1], m0 // 2, m1 // 2, d)
             self._taps[d] = (fwd, fwd.adjoint(), fwd.adjoint(2.0))
         ext = halo_extend_2d(self.y, m0 - 1, m1 - 1)
@@ -794,9 +843,9 @@ class Spatial2DTVDeconv2D(_BlockedTV):
 
     # -- blocks --------------------------------------------------------------
     def _grid(self, fn):
-        """``fn(i, j, device)`` for each mesh position, as a grid."""
-        n0, n1 = self.mesh.shape
-        return tuple(tuple(fn(i, j, self.devices[i * n1 + j]) for j in range(n1)) for i in range(n0))
+        """``fn(i, j, device)`` for each of this process's mesh positions, a
+        :class:`Remote` for the others, as a grid."""
+        return _positions(self.mesh, fn)
 
     def _scatter(self, a: torch.Tensor):
         """The (..., H, W) tensor ``a`` as a grid of blocks on the mesh's
@@ -805,9 +854,11 @@ class Spatial2DTVDeconv2D(_BlockedTV):
         return self._grid(lambda i, j, d: a[..., i * h : (i + 1) * h, j * w : (j + 1) * w].to(d).contiguous())
 
     def _gather(self, grid) -> torch.Tensor:
-        """The blocks joined on the first mesh device."""
-        dev0 = self.devices[0]
-        return torch.cat([torch.cat([b.to(dev0) for b in row], dim=-1) for row in grid], dim=-2)
+        """The blocks joined on the first local mesh device (the other
+        processes' gathered first)."""
+        dev0, n1 = self.mesh.local_device, self.mesh.shape[1]
+        flat = [b.to(dev0) for b in gather_positions(_flat(grid))]
+        return torch.cat([torch.cat(flat[i : i + n1], dim=-1) for i in range(0, len(flat), n1)], dim=-2)
 
     def _sum_ranks(self, fn, grid, which: int):
         """``fn(grid, rows_plan, cols_plan)`` summed over the ranks, with the
@@ -815,7 +866,7 @@ class Spatial2DTVDeconv2D(_BlockedTV):
         out = None
         for plans in self._rank_plans:
             g = fn(grid, *plans[which])
-            out = g if out is None else tuple(tuple(a + b for a, b in zip(ra, rb)) for ra, rb in zip(out, g))
+            out = g if out is None else tuple(tuple(each(torch.add, ra, rb)) for ra, rb in zip(out, g))
         return out
 
     def _gram_local(self, grid):
@@ -835,17 +886,16 @@ class Spatial2DTVDeconv2D(_BlockedTV):
         if not self._sp_engine:
             return {"x": zeros(), "z": zeros(2)}
         return {"x": zeros(), "z0": zeros(), "z1": zeros(),
-                "_stats": torch.zeros(6, device=self.devices[0])}
+                "_stats": torch.zeros(6, device=self.mesh.local_device)}
 
     def _local_step(self, x, z):
         """One iteration of the chain on every block: grids ``(x, z)`` to the
         new pair."""
         if self.mask is not None:
-            grad = [2.0 * (m * xi - a) for m, xi, a in zip(_flat(self.mask), _flat(x), _flat(self.atb))]
+            grad = each(lambda m, xi, a: 2.0 * (m * xi - a), _flat(self.mask), _flat(x), _flat(self.atb))
         else:
-            grad = [2.0 * (g - a) for g, a in zip(_flat(sharded_sepgram_rank1_2d(x, self._band_rows,
-                                                                               self._band_cols)),
-                                                  _flat(self.atb))]
+            grad = each(lambda g, a: 2.0 * (g - a),
+                        _flat(sharded_sepgram_rank1_2d(x, self._band_rows, self._band_cols)), _flat(self.atb))
         n1 = self.mesh.shape[1]
         regrid = lambda flat: tuple(tuple(flat[i : i + n1]) for i in range(0, len(flat), n1))  # noqa: E731
         xn, zn = _pds_prox(_flat(x), _flat(z), grad, _flat(sharded_grad2d_adjoint_2d(z)),
@@ -883,22 +933,22 @@ class Spatial2DTVDeconv2D(_BlockedTV):
                                                  W_global=W, **kw)
 
         outs = self._grid(block)
-        return {**{k: tuple(tuple(o[n] for o in row) for row in outs) for n, k in enumerate(("x", "z0", "z1"))},
-                "_stats": _sum_on((o[3] for row in outs for o in row), self.devices[0])}
+        return {**{k: tuple(_field(row, n) for row in outs) for n, k in enumerate(("x", "z0", "z1"))},
+                "_stats": fold(_field([o for row in outs for o in row], 3))}
 
     def objective(self, x) -> torch.Tensor:
         """``||h * x - y||^2 + lam TV(x)`` (mask mode: observed pixels only)
         from ``x`` as a grid of blocks (or one tensor, cut into blocks): the
         data term by the Gram identity ``<x, A^H A x> - 2 <x, A^H y> +
         ||y||^2`` (:meth:`_gram_local`), the TV term from the sharded
-        gradient, the sums added on the first mesh device.  No host read."""
+        gradient, the sums added in mesh order on the first local mesh
+        device.  No host read."""
         if not isinstance(x, tuple):
-            x = self._scatter(as_tensor(x, self.devices[0]))
-        dev0 = self.devices[0]
+            x = self._scatter(as_tensor(x, self.mesh.local_device))
         xs = _flat(x)
         if self.mask is not None:
-            data = _sum_on([torch.sum(m * (xi - a / torch.clamp(m, min=1.0)) ** 2)
-                            for m, xi, a in zip(_flat(self.mask), xs, _flat(self.atb))], dev0)
+            data = fold(each(lambda m, xi, a: torch.sum(m * (xi - a / torch.clamp(m, min=1.0)) ** 2),
+                             _flat(self.mask), xs, _flat(self.atb)))
         else:
             data = pdot(xs, _flat(self._gram_local(x))) - 2.0 * pdot(xs, _flat(self.atb)) + self._y2
-        return data + self.lam * _sum_on(self._tv_blocks(_flat(sharded_grad2d_2d(x))), dev0)
+        return data + self.lam * fold(self._tv_blocks(_flat(sharded_grad2d_2d(x))))

@@ -6,12 +6,18 @@ A row-sharded image is a sequence of ``(h_loc, W)`` blocks in mesh order,
 each on its mesh position's device.  Where the reference's ``ppermute``
 sends rows to the neighbouring device, here each block receives them:
 a neighbour's rows on the same device are a view of its block (a row slice
-of a contiguous block is contiguous), on another device a copy
-(``.to(device, non_blocking=True)``; right on a card of several GPUs, not
-measured).  Rows beyond the image's first and last rows are zeros, the
-zero boundary of the Gram and of the finite differences; such a block is
-made once for each shape, dtype and device and then shared, so a caller
-must not write into a halo.
+of a contiguous block is contiguous), on another device of this process a
+copy (``.to(device, non_blocking=True)``; right on a card of several GPUs,
+not measured).  On a mesh that spans processes a sequence has one entry a
+position, a :class:`~pycsou_tpu_torch.utils.device.Remote` where another
+process holds the block (``Mesh.place``): a neighbour in another process
+sends its rows, and each exchange posts every halo that crosses a process
+boundary in one batch (``parallel.mesh.transfer``); every process must
+make the same calls, and a result holds the same ``Remote`` entries.
+Rows beyond the image's first and last rows are zeros, the zero boundary
+of the Gram and of the finite differences; such a block is made once for
+each shape, dtype and device and then shared, so a caller must not write
+into a halo.
 
 A 2-D mesh ``(n0, n1)`` cuts the image into a grid of ``(h_loc, w_loc)``
 blocks, a tuple of ``n0`` row tuples of ``n1`` blocks in mesh order (rows
@@ -32,11 +38,12 @@ Gram (``m0 - 1`` halo rows, the frame corrections on the first and last
 blocks), the band Gram of a rank-1 PSF (``kernels/band.py``: ``K - 1``
 halo rows, the edge corrections on the first and last blocks; on a 2-D
 mesh also along the columns) and the separable band convolution of a 2-D
-mesh; :func:`pdot` and :func:`pnorm` add the blocks' sums on the first
-block's device (the reference's ``psum``), and across processes too when
-given a mesh that spans them.  A filter, transfer or plan is
-given once, or for a transfer as a dict of one copy a device: where a
-block lives on another device, a lone copy is copied there.
+mesh; :func:`pdot` and :func:`pnorm` add the blocks' sums in mesh order on
+the first local block's device (the reference's ``psum``,
+``parallel.mesh.fold``), the other processes' sums gathered first.  A
+filter, transfer or plan is given once, or for a transfer as a dict of
+one copy a device: where a block lives on another device, a lone copy is
+copied there.
 """
 from __future__ import annotations
 
@@ -50,8 +57,8 @@ from pycsou_tpu_torch.kernels.band import band_conv, gram_band_cols
 from pycsou_tpu_torch.ops._gram import conv_full_direct
 from pycsou_tpu_torch.ops.conv import next_fast_len
 from pycsou_tpu_torch.ops.diff import fdiff_forward, fdiff_forward_adjoint
-from pycsou_tpu_torch.parallel.mesh import Mesh, psum
-from pycsou_tpu_torch.utils.device import full_f32
+from pycsou_tpu_torch.parallel.mesh import Mesh, _rank, each, fold, psum, transfer
+from pycsou_tpu_torch.utils.device import Remote, full_f32
 
 __all__ = [
     "halo_from_prev",
@@ -99,97 +106,129 @@ def _zero_block(shape, dtype, device) -> torch.Tensor:
     return torch.zeros(shape, dtype=dtype, device=device)
 
 
-def _zeros(block: torch.Tensor, h: int) -> torch.Tensor:
-    return _zero_block((h,) + tuple(block.shape[1:]), block.dtype, block.device)
+def _edge_zeros(block, h: int, axis: int = 0):
+    """The zeros beyond the image: ``block``'s shape with ``h`` along
+    ``axis`` (made once and shared; a :class:`Remote` stays one)."""
+    if isinstance(block, Remote):
+        return block
+    shape = list(block.shape)
+    shape[axis] = h
+    return _zero_block(tuple(shape), block.dtype, block.device)
 
 
-def _check(blocks: Sequence[torch.Tensor], h: int) -> None:
-    if h < 0 or any(h > b.shape[0] for b in blocks):
-        raise ValueError(f"{h} halo rows from blocks of {[b.shape[0] for b in blocks]} rows")
+def _check(blocks: Sequence, h: int, axis: int = 0) -> None:
+    sizes = [b.shape[axis] for b in blocks if not isinstance(b, Remote)]
+    if h < 0 or any(h > n for n in sizes):
+        raise ValueError(f"{h} halo {('rows', 'columns')[axis]} from blocks of {sizes} {('rows', 'columns')[axis]}")
+
+
+def _fetch(requests) -> list:
+    """``(src, take, dst)`` requests, in an order that every process builds
+    alike: ``take(src)`` on ``dst``'s device (a view on the same device, a
+    copy on another of this process's, sent across processes), a
+    :class:`Remote` where another process holds ``dst``.  What crosses a
+    process boundary goes in one batch."""
+    me = _rank()
+    out, msgs, slots = [], [], []
+    for tag, (src, take, dst) in enumerate(requests):
+        if isinstance(dst, Remote):
+            out.append(dst)
+            if not isinstance(src, Remote):
+                msgs.append((tag, me, dst.rank, take(src), None))
+        elif isinstance(src, Remote):
+            # the piece has the shape of the same piece of the receiving block
+            slots.append(len(out))
+            out.append(None)
+            msgs.append((tag, src.rank, me, None, take(dst)))
+        else:
+            out.append(_on(take(src), dst.device))
+    if msgs:
+        got = [g for g in transfer(msgs) if g is not None]
+        for k, g in zip(slots, got):
+            out[k] = g
+    return out
+
+
+def _row_halos(chains, lo: int, hi: int, axis: int = 0) -> list:
+    """For each sequence of blocks in ``chains`` (a mesh column, cut along
+    the rows; with ``axis=1`` a mesh row, cut along the columns),
+    ``(before, after)``: for each block the last ``lo`` rows (columns) of
+    the previous block and the first ``hi`` of the next, on its own device
+    (zeros beyond the image), in one exchange.  A neighbour's piece on the
+    same device is a view (not contiguous along the columns)."""
+    reqs, slots, out = [], [], []
+    for blocks in chains:
+        _check(blocks, max(lo, hi), axis)
+        n = len(blocks)
+        before, after = [None] * n, [None] * n
+        for i, b in enumerate(blocks):
+            if i == 0 or lo == 0:
+                before[i] = _edge_zeros(b, lo, axis)
+            else:
+                reqs.append((blocks[i - 1], lambda s: s.narrow(axis, s.shape[axis] - lo, lo), b))
+                slots.append((before, i))
+            if i == n - 1 or hi == 0:
+                after[i] = _edge_zeros(b, hi, axis)
+            else:
+                reqs.append((blocks[i + 1], lambda s: s.narrow(axis, 0, hi), b))
+                slots.append((after, i))
+        out.append((before, after))
+    for (lst, i), v in zip(slots, _fetch(reqs)):
+        lst[i] = v
+    return out
 
 
 def halo_from_prev(blocks: Sequence[torch.Tensor], h: int) -> List[torch.Tensor]:
     """For each block, the last ``h`` rows of the previous block, on its own
     device (zeros for the first block)."""
-    _check(blocks, h)
-    return [_zeros(b, h) if i == 0 else _on(blocks[i - 1][blocks[i - 1].shape[0] - h:], b.device)
-            for i, b in enumerate(blocks)]
+    return _row_halos([blocks], h, 0)[0][0]
 
 
 def halo_from_next(blocks: Sequence[torch.Tensor], h: int) -> List[torch.Tensor]:
     """For each block, the first ``h`` rows of the next block, on its own
     device (zeros for the last block)."""
-    _check(blocks, h)
-    n = len(blocks)
-    return [_zeros(b, h) if i == n - 1 else _on(blocks[i + 1][:h], b.device) for i, b in enumerate(blocks)]
+    return _row_halos([blocks], 0, h)[0][1]
 
 
 def halo_extend(blocks: Sequence[torch.Tensor], h: int) -> List[torch.Tensor]:
     """Each block with ``h`` rows of its neighbours above and below, ``(h_loc
     + 2h, W)`` (the reference solver's ``_make_ext``)."""
-    return [torch.cat([t, b, d]) for t, b, d in zip(halo_from_prev(blocks, h), blocks, halo_from_next(blocks, h))]
+    (tops, bots), = _row_halos([blocks], h, h)
+    return each(lambda b, t, d: torch.cat([t, b, d]), blocks, tops, bots)
 
 
 def halos(arrays: Sequence[Sequence[torch.Tensor]], h: int) -> List[tuple]:
     """For each shard, the ``h`` rows above and below it of each row-sharded
     array in ``arrays``, interleaved as the shard kernels take them:
-    ``(a_top, a_bot, b_top, b_bot, ...)``."""
-    per = [(halo_from_prev(a, h), halo_from_next(a, h)) for a in arrays]
-    return [tuple(t for top, bot in per for t in (top[i], bot[i])) for i in range(len(arrays[0]))]
+    ``(a_top, a_bot, b_top, b_bot, ...)``; one exchange for them all."""
+    per = _row_halos(arrays, h, h)
+    return [arrays[0][i] if isinstance(arrays[0][i], Remote) else
+            tuple(t for top, bot in per for t in (top[i], bot[i])) for i in range(len(arrays[0]))]
 
 
 # -- the 2-D mesh: column halos and the grid of blocks ------------------------------
-
-
-def _check_cols(blocks: Sequence[torch.Tensor], c: int) -> None:
-    if c < 0 or any(c > b.shape[1] for b in blocks):
-        raise ValueError(f"{c} halo columns from blocks of {[b.shape[1] for b in blocks]} columns")
-
-
-def _col_zeros(block: torch.Tensor, c: int) -> torch.Tensor:
-    return _zero_block((block.shape[0], c), block.dtype, block.device)
-
-
-def _col_halos(blocks: Sequence[torch.Tensor], c: int):
-    """For each block of a mesh row (left to right), the last ``c`` columns
-    of its left neighbour and the first ``c`` of its right one on its own
-    device (zeros beyond the image): views on the neighbour's device,
-    copies on another."""
-    _check_cols(blocks, c)
-    n = len(blocks)
-
-    def cols(j, lo, device):
-        part = blocks[j][:, lo : lo + c]
-        return part if blocks[j].device == device else _on(part.contiguous(), device)
-
-    left = [_col_zeros(b, c) if j == 0 else cols(j - 1, blocks[j - 1].shape[1] - c, b.device)
-            for j, b in enumerate(blocks)]
-    right = [_col_zeros(b, c) if j == n - 1 else cols(j + 1, 0, b.device) for j, b in enumerate(blocks)]
-    return left, right
 
 
 def halo_from_prev_cols(blocks: Sequence[torch.Tensor], c: int) -> List[torch.Tensor]:
     """For each block of a mesh row (left to right), the last ``c`` columns
     of its left neighbour, contiguous, on its own device (zeros for the
     first)."""
-    return [t.contiguous() for t in _col_halos(blocks, c)[0]]
+    return each(lambda t: t.contiguous(), _row_halos([blocks], c, 0, axis=1)[0][0])
 
 
 def halo_from_next_cols(blocks: Sequence[torch.Tensor], c: int) -> List[torch.Tensor]:
     """For each block of a mesh row, the first ``c`` columns of its right
     neighbour, contiguous, on its own device (zeros for the last)."""
-    return [t.contiguous() for t in _col_halos(blocks, c)[1]]
+    return each(lambda t: t.contiguous(), _row_halos([blocks], 0, c, axis=1)[0][1])
 
 
 def lane_extend(grid: Sequence[Sequence[torch.Tensor]], c: int) -> tuple:
     """Each block of the grid with ``c`` columns of its left and right
     neighbours, ``(h_loc, w_loc + 2c)``, zeros beyond the image (one copy a
     block)."""
-    out = []
-    for row in grid:
-        left, right = _col_halos(row, c)
-        out.append(tuple(torch.cat([a, b, d], dim=1) for a, b, d in zip(left, row, right)))
-    return tuple(out)
+    per = _row_halos(grid, c, c, axis=1)
+    return tuple(tuple(each(lambda b, a, d: torch.cat([a, b, d], dim=1), row, left, right))
+                 for row, (left, right) in zip(grid, per))
 
 
 def _columns(grid):
@@ -202,18 +241,28 @@ def halos_2d(grids: Sequence[Sequence[Sequence[torch.Tensor]]], h: int) -> tuple
     the ``h`` rows above and below it of each grid, interleaved as
     :func:`halos` gives them, as a grid of tuples.  Taken from the
     lane-extended blocks of the row neighbours, they hold the diagonal
-    neighbours' corner columns."""
+    neighbours' corner columns; one exchange for them all."""
     cols = [_columns(g) for g in grids]
-    per_col = [halos([c[j] for c in cols], h) for j in range(len(cols[0]))]
-    return tuple(tuple(pc[i] for pc in per_col) for i in range(len(grids[0])))
+    n0, n1 = len(grids[0]), len(cols[0])
+    per = _row_halos([c[j] for j in range(n1) for c in cols], h, h)  # column j of grid g: per[j * G + g]
+    G = len(grids)
+
+    def block(i, j):
+        if isinstance(grids[0][i][j], Remote):
+            return grids[0][i][j]
+        return tuple(t for g in range(G) for t in (per[j * G + g][0][i], per[j * G + g][1][i]))
+
+    return tuple(tuple(block(i, j) for j in range(n1)) for i in range(n0))
 
 
 def halo_extend_2d(grid: Sequence[Sequence[torch.Tensor]], h: int, c: int) -> tuple:
     """Each block with ``h`` rows and ``c`` columns of its neighbours (the
     corners from its diagonal neighbours), ``(h_loc + 2h, w_loc + 2c)``,
     zeros beyond the image."""
-    cols = [halo_extend(col, h) for col in _columns(lane_extend(grid, c))]
-    return tuple(tuple(col[i] for col in cols) for i in range(len(grid)))
+    cols = _columns(lane_extend(grid, c))
+    ext = [each(lambda b, t, d: torch.cat([t, b, d]), col, tops, bots)
+           for col, (tops, bots) in zip(cols, _row_halos(cols, h, h))]
+    return _grid_of_columns(ext)
 
 
 def _grid_of_columns(cols) -> tuple:
@@ -225,15 +274,19 @@ def _grid_of_columns(cols) -> tuple:
 def _extend(blocks: Sequence[torch.Tensor], lo: int, hi: int) -> List[torch.Tensor]:
     """Each block with ``lo`` rows of the previous block above and ``hi`` of
     the next below (zeros beyond the image)."""
-    tops, bots = halo_from_prev(blocks, lo), halo_from_next(blocks, hi)
-    return [torch.cat([t, b, d]) if lo or hi else b for t, b, d in zip(tops, blocks, bots)]
+    if not (lo or hi):
+        return list(blocks)
+    (tops, bots), = _row_halos([blocks], lo, hi)
+    return each(lambda b, t, d: torch.cat([t, b, d]), blocks, tops, bots)
 
 
 def _extend_cols(row: Sequence[torch.Tensor], lo: int, hi: int) -> List[torch.Tensor]:
     """Each block of a mesh row with ``lo`` columns of its left neighbour and
     ``hi`` of its right one (zeros beyond the image)."""
-    lefts, rights = halo_from_prev_cols(row, lo), halo_from_next_cols(row, hi)
-    return [torch.cat([a, b, d], dim=1) if lo or hi else b for a, b, d in zip(lefts, row, rights)]
+    if not (lo or hi):
+        return list(row)
+    (lefts, rights), = _row_halos([row], lo, hi, axis=1)
+    return each(lambda b, a, d: torch.cat([a.contiguous(), b, d.contiguous()], dim=1), row, lefts, rights)
 
 
 # -- the 1-D mesh: row blocks --------------------------------------------------------
@@ -244,6 +297,9 @@ def sharded_fdiff_rows(blocks: Sequence[torch.Tensor], step: float = 1.0) -> tup
     ``ops.diff.fdiff_forward(x, 0)`` (last row of the image 0)."""
     out = []
     for i, (b, nxt) in enumerate(zip(blocks, halo_from_next(blocks, 1))):
+        if isinstance(b, Remote):
+            out.append(b)
+            continue
         ext = torch.cat([b, nxt])
         d = (ext[1:] - ext[:-1]) / step
         if i == len(blocks) - 1:
@@ -256,21 +312,22 @@ def sharded_fdiff_rows_adjoint(blocks: Sequence[torch.Tensor], step: float = 1.0
     """Its adjoint, ``(D^T y)_j = (y_{j-1} - y_j) / step`` with the image's
     last row of ``y`` taken as 0."""
     ys = list(blocks)
-    ys[-1] = torch.cat([ys[-1][:-1], torch.zeros_like(ys[-1][-1:])])
-    return tuple((ext[:-1] - ext[1:]) / step for ext in _extend(ys, 1, 0))
+    if not isinstance(ys[-1], Remote):
+        ys[-1] = torch.cat([ys[-1][:-1], torch.zeros_like(ys[-1][-1:])])
+    return tuple(each(lambda ext: (ext[:-1] - ext[1:]) / step, _extend(ys, 1, 0)))
 
 
 def sharded_grad2d(blocks: Sequence[torch.Tensor], step: float = 1.0) -> tuple:
     """The (2, h, W) forward-difference gradient of each row block, globally
     ``ops.diff.Gradient``."""
-    return tuple(torch.stack([d0, fdiff_forward(b, 1, step)])
-                 for d0, b in zip(sharded_fdiff_rows(blocks, step), blocks))
+    return tuple(each(lambda d0, b: torch.stack([d0, fdiff_forward(b, 1, step)]),
+                      sharded_fdiff_rows(blocks, step), blocks))
 
 
 def sharded_grad2d_adjoint(blocks: Sequence[torch.Tensor], step: float = 1.0) -> tuple:
     """Its adjoint on (2, h, W) blocks."""
-    rows = sharded_fdiff_rows_adjoint([g[0] for g in blocks], step)
-    return tuple(r + fdiff_forward_adjoint(g[1], 1, step) for r, g in zip(rows, blocks))
+    rows = sharded_fdiff_rows_adjoint(each(lambda g: g[0], blocks), step)
+    return tuple(each(lambda r, g: r + fdiff_forward_adjoint(g[1], 1, step), rows, blocks))
 
 
 def conv_transfer(filt: torch.Tensor, ext_shape) -> torch.Tensor:
@@ -295,14 +352,16 @@ def _os_conv(blocks, filt, o0: int, o1: int, h_hat=None) -> tuple:
     """Overlap-save: each block grown by ``m0 - 1 - o0`` rows of the
     previous block and ``o0`` of the next, convolved, cropped."""
     lo, hi = filt.shape[0] - 1 - o0, o0
-    if any(max(lo, hi) > b.shape[0] for b in blocks):
-        raise ValueError(f"blocks of {blocks[0].shape[0]} rows are shorter than the halo of {max(lo, hi)} rows "
+    rows = [b.shape[0] for b in blocks if not isinstance(b, Remote)]
+    if any(max(lo, hi) > r for r in rows):
+        raise ValueError(f"blocks of {rows[0]} rows are shorter than the halo of {max(lo, hi)} rows "
                          f"(a kernel of {filt.shape[0]} rows over too many devices)")
-    out = []
-    for b, ext in zip(blocks, _extend(blocks, lo, hi)):
+
+    def one(b, ext):
         hh = None if h_hat is None else _at(h_hat, b.device)
-        out.append(_local_conv_same(ext, _on(filt, b.device), o0, o1, hh)[lo : lo + b.shape[0]])
-    return tuple(out)
+        return _local_conv_same(ext, _on(filt, b.device), o0, o1, hh)[lo : lo + b.shape[0]]
+
+    return tuple(each(one, blocks, _extend(blocks, lo, hi)))
 
 
 def sharded_conv2d(blocks, filt: torch.Tensor, h_hat=None) -> tuple:
@@ -329,7 +388,7 @@ def sharded_conv2d_gram(blocks, filt: torch.Tensor, acorr_hat=None) -> tuple:
     bottom rows' on the last, the left and right columns' on every block
     from its ``m0 - 1``-row extension.  Blocks must be at least as tall as
     the kernel and the image at least ``2 m1 - 1`` wide."""
-    hl, W = blocks[0].shape
+    hl, W = next(b for b in blocks if not isinstance(b, Remote)).shape
     m0, m1 = filt.shape
     if hl < m0:
         raise ValueError("local block must be at least as tall as the kernel")
@@ -344,6 +403,8 @@ def sharded_conv2d_gram(blocks, filt: torch.Tensor, acorr_hat=None) -> tuple:
     g = list(_os_conv(blocks, acorr, p0, m1 - 1, acorr_hat))
     ext = _extend(blocks, p0, p0) if o1 > 0 or b1 > 0 else None
     for i, b in enumerate(blocks):
+        if isinstance(b, Remote):
+            continue
         h_, f_ = _on(filt, b.device), _on(f, b.device)
         if o0 > 0 and i == 0:  # the image's top rows
             st = conv_full_direct(b[:m0], h_)[:o0]
@@ -373,13 +434,15 @@ def _gram_band_rows_halo(blocks, g_rows, row_edges: bool = True) -> tuple:
     takes it."""
     acorr, E_top, E_bot, L = g_rows
     h = (acorr.numel() - 1) // 2
-    out = [band_conv(ext, _on(acorr, b.device), h, 0)[h : h + b.shape[0]]
-           for b, ext in zip(blocks, _extend(blocks, h, h))]
+    out = each(lambda b, ext: band_conv(ext, _on(acorr, b.device), h, 0)[h : h + b.shape[0]],
+               blocks, _extend(blocks, h, h))
     if E_top is not None and row_edges:
         k1, first, last = E_top.shape[0], blocks[0], blocks[-1]
         with full_f32():
-            out[0][:k1] += _on(E_top, first.device) @ first[:L]
-            out[-1][-k1:] += _on(E_bot, last.device) @ last[-L:]
+            if not isinstance(first, Remote):
+                out[0][:k1] += _on(E_top, first.device) @ first[:L]
+            if not isinstance(last, Remote):
+                out[-1][-k1:] += _on(E_bot, last.device) @ last[-L:]
     return tuple(out)
 
 
@@ -393,18 +456,19 @@ def sharded_sepgram_rank1(blocks, g_rows, g_cols) -> tuple:
         a, et, eb, L = g_cols
         return (_on(a, dev), None if et is None else _on(et, dev), None if eb is None else _on(eb, dev), L)
 
-    return _gram_band_rows_halo([gram_band_cols(b, cols_on(b.device)) for b in blocks], g_rows)
+    return _gram_band_rows_halo(each(lambda b: gram_band_cols(b, cols_on(b.device)), blocks), g_rows)
 
 
 def pdot(a: Sequence[torch.Tensor], b: Sequence[torch.Tensor], mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The inner product of two sharded arrays (real), the blocks' sums
-    added on the first block's device; given a mesh that spans processes,
-    ``a`` and ``b`` are this process's blocks and the sums go through
-    :func:`~pycsou_tpu_torch.parallel.mesh.psum`."""
+    added in mesh order on the first local block's device
+    (:func:`~pycsou_tpu_torch.parallel.mesh.fold`: the sums of another
+    process's blocks, :class:`Remote` entries, gathered first); given a
+    mesh, ``a`` and ``b`` may be this process's blocks only and the sums
+    go through :func:`~pycsou_tpu_torch.parallel.mesh.psum`."""
     if mesh is not None:
-        return psum([torch.sum(x * y) for x, y in zip(a, b)], mesh)
-    dev = a[0].device
-    return functools.reduce(torch.add, [_on(torch.sum(x * y), dev) for x, y in zip(a, b)])
+        return psum(each(lambda x, y: torch.sum(x * y), a, b), mesh)
+    return fold(each(lambda x, y: torch.sum(x * y), a, b))
 
 
 def pnorm(a: Sequence[torch.Tensor], mesh: Optional[Mesh] = None) -> torch.Tensor:
@@ -422,6 +486,9 @@ def sharded_fdiff_cols(grid, step: float = 1.0) -> tuple:
     for row in grid:
         r = []
         for j, (b, nxt) in enumerate(zip(row, halo_from_next_cols(row, 1))):
+            if isinstance(b, Remote):
+                r.append(b)
+                continue
             ext = torch.cat([b, nxt], dim=1)
             d = (ext[:, 1:] - ext[:, :-1]) / step
             if j == len(row) - 1:
@@ -436,8 +503,9 @@ def sharded_fdiff_cols_adjoint(grid, step: float = 1.0) -> tuple:
     out = []
     for row in grid:
         ys = list(row)
-        ys[-1] = torch.cat([ys[-1][:, :-1], torch.zeros_like(ys[-1][:, -1:])], dim=1)
-        out.append(tuple((ext[:, :-1] - ext[:, 1:]) / step for ext in _extend_cols(ys, 1, 0)))
+        if not isinstance(ys[-1], Remote):
+            ys[-1] = torch.cat([ys[-1][:, :-1], torch.zeros_like(ys[-1][:, -1:])], dim=1)
+        out.append(tuple(each(lambda ext: (ext[:, :-1] - ext[:, 1:]) / step, _extend_cols(ys, 1, 0))))
     return tuple(out)
 
 
@@ -449,14 +517,14 @@ def _rows_2d(fn, grid, *args) -> tuple:
 def sharded_grad2d_2d(grid, step: float = 1.0) -> tuple:
     """The (2, h, w) forward-difference gradient of each block of a grid."""
     d0, d1 = _rows_2d(sharded_fdiff_rows, grid, step), sharded_fdiff_cols(grid, step)
-    return tuple(tuple(torch.stack([a, b]) for a, b in zip(r0, r1)) for r0, r1 in zip(d0, d1))
+    return tuple(tuple(each(lambda a, b: torch.stack([a, b]), r0, r1)) for r0, r1 in zip(d0, d1))
 
 
 def sharded_grad2d_adjoint_2d(grid, step: float = 1.0) -> tuple:
     """Its adjoint on a grid of (2, h, w) blocks."""
-    rows = _rows_2d(sharded_fdiff_rows_adjoint, tuple(tuple(g[0] for g in r) for r in grid), step)
-    cols = sharded_fdiff_cols_adjoint(tuple(tuple(g[1] for g in r) for r in grid), step)
-    return tuple(tuple(a + b for a, b in zip(ra, rb)) for ra, rb in zip(rows, cols))
+    rows = _rows_2d(sharded_fdiff_rows_adjoint, tuple(tuple(each(lambda g: g[0], r)) for r in grid), step)
+    cols = sharded_fdiff_cols_adjoint(tuple(tuple(each(lambda g: g[1], r)) for r in grid), step)
+    return tuple(tuple(each(torch.add, ra, rb)) for ra, rb in zip(rows, cols))
 
 
 def _gram_band_cols_halo(grid, g_cols) -> tuple:
@@ -466,13 +534,15 @@ def _gram_band_cols_halo(grid, g_cols) -> tuple:
     h = (acorr.numel() - 1) // 2
     out = []
     for row in grid:
-        r = [band_conv(ext, _on(acorr, b.device), h, 1)[:, h : h + b.shape[1]]
-             for b, ext in zip(row, _extend_cols(row, h, h))]
+        r = each(lambda b, ext: band_conv(ext, _on(acorr, b.device), h, 1)[:, h : h + b.shape[1]],
+                 row, _extend_cols(row, h, h))
         if E_top is not None:
             k1, first, last = E_top.shape[0], row[0], row[-1]
             with full_f32():
-                r[0][:, :k1] += first[:, :L] @ _on(E_top, first.device).T
-                r[-1][:, -k1:] += last[:, -L:] @ _on(E_bot, last.device).T
+                if not isinstance(first, Remote):
+                    r[0][:, :k1] += first[:, :L] @ _on(E_top, first.device).T
+                if not isinstance(last, Remote):
+                    r[-1][:, -k1:] += last[:, -L:] @ _on(E_bot, last.device).T
         out.append(tuple(r))
     return tuple(out)
 
@@ -485,12 +555,12 @@ def _sep_halo_pass(grid, taps: torch.Tensor, offset: int, rows: bool) -> tuple:
     lo, hi = taps.numel() - 1 - offset, offset
     if rows:
         def col_pass(col):
-            return tuple(band_conv(e, _on(taps, b.device), offset, 0)[lo : lo + b.shape[0]]
-                         for b, e in zip(col, _extend(col, lo, hi)))
+            return tuple(each(lambda b, e: band_conv(e, _on(taps, b.device), offset, 0)[lo : lo + b.shape[0]],
+                              col, _extend(col, lo, hi)))
 
         return _rows_2d(col_pass, grid)
-    return tuple(tuple(band_conv(e, _on(taps, b.device), offset, 1)[:, lo : lo + b.shape[1]]
-                       for b, e in zip(row, _extend_cols(row, lo, hi))) for row in grid)
+    return tuple(tuple(each(lambda b, e: band_conv(e, _on(taps, b.device), offset, 1)[:, lo : lo + b.shape[1]],
+                            row, _extend_cols(row, lo, hi))) for row in grid)
 
 
 def sharded_sepconv2d_2d(grid, rows_plan, cols_plan) -> tuple:

@@ -18,7 +18,10 @@ checks the keys, the nesting of tuples and lists, each tensor's shape and
 dtype and each number's type, grows the history buffers when the solve
 resumes with a larger ``max_iter`` (the new rows NaN, "not measured") and
 puts each tensor on its template tensor's device, so that the shards of a
-sharded state return to their mesh devices.
+sharded state return to their mesh devices.  Where the template has a
+``Remote`` (a block another process holds, on a mesh that spans
+processes), the loaded block is dropped: a save holds every position's
+blocks, so it loads under any number of processes.
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ import warnings
 from typing import Any, Optional
 
 import torch
+
+from pycsou_tpu_torch.utils.device import Remote
 
 __all__ = ["save_state", "load_state", "latest_checkpoint", "checkpoint_steps", "load_latest_state"]
 
@@ -67,6 +72,10 @@ def save_state(path: str, state: Any) -> None:
 def _match(r, t, where: str, key=None):
     """``r`` (loaded) checked against the template ``t`` and placed on its
     devices; ``key`` is the state's top-level key (the histories may grow)."""
+    if isinstance(t, Remote):
+        if not isinstance(r, torch.Tensor):
+            raise ValueError(f"checkpoint {where}: {type(r).__name__} != a block of another process")
+        return t
     if isinstance(t, dict):
         if not isinstance(r, dict) or set(r) != set(t):
             got = sorted(r) if isinstance(r, dict) else type(r).__name__

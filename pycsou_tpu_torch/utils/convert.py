@@ -37,6 +37,12 @@ dropped: the solver starts a new one), an entry it lacks (the reference's
 ``key``, another engine's partial sums) is dropped and one it has that the
 JAX state lacks is taken from it.
 
+On a mesh that spans processes a sharded entry has a ``Remote`` where
+another process holds the block: :func:`shard_state_from_numpy` and
+:func:`consensus_state_from_numpy` keep this process's blocks only, and
+:func:`state_to_numpy` gathers the others' first (every process must call
+it).
+
 ``ConsensusADMM`` keeps ``u`` as a tuple of per-block tensors, ``S /
 size`` scenarios a mesh position: :func:`consensus_state_from_numpy` cuts
 the JAX solver's ``u`` into them (``z`` and the rest on the first device),
@@ -63,7 +69,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from pycsou_tpu_torch.utils.device import resolve_device
+from pycsou_tpu_torch.utils.device import Remote, resolve_device
 
 __all__ = ["consensus_state_from_numpy", "shard_state_from_numpy", "sparse_from_numpy", "state_from_numpy",
            "state_to_numpy", "transfer_from_numpy"]
@@ -133,15 +139,16 @@ def shard_state_from_numpy(state: Dict[str, Any], mesh, like=None) -> Dict[str, 
     the JAX solver's state as numpy arrays: ``x``, ``z0``, ``z1`` and ``z``
     cut along their rows into equal shards on a 1-D mesh's devices, or into
     the grid of blocks of a 2-D mesh, or, for a batch (``x`` of ``(B, H,
-    W)``), into the bricks of a ``(dp, sp)`` mesh; the rest (``_stats``,
-    ``metric``, the histories) on the first device.  ``like`` as
+    W)``), into the bricks of a ``(dp, sp)`` mesh, this process's blocks
+    only (a ``Remote`` for another process's); the rest (``_stats``,
+    ``metric``, the histories) on the first local device.  ``like`` as
     :func:`state_from_numpy`'s."""
     if like is not None:
         state = _relayout(state, like)
     devices = mesh.devices
     n0, n1 = (len(devices), 1) if len(mesh.shape) == 1 else mesh.shape
     batched = np.ndim(state["x"]) == 3
-    out = state_from_numpy({k: v for k, v in state.items() if k not in _SHARDED}, devices[0])
+    out = state_from_numpy({k: v for k, v in state.items() if k not in _SHARDED}, mesh.local_device)
     for k in _SHARDED:
         if k not in state:
             continue
@@ -156,6 +163,8 @@ def shard_state_from_numpy(state: Dict[str, Any], mesh, like=None) -> Dict[str, 
             rows, cols = a.shape[-2] // n0, a.shape[-1] // n1
 
         def block(i, j):
+            if mesh.ranks[i * n1 + j] != mesh.process_index:
+                return Remote(mesh.ranks[i * n1 + j])
             if batched:
                 b, h = rows
                 part = a[i * b : (i + 1) * b, ..., j * h : (j + 1) * h, :]
@@ -173,16 +182,17 @@ def shard_state_from_numpy(state: Dict[str, Any], mesh, like=None) -> Dict[str, 
 def consensus_state_from_numpy(state: Dict[str, Any], mesh) -> Dict[str, Any]:
     """A ``ConsensusADMM`` port state on ``mesh`` from the JAX solver's
     state as numpy arrays: ``u`` (S, ...) cut into ``S / size`` scenarios a
-    mesh device, the rest (``z``, ``metric``, the histories) on the first
-    device."""
+    mesh device (this process's blocks; a ``Remote`` for another
+    process's), the rest (``z``, ``metric``, the histories) on the first
+    local device."""
     devices = mesh.devices
-    out = state_from_numpy({k: v for k, v in state.items() if k != "u"}, devices[0])
+    out = state_from_numpy({k: v for k, v in state.items() if k != "u"}, mesh.local_device)
     u = np.asarray(state["u"], np.float32)
     if u.shape[0] % len(devices):
         raise ValueError(f"u: {u.shape[0]} scenarios do not divide over {len(devices)} devices")
     per = u.shape[0] // len(devices)
-    out["u"] = tuple(torch.from_numpy(np.array(u[b * per : (b + 1) * per])).to(dev)
-                     for b, dev in enumerate(devices))
+    out["u"] = mesh.place([torch.from_numpy(np.array(u[b * per : (b + 1) * per])).to(devices[b])
+                           for b in mesh.local_positions])
     return out
 
 
@@ -218,7 +228,24 @@ def state_to_numpy(state: Dict[str, Any]) -> Dict[str, Any]:
             return np.asarray(v, dtype=np.int32)
         return _join(k, v, state) if isinstance(v, tuple) else _to_numpy(v)
 
+    if any(isinstance(v, tuple) and _holds_remote(v) for v in state.values()):
+        from pycsou_tpu_torch.parallel.mesh import gather_positions
+
+        def filled(v):
+            if not isinstance(v, tuple):
+                return v
+            if isinstance(v[0], tuple):  # a grid: gather its blocks in mesh order, then regrid
+                n1 = len(v[0])
+                flat = gather_positions([b for row in v for b in row])
+                return tuple(tuple(flat[i : i + n1]) for i in range(0, len(flat), n1))
+            return tuple(gather_positions(v))
+
+        state = {k: filled(v) for k, v in state.items()}
     return {k: one(k, v) for k, v in state.items()}
+
+
+def _holds_remote(v) -> bool:
+    return any(_holds_remote(e) if isinstance(e, tuple) else isinstance(e, Remote) for e in v)
 
 
 def sparse_from_numpy(data, indices, shape, dim_shape=None, codim_shape=None, device=None):

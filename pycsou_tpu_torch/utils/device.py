@@ -18,10 +18,26 @@ from typing import Optional
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "same_device", "set_default_device", "get_default_device", "as_tensor",
+__all__ = ["Remote", "resolve_device", "same_device", "set_default_device", "get_default_device", "as_tensor",
            "dtype_of", "full_f32", "settle_cpu_math"]
 
 _DEFAULT: Optional[torch.device] = None  # set_default_device; None means cuda
+
+
+class Remote:
+    """The entry of a mesh position whose block another process holds.  On
+    a mesh that spans processes a sharded value is a tuple with one entry a
+    position: the blocks of this process's positions, and a ``Remote`` for
+    each of the others, carrying the rank of the process that holds it
+    (``parallel.mesh``)."""
+
+    __slots__ = ("rank",)
+
+    def __init__(self, rank: int):
+        self.rank = int(rank)
+
+    def __repr__(self):
+        return f"Remote(rank={self.rank})"
 
 
 def set_default_device(device) -> None:

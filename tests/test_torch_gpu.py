@@ -1699,3 +1699,69 @@ def test_pencil_conv_on_the_card(cuda, rng):
     _close(op.adjoint(x), ref.adjoint(x), rel=1e-5)
     _close(op.gram.apply(x), ref.adjoint(ref.apply(x)), rel=1e-5)
     _close(op.pinv(x, damp=1e-3), ref.pinv(x, damp=1e-3), rel=1e-5)
+
+
+_DEFAULT_BACKEND_WORKER = r"""
+import sys
+
+import numpy as np
+import torch
+
+from pycsou_tpu_torch.parallel import NamedSharding, PartitionSpec, distributed_init, make_mesh, pdot, psum
+
+coord, pid = sys.argv[1], int(sys.argv[2])
+torch.cuda.set_device(0)  # each process's card, as torchrun users set it: one card here, for both
+distributed_init(coordinator_address=coord, num_processes=2, process_id=pid)  # the default backend
+assert torch.distributed.get_backend() == "cpu:gloo,cuda:nccl", torch.distributed.get_backend()
+cards = make_mesh()
+assert cards.size == 2 and cards.local_positions == (pid,), cards
+assert cards.local_device == torch.device("cuda", torch.cuda.current_device()) and cards.backend == "nccl"
+mesh = make_mesh((4,), ("d",), devices=["cpu"] * 2)
+assert mesh.backend == "gloo", mesh.backend
+sh = NamedSharding(mesh, PartitionSpec("d"))
+blocks = sh.split(torch.arange(8.0))
+assert float(psum([b.sum() for b in blocks], mesh)) == 28.0
+rng = np.random.default_rng(5)
+a, b = rng.standard_normal(64), rng.standard_normal(64)
+got = float(pdot(sh.split(torch.from_numpy(a)), sh.split(torch.from_numpy(b)), mesh=mesh))
+assert abs(got - float(a @ b)) <= 1e-5 * abs(float(a @ b)), (got, float(a @ b))
+assert torch.equal(sh.join(blocks), torch.arange(8.0))
+torch.distributed.destroy_process_group()
+print(f"proc {pid} OK", flush=True)
+"""
+
+
+def test_distributed_init_default_backend_with_the_card_visible(cuda, tmp_path):
+    """Two processes with the card visible and ``distributed_init``'s default
+    backend (``cpu:gloo,cuda:nccl``): a mesh of CPU positions sums, dots
+    and joins across them over gloo, and ``make_mesh()`` holds each
+    process's current card once (no CUDA collective runs: NCCL refuses two
+    ranks on one card)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    script = tmp_path / "worker.py"
+    script.write_text(_DEFAULT_BACKEND_WORKER)
+    env = dict(os.environ)
+    root = str(Path(__file__).resolve().parent.parent)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in [root, env.get("PYTHONPATH", "")] if p)
+    procs = [subprocess.Popen([sys.executable, str(script), coord, str(i)], env=env, cwd=str(tmp_path),
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for i in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=120)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    joined = "\n".join(outs)
+    assert all(p.returncode == 0 for p in procs), joined
+    assert all("OK" in o for o in outs), joined
