@@ -246,6 +246,21 @@
     and the bytes it sent an iteration.  A worker that fails or times out
     fails the script.  Its record is the ``{"multiprocess": ...}`` line
     after phase 15's; ``python3 chip_smoke.py --phase 16`` runs it alone.
+17. Runs the ten ``examples/torch`` twins' ``main()`` (and
+    ``rbf_interpolation.main_large``) at the reference examples' sizes on
+    the card (the bayes twin cut to 1,000 samples: ``P17_ARGS``), each
+    counted on its own: each quality figure (PSNR, relative error) must
+    beat its observation's, and the fused examples must run
+    their engine and launch exactly its kernels: ``deconv_tv_2048``
+    mega3 (K10, and K1 for ``y = A x`` and ``A^H y``), ``motion_deblur_rank2``
+    megar (K4 and K1), ``inpainting_tv`` sweepm2 (K6 alone).  Then
+    ``pycsou_tpu_torch.entry``: ``entry()``'s step must launch K10 once and
+    equal ``TVDeconvolution``'s step on the same state within 1e-6, and
+    ``dryrun_multichip(4)`` on four positions of the card must run its 12
+    paths (K14-K17 among their launches).  One line an example gives its
+    seconds and figure beside the card.  Its record is the
+    ``{"examples": ...}`` line after phase 16's; ``python3 chip_smoke.py
+    --phase 17`` runs it alone.
 
 ``python3 chip_smoke.py --gram-ab OLD_ROOT`` instead times, for the
 checkout at OLD_ROOT and for this one in turns (old, new, new, old), each
@@ -281,7 +296,8 @@ phase 15's on the ``sharded_entry`` line (K14-K17's entries add their
 launches on the routed paths, K11's and K4's under ``TVDeconvolution.with_shardings``
 and K1's in one ``ShardedBlockDiagonalOperator`` apply), phase 16's on
 the ``multiprocess`` line (K14-K17's entries add each worker's launches
-across processes, K1's each worker's ``A^H y`` launches).
+across processes, K1's each worker's ``A^H y`` launches), phase 17's on
+the ``examples`` line.
 Without CUDA it exits 2 and prints no result.
 """
 import functools
@@ -3586,6 +3602,152 @@ def phase_multiprocess(dev, counters):
     return {"iters": P16_ITERS, "reference_s": ref_s, "seconds": time.perf_counter() - t0, "workers": reps}
 
 
+# -- phase 17: the examples and the entry points --------------------------------------
+
+P17_EXAMPLES = ("deconv_tv_2048", "motion_deblur_rank2", "inpainting_tv", "tv_denoise2d", "tutorial",
+                "lasso_deconv1d", "stacked_sparse_lowfreq", "consensus_admm_3d", "bayes_uncertainty_mcmc",
+                "rbf_interpolation")
+# the fused examples: the engine each must run and the kernels it launches,
+# those and no other (its engine's kernel, K1 for y = A x and A^H y)
+P17_FUSED = {"deconv_tv_2048": ("mega3", {"K10", "K1"}), "motion_deblur_rank2": ("megar", {"K4", "K1"}),
+             "inpainting_tv": ("sweepm2", {"K6"})}
+# depth cut: the bayes twin at the reference's size (128 unknowns) but 1,000
+# samples after 100 of burn-in, where the reference draws 20,000 after 2,000:
+# its generic chain takes 18-24 ms a sample on the card (365 s for 20,000;
+# PERF.md §6), host-bound on its many small launches
+P17_ARGS = {"bayes_uncertainty_mcmc": dict(n_samples=1000, nb_burnin_iterations=100)}
+P17_DRYRUN_N = 4  # dryrun_multichip's positions, each the card
+P17_DRYRUN_PATHS = ("1:", "2:", "1b:", "1c:", "2b:", "2c2:", "2c3:", "2d:", "2e:", "3:", "3b:", "3c:")
+TOL_ENTRY = 1e-6  # entry()'s step against TVDeconvolution's on the same state, x max(1, max |x|)
+
+
+def load_example(name):
+    """``examples/torch/<name>.py`` of this checkout as a module."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "examples" / "torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_figure(key, out):
+    """The example's quality figure beside its observation's; raises
+    unless the figure beats the observation."""
+    if "psnr" in out:
+        ok, fig = out["psnr"] > out["psnr_observed"], f"PSNR {out['psnr_observed']:.2f} -> {out['psnr']:.2f} dB"
+    else:
+        ok, fig = out["err"] < out["err_observed"], f"rel err {out['err_observed']:.4f} -> {out['err']:.4f}"
+    if not ok:
+        raise AssertionError(f"phase 17 {key}: the figure does not beat the observation ({fig})")
+    return fig
+
+
+def example_launches(name, out, launched):
+    """A fused example runs its engine and launches exactly its kernels."""
+    if name not in P17_FUSED:
+        return
+    engine, kernels = P17_FUSED[name]
+    engines = set(out["engine"].values()) if isinstance(out["engine"], dict) else {out["engine"]}
+    if engines != {engine}:
+        raise AssertionError(f"phase 17 {name}: ran {sorted(engines)}, not {engine}")
+    if set(launched) != kernels:
+        raise AssertionError(f"phase 17 {name}: launched {launched}, expected exactly {sorted(kernels)}")
+
+
+def _jsonable(v):
+    if isinstance(v, dict):
+        return {str(k): _jsonable(e) for k, e in v.items()}
+    if isinstance(v, (np.floating, np.integer)):
+        return v.item()
+    return v
+
+
+def phase_examples(dev, counters, smi):
+    """Phase 17: every ``examples/torch`` twin's ``main()`` (and
+    ``rbf_interpolation.main_large``) at the reference's size on the card
+    (``P17_ARGS`` cuts the bayes twin's depth), each counted on its own: its figure must beat its observation, and the
+    fused examples launch exactly their engine's kernels (``P17_FUSED``);
+    then ``entry()``'s step (K10 once) against ``TVDeconvolution``'s step
+    on the same state, and ``dryrun_multichip(P17_DRYRUN_N)`` on positions of
+    the card, which must run every path (``P17_DRYRUN_PATHS``)."""
+    from pycsou_tpu_torch.entry import NO_SPMD, dryrun_multichip, entry
+    from pycsou_tpu_torch.opt import TVDeconvolution
+
+    t_phase = time.perf_counter()
+    rec = {"runs": {}}
+    for name in P17_EXAMPLES:
+        mod = load_example(name)
+        main = functools.partial(mod.main, **P17_ARGS.get(name, {}))
+        runs = [("main", main)] + ([("main_large", mod.main_large)] if hasattr(mod, "main_large") else [])
+        for fn_name, fn in runs:
+            key = name if fn_name == "main" else f"{name}.{fn_name}"
+            t0 = time.perf_counter()
+            out, counts = count_launches(counters, fn)
+            secs = time.perf_counter() - t0
+            launched = {k: v for k, v in counts.items() if v}
+            fig = example_figure(key, out)
+            example_launches(name, out, launched)
+            log(f"phase 17 {key}: {secs:.2f} s, {fig}, engine {out['engine']}, launches {launched} ({smi})")
+            rec["runs"][key] = {"seconds": secs, "figure": fig, "launches": launched, **_jsonable(out)}
+
+    # entry(): one fused PDS iteration of the flagship problem
+    (fn, (solver, state)), built = count_launches(counters, entry)
+    fused = solver._fused
+    tv = TVDeconvolution(tuple(fused.y.shape), fused.y, fused.lam, filt=fused.filt, nonneg=fused.nonneg,
+                         tau=fused.tau, sigma=fused.sigma, rho=fused.rho, isotropic=fused.iso)
+    if tv.stencil_mode != fused.stencil_mode:
+        raise AssertionError(f"phase 17 entry: TVDeconvolution took {tv.stencil_mode}, entry {fused.stencil_mode}")
+    copy = {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in state.items()}
+    want = tv.step(copy)
+    got, counts = count_launches(counters, lambda: fn(solver, state))
+    launched = {k: v for k, v in counts.items() if v}
+    if launched != {ENGINE_KERNEL[fused.stencil_mode]: 1}:
+        raise AssertionError(f"phase 17 entry: the step launched {launched}")
+    errs = {k: max_err(got[k], want[k])[0] for k in ("x", "z0", "z1")}
+    scale = max(1.0, float(want["x"].abs().max()))
+    if any(e > TOL_ENTRY * scale for e in errs.values()):
+        raise AssertionError(f"phase 17 entry: the step differs from TVDeconvolution's by {errs}")
+    log(f"phase 17 entry(): PDS -> TVDeconvolution[{fused.stencil_mode}], construction launches "
+        f"{ {k: v for k, v in built.items() if v} }, the step {launched}; against TVDeconvolution's step "
+        f"max |d| {errs} (tol {TOL_ENTRY:g} x {scale:.3f})")
+    rec["entry"] = {"engine": fused.stencil_mode, "launches": launched, "max_abs_err": errs}
+
+    # dryrun_multichip on P17_DRYRUN_N positions of the card
+    t0 = time.perf_counter()
+    paths, counts = count_launches(counters, lambda: dryrun_multichip(P17_DRYRUN_N))
+    secs = time.perf_counter() - t0
+    got_paths = tuple(p.split(" ")[0] for p in paths)
+    if got_paths != P17_DRYRUN_PATHS:
+        raise AssertionError(f"phase 17 dryrun_multichip({P17_DRYRUN_N}) ran {got_paths}, expected "
+                             f"{P17_DRYRUN_PATHS}")
+    launched = {k: v for k, v in counts.items() if v}
+    for k in ("K14", "K15", "K16", "K17"):  # paths 1b, 1c, 2c3, 3c
+        if not launched.get(k):
+            raise AssertionError(f"phase 17 dryrun_multichip: {k} never launched ({launched})")
+    log(f"phase 17 dryrun_multichip({P17_DRYRUN_N}) on {P17_DRYRUN_N} positions of {dev}: {len(paths)} paths in "
+        f"{secs:.2f} s, launches {launched}; {NO_SPMD}")
+    rec["dryrun"] = {"paths": list(paths), "seconds": secs, "launches": launched}
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
+def phase17_alone():
+    """``--phase 17``: build the kernels and run phase 17 only; its record
+    is the last line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs a CUDA card", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    out = phase_examples(torch.device("cuda", 0), build_kernels(), smi)
+    print(json.dumps({"examples": out, "card": smi}), flush=True)
+    return 0
+
+
 def phase16_alone():
     """``--phase 16``: build the kernels and run phase 16 only; its record
     is the last line."""
@@ -3748,6 +3910,8 @@ def main():
                                                                 for w in p16["workers"]]
     res["K1"]["multiprocess_launches"] = {case: [w["tv"][case]["built"].get("K1", 0) for w in p16["workers"]]
                                           for case in P16_TV}
+    log("-- the examples, entry() and dryrun_multichip on the card (phase 17)")
+    print(json.dumps({"examples": phase_examples(dev, counters, smi), "card": smi}), flush=True)
 
     log(f"-- throughput ({smi})")
     solvers.update({"main path": pds, "LASSO": apgd})
@@ -4130,6 +4294,8 @@ if __name__ == "__main__":
         sys.exit(phase15_alone())
     if sys.argv[1:] == ["--phase", "16"]:
         sys.exit(phase16_alone())
+    if sys.argv[1:] == ["--phase", "17"]:
+        sys.exit(phase17_alone())
     if len(sys.argv) == 5 and sys.argv[1] == "--phase16-worker":
         sys.exit(phase16_worker(sys.argv[2], int(sys.argv[3]), sys.argv[4]))
     if len(sys.argv) in (3, 4) and sys.argv[1] == "--gram-times":

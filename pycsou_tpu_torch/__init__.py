@@ -23,6 +23,14 @@ from pycsou_tpu_torch.utils.device import settle_cpu_math  # noqa: E402
 
 settle_cpu_math()
 
+from pycsou_tpu_torch.core.functional import (  # noqa: E402
+    DifferentiableFunctional,
+    Functional,
+    LinearFunctional,
+    ProximableFunctional,
+)
+from pycsou_tpu_torch.core.linop import LinearOperator  # noqa: E402
+from pycsou_tpu_torch.core.map import DifferentiableMap, Map  # noqa: E402
 from pycsou_tpu_torch.opt import (  # noqa: E402
     APGD,
     CPS,
@@ -36,6 +44,7 @@ from pycsou_tpu_torch.opt import (  # noqa: E402
 from pycsou_tpu_torch.parallel import DistributedTVDeconv2D, Mesh, make_mesh  # noqa: E402
 from pycsou_tpu_torch.utils.device import get_default_device, set_default_device  # noqa: E402
 
-__all__ = ["APGD", "CPS", "DRS", "DistributedTVDeconv2D", "FBS", "Mesh", "PDS", "PMYULA",
-           "LassoDeconvolution", "TVDeconvolution", "get_default_device", "make_mesh",
+__all__ = ["APGD", "CPS", "DRS", "DifferentiableFunctional", "DifferentiableMap", "DistributedTVDeconv2D", "FBS",
+           "Functional", "LinearFunctional", "LinearOperator", "Map", "Mesh", "PDS", "PMYULA",
+           "LassoDeconvolution", "ProximableFunctional", "TVDeconvolution", "get_default_device", "make_mesh",
            "set_default_device"]

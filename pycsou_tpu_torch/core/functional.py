@@ -77,7 +77,21 @@ class LinearFunctional(LinearOperator, Functional):
 
 class ProximableFunctional(Functional):
     """Convex functional with a tractable proximity operator.
-    ``fenchel_prox`` follows from Moreau's identity."""
+    ``fenchel_prox`` follows from Moreau's identity.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.penalty import L1Norm
+        >>> f = L1Norm((3,))
+        >>> x, tau = torch.tensor([2.0, -0.5, 1.0], device=dev), 0.5
+        >>> g = 2.0 * f                            # ProxFuncPostComp node
+        >>> bool(torch.allclose(g.prox(x, tau), f.prox(x, 2.0 * tau)))
+        True
+        >>> bool(torch.allclose(f.prox(x, 1.0) + f.fenchel_prox(x, 1.0), x))
+        True
+    """
 
     def prox(self, x: torch.Tensor, tau) -> torch.Tensor:
         """``argmin_u f(u) + ||u - x||^2 / (2 tau)``."""

@@ -41,7 +41,22 @@ class LinearOperator(DifferentiableMap):
 
     ``compute_lipschitz_cst()`` sets ``lipschitz`` from a power iteration
     on ``A^H A`` on the operator's device; ``PDS`` calls it when ``||K||``
-    is unknown."""
+    is unknown.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.basic import DenseOperator
+        >>> A = DenseOperator([[2.0, 0.0], [1.0, 1.0]])
+        >>> x, y = torch.tensor([1.0, 2.0], device=dev), torch.tensor([3.0, -1.0], device=dev)
+        >>> bool(torch.isclose(torch.dot(A(x), y), torch.dot(x, A.adjoint(y))))
+        True
+        >>> bool(torch.allclose(A.gram(x), A.adjoint(A(x)), atol=1e-5))
+        True
+        >>> bool(torch.allclose(A.pinv(A(x)), x, atol=1e-3))   # CG normal equations
+        True
+    """
 
     def __init__(self, dim_shape, codim_shape, lipschitz: float = _INF, dtype=torch.float32):
         DifferentiableMap.__init__(self, dim_shape, codim_shape, lipschitz=lipschitz, diff_lipschitz=lipschitz)

@@ -48,7 +48,22 @@ def _parts(obj):
 
 class Map(Module):
     """A map ``f: R^{dim_shape} -> R^{codim_shape}``; subclasses implement
-    :meth:`apply`."""
+    :meth:`apply`.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.basic import DiagonalOperator, IdentityOperator
+        >>> f1 = DiagonalOperator([1.0, 2.0])
+        >>> f2 = IdentityOperator((2,))
+        >>> f3 = 2.0 * f1 + f2                    # lazy expression tree
+        >>> x = torch.tensor([1.0, 1.0], device=dev)
+        >>> bool(torch.allclose(f3(x), 2.0 * f1(x) + f2(x)))
+        True
+        >>> f3.lipschitz                          # L propagates: 2*2 + 1
+        5.0
+    """
 
     def __init__(self, dim_shape, codim_shape, lipschitz: float = _INF):
         self.dim_shape = as_shape(dim_shape)
@@ -214,7 +229,20 @@ class Map(Module):
 
 class DifferentiableMap(Map):
     """Map with a Jacobian; tracks ``diff_lipschitz`` through arithmetic.
-    The transposed Jacobian defaults to ``torch.func.vjp`` of ``apply``."""
+    The transposed Jacobian defaults to ``torch.func.vjp`` of ``apply``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.penalty import SquaredL2Norm
+        >>> from pycsou_tpu_torch.ops.basic import DiagonalOperator
+        >>> F = SquaredL2Norm((2,)) * DiagonalOperator([1.0, 3.0])
+        >>> F.diff_lipschitz                      # beta = 2 * L_A^2
+        18.0
+        >>> F.gradient(torch.tensor([1.0, 1.0], device=dev)).tolist()   # 2 A^H A x
+        [2.0, 18.0]
+    """
 
     def __init__(self, dim_shape, codim_shape, lipschitz: float = _INF, diff_lipschitz: float = _INF):
         Map.__init__(self, dim_shape, codim_shape, lipschitz)

@@ -196,7 +196,25 @@ class IterativeSolver(Module):
 
     ``track_objective`` fills ``obj_history`` (on the device) with
     :meth:`objective` of the primary iterand at every measured step;
-    ``remat`` does nothing (see the module docstring)."""
+    ``remat`` does nothing (see the module docstring).
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.core.solver import IterativeSolver
+        >>> class Richardson(IterativeSolver):
+        ...     def __init__(self, b, **kw):
+        ...         super().__init__(**kw)
+        ...         self.b = b
+        ...     def initial_state(self):
+        ...         return {"x": torch.zeros_like(self.b)}
+        ...     def step(self, state):
+        ...         return {"x": state["x"] + 0.5 * (self.b - 2 * state["x"])}
+        >>> info = Richardson(torch.tensor([2.0, 4.0], device=dev), tol=1e-6).solve()
+        >>> info["x"].tolist(), bool(info.converged)
+        ([1.0, 2.0], True)
+    """
 
     # iterations one step() performs (it/history/max_iter count iterations)
     iters_per_step: int = 1

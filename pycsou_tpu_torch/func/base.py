@@ -26,7 +26,19 @@ _INF = float("inf")
 
 
 class ExplicitLinearFunctional(LinearFunctional):
-    """``x -> <v, x>``; ``lipschitz = ||v||``."""
+    """``x -> <v, x>``; ``lipschitz = ||v||``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.base import ExplicitLinearFunctional
+        >>> f = ExplicitLinearFunctional([1.0, 2.0])
+        >>> float(f(torch.tensor([3.0, 4.0], device=dev)))
+        11.0
+        >>> f.adjoint(2.0).tolist()
+        [2.0, 4.0]
+    """
 
     def __init__(self, vec, dtype=None, device=None):
         dev = resolve_device(device, vec)
@@ -95,7 +107,19 @@ class NullProximableFunctional(ProximableFunctional):
 
 class LpNorm(ProximableFunctional):
     """Lp norms: ``prox(x, tau) = x - tau proj_{B_q}(x / tau)`` through the
-    projection onto the dual-norm unit ball."""
+    projection onto the dual-norm unit ball.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.penalty import L1Norm
+        >>> f = L1Norm((3,))
+        >>> x, tau = torch.tensor([1.0, -2.0, 0.5], device=dev), 0.7
+        >>> lhs = f.prox(x, tau) + tau * f.fenchel_prox(x / tau, 1.0 / tau)   # Moreau
+        >>> bool(torch.allclose(lhs, x, atol=1e-6))
+        True
+    """
 
     def dual_ball_projection(self, x):
         raise NotImplementedError
@@ -107,7 +131,18 @@ class LpNorm(ProximableFunctional):
 
 class ProxFuncHStack(ProximableFunctional):
     """Separable sum ``F(x1, ..., xk) = sum_i f_i(x_i)`` over a partition of
-    a flat vector: the prox splits, proxes each block, concatenates."""
+    a flat vector: the prox splits, proxes each block, concatenates.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.base import ProxFuncHStack
+        >>> from pycsou_tpu_torch.func.penalty import L1Norm, NonNegativeOrthant
+        >>> f = ProxFuncHStack([L1Norm((2,)), NonNegativeOrthant((2,))])
+        >>> f.prox(torch.tensor([2.0, -0.5, -1.0, 3.0], device=dev), tau=1.0).tolist()
+        [1.0, -0.0, 0.0, 3.0]
+    """
 
     def __init__(self, funcs: Sequence[ProximableFunctional]):
         funcs = tuple(funcs)
@@ -129,7 +164,18 @@ class ProxFuncHStack(ProximableFunctional):
 
 class DiffFuncHStack(DifferentiableFunctional):
     """Separable sum of differentiable functionals; the gradient
-    concatenates the blocks' gradients."""
+    concatenates the blocks' gradients.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.base import DiffFuncHStack
+        >>> from pycsou_tpu_torch.func.penalty import SquaredL2Norm
+        >>> f = DiffFuncHStack([SquaredL2Norm((2,)), SquaredL2Norm((1,))])
+        >>> f.gradient(torch.tensor([1.0, 2.0, 3.0], device=dev)).tolist()
+        [2.0, 4.0, 6.0]
+    """
 
     def __init__(self, funcs: Sequence[DifferentiableFunctional]):
         funcs = tuple(funcs)

@@ -48,12 +48,38 @@ def _data(data, device) -> torch.Tensor:
 
 
 def ProximableLoss(func: ProximableFunctional, data, device=None) -> ProximableFunctional:
-    """``phi(x - y)`` keeping the prox: ``prox(x) = y + prox_phi(x - y)``."""
+    """``phi(x - y)`` keeping the prox: ``prox(x) = y + prox_phi(x - y)``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.loss import ProximableLoss
+        >>> from pycsou_tpu_torch.func.penalty import L1Norm
+        >>> f = ProximableLoss(L1Norm((2,)), data=torch.tensor([1.0, -1.0], device=dev))
+        >>> float(f(torch.tensor([3.0, -1.0], device=dev)))      # ||x - y||_1
+        2.0
+        >>> f.prox(torch.tensor([3.0, -1.0], device=dev), tau=1.0).tolist()
+        [2.0, -1.0]
+    """
     return ProxFuncPreComp(func, scale=1.0, shift=-_data(data, device))
 
 
 def DifferentiableLoss(func: DifferentiableFunctional, data, device=None):
-    """``phi(x - y)`` keeping gradient and Lipschitz constants."""
+    """``phi(x - y)`` keeping gradient and Lipschitz constants.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.loss import DifferentiableLoss
+        >>> from pycsou_tpu_torch.func.penalty import SquaredL2Norm
+        >>> f = DifferentiableLoss(SquaredL2Norm((2,)), data=torch.ones(2, device=dev))
+        >>> f.gradient(torch.tensor([2.0, 1.0], device=dev)).tolist()    # 2 (x - y)
+        [2.0, 0.0]
+        >>> f.diff_lipschitz
+        2.0
+    """
     return func.shifter(shift=-_data(data, device))
 
 
@@ -64,7 +90,20 @@ def L2Loss(dim_shape, data, device=None) -> ProximableFunctional:
 
 def SquaredL2Loss(dim_shape, data, device=None):
     """``||y - x||_2^2`` (beta = 2).  Composed with a linear operator it
-    builds :class:`LeastSquaresLoss`."""
+    builds :class:`LeastSquaresLoss`.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.loss import SquaredL2Loss
+        >>> from pycsou_tpu_torch.ops.basic import DenseOperator
+        >>> F = SquaredL2Loss((2,), data=torch.tensor([1.0, 0.0], device=dev)) * DenseOperator(2 * torch.eye(2, device=dev))
+        >>> type(F).__name__
+        'LeastSquaresLoss'
+        >>> F.gradient(torch.tensor([1.0, 0.0], device=dev)).tolist()   # 2 A^H (A x - y)
+        [4.0, 0.0]
+    """
     return DifferentiableLoss(SquaredL2Norm(dim_shape), data=data, device=device)
 
 
@@ -118,7 +157,17 @@ class _Consistency(IndicatorFunctional):
 
 
 def ConsistencyLoss(dim_shape, data, device=None) -> IndicatorFunctional:
-    """Equality indicator of ``x == y``, with prox ``y``."""
+    """Equality indicator of ``x == y``, with prox ``y``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.loss import ConsistencyLoss
+        >>> f = ConsistencyLoss((2,), data=torch.tensor([1.0, 2.0], device=dev))
+        >>> f.prox(torch.tensor([5.0, -3.0], device=dev), tau=1.0).tolist()
+        [1.0, 2.0]
+    """
     return _Consistency(dim_shape, _data(data, device))
 
 
@@ -126,7 +175,22 @@ class LeastSquaresLoss(DifferentiableFunctional):
     """``F(x) = ||A x - y||^2`` with the gradient through the operator's
     Gram, ``2 (A^H A x - A^H y)``, and ``A^H y`` precomputed.  When the
     Gram has ``grad_fused`` (a separable convolution), the whole gradient is
-    one kernel pass (K2)."""
+    one kernel pass (K2).
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.loss import LeastSquaresLoss
+        >>> from pycsou_tpu_torch.ops.basic import DiagonalOperator
+        >>> A = DiagonalOperator([1.0, 2.0])
+        >>> F = LeastSquaresLoss(A, data=torch.tensor([1.0, 2.0], device=dev))
+        >>> x = torch.tensor([1.0, 2.0], device=dev)
+        >>> float(F(x))                          # ||A x - y||^2
+        4.0
+        >>> F.gradient(x).tolist()               # 2 A^H (A x - y)
+        [0.0, 8.0]
+    """
 
     def __init__(self, op, data):
         data = torch.as_tensor(data)
@@ -161,7 +225,20 @@ class KLDivergence(ProximableFunctional):
     """Generalised Kullback-Leibler divergence ``D(y || x) = sum y log(y/x) +
     x - y`` on ``x >= 0`` (``y log(y/x) = 0`` where ``y == 0``; +inf where
     any ``x < 0``, decided on the device), the Poisson data fidelity, with
-    the closed-form prox ``(x - tau + sqrt((x - tau)^2 + 4 tau y)) / 2``."""
+    the closed-form prox ``(x - tau + sqrt((x - tau)^2 + 4 tau y)) / 2``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.loss import KLDivergence
+        >>> y = torch.tensor([1.0, 2.0], device=dev)
+        >>> f = KLDivergence((2,), data=y)
+        >>> float(f(y))                          # D(y||y) = 0
+        0.0
+        >>> f.prox(torch.tensor([1.0, 2.0], device=dev), tau=0.0).tolist()   # tau -> 0: identity
+        [1.0, 2.0]
+    """
 
     def __init__(self, dim_shape, data, device=None):
         super().__init__(dim_shape)

@@ -55,7 +55,19 @@ _INF = float("inf")
 
 
 class L2Norm(LpNorm):
-    """``||x||_2``: prox is the block soft threshold ``max(1 - tau/||x||, 0) x``."""
+    """``||x||_2``: prox is the block soft threshold ``max(1 - tau/||x||, 0) x``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.penalty import L2Norm
+        >>> f = L2Norm((2,))
+        >>> float(f(torch.tensor([3.0, 4.0], device=dev)))
+        5.0
+        >>> f.prox(torch.tensor([3.0, 4.0], device=dev), tau=2.5).tolist()
+        [1.5, 2.0]
+    """
 
     def __init__(self, dim_shape):
         super().__init__(dim_shape, lipschitz=1.0)
@@ -73,7 +85,20 @@ class L2Norm(LpNorm):
 
 
 class SquaredL2Norm(DifferentiableFunctional, ProximableFunctional):
-    """``||x||_2^2``: gradient ``2x`` (beta = 2), prox ``x / (1 + 2 tau)``."""
+    """``||x||_2^2``: gradient ``2x`` (beta = 2), prox ``x / (1 + 2 tau)``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.penalty import SquaredL2Norm
+        >>> f = SquaredL2Norm((2,))
+        >>> x = torch.tensor([1.0, 2.0], device=dev)
+        >>> float(f(x)), f.gradient(x).tolist()
+        (5.0, [2.0, 4.0])
+        >>> f.prox(torch.tensor([2.0, 4.0], device=dev), tau=0.5).tolist()
+        [1.0, 2.0]
+    """
 
     def __init__(self, dim_shape):
         DifferentiableFunctional.__init__(self, dim_shape, lipschitz=_INF, diff_lipschitz=2.0)
@@ -89,7 +114,17 @@ class SquaredL2Norm(DifferentiableFunctional, ProximableFunctional):
 
 
 def L2Ball(dim_shape, radius: float) -> IndicatorFunctional:
-    """Indicator of ``||x||_2 <= radius``; prox = projection."""
+    """Indicator of ``||x||_2 <= radius``; prox = projection.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.penalty import L2Ball
+        >>> f = L2Ball((2,), radius=1.0)
+        >>> f.prox(torch.tensor([3.0, 4.0], device=dev), tau=1.0).tolist()  # projection
+        [0.6000000238418579, 0.800000011920929]
+    """
     return IndicatorFunctional(
         dim_shape,
         condition_fn=lambda x: torch.sqrt(_sqnorm(torch.as_tensor(x))) <= radius,
@@ -98,7 +133,19 @@ def L2Ball(dim_shape, radius: float) -> IndicatorFunctional:
 
 
 class L1Norm(LpNorm):
-    """``||x||_1``: prox = soft threshold."""
+    """``||x||_1``: prox = soft threshold.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.penalty import L1Norm
+        >>> f = L1Norm((3,))
+        >>> float(f(torch.tensor([1.0, -2.0, 0.5], device=dev)))
+        3.5
+        >>> f.prox(torch.tensor([1.0, -2.0, 0.5], device=dev), tau=1.0).tolist()
+        [0.0, -1.0, 0.0]
+    """
 
     def __init__(self, dim_shape):
         super().__init__(dim_shape, lipschitz=math.sqrt(size_of(as_shape(dim_shape))))
@@ -121,7 +168,21 @@ class SquaredL1Norm(ProximableFunctional):
     """``||x||_1^2`` with two prox algorithms: ``'sort'`` (one sort and one
     cumulative sum, the threshold gathered on the device) and ``'root'``
     (60 bisection steps on the multiplier from ``(1e-12, mu_max)`` in
-    float32, as the reference)."""
+    float32, as the reference).
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.penalty import SquaredL1Norm
+        >>> x = torch.tensor([1.0, -2.0, 0.5], device=dev)
+        >>> float(SquaredL1Norm((3,))(x))
+        12.25
+        >>> p_sort = SquaredL1Norm((3,), 'sort').prox(x, tau=0.5)
+        >>> p_root = SquaredL1Norm((3,), 'root').prox(x, tau=0.5)
+        >>> bool(torch.allclose(p_sort, p_root, atol=1e-5))
+        True
+    """
 
     def __init__(self, dim_shape, prox_computation: str = "sort"):
         super().__init__(dim_shape)
@@ -170,7 +231,17 @@ class SquaredL1Norm(ProximableFunctional):
 
 
 def L1Ball(dim_shape, radius: float) -> IndicatorFunctional:
-    """Indicator of ``||x||_1 <= radius``; prox = the sort-based projection."""
+    """Indicator of ``||x||_1 <= radius``; prox = the sort-based projection.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.penalty import L1Ball
+        >>> f = L1Ball((2,), radius=1.0)
+        >>> f.prox(torch.tensor([2.0, 0.0], device=dev), tau=1.0).tolist()
+        [1.0, 0.0]
+    """
     return IndicatorFunctional(
         dim_shape,
         condition_fn=lambda x: torch.sum(torch.abs(x)) <= radius,
@@ -179,7 +250,19 @@ def L1Ball(dim_shape, radius: float) -> IndicatorFunctional:
 
 
 class LInftyNorm(LpNorm):
-    """``||x||_inf``: prox by Moreau's rule through the l1-ball projection."""
+    """``||x||_inf``: prox by Moreau's rule through the l1-ball projection.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.penalty import LInftyNorm
+        >>> f = LInftyNorm((2,))
+        >>> float(f(torch.tensor([1.0, -3.0], device=dev)))
+        3.0
+        >>> f.prox(torch.tensor([1.0, -3.0], device=dev), tau=1.0).tolist()
+        [1.0, -2.0]
+    """
 
     def __init__(self, dim_shape):
         super().__init__(dim_shape, lipschitz=1.0)
@@ -192,7 +275,16 @@ class LInftyNorm(LpNorm):
 
 
 def LInftyBall(dim_shape, radius: float) -> IndicatorFunctional:
-    """Indicator of ``||x||_inf <= radius``; prox = the modulus clip."""
+    """Indicator of ``||x||_inf <= radius``; prox = the modulus clip.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.penalty import LInftyBall
+        >>> LInftyBall((2,), radius=2.0).prox(torch.tensor([3.0, -1.0], device=dev), 1.0).tolist()
+        [2.0, -1.0]
+    """
     return IndicatorFunctional(
         dim_shape,
         condition_fn=lambda x: torch.max(torch.abs(x)) <= radius,
@@ -221,7 +313,20 @@ class L21Norm(ProximableFunctional):
       device, else the port's default).
 
     As in the reference, labels that are all distinct build an
-    :class:`L1Norm`, and a single group an :class:`L2Norm`."""
+    :class:`L1Norm`, and a single group an :class:`L2Norm`.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.penalty import L21Norm
+        >>> f = L21Norm((2, 2), axis=0)       # groups = the 2-vectors per column
+        >>> float(f(torch.tensor([[3.0, 0.0], [4.0, 1.0]], device=dev)))
+        6.0
+        >>> g = L21Norm((4,), groups=[0, 0, 1, 1])
+        >>> float(g(torch.tensor([3.0, 4.0, 0.0, 1.0], device=dev)))
+        6.0
+    """
 
     def __new__(cls, dim_shape, groups=None, axis: int = 0, device=None):
         if groups is not None:
@@ -269,7 +374,16 @@ class L21Norm(ProximableFunctional):
 
 
 def NonNegativeOrthant(dim_shape) -> IndicatorFunctional:
-    """Indicator of ``x >= 0``."""
+    """Indicator of ``x >= 0``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.penalty import NonNegativeOrthant
+        >>> NonNegativeOrthant((2,)).prox(torch.tensor([-1.0, 2.0], device=dev), 1.0).tolist()
+        [0.0, 2.0]
+    """
     return IndicatorFunctional(
         dim_shape,
         condition_fn=lambda x: torch.all(x >= 0),
@@ -278,7 +392,16 @@ def NonNegativeOrthant(dim_shape) -> IndicatorFunctional:
 
 
 def Segment(dim_shape, a: float = 0.0, b: float = 1.0) -> IndicatorFunctional:
-    """Indicator of ``a <= x <= b`` per coordinate."""
+    """Indicator of ``a <= x <= b`` per coordinate.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.penalty import Segment
+        >>> Segment((3,), 0.0, 1.0).prox(torch.tensor([-0.5, 0.5, 2.0], device=dev), 1.0).tolist()
+        [0.0, 0.5, 1.0]
+    """
     return IndicatorFunctional(
         dim_shape,
         condition_fn=lambda x: torch.all((x >= a) & (x <= b)),
@@ -292,7 +415,16 @@ def _is_real(x):
 
 
 def RealLine(dim_shape) -> IndicatorFunctional:
-    """Indicator of real entries; prox = the real part."""
+    """Indicator of real entries; prox = the real part.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.penalty import RealLine
+        >>> RealLine((2,)).prox(torch.tensor([1.0 + 2.0j, 3.0], device=dev), 1.0).tolist()
+        [1.0, 3.0]
+    """
     return IndicatorFunctional(dim_shape, condition_fn=_is_real, projection_fn=lambda x: torch.as_tensor(x).real)
 
 
@@ -302,7 +434,16 @@ def _imag_part(x):
 
 
 def ImagLine(dim_shape) -> IndicatorFunctional:
-    """Indicator of purely imaginary entries; prox = ``1j * imag(x)``."""
+    """Indicator of purely imaginary entries; prox = ``1j * imag(x)``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.penalty import ImagLine
+        >>> ImagLine((1,)).prox(torch.tensor([1.0 + 2.0j], device=dev), 1.0).tolist()
+        [2j]
+    """
     return IndicatorFunctional(
         dim_shape,
         condition_fn=lambda x: torch.all(torch.as_tensor(x).real == 0),
@@ -311,7 +452,19 @@ def ImagLine(dim_shape) -> IndicatorFunctional:
 
 
 class LogBarrier(ProximableFunctional):
-    """``-sum log(x)`` (+inf where any ``x <= 0``): prox ``(x + sqrt(x^2 + 4 tau)) / 2``."""
+    """``-sum log(x)`` (+inf where any ``x <= 0``): prox ``(x + sqrt(x^2 + 4 tau)) / 2``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.penalty import LogBarrier
+        >>> f = LogBarrier((2,))
+        >>> float(f(torch.tensor([1.0, 1.0], device=dev)))
+        -0.0
+        >>> [round(v, 4) for v in f.prox(torch.tensor([0.0, 3.0], device=dev), tau=1.0).tolist()]
+        [1.0, 3.3028]
+    """
 
     def __init__(self, dim_shape):
         super().__init__(dim_shape)
@@ -331,7 +484,19 @@ class ShannonEntropy(ProximableFunctional):
     """Negative Shannon entropy ``sum x log x`` on ``x >= 0`` (+inf where
     any ``x < 0``): prox ``tau w`` with ``w + log w = x / tau - 1 -
     log(tau)``, 30 Newton steps with the 1e-30 floor (``tau
-    W(exp(x/tau - 1)/tau)`` without an overflowing exponential)."""
+    W(exp(x/tau - 1)/tau)`` without an overflowing exponential).
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.penalty import ShannonEntropy
+        >>> f = ShannonEntropy((2,))
+        >>> float(f(torch.tensor([1.0, 1.0], device=dev)))          # x log x = 0 at x = 1
+        0.0
+        >>> round(float(f.prox(torch.tensor([1.0], device=dev), tau=1.0)[0]), 5)
+        0.56714
+    """
 
     def __init__(self, dim_shape):
         super().__init__(dim_shape)
@@ -357,7 +522,20 @@ class ShannonEntropy(ProximableFunctional):
 
 class QuadraticForm(DifferentiableFunctional):
     """``x^H L x`` for a symmetric PSD operator ``L``, or ``||x||^2`` when
-    ``L`` is None: gradient ``2 L x``, beta ``2 L.diff_lipschitz``."""
+    ``L`` is None: gradient ``2 L x``, beta ``2 L.diff_lipschitz``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func.penalty import QuadraticForm
+        >>> from pycsou_tpu_torch.ops.basic import DiagonalOperator
+        >>> f = QuadraticForm((2,), DiagonalOperator([1.0, 2.0]))
+        >>> float(f(torch.tensor([1.0, 1.0], device=dev)))
+        3.0
+        >>> f.gradient(torch.tensor([1.0, 1.0], device=dev)).tolist()
+        [2.0, 4.0]
+    """
 
     def __init__(self, dim_shape, linop: Optional[LinearOperator] = None):
         beta = 2.0 if linop is None else 2.0 * linop.diff_lipschitz

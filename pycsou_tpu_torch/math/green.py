@@ -28,7 +28,19 @@ def _tensor(r) -> torch.Tensor:
 
 class Matern:
     """Matern radial kernel of half-integer order ``k`` in {0, 1, 2, 3}
-    (``k + 1/2``) and scale ``epsilon``."""
+    (``k + 1/2``) and scale ``epsilon``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.math.green import Matern
+        >>> phi = Matern(k=0, epsilon=1.0)        # exp(-r)
+        >>> float(phi(torch.tensor(0.0, device=dev)))
+        1.0
+        >>> round(float(phi(torch.tensor(1.0, device=dev))), 5)
+        0.36788
+    """
 
     def __init__(self, k: int = 0, epsilon: float = 1.0):
         if k not in (0, 1, 2, 3):

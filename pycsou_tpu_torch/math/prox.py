@@ -36,7 +36,16 @@ def sign(x):
 
 
 def soft(x, tau):
-    """Soft-thresholding ``max(|x| - tau, 0) sign(x)``."""
+    """Soft-thresholding ``max(|x| - tau, 0) sign(x)``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.math.prox import soft
+        >>> soft(torch.tensor([2.0, -0.5, -3.0], device=dev), tau=1.0).tolist()
+        [1.0, -0.0, -2.0]
+    """
     x = torch.as_tensor(x)
     return torch.clamp(x.abs() - tau, min=0.0) * sign(x)
 
@@ -54,7 +63,16 @@ def _sqnorm(x) -> torch.Tensor:
 
 
 def proj_l2_ball(x, radius):
-    """Projection onto the l2 ball of ``radius``."""
+    """Projection onto the l2 ball of ``radius``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.math.prox import proj_l2_ball
+        >>> proj_l2_ball(torch.tensor([3.0, 4.0], device=dev), radius=1.0).tolist()
+        [0.6000000238418579, 0.800000011920929]
+    """
     x = torch.as_tensor(x)
     nrm = torch.sqrt(_sqnorm(x))
     scale = torch.where(nrm <= radius, torch.ones_like(nrm), radius / torch.clamp(nrm, min=1e-30))
@@ -74,7 +92,18 @@ def proj_linfty_ball(x, radius):
 def proj_l1_ball(x, radius):
     """Projection onto the l1 ball: with ``u = sort(|x|, descending)``, the
     largest ``j`` with ``u_j > (cumsum(u)_j - radius) / j`` sets the soft
-    threshold; ``x`` itself where it lies inside the ball."""
+    threshold; ``x`` itself where it lies inside the ball.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.math.prox import proj_l1_ball
+        >>> proj_l1_ball(torch.tensor([2.0, -1.0], device=dev), radius=1.0).tolist()
+        [1.0, -0.0]
+        >>> proj_l1_ball(torch.tensor([0.25, -0.25], device=dev), radius=1.0).tolist()  # inside
+        [0.25, -0.25]
+    """
     x = torch.as_tensor(x)
     mag = x.abs().reshape(-1)
     u = torch.sort(mag, descending=True).values
@@ -107,7 +136,16 @@ def proj_segment(x, a=0.0, b=1.0):
 
 def lambertw(z, iters: int = 24):
     """Principal branch ``W0`` of the Lambert W function on ``z >= 0``:
-    ``iters`` Halley steps in float32 from ``log1p(z)``."""
+    ``iters`` Halley steps in float32 from ``log1p(z)``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.math.prox import lambertw
+        >>> round(float(lambertw(torch.exp(torch.tensor(1.0, device=dev)))), 5)
+        1.0
+    """
     z = torch.as_tensor(z, dtype=torch.float32)
     w = torch.log1p(z)
     for _ in range(iters):

@@ -45,7 +45,19 @@ def _shapes(dim_shape, codim_shape, n_rows, n_cols):
 
 class DenseOperator(LinearOperator):
     """Matrix-backed operator: ``mat`` is ``(codim_size, dim_size)``; inputs
-    are flattened, outputs reshaped; the products run in full f32."""
+    are flattened, outputs reshaped; the products run in full f32.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.basic import DenseOperator
+        >>> A = DenseOperator([[1.0, 2.0], [3.0, 4.0]])
+        >>> A(torch.tensor([1.0, 1.0], device=dev)).tolist()
+        [3.0, 7.0]
+        >>> A.adjoint(torch.tensor([1.0, 0.0], device=dev)).tolist()   # A^T e_0 = row 0 of A
+        [1.0, 2.0]
+    """
 
     def __init__(self, mat, dim_shape=None, codim_shape=None, dtype=None, device=None):
         dev = resolve_device(device, mat)
@@ -100,7 +112,18 @@ def _csr(rows, cols, vals, shape):
 class SparseOperator(LinearOperator):
     """Sparse-matrix operator: a scipy sparse matrix or a dense array,
     held as a CSR tensor with its transpose (built once) for the
-    adjoint."""
+    adjoint.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> import scipy.sparse as sp
+        >>> from pycsou_tpu_torch.ops.basic import SparseOperator
+        >>> A = SparseOperator(sp.csr_matrix([[2.0, 0.0], [0.0, 0.0]]))
+        >>> A(torch.tensor([1.0, 5.0], device=dev)).tolist()
+        [2.0, 0.0]
+    """
 
     def __init__(self, mat, dim_shape=None, codim_shape=None, device=None):
         import scipy.sparse as sp
@@ -136,7 +159,19 @@ class SparseOperator(LinearOperator):
 
 
 class DiagonalOperator(SelfAdjointMixin, LinearOperator):
-    """Elementwise multiplication by ``diag``; ``lipschitz = max |diag|``."""
+    """Elementwise multiplication by ``diag``; ``lipschitz = max |diag|``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.basic import DiagonalOperator
+        >>> D = DiagonalOperator([1.0, -2.0])
+        >>> D(torch.tensor([3.0, 3.0], device=dev)).tolist()
+        [3.0, -6.0]
+        >>> D.lipschitz          # max |diag|
+        2.0
+    """
 
     def __init__(self, diag, dtype=None, device=None):
         dev = resolve_device(device, diag)
@@ -157,7 +192,16 @@ class DiagonalOperator(SelfAdjointMixin, LinearOperator):
 
 
 class IdentityOperator(SelfAdjointMixin, LinearOperator):
-    """Identity."""
+    """Identity.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.basic import IdentityOperator
+        >>> IdentityOperator((2,))(torch.tensor([1.0, 2.0], device=dev)).tolist()
+        [1.0, 2.0]
+    """
 
     def __init__(self, dim_shape, dtype=torch.float32):
         super().__init__(dim_shape, dim_shape, lipschitz=1.0, dtype=dtype)
@@ -175,7 +219,16 @@ class IdentityOperator(SelfAdjointMixin, LinearOperator):
 
 
 class NullOperator(LinearOperator):
-    """Maps everything to zero."""
+    """Maps everything to zero.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.basic import NullOperator
+        >>> NullOperator((2,), (3,))(torch.tensor([1.0, 2.0], device=dev)).tolist()
+        [0.0, 0.0, 0.0]
+    """
 
     def __init__(self, dim_shape, codim_shape=None, dtype=torch.float32):
         codim_shape = codim_shape if codim_shape is not None else dim_shape
@@ -193,7 +246,18 @@ class NullOperator(LinearOperator):
 
 
 class HomothetyOperator(SelfAdjointMixin, LinearOperator):
-    """Scalar scaling ``x -> c x``; the node injected by scalar arithmetic."""
+    """Scalar scaling ``x -> c x``; the node injected by scalar arithmetic.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.basic import HomothetyOperator, IdentityOperator
+        >>> (3.0 * IdentityOperator((2,)))(torch.tensor([1.0, 2.0], device=dev)).tolist()
+        [3.0, 6.0]
+        >>> HomothetyOperator(3.0, (2,))(torch.tensor([1.0, 2.0], device=dev)).tolist()
+        [3.0, 6.0]
+    """
 
     def __init__(self, constant, dim_shape, dtype=torch.float32):
         if not isinstance(constant, Number):
@@ -219,7 +283,18 @@ class HomothetyOperator(SelfAdjointMixin, LinearOperator):
 class PolynomialOperator(LinearOperator):
     """``P(L) = sum_k a_k L^k`` of a square operator by Horner's scheme;
     ``coeffs`` a sequence or numpy array (float32, or complex64 when
-    complex, as in the reference)."""
+    complex, as in the reference).
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.basic import DiagonalOperator, PolynomialOperator
+        >>> D = DiagonalOperator([1.0, 2.0])
+        >>> P = PolynomialOperator(D, coeffs=[1.0, 0.0, 2.0])     # I + 2 D^2
+        >>> P(torch.tensor([1.0, 1.0], device=dev)).tolist()
+        [3.0, 9.0]
+    """
 
     def __init__(self, base: LinearOperator, coeffs):
         if base.dim_shape != base.codim_shape:

@@ -189,7 +189,23 @@ class Convolve2D(LinearOperator):
 
     ``svd_tol`` truncates the PSF's singular components ``sigma_i <= svd_tol
     * sigma_0`` first: the operator then is the truncated PSF, and
-    ``svd_trunc_bound = ||h - h_trunc||_1`` bounds ``||A - A_trunc||_2``."""
+    ``svd_trunc_bound = ||h - h_trunc||_1`` bounds ``||A - A_trunc||_2``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.conv import Convolve2D
+        >>> A = Convolve2D((8, 16), torch.ones(3, 3) / 9.0, device=dev)
+        >>> x = torch.zeros(8, 16, device=dev)
+        >>> x[4, 8] = 9.0
+        >>> y = A(x)                       # 'same'-mode blur
+        >>> round(float(y[4, 8]), 5), round(float(y[3, 7]), 5)
+        (1.0, 1.0)
+        >>> g = A.gram(x)                  # fused A^H A, exact
+        >>> bool(torch.allclose(g, A.adjoint(A(x)), atol=1e-5))
+        True
+    """
 
     def __init__(self, dim_shape, filt, method: str = "auto", device=None, svd_tol: float = None):
         dim_shape = as_shape(dim_shape)
@@ -468,7 +484,20 @@ class Convolve1D(LinearOperator):
     ``'overlap-add'`` for ``n >= 2**18`` and ``8 m <= n``, else ``'fft'``
     (on ``next_fast_len(n + m - 1)``, the transfer computed once).
     ``'overlap-add'`` takes chunks of ``next_fast_len(max(8 m, 256))``.  The
-    Gram is :class:`ConvGram1D`."""
+    Gram is :class:`ConvGram1D`.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.conv import Convolve1D
+        >>> A = Convolve1D((4,), [0.25, 0.5, 0.25])
+        >>> [round(v, 5) for v in A(torch.tensor([0.0, 4.0, 0.0, 0.0], device=dev)).tolist()]
+        [1.0, 2.0, 1.0, 0.0]
+        >>> x = torch.ones(4, device=dev)
+        >>> bool(torch.allclose(A.gram(x), A.adjoint(A(x)), atol=1e-5))
+        True
+    """
 
     def __init__(self, dim_shape, filt, method: str = "auto", device=None):
         dim_shape = as_shape(dim_shape)
@@ -562,7 +591,17 @@ class ConvGram1D(LinearOperator):
 
 
 def MovingAverage1D(dim_shape, window: int, device=None) -> Convolve1D:
-    """Length-``window`` box filter (a ``Convolve1D``)."""
+    """Length-``window`` box filter (a ``Convolve1D``).
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.conv import MovingAverage1D
+        >>> M = MovingAverage1D((4,), window=2)
+        >>> [round(v, 5) for v in M(torch.tensor([0.0, 2.0, 4.0, 2.0], device=dev)).tolist()]
+        [1.0, 3.0, 3.0, 1.0]
+    """
     return Convolve1D(dim_shape, np.ones((window,), np.float32) / window, device=device)
 
 
@@ -603,7 +642,19 @@ class ConvolveND(LinearOperator):
     through ``torch.fft`` on ``next_fast_len(n + m - 1)`` per axis with the
     transfer computed once.  Its Gram is :class:`SeparableConvGramND` for a
     rank-1 filter within the gates of its ``build``, else
-    :class:`ConvGramND`."""
+    :class:`ConvGramND`.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.conv import ConvolveND
+        >>> A = ConvolveND((4, 4, 4), torch.ones(1, 1, 3) / 3.0, device=dev)
+        >>> x = torch.zeros(4, 4, 4, device=dev)
+        >>> x[2, 2, 2] = 3.0
+        >>> [round(v, 5) for v in A(x)[2, 2, 1:4].tolist()]
+        [1.0, 1.0, 1.0]
+    """
 
     def __init__(self, dim_shape, filt, device=None):
         dim_shape = as_shape(dim_shape)
@@ -715,7 +766,21 @@ class CircularConvolve(LinearOperator):
     to the domain and rolled by ``-(k // 2)`` per axis ('same'-aligned),
     then ``rfftn``; or ``h_hat`` (complex, the rfftn layout) given.
     ``lipschitz = max |H|``, and ``pinv`` is the exact (damped) Fourier
-    inverse."""
+    inverse.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.conv import CircularConvolve
+        >>> A = CircularConvolve((4,), [0.25, 0.5, 0.25])
+        >>> [round(v, 5) for v in A(torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)).tolist()]
+        [0.5, 0.25, 0.0, 0.25]
+        >>> B = CircularConvolve((4,), [1.0, 0.5])  # H(k) never 0
+        >>> x = torch.tensor([1.0, -2.0, 3.0, 0.5], device=dev)
+        >>> bool(torch.allclose(B.pinv(B(x)), x, atol=1e-4))  # exact Fourier pinv
+        True
+    """
 
     def __init__(self, dim_shape, filt=None, h_hat=None, device=None):
         dim_shape = as_shape(dim_shape)

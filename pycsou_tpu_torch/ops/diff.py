@@ -130,7 +130,20 @@ def _steps(step, d):
 
 class FirstDerivative(LinearOperator):
     """First derivative along ``axis``: 'forward', 'backward' or 'centered'
-    differences; ``L = 2/step`` (1/step centered)."""
+    differences; ``L = 2/step`` (1/step centered).
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.diff import FirstDerivative
+        >>> D = FirstDerivative((4,))
+        >>> D(torch.tensor([0.0, 1.0, 3.0, 3.0], device=dev)).tolist()   # forward differences
+        [1.0, 2.0, 0.0, 0.0]
+        >>> x, y = torch.arange(4.0, device=dev), torch.ones(4, device=dev)
+        >>> bool(torch.isclose(torch.dot(D(x), y), torch.dot(x, D.adjoint(y))))
+        True
+    """
 
     def __init__(self, dim_shape, axis: int = 0, kind: str = "forward", step: float = 1.0,
                  dtype=torch.float32):
@@ -151,7 +164,17 @@ class FirstDerivative(LinearOperator):
 
 class SecondDerivative(LinearOperator):
     """Second derivative along ``axis`` with zeroed edge rows;
-    ``L = 4/step^2``."""
+    ``L = 4/step^2``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.diff import SecondDerivative
+        >>> D2 = SecondDerivative((4,))
+        >>> D2(torch.tensor([0.0, 1.0, 4.0, 9.0], device=dev)).tolist()  # x^2 -> 2, edges 0
+        [0.0, 2.0, 2.0, 0.0]
+    """
 
     def __init__(self, dim_shape, axis: int = 0, step: float = 1.0, dtype=torch.float32):
         dim_shape = as_shape(dim_shape)
@@ -214,7 +237,20 @@ class Gradient(LinearOperator):
     """Stacked first differences along every axis, a ``(d, *dim_shape)``
     output; the adjoint is the negative divergence.  Lipschitz
     ``sqrt(sum (2/s)^2)`` (``sqrt(8)`` for a unit-step 2-D image;
-    ``1/s`` an axis for the 'centered' kind) in closed form."""
+    ``1/s`` an axis for the 'centered' kind) in closed form.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.diff import Gradient
+        >>> G = Gradient((2, 2))
+        >>> x = torch.tensor([[0.0, 1.0], [2.0, 3.0]], device=dev)
+        >>> tuple(G(x).shape)                  # (axes, H, W)
+        (2, 2, 2)
+        >>> G(x)[1].tolist()                   # d/dx1
+        [[1.0, 0.0], [1.0, 0.0]]
+    """
 
     def __init__(self, dim_shape, kind: str = "forward", step: Union[float, Sequence[float]] = 1.0,
                  dtype=torch.float32):
@@ -239,7 +275,19 @@ class Gradient(LinearOperator):
 
 class Laplacian(LinearOperator):
     """Sum of second derivatives along ``axes`` (the 5-point stencil in
-    2-D); ``L = sum 4/s^2``."""
+    2-D); ``L = sum 4/s^2``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.diff import Laplacian
+        >>> L = Laplacian((3, 3))
+        >>> x = torch.zeros(3, 3, device=dev)
+        >>> x[1, 1] = 1.0
+        >>> float(L(x)[1, 1])                  # -4 at the peak
+        -4.0
+    """
 
     def __init__(self, dim_shape, axes: Optional[Sequence[int]] = None,
                  step: Union[float, Sequence[float]] = 1.0, dtype=torch.float32):
@@ -297,7 +345,18 @@ def _canon_directions(directions, dim_shape) -> np.ndarray:
 class FirstDirectionalDerivative(LinearOperator):
     """Derivative along a (possibly spatially varying) vector field:
     ``d_v x = sum_a v_a * D_a x`` with centered ``D_a``;
-    ``L = max |v| * 2 sqrt(d) / step``."""
+    ``L = max |v| * 2 sqrt(d) / step``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.diff import FirstDirectionalDerivative
+        >>> D = FirstDirectionalDerivative((4, 4), directions=(1.0, 0.0))
+        >>> x = torch.arange(16.0, device=dev).reshape(4, 4)
+        >>> D(x)[1:3, 0].tolist()              # interior rows
+        [4.0, 4.0]
+    """
 
     def __init__(self, dim_shape, directions, step: float = 1.0, dtype=torch.float32, device=None):
         dim_shape = as_shape(dim_shape)
@@ -370,7 +429,19 @@ def DirectionalLaplacian(dim_shape, directions_list, weights=None, step: float =
 class Integration1D(LinearOperator):
     """Causal cumulative integration along ``axis``; the adjoint integrates
     anti-causally.  ``L`` is the cumsum matrix's exact largest singular
-    value."""
+    value.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.diff import Integration1D
+        >>> S = Integration1D((4,))
+        >>> S(torch.ones(4, device=dev)).tolist()
+        [1.0, 2.0, 3.0, 4.0]
+        >>> S.adjoint(torch.tensor([0.0, 0.0, 0.0, 1.0], device=dev)).tolist()
+        [1.0, 1.0, 1.0, 1.0]
+    """
 
     def __init__(self, dim_shape, axis: int = 0, step: float = 1.0, dtype=torch.float32):
         dim_shape = as_shape(dim_shape)

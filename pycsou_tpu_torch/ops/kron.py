@@ -44,7 +44,21 @@ def _dtype(A, B):
 class KroneckerProduct(LinearOperator):
     """``A kron B`` by the vec trick: forward ``A X B^T``, adjoint
     ``A^H Y conj(B)``, ``pinv = A^+ kron B^+``, ``L = L_A L_B``.  A factor
-    given as an array becomes a DenseOperator on ``device``."""
+    given as an array becomes a DenseOperator on ``device``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.basic import DenseOperator
+        >>> from pycsou_tpu_torch.ops.kron import KroneckerProduct
+        >>> A = torch.tensor([[1.0, 2.0], [0.0, 1.0]], device=dev)
+        >>> B = torch.tensor([[0.0, 1.0], [1.0, 0.0]], device=dev)
+        >>> K = KroneckerProduct(DenseOperator(A), DenseOperator(B))
+        >>> x = torch.arange(4.0, device=dev)
+        >>> bool(torch.allclose(K(x).reshape(-1), torch.kron(A, B) @ x))
+        True
+    """
 
     def __init__(self, A, B, device=None):
         A, B = _as_op(A, device), _as_op(B, device)
@@ -77,7 +91,19 @@ class KroneckerProduct(LinearOperator):
 class KroneckerSum(LinearOperator):
     """``A kronsum B = A kron I + I kron B`` for square factors;
     ``L = L_A + L_B``.  A factor given as an array becomes a DenseOperator
-    on ``device``."""
+    on ``device``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.basic import DiagonalOperator
+        >>> from pycsou_tpu_torch.ops.kron import KroneckerSum
+        >>> A = DiagonalOperator([1.0, 2.0])
+        >>> B = DiagonalOperator([10.0, 20.0])
+        >>> KroneckerSum(A, B)(torch.ones(4, device=dev)).reshape(-1).tolist()
+        [11.0, 21.0, 12.0, 22.0]
+    """
 
     def __init__(self, A, B, device=None):
         A, B = _as_op(A, device), _as_op(B, device)
@@ -104,7 +130,18 @@ class KhatriRaoProduct(LinearOperator):
     """Column-wise Kronecker product of two matrices sharing their column
     count: ``(A o B) x = vec(A diag(x) B^T)``.  ``lipschitz`` is the exact
     norm of the full matrix (the reference's numpy code) up to 4e6
-    entries."""
+    entries.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.kron import KhatriRaoProduct
+        >>> A = torch.tensor([[1.0, 2.0]], device=dev)           # (1, 2)
+        >>> B = torch.tensor([[1.0, 0.0], [0.0, 1.0]], device=dev)
+        >>> KhatriRaoProduct(A, B)(torch.tensor([1.0, 1.0], device=dev)).reshape(-1).tolist()
+        [1.0, 2.0]
+    """
 
     def __init__(self, A, B, device=None):
         A = A.mat if isinstance(A, DenseOperator) else A

@@ -49,7 +49,19 @@ class SubSampling(LinearOperator):
 
     On a CUDA device ``index_add_`` adds in no fixed order: sample counts
     (sums of 1.0) are exact, the back-projection of data with repeated
-    indices may differ in the last bit from run to run."""
+    indices may differ in the last bit from run to run.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.sampling import SubSampling
+        >>> S = SubSampling((4,), indices=[0, 2])
+        >>> S(torch.tensor([1.0, 2.0, 3.0, 4.0], device=dev)).tolist()
+        [1.0, 3.0]
+        >>> S.adjoint(torch.tensor([5.0, 6.0], device=dev)).tolist()
+        [5.0, 0.0, 6.0, 0.0]
+    """
 
     def __init__(self, dim_shape, indices, dtype=torch.float32, device=None):
         dim_shape = as_shape(dim_shape)
@@ -76,7 +88,17 @@ class SubSampling(LinearOperator):
 
 class Masking(LinearOperator):
     """Gather of the pixels where a boolean mask is true; the adjoint sets
-    them back onto a zero image (``index_copy_``)."""
+    them back onto a zero image (``index_copy_``).
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.sampling import Masking
+        >>> M = Masking((2, 2), mask=[[True, False], [False, True]])
+        >>> M(torch.tensor([[1.0, 2.0], [3.0, 4.0]], device=dev)).tolist()
+        [1.0, 4.0]
+    """
 
     def __init__(self, dim_shape, mask, dtype=torch.float32, device=None):
         dim_shape = as_shape(dim_shape)
@@ -114,7 +136,19 @@ class DownSampling(LinearOperator):
     """Keep one sample every ``factor`` along each axis (or along ``axis``
     only); the adjoint zero-upsamples.  The codomain has ``ceil(n / f)``
     samples per axis.  Holds no tensors: it acts on the device of its
-    input."""
+    input.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.sampling import DownSampling
+        >>> D = DownSampling((4,), factor=2)
+        >>> D(torch.tensor([1.0, 2.0, 3.0, 4.0], device=dev)).tolist()
+        [1.0, 3.0]
+        >>> D.adjoint(torch.tensor([1.0, 3.0], device=dev)).tolist()
+        [1.0, 0.0, 3.0, 0.0]
+    """
 
     def __init__(self, dim_shape, factor: Union[int, Sequence[int]], axis: Optional[int] = None,
                  dtype=torch.float32):
@@ -154,7 +188,19 @@ class Pooling(LinearOperator):
     A block that does not divide an axis pads it at the trailing edge with
     zeros, as skimage's ``block_reduce(cval=0)`` does: ``'mean'`` divides by
     the full block volume, padding included.  Holds no tensors: it acts on
-    the device of its input."""
+    the device of its input.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.sampling import Pooling
+        >>> P = Pooling((2, 2), block_size=2, kind='sum')
+        >>> P(torch.tensor([[1.0, 2.0], [3.0, 4.0]], device=dev)).tolist()
+        [[10.0]]
+        >>> P.adjoint(torch.tensor([[1.0]], device=dev)).tolist()        # broadcast unpool
+        [[1.0, 1.0], [1.0, 1.0]]
+    """
 
     def __init__(self, dim_shape, block_size, kind: str = "mean", dtype=torch.float32):
         dim_shape = as_shape(dim_shape)
@@ -212,7 +258,19 @@ class NNSampling(LinearOperator):
     default, its original's averaging of colliding samples), divides by the
     node's sample count; ``'sum'`` is the true adjoint.  The indices and
     counts live on ``device`` (else the coordinates' device, else the
-    port's default)."""
+    port's default).
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.sampling import NNSampling
+        >>> S = NNSampling(grid_coords=[0.0, 1.0], sample_coords=[0.1, -0.2, 0.9])
+        >>> S(torch.tensor([10.0, 20.0], device=dev)).tolist()
+        [10.0, 10.0, 20.0]
+        >>> S.adjoint(torch.tensor([1.0, 3.0, 5.0], device=dev)).tolist()  # mean per node
+        [2.0, 5.0]
+    """
 
     def __init__(self, grid_coords, sample_coords, dim_shape=None, adjoint_mode: str = "mean",
                  dtype=torch.float32, device=None):
@@ -251,7 +309,17 @@ class NNSampling(LinearOperator):
 def GeneralisedVandermonde(funcs: Sequence[Callable], samples, dtype=torch.float32, device=None) -> DenseOperator:
     """The port's :class:`~pycsou_tpu_torch.ops.basic.DenseOperator` of
     ``[phi_k(z_l)]``: each function of the dictionary evaluated on the
-    float32 samples (a tensor in, a tensor out) on ``device``."""
+    float32 samples (a tensor in, a tensor out) on ``device``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.sampling import GeneralisedVandermonde
+        >>> V = GeneralisedVandermonde([lambda z: z**0, lambda z: z], samples=[0.0, 2.0])
+        >>> V(torch.tensor([1.0, 3.0], device=dev)).tolist()    # 1 + 3 z at z = 0, 2
+        [1.0, 7.0]
+    """
     dev = resolve_device(device, samples)
     z = as_tensor(samples, dev)
     cols = [torch.as_tensor(f(z)).reshape(-1) for f in funcs]

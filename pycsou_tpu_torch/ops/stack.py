@@ -51,7 +51,20 @@ def _sum(terms):
 
 class LinOpVStack(LinearOperator):
     """``[A1; A2; ...]``: a shared domain, stacked ranges; the adjoint sums
-    ``A_i^H y_i``."""
+    ``A_i^H y_i``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.basic import IdentityOperator
+        >>> from pycsou_tpu_torch.ops.stack import LinOpVStack
+        >>> V = LinOpVStack([IdentityOperator((2,)), 2.0 * IdentityOperator((2,))])
+        >>> V(torch.tensor([1.0, 2.0], device=dev)).tolist()
+        [[1.0, 2.0], [2.0, 4.0]]
+        >>> V.adjoint(torch.ones(2, 2, device=dev)).tolist()   # sum of block adjoints
+        [3.0, 3.0]
+    """
 
     def __init__(self, ops: Sequence[LinearOperator]):
         ops = tuple(ops)
@@ -84,7 +97,18 @@ class LinOpVStack(LinearOperator):
 
 class LinOpHStack(LinearOperator):
     """``[A1, A2, ...]``: a split domain, a shared range; the forward sums
-    ``A_i x_i``."""
+    ``A_i x_i``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.basic import IdentityOperator
+        >>> from pycsou_tpu_torch.ops.stack import LinOpHStack
+        >>> Hs = LinOpHStack([IdentityOperator((2,)), IdentityOperator((2,))])
+        >>> Hs(torch.tensor([[1.0, 2.0], [10.0, 20.0]], device=dev)).tolist()
+        [11.0, 22.0]
+    """
 
     def __init__(self, ops: Sequence[LinearOperator]):
         ops = tuple(ops)
@@ -126,7 +150,18 @@ def LinOpStack(ops: Sequence[LinearOperator], axis: int):
 
 class BlockDiagonalOperator(LinearOperator):
     """``diag(A1, ..., Ak)`` over a flat-concatenated domain and range;
-    ``L = max L_i``."""
+    ``L = max L_i``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.basic import DiagonalOperator
+        >>> from pycsou_tpu_torch.ops.stack import BlockDiagonalOperator
+        >>> B = BlockDiagonalOperator([DiagonalOperator([1.0, 2.0]), DiagonalOperator([-1.0])])
+        >>> B(torch.tensor([1.0, 1.0, 1.0], device=dev)).tolist()
+        [1.0, 2.0, -1.0]
+    """
 
     def __init__(self, ops: Sequence[LinearOperator]):
         ops = tuple(ops)
@@ -184,7 +219,18 @@ class BlockOperator(LinearOperator):
 
 
 class MapVStack(Map):
-    """Vertical stack of (possibly nonlinear) maps over a shared domain."""
+    """Vertical stack of (possibly nonlinear) maps over a shared domain.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.basic import IdentityOperator
+        >>> from pycsou_tpu_torch.ops.stack import MapVStack
+        >>> V = MapVStack([IdentityOperator((2,)), -1.0 * IdentityOperator((2,))])
+        >>> V(torch.tensor([1.0, 2.0], device=dev)).tolist()
+        [[1.0, 2.0], [-1.0, -2.0]]
+    """
 
     def __init__(self, maps: Sequence[Map]):
         maps = tuple(maps)

@@ -95,7 +95,17 @@ class _DCTBase(UnitaryMixin, LinearOperator):
 
 class DCTOperator(_DCTBase):
     """Orthonormal DCT-II over ``axes`` (all when None); the adjoint is the
-    inverse DCT (DCT-III)."""
+    inverse DCT (DCT-III).
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.transform import DCTOperator
+        >>> D = DCTOperator((4,))
+        >>> [round(v, 6) for v in D(torch.ones(4, device=dev)).tolist()]
+        [2.0, 0.0, 0.0, 0.0]
+    """
 
     def apply(self, x):
         return self._dct(x)
@@ -105,7 +115,17 @@ class DCTOperator(_DCTBase):
 
 
 class IDCTOperator(_DCTBase):
-    """Orthonormal inverse DCT (synthesis: coefficients to signal)."""
+    """Orthonormal inverse DCT (synthesis: coefficients to signal).
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.transform import IDCTOperator
+        >>> S = IDCTOperator((4,))
+        >>> [round(v, 6) for v in S(torch.tensor([2.0, 0.0, 0.0, 0.0], device=dev)).tolist()]   # DC -> constant
+        [1.0, 1.0, 1.0, 1.0]
+    """
 
     def apply(self, x):
         return self._idct(x)
@@ -117,7 +137,18 @@ class IDCTOperator(_DCTBase):
 class FFTOperator(UnitaryMixin, LinearOperator):
     """Orthonormal n-dimensional DFT (complex to complex, ``norm='ortho'``)
     over ``axes`` (all when None).  Holds no tensors: it acts on the device
-    of its input."""
+    of its input.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.transform import FFTOperator
+        >>> F = FFTOperator((4,))
+        >>> x = torch.tensor([1.0, 2.0, 3.0, 4.0], device=dev).to(torch.complex64)
+        >>> bool(torch.allclose(F.adjoint(F(x)), x, atol=1e-6))
+        True
+    """
 
     def __init__(self, dim_shape, axes: Optional[Sequence[int]] = None, dtype=torch.complex64):
         dim_shape = as_shape(dim_shape)

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from pycsou_tpu_torch.core.solver import IterativeSolver, _rel_from_sums, _rel_improvement
@@ -91,12 +92,30 @@ class ConsensusADMM(IterativeSolver):
                 once (without CUDA that raises: pass ``mesh=make_mesh(
                 axis_names=("dp",), devices=["cpu"] * n)``).  S must divide
                 over its size.
+    dtype     : the data's dtype: float32 only (``torch.float32``,
+                ``np.float32`` or ``"float32"``); any other raises
+                ``ValueError``, where the reference takes any.
     cg_tol / cg_maxiter : the inner CG's controls (CG backend).
 
     The state is ``{"z", "u"}``: ``z`` on the mesh's first local device,
     ``u`` a tuple of per-block ``(S / size, *dim_shape)`` tensors (a
     ``Remote`` for another process's block); ``postprocess`` joins ``u`` on
-    the first local device and adds ``"x"``, an alias of ``z``."""
+    the first local device and adds ``"x"``, an alias of ``z``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.opt.admm import ConsensusADMM
+        >>> from pycsou_tpu_torch.parallel import make_mesh
+        >>> y = torch.tensor([1.0, 2.0, 3.0, 4.0], device=dev)
+        >>> h_hats = torch.ones(8, 3, dtype=torch.complex64)    # identity transfer functions
+        >>> mesh = make_mesh((8,), ("dp",), devices=[dev] * 8)  # 8 positions of one device
+        >>> admm = ConsensusADMM((4,), h_hats=h_hats, data=y.repeat(8, 1), mesh=mesh)
+        >>> z = admm.run(20)
+        >>> bool(torch.allclose(z, y, atol=1e-4))
+        True
+    """
 
     primary_var = "z"
 
@@ -110,6 +129,7 @@ class ConsensusADMM(IterativeSolver):
         ops: Optional[tuple] = None,
         mesh: Optional[Mesh] = None,
         axis_name: str = "dp",
+        dtype=torch.float32,
         cg_tol: float = 1e-6,
         cg_maxiter: int = 50,
         max_iter: int = 500,
@@ -120,6 +140,8 @@ class ConsensusADMM(IterativeSolver):
         super().__init__(max_iter=max_iter, min_iter=min_iter, tol=accuracy_threshold, verbose=verbose)
         if (h_hats is None) == (ops is None):
             raise ValueError("pass exactly one of h_hats (Fourier) or ops (CG)")
+        if dtype not in (torch.float32, np.float32, "float32"):
+            raise ValueError(f"ConsensusADMM takes float32 data, not dtype={dtype!r}")
         self.dim_shape = as_shape(dim_shape)
         self.mesh = mesh if mesh is not None else make_mesh(axis_names=(axis_name,))
         self.axis_name = self.mesh.axis_names[0]

@@ -59,13 +59,14 @@ class LassoDeconvolution(IterativeSolver):
 
     Example: sparse spike recovery::
 
-        >>> import numpy as np
+        >>> import numpy as np, torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
         >>> from pycsou_tpu_torch.ops import Convolve2D
         >>> from pycsou_tpu_torch.opt import LassoDeconvolution
-        >>> x_true = np.zeros((16, 16), np.float32); x_true[4, 5] = 2.0; x_true[10, 12] = 1.5
+        >>> x_true = torch.zeros(16, 16, device=dev); x_true[4, 5] = 2.0; x_true[10, 12] = 1.5
         >>> g = np.exp(-((np.arange(5) - 2) ** 2) / 2.0)
         >>> h = np.outer(g, g).astype(np.float32); h /= h.sum()
-        >>> y = Convolve2D((16, 16), h)(x_true)
+        >>> y = Convolve2D((16, 16), h, device=dev)(x_true)
         >>> info = LassoDeconvolution((16, 16), y, lam=0.01, filt=h, max_iter=300).solve()
         >>> bool(abs(float(info["x_temp"][4, 5]) - 2.0) < 0.2)
         True

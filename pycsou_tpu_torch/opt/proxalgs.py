@@ -67,7 +67,25 @@ class PrimalDualSplitting(IterativeSolver):
     for beta = 0, ``tau = sigma = 1/||K||``.  rho = 0.9 (beta > 0) else 1.
 
     The device is ``device`` if given, else that of the first of F, G, H,
-    K, x0 that holds tensors, else PyTorch's default device."""
+    K, x0 that holds tensors, else PyTorch's default device.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.func import L1Norm, SquaredL2Loss
+        >>> from pycsou_tpu_torch.ops.basic import DenseOperator
+        >>> from pycsou_tpu_torch.opt import PDS
+        >>> A = DenseOperator(torch.eye(4, device=dev) * 2.0)
+        >>> _ = A.compute_lipschitz_cst()   # the power iteration sets A.lipschitz
+        >>> y = torch.tensor([2.0, 0.0, -4.0, 0.0], device=dev)
+        >>> solver = PDS((4,), F=SquaredL2Loss((4,), data=y) * A, G=L1Norm((4,)), max_iter=200)
+        >>> info = solver.solve()
+        >>> bool(info.converged)
+        True
+        >>> bool(torch.allclose(info["x"], torch.tensor([0.875, 0.0, -1.875, 0.0], device=dev), atol=5e-3))
+        True
+    """
 
     def __init__(
         self,

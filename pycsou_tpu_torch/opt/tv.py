@@ -35,6 +35,15 @@ Engines (``stencil=``):
 * every mode: ``"plain"``, the kernels' plain PyTorch versions one
   iteration a step, for CPU tensors only (``"auto"`` on the CPU).
 
+``use_pallas`` and ``stencil="xla"`` are the reference's switches
+(``pycsou_tpu/opt/tv.py:274-313``): ``"auto"`` and ``True`` keep the pick
+above (``True`` on the CPU raises, as a CUDA engine named there does),
+``False`` and ``stencil="xla"`` take ``"plain"``; ``"xla"`` wins over
+``use_pallas``, and a CUDA engine named with ``use_pallas=False`` raises.
+The plain engine runs on CPU tensors only, so on a card both raise,
+naming ``device="cpu"``, where the reference runs its XLA stencil on any
+backend: the port never runs the plain versions on the card.
+
 In mask and combined modes the CUDA ``"auto"`` is the mode's first engine
 for every shape (:func:`masked_engine`; sweep for a combined-mode PSF that
 is not band), where the reference picks by its
@@ -176,7 +185,8 @@ def _on_its_device(stencil: str, device_type: str) -> str:
     if stencil in _CUDA_ENGINES and device_type != "cuda":
         raise ValueError(f"stencil={stencil!r} launches CUDA kernels; the solver's device is {device_type}")
     if stencil == "plain" and device_type != "cpu":
-        raise ValueError(f"stencil='plain' runs on CPU tensors only; the solver's device is {device_type}")
+        raise ValueError(f"stencil='plain' (also use_pallas=False, stencil='xla') runs on CPU tensors only; the "
+                         f'solver\'s device is {device_type}: pass device="cpu" for the plain engine')
     return stencil
 
 
@@ -210,7 +220,22 @@ class TVDeconvolution(IterativeSolver):
     ``filt`` is None), a sampling operator of diagonal Gram ``mask``, or
     both (see the module docstring).  ``isotropic=False`` takes the
     anisotropic ``lam ||grad x||_1``.  The device is ``device`` if given,
-    else that of ``y``."""
+    else that of ``y``.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.opt.tv import TVDeconvolution
+        >>> x_true = torch.zeros(16, 16, device=dev)
+        >>> x_true[4:12, 4:12] = 1.0
+        >>> ij = torch.arange(16, device=dev)[:, None] + torch.arange(16, device=dev)[None, :]
+        >>> y = x_true + 0.2 * (-1.0) ** ij      # checkerboard "noise"
+        >>> solver = TVDeconvolution((16, 16), y, lam=0.3, nonneg=True, max_iter=300)
+        >>> info = solver.solve()
+        >>> bool(torch.linalg.norm(info["x"] - x_true) < 0.5 * torch.linalg.norm(y - x_true))
+        True
+    """
 
     def __init__(
         self,
@@ -222,6 +247,7 @@ class TVDeconvolution(IterativeSolver):
         tau: Optional[float] = None,
         sigma: Optional[float] = None,
         rho: float = 0.9,
+        use_pallas="auto",
         stencil: str = "auto",
         max_iter: int = 500,
         min_iter: int = 10,
@@ -235,9 +261,18 @@ class TVDeconvolution(IterativeSolver):
         super().__init__(max_iter=max_iter, min_iter=min_iter, tol=accuracy_threshold,
                          verbose=verbose, metric_every=metric_every)
         shape = as_shape(shape)
-        if stencil not in ENGINES:
-            raise ValueError(f"unknown stencil {stencil!r}; expected one of {ENGINES}")
+        if stencil not in ENGINES + ("xla",):
+            raise ValueError(f"unknown stencil {stencil!r}; expected one of {ENGINES + ('xla',)}")
+        if use_pallas not in ("auto", True, False):
+            raise ValueError(f"use_pallas must be 'auto', True or False, not {use_pallas!r}")
         dev = resolve_device(device, y, filt, mask)
+        if stencil == "xla" or use_pallas is False:
+            if stencil not in ("auto", "xla", "plain"):
+                raise ValueError(f"stencil={stencil!r} launches CUDA kernels, but use_pallas=False asks for the "
+                                 "plain engine")
+            stencil = "plain"
+        elif use_pallas is True and stencil == "auto" and dev.type != "cuda":
+            raise ValueError(f"use_pallas=True launches CUDA kernels; the solver's device is {dev.type}")
         self.device = dev
         self.y = as_tensor(y, dev)
         if tuple(self.y.shape) != shape:
@@ -295,6 +330,7 @@ class TVDeconvolution(IterativeSolver):
         else:
             stencil = masked_engine(mode, stencil, dev.type, conv=self.conv)
         self.stencil_mode = stencil
+        self.use_pallas = stencil != "plain"
         if stencil in ("sweepm2", "mega3"):
             self.iters_per_step = 2
 

@@ -279,7 +279,23 @@ class DistributedTVDeconv2D(_BlockedTV):
     ``z0`` and ``z1`` (or ``z``) are tuples of shards on the mesh's devices
     (a ``Remote`` for a position of another process);
     :meth:`postprocess` (the result of ``solve()``) joins them on the first
-    local mesh device."""
+    local mesh device.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.parallel import DistributedTVDeconv2D, make_mesh
+        >>> mesh = make_mesh((4,), ("sp",), devices=[dev] * 4)  # four row shards of one device
+        >>> H = 8 * len(mesh.devices)
+        >>> y = torch.zeros(H, 16, device=dev)
+        >>> y[H // 2, 8] = 1.0
+        >>> solver = DistributedTVDeconv2D((H, 16), torch.ones(3, 3) / 9.0, y, lam=0.01, mesh=mesh,
+        ...                                max_iter=50, min_iter=5, accuracy_threshold=1e-4)
+        >>> info = solver.solve()   # the state stays cut into row shards
+        >>> tuple(info["x"].shape) == (H, 16) and info.n_iter > 0
+        True
+    """
 
     def __init__(
         self,

@@ -11,7 +11,16 @@ __all__ = ["peaks", "is_range_broadcastable", "range_broadcast_shape"]
 
 def peaks(x, y):
     """MATLAB's peaks test surface, elementwise on tensors (arrays and
-    scalars are taken as float32 CPU tensors)."""
+    scalars are taken as float32 CPU tensors).
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.utils.misc import peaks
+        >>> round(float(peaks(torch.tensor(0.0, device=dev), torch.tensor(0.0, device=dev))), 4)
+        0.981
+    """
     x = x if isinstance(x, torch.Tensor) else torch.as_tensor(x, dtype=torch.float32)
     y = y if isinstance(y, torch.Tensor) else torch.as_tensor(y, dtype=torch.float32)
     return (

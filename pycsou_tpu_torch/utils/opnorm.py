@@ -112,7 +112,18 @@ def power_iteration(op, maxiter: int = 128, tol: float = 1e-6, key: int = 0) -> 
     """Estimate ``||A||_2`` (the largest singular value) of a linear
     operator, as a 0-d tensor on its device: power iteration on ``A^H A``
     from the start vector of ``key``, stopping once the Gram's norm moves by
-    at most ``tol`` relative, after at most ``maxiter`` Gram applies."""
+    at most ``tol`` relative, after at most ``maxiter`` Gram applies.
+
+    Example::
+
+        >>> import torch, pycsou_tpu_torch as pt
+        >>> dev = pt.get_default_device()  # the card, unless set to the CPU
+        >>> from pycsou_tpu_torch.ops.basic import DiagonalOperator
+        >>> from pycsou_tpu_torch.utils.opnorm import power_iteration
+        >>> est = power_iteration(DiagonalOperator([1.0, -3.0, 2.0]))
+        >>> round(float(est), 3)
+        3.0
+    """
     x0 = _rand_like(key, op.dim_shape, op.dtype, _op_device(op))
     value, _ = _power_iter(op, x0, int(maxiter), float(tol))
     return value

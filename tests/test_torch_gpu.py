@@ -1765,3 +1765,49 @@ def test_distributed_init_default_backend_with_the_card_visible(cuda, tmp_path):
     joined = "\n".join(outs)
     assert all(p.returncode == 0 for p in procs), joined
     assert all("OK" in o for o in outs), joined
+
+
+def test_plain_switches_raise_on_the_card(cuda, rng):
+    """``TVDeconvolution(use_pallas=False)`` and ``stencil="xla"`` take the
+    plain engine, which runs on CPU tensors only: on the card they raise
+    the ``ValueError`` that names ``device="cpu"`` (a deliberate
+    difference: the reference runs its XLA stencil on any backend);
+    ``"auto"`` and ``use_pallas=True`` keep the ladder's pick."""
+    from pycsou_tpu_torch.opt import TVDeconvolution
+
+    y = torch.as_tensor(rng.standard_normal((64, 64)), dtype=torch.float32, device=cuda)
+    h = np.outer(*(2 * [np.hanning(7)[1:-1]])).astype(np.float32)
+    for kw in (dict(use_pallas=False), dict(stencil="xla"), dict(stencil="xla", use_pallas=True),
+               dict(stencil="plain")):
+        with pytest.raises(ValueError, match='device="cpu"'):
+            TVDeconvolution((64, 64), y, 0.05, filt=h, **kw)
+    pick = TVDeconvolution((64, 64), y, 0.05, filt=h).stencil_mode
+    assert TVDeconvolution((64, 64), y, 0.05, filt=h, use_pallas=True).stencil_mode == pick == "mega3"
+    with pytest.raises(ValueError, match="use_pallas=False"):
+        TVDeconvolution((64, 64), y, 0.05, filt=h, stencil="megar", use_pallas=False)
+
+
+def _port_modules():
+    import pathlib
+
+    import pycsou_tpu_torch
+
+    root = pathlib.Path(pycsou_tpu_torch.__file__).parent
+    mods = [".".join(p.relative_to(root.parent).with_suffix("").parts) for p in sorted(root.rglob("*.py"))]
+    return [m[: -len(".__init__")] if m.endswith(".__init__") else m for m in mods]
+
+
+@pytest.mark.parametrize("modname", _port_modules())
+def test_module_doctests_on_the_card(cuda, modname):
+    """Every docstring example of the port with the port's default device
+    left at ``cuda``: the examples' tensors live on the card."""
+    import doctest
+    import importlib
+
+    from pycsou_tpu_torch.utils.device import get_default_device, set_default_device
+
+    set_default_device(None)
+    assert get_default_device().type == "cuda"
+    runner = doctest.testmod(importlib.import_module(modname), optionflags=doctest.NORMALIZE_WHITESPACE,
+                             verbose=False)
+    assert runner.failed == 0, f"{runner.failed} doctest failures in {modname} on the card"

@@ -255,8 +255,10 @@ def test_unported_modes_raise(rng, monkeypatch):
     for engine in ("megar", "sweep"):  # the conv mode's kernel engines need a CUDA device
         with pytest.raises(ValueError, match="CUDA"):
             topt.TVDeconvolution(S, y, LAM, filt=_gauss(), stencil=engine, device="cpu")
+    # the reference's "xla" is the plain engine (tests/test_torch_switches.py); other names raise
+    assert topt.TVDeconvolution(S, y, LAM, filt=_gauss(), stencil="xla").stencil_mode == "plain"
     with pytest.raises(ValueError, match="unknown stencil"):
-        topt.TVDeconvolution(S, y, LAM, filt=_gauss(), stencil="xla")
+        topt.TVDeconvolution(S, y, LAM, filt=_gauss(), stencil="xla2")
     import jax
 
     import pycsou_tpu.utils.opnorm as jopn
