@@ -41,6 +41,7 @@ import torch
 from pycsou_tpu_torch._module import Module
 from pycsou_tpu_torch.utils.checkpoint import load_latest_state, save_state
 from pycsou_tpu_torch.utils.device import Remote, same_device
+from pycsou_tpu_torch.utils.profiling import annotate, count
 
 __all__ = ["IterativeSolver", "SolveInfo"]
 
@@ -110,6 +111,12 @@ def _rel_improvement(a_old, a_new) -> torch.Tensor:
     :func:`_rel_from_sums`."""
     d = a_new - a_old
     return _rel_from_sums(torch.sum(d * d), torch.sum(a_old * a_old))
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    """``t`` read on the host: a wait for its device (``solve.host_reads``)."""
+    count("solve.host_reads")
+    return t.cpu().numpy()
 
 
 def _advance(solver, s, new):
@@ -413,54 +420,62 @@ class IterativeSolver(Module):
         set) counted from where it started, and when it stops: the
         reference's iterations.  On a mesh that spans processes every
         process loads the save and keeps its own positions' blocks, and the
-        first process writes (:meth:`_save`)."""
-        state = self._own(self._wrap_state(self.initial_state()))
-        if checkpoint_dir is not None:
-            resumed = load_latest_state(checkpoint_dir, template=state)
-            if resumed is not None:
-                state = resumed
-        chunk = max(self._stride(), int(self.verbose or _SYNC_EVERY))
-        save_chunk = max(self._stride(), int(self.verbose or _CHECKPOINT_CHUNK))
-        checkpoint_every = max(1, int(checkpoint_every))
-        save_stop = min(state["it"] + save_chunk, self.max_iter)
-        n_chunks = 0
-        converged_at = None
-        t0 = time.perf_counter()
-        while True:
-            it0 = state["it"]
-            it_stop = min(it0 + chunk, self.max_iter)
-            if checkpoint_dir is not None:
-                it_stop = min(it_stop, save_stop)
-            while state["it"] < it_stop:
-                state = _stride_body(self, state)
-            it = state["it"]
-            hist = state["history"][it0:it].cpu().numpy()  # the chunk's host sync
-            rows = np.arange(it0 + 1, it + 1)
-            hit = np.nonzero((hist <= self.tol) & (rows >= self.min_iter))[0]
-            if self.verbose:
-                print(f"iter {it:6d}   relative improvement {float(state['metric']):.4e}")
-            if hit.size:
-                converged_at = int(rows[hit[0]])
-            done = converged_at is not None or it >= self.max_iter
-            if checkpoint_dir is not None and (it >= save_stop or done):
-                n_chunks += 1
-                if n_chunks % checkpoint_every == 0 or done:
-                    self._save(f"{checkpoint_dir}/step_{it}", state)
-                save_stop = min(it + save_chunk, self.max_iter)
-            if done:
-                break
-        elapsed = time.perf_counter() - t0
-        diagnostics = None
-        if "var_history" in state:
-            names = sorted(self.diagnostics_vars(state))
-            vh = state["var_history"][:it].cpu().numpy()
-            diagnostics = {name: vh[:, i] for i, name in enumerate(names)}
-        obj = state["obj_history"][:it].cpu().numpy() if "obj_history" in state else None
-        return SolveInfo(
-            self.postprocess(state), it, state["history"][:it].cpu().numpy(),
-            converged_at is not None, elapsed, diagnostics=diagnostics, converged_at=converged_at,
-            objective_history=obj,
-        )
+        first process writes (:meth:`_save`).  Under a profiler the call
+        records the spans ``solve``, ``solve.start``, ``solve.enqueue`` and
+        ``solve.read`` (one each a chunk) and ``solve.finish``, and counts its
+        host reads (``utils/profiling.py``)."""
+        with annotate("solve"):
+            with annotate("solve.start"):
+                state = self._own(self._wrap_state(self.initial_state()))
+                if checkpoint_dir is not None:
+                    resumed = load_latest_state(checkpoint_dir, template=state)
+                    if resumed is not None:
+                        state = resumed
+            chunk = max(self._stride(), int(self.verbose or _SYNC_EVERY))
+            save_chunk = max(self._stride(), int(self.verbose or _CHECKPOINT_CHUNK))
+            checkpoint_every = max(1, int(checkpoint_every))
+            save_stop = min(state["it"] + save_chunk, self.max_iter)
+            n_chunks = 0
+            converged_at = None
+            t0 = time.perf_counter()
+            while True:
+                it0 = state["it"]
+                it_stop = min(it0 + chunk, self.max_iter)
+                if checkpoint_dir is not None:
+                    it_stop = min(it_stop, save_stop)
+                with annotate("solve.enqueue"):
+                    while state["it"] < it_stop:
+                        state = _stride_body(self, state)
+                it = state["it"]
+                with annotate("solve.read"):
+                    hist = _host(state["history"][it0:it])  # the chunk's host sync
+                    rows = np.arange(it0 + 1, it + 1)
+                    hit = np.nonzero((hist <= self.tol) & (rows >= self.min_iter))[0]
+                    if self.verbose:
+                        print(f"iter {it:6d}   relative improvement {float(_host(state['metric'])):.4e}")
+                    if hit.size:
+                        converged_at = int(rows[hit[0]])
+                    done = converged_at is not None or it >= self.max_iter
+                if checkpoint_dir is not None and (it >= save_stop or done):
+                    n_chunks += 1
+                    if n_chunks % checkpoint_every == 0 or done:
+                        self._save(f"{checkpoint_dir}/step_{it}", state)
+                    save_stop = min(it + save_chunk, self.max_iter)
+                if done:
+                    break
+            elapsed = time.perf_counter() - t0
+            with annotate("solve.finish"):
+                diagnostics = None
+                if "var_history" in state:
+                    names = sorted(self.diagnostics_vars(state))
+                    vh = _host(state["var_history"][:it])
+                    diagnostics = {name: vh[:, i] for i, name in enumerate(names)}
+                obj = _host(state["obj_history"][:it]) if "obj_history" in state else None
+                return SolveInfo(
+                    self.postprocess(state), it, _host(state["history"][:it]),
+                    converged_at is not None, elapsed, diagnostics=diagnostics, converged_at=converged_at,
+                    objective_history=obj,
+                )
 
     def iterate(self) -> SolveInfo:
         """The reference's alias of :meth:`solve`."""

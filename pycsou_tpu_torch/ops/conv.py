@@ -50,6 +50,7 @@ from pycsou_tpu_torch.core.linop import LinearOperator, LinOpComp, SymmetricLine
 from pycsou_tpu_torch.kernels.band import TILE, gram_band_axis, make_gram_band
 from pycsou_tpu_torch.kernels.conv2d import MAX_RANK, MAX_TAPS, SepFactors, sepconv2d, sepgram2d
 from pycsou_tpu_torch.utils.device import as_tensor, full_f32, resolve_device
+from pycsou_tpu_torch.utils.profiling import annotate
 from pycsou_tpu_torch.utils.shapes import as_shape
 
 __all__ = [
@@ -87,14 +88,15 @@ def _fft_lipschitz(filt: np.ndarray, padded_shape: Tuple[int, ...]) -> float:
     """``||conv||_2 <= max |DFT_L(h)|`` for any ``L >= n + m - 1`` per axis
     (a rigorous bound: the 'same' convolution is a submatrix of the size-L
     circulant acting on zero-padded inputs)."""
-    h = np.asarray(filt)
-    L = tuple(next_fast_len(s) for s in padded_shape)
-    axes = tuple(range(len(L)))
-    if np.iscomplexobj(h):
-        H = np.fft.fftn(h.astype(np.complex128), s=L, axes=axes)
-    else:
-        H = np.fft.rfftn(h.astype(np.float64), s=L, axes=axes)
-    return float(np.max(np.abs(H)))
+    with annotate("conv.lipschitz"):
+        h = np.asarray(filt)
+        L = tuple(next_fast_len(s) for s in padded_shape)
+        axes = tuple(range(len(L)))
+        if np.iscomplexobj(h):
+            H = np.fft.fftn(h.astype(np.complex128), s=L, axes=axes)
+        else:
+            H = np.fft.rfftn(h.astype(np.float64), s=L, axes=axes)
+        return float(np.max(np.abs(H)))
 
 
 def _real_filter(filt, cls: str) -> np.ndarray:

@@ -26,6 +26,7 @@ from pycsou_tpu_torch.func.base import NullDifferentiableFunctional, NullProxima
 from pycsou_tpu_torch.ops.basic import IdentityOperator, NullOperator
 from pycsou_tpu_torch.opt.lasso import ACCELERATIONS, momentum
 from pycsou_tpu_torch.utils.device import as_tensor, resolve_device
+from pycsou_tpu_torch.utils.profiling import annotate
 from pycsou_tpu_torch.utils.shapes import as_shape
 
 __all__ = [
@@ -109,99 +110,101 @@ class PrimalDualSplitting(IterativeSolver):
         fuse: bool = True,
         device=None,
     ):
-        super().__init__(max_iter=max_iter, min_iter=min_iter, tol=accuracy_threshold,
-                         verbose=verbose, remat=remat, metric_every=metric_every)
-        dim_shape = as_shape(dim_shape)
-        held = [m.device for m in (F, G, H, K) if m is not None]
-        dev = resolve_device(device, *held, x0)
-        self.device = dev
+        with annotate("pds.init"):
+            super().__init__(max_iter=max_iter, min_iter=min_iter, tol=accuracy_threshold,
+                             verbose=verbose, remat=remat, metric_every=metric_every)
+            dim_shape = as_shape(dim_shape)
+            held = [m.device for m in (F, G, H, K) if m is not None]
+            dev = resolve_device(device, *held, x0)
+            self.device = dev
 
-        if F is None:
-            self.F = NullDifferentiableFunctional(dim_shape)
-            self.beta = 0.0
-        else:
-            if F.dim_shape != dim_shape:
-                raise ValueError(f"F domain {F.dim_shape} != {dim_shape}")
-            self.F = F
-            b = beta if beta is not None else getattr(F, "diff_lipschitz", _INF)
-            if not math.isfinite(b):
-                raise ValueError("F must have a (known) Lipschitz-continuous gradient; pass beta=...")
-            self.beta = float(b)
-
-        if G is None:
-            self.G = NullProximableFunctional(dim_shape)
-        else:
-            if G.dim_shape != dim_shape:
-                raise ValueError(f"G domain {G.dim_shape} != {dim_shape}")
-            self.G = G
-
-        if H is not None:
-            self.H = H
-            self._has_H = True
-            if K is None:
-                self.K = IdentityOperator(H.dim_shape)
+            if F is None:
+                self.F = NullDifferentiableFunctional(dim_shape)
+                self.beta = 0.0
             else:
-                if K.dim_shape != dim_shape or K.codim_shape != H.dim_shape:
-                    raise ValueError(
-                        f"K maps {K.dim_shape}->{K.codim_shape}, inconsistent with H domain {H.dim_shape}"
-                    )
-                self.K = K
-        else:
-            self.H = NullProximableFunctional(dim_shape)
-            self._has_H = False
-            self.K = NullOperator(dim_shape, dim_shape)
+                if F.dim_shape != dim_shape:
+                    raise ValueError(f"F domain {F.dim_shape} != {dim_shape}")
+                self.F = F
+                b = beta if beta is not None else getattr(F, "diff_lipschitz", _INF)
+                if not math.isfinite(b):
+                    raise ValueError("F must have a (known) Lipschitz-continuous gradient; pass beta=...")
+                self.beta = float(b)
 
-        if tau is not None and sigma is not None:
-            self.tau, self.sigma = float(tau), float(sigma)
-        elif tau is not None:
-            self.tau = self.sigma = float(tau)
-        elif sigma is not None:
-            self.tau = self.sigma = float(sigma)
-        else:
-            self.tau, self.sigma = self.set_step_sizes()
-        self.rho = float(rho) if rho is not None else self.set_momentum_term()
-
-        self.x0 = torch.zeros(dim_shape, device=dev) if x0 is None else as_tensor(x0, dev)
-        if self._has_H:
-            self.z0 = torch.zeros(self.H.dim_shape, device=dev) if z0 is None else as_tensor(z0, dev)
-        else:
-            self.z0 = torch.zeros((1,), device=dev)
-
-        # metric partial sums computed inside step() (metric_every=1)
-        self._instats = int(metric_every) == 1
-        self._fused = None
-        if fuse and self._has_H:
-            from pycsou_tpu_torch.opt import fuse
-
-            for match in (fuse.match_tv_deconvolution, fuse.match_cps_tv_denoise):
-                self._fused = match(
-                    dim_shape, self.F, self.G, self.H, self.K, self.tau, self.sigma, self.rho,
-                    metric_every=metric_every, device=dev,
-                )
-                if self._fused is not None:
-                    break
-            if self._fused is not None:
-                self.iters_per_step = self._fused.iters_per_step
+            if G is None:
+                self.G = NullProximableFunctional(dim_shape)
             else:
-                note = fuse.explain_tv_mismatch(dim_shape, self.F, self.G, self.H, self.K)
-                if note:
-                    fuse.logger.warning(note)
-        elif fuse and F is not None and G is not None:
-            # FBS: with H absent this is proximal gradient, which at rho = 1
-            # is FISTA with zero momentum (the LASSO engine with
-            # acceleration=None); rho != 1 blends with the previous x, which
-            # the engine's (x_temp - x_temp_old) momentum cannot express
-            from pycsou_tpu_torch.opt import fuse
+                if G.dim_shape != dim_shape:
+                    raise ValueError(f"G domain {G.dim_shape} != {dim_shape}")
+                self.G = G
 
-            fused = fuse.match_lasso(dim_shape, self.F, self.G, self.tau, None, 75.0,
-                                     metric_every=metric_every, device=dev)
-            if fused is not None and self.rho != 1.0:
-                fuse.logger.warning(
-                    "FBS expression matches the fused FISTA engine but its rho="
-                    f"{self.rho} relaxation keeps it on the generic chain; pass rho=1 to fuse"
-                )
-                fused = None
-            self._fused = fused
+            if H is not None:
+                self.H = H
+                self._has_H = True
+                if K is None:
+                    self.K = IdentityOperator(H.dim_shape)
+                else:
+                    if K.dim_shape != dim_shape or K.codim_shape != H.dim_shape:
+                        raise ValueError(
+                            f"K maps {K.dim_shape}->{K.codim_shape}, inconsistent with H domain {H.dim_shape}"
+                        )
+                    self.K = K
+            else:
+                self.H = NullProximableFunctional(dim_shape)
+                self._has_H = False
+                self.K = NullOperator(dim_shape, dim_shape)
+
+            if tau is not None and sigma is not None:
+                self.tau, self.sigma = float(tau), float(sigma)
+            elif tau is not None:
+                self.tau = self.sigma = float(tau)
+            elif sigma is not None:
+                self.tau = self.sigma = float(sigma)
+            else:
+                self.tau, self.sigma = self.set_step_sizes()
+            self.rho = float(rho) if rho is not None else self.set_momentum_term()
+
+            self.x0 = torch.zeros(dim_shape, device=dev) if x0 is None else as_tensor(x0, dev)
+            if self._has_H:
+                self.z0 = torch.zeros(self.H.dim_shape, device=dev) if z0 is None else as_tensor(z0, dev)
+            else:
+                self.z0 = torch.zeros((1,), device=dev)
+
+            # metric partial sums computed inside step() (metric_every=1)
+            self._instats = int(metric_every) == 1
+            self._fused = None
+            with annotate("pds.match"):
+                if fuse and self._has_H:
+                    from pycsou_tpu_torch.opt import fuse
+
+                    for match in (fuse.match_tv_deconvolution, fuse.match_cps_tv_denoise):
+                        self._fused = match(
+                            dim_shape, self.F, self.G, self.H, self.K, self.tau, self.sigma, self.rho,
+                            metric_every=metric_every, device=dev,
+                        )
+                        if self._fused is not None:
+                            break
+                    if self._fused is not None:
+                        self.iters_per_step = self._fused.iters_per_step
+                    else:
+                        note = fuse.explain_tv_mismatch(dim_shape, self.F, self.G, self.H, self.K)
+                        if note:
+                            fuse.logger.warning(note)
+                elif fuse and F is not None and G is not None:
+                    # FBS: with H absent this is proximal gradient, which at rho = 1
+                    # is FISTA with zero momentum (the LASSO engine with
+                    # acceleration=None); rho != 1 blends with the previous x, which
+                    # the engine's (x_temp - x_temp_old) momentum cannot express
+                    from pycsou_tpu_torch.opt import fuse
+
+                    fused = fuse.match_lasso(dim_shape, self.F, self.G, self.tau, None, 75.0,
+                                             metric_every=metric_every, device=dev)
+                    if fused is not None and self.rho != 1.0:
+                        fuse.logger.warning(
+                            "FBS expression matches the fused FISTA engine but its rho="
+                            f"{self.rho} relaxation keeps it on the generic chain; pass rho=1 to fuse"
+                        )
+                        fused = None
+                    self._fused = fused
 
     # -- auto-tuning -------------------------------------------------------
     def set_step_sizes(self):

@@ -6,20 +6,125 @@
 
 writes a Chrome trace (``chrome://tracing``, Perfetto) of the host's calls
 and the card's kernels into the directory.
+
+``annotate`` is the program's one span API, and ``count`` its counter.
+While a profiler runs (``torch.profiler.profile``, :func:`trace`) a span
+opens a ``record_function`` range on the profiler's timeline and keeps a
+:class:`Span` record in memory: its name, its start and end in
+``time.time_ns()`` (the clock of the profiler's events, so a record lies
+over the device trace as it is), the index of the enclosing span and the
+index of the outermost one (one a ``solve()`` call or a ``PDS(...)``
+construction).  Without a profiler a span or a count costs one check of
+the profiler's state and records nothing.  The program's spans:
+
+* ``solve`` (``IterativeSolver.solve``), holding ``solve.start`` (the
+  initial state and any resume), one ``solve.enqueue`` (a chunk's steps
+  launched) and one ``solve.read`` (its metric history read on the host
+  and the stop test) a chunk of iterations, and ``solve.finish`` (the
+  histories read, ``postprocess``);
+* ``pds.init`` (``PrimalDualSplitting(...)``), holding ``pds.match`` (the
+  expression matched onto a fused engine, which the match builds);
+* ``conv.lipschitz`` (the FFT bound on a convolution's norm).
+
+The counter ``solve.host_reads`` counts the reads of ``solve()`` that wait
+for the device.  :func:`records`, :func:`counters` and :func:`reset` read
+and clear what was kept.
 """
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 import time
-from contextlib import contextmanager
-from typing import Callable
+from typing import Callable, List, NamedTuple, Optional
 
 import torch
 
-__all__ = ["trace", "annotate", "device_time"]
+__all__ = ["trace", "annotate", "count", "records", "counters", "reset", "device_time", "Span"]
+
+# True inside torch.profiler.profile (and trace()), false outside it
+_profiling = torch._C._autograd._profiler_enabled
 
 
-@contextmanager
+class Span(NamedTuple):
+    """One span: ``start_ns``/``end_ns`` in ``time.time_ns()`` (``end_ns``
+    None while open); ``parent`` the index in :func:`records` of the span
+    it opened in (None at the top), ``request`` that of its outermost
+    span."""
+    name: str
+    start_ns: int
+    end_ns: Optional[int]
+    parent: Optional[int]
+    request: int
+
+
+_lock = threading.Lock()
+_records: List[list] = []  # [name, start_ns, end_ns, parent, request]
+_counters: dict = {}
+_open = threading.local()  # .stack: this thread's open spans, as (index, request)
+_OFF = contextlib.nullcontext()
+
+
+class _Annotation:
+    __slots__ = ("name", "record", "range")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        stack = getattr(_open, "stack", None)
+        if stack is None:
+            stack = _open.stack = []
+        parent, request = stack[-1] if stack else (None, None)
+        with _lock:
+            index = len(_records)
+            self.record = [self.name, time.time_ns(), None, parent, index if request is None else request]
+            _records.append(self.record)
+        stack.append((index, self.record[4]))
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.range.__exit__(*exc)
+        self.record[2] = time.time_ns()
+        _open.stack.pop()
+        return False
+
+
+def annotate(name: str):
+    """A named span: a ``record_function`` range and a :class:`Span` record
+    while a profiler runs, a shared no-op context otherwise."""
+    return _Annotation(name) if _profiling() else _OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name`` while a profiler runs."""
+    if _profiling():
+        with _lock:
+            _counters[name] = _counters.get(name, 0) + n
+
+
+def records() -> List[Span]:
+    """A copy of the spans kept so far, in the order they opened."""
+    with _lock:
+        return [Span(*r) for r in _records]
+
+
+def counters() -> dict:
+    """A copy of the counters."""
+    with _lock:
+        return dict(_counters)
+
+
+def reset() -> None:
+    """Drop the kept spans and counters (call it with no span open)."""
+    with _lock:
+        _records.clear()
+        _counters.clear()
+
+
+@contextlib.contextmanager
 def trace(logdir: str):
     """Profile the enclosed block (CPU and, where there is a card, CUDA
     activities) and write its Chrome trace to ``logdir/trace.json``."""
@@ -32,11 +137,6 @@ def trace(logdir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-def annotate(name: str):
-    """A named span on the profiler's timeline (``record_function``)."""
-    return torch.profiler.record_function(name)
 
 
 def _sync(out) -> None:

@@ -1811,3 +1811,68 @@ def test_module_doctests_on_the_card(cuda, modname):
     runner = doctest.testmod(importlib.import_module(modname), optionflags=doctest.NORMALIZE_WHITESPACE,
                              verbose=False)
     assert runner.failed == 0, f"{runner.failed} doctest failures in {modname} on the card"
+
+
+def test_program_spans_on_the_card(cuda, rng):
+    """The program's spans (``utils.profiling``) on a 4096² main-path ``PDS``
+    solve under a CUDA profile: every K10 launch (its ``cudaLaunchKernel``
+    runtime event, matched to the kernel by correlation id) lies inside a
+    ``solve.enqueue`` record, and every record starts within 100 µs of its
+    own annotation event; without a profiler ``annotate`` costs at most
+    0.5 µs a call (the median of 10⁵ calls, in batches of 1000)."""
+    import statistics
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pycsou_tpu_torch.utils import profiling
+
+    S = (4096, 4096)
+    y = torch.from_numpy(np.abs(rng.standard_normal(S)).astype(np.float32)).to(cuda)
+    p = PDS(S, F=SquaredL2Loss(S, data=y) * Convolve2D(S, _gauss(), device=cuda), G=NonNegativeOrthant(S),
+            H=0.05 * L21Norm((2,) + S, axis=0), K=Gradient(S), max_iter=64, min_iter=64, accuracy_threshold=0.0)
+    assert p._fused.stencil_mode == "mega3"
+    p.solve()  # the kernels built and loaded
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # the profiler's first range carries its cold start (0.3-1.2 ms
+        # between the record's clock read and the event's), not the clocks'
+        with profiling.annotate("warm"):
+            pass
+        info = p.solve()
+    torch.cuda.synchronize()
+    assert info.n_iter == 64
+    recs, counts = profiling.records()[1:], profiling.counters()
+    profiling.reset()
+    enqueues = [r for r in recs if r.name == "solve.enqueue"]
+    assert len(enqueues) == 4 and counts == {"solve.host_reads": 4 + 2}
+    events = list(prof.profiler.kineto_results.events())
+    k10 = {e.correlation_id() for e in events if e.device_type() == DeviceType.CUDA and "tv_mega3" in e.name()}
+    launches = [e for e in events if e.device_type() == DeviceType.CPU and e.name().startswith("cudaLaunch")
+                and e.correlation_id() in k10]
+    assert len(k10) == 32 and len(launches) == 32, (len(k10), len(launches))
+    for e in launches:
+        s = e.start_ns()
+        assert any(r.start_ns <= s and s + e.duration_ns() <= r.end_ns for r in enqueues), s
+    marks = {}
+    for e in events:
+        if e.device_type() == DeviceType.CPU and e.is_user_annotation():
+            marks.setdefault(e.name(), []).append(e.start_ns())
+    by_name = {}
+    for r in recs:
+        by_name.setdefault(r.name, []).append(r.start_ns)
+    assert len(marks.pop("warm", ())) == 1
+    for name, starts in by_name.items():
+        assert len(starts) == len(marks.get(name, ())), name
+        for rec, ev in zip(sorted(starts), sorted(marks[name])):
+            assert abs(ev - rec) <= 100_000, (name, ev - rec)
+    per_call = []
+    for _ in range(100):
+        t0 = time.perf_counter_ns()
+        for _ in range(1000):
+            with profiling.annotate("solve.enqueue"):
+                pass
+        per_call.append((time.perf_counter_ns() - t0) / 1000)
+    assert statistics.median(per_call) <= 500, statistics.median(per_call)
+    assert profiling.records() == []
