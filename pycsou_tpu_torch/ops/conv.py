@@ -49,8 +49,8 @@ import torch.nn.functional as F
 from pycsou_tpu_torch.core.linop import LinearOperator, LinOpComp, SymmetricLinearOperator
 from pycsou_tpu_torch.kernels.band import TILE, gram_band_axis, make_gram_band
 from pycsou_tpu_torch.kernels.conv2d import MAX_RANK, MAX_TAPS, SepFactors, sepconv2d, sepgram2d
-from pycsou_tpu_torch.utils.device import as_tensor, full_f32, resolve_device
-from pycsou_tpu_torch.utils.profiling import annotate
+from pycsou_tpu_torch.utils.device import as_tensor, full_f32, resolve_device, same_device
+from pycsou_tpu_torch.utils.profiling import annotate, count
 from pycsou_tpu_torch.utils.shapes import as_shape
 
 __all__ = [
@@ -192,6 +192,7 @@ class Convolve2D(LinearOperator):
     ``svd_tol`` truncates the PSF's singular components ``sigma_i <= svd_tol
     * sigma_0`` first: the operator then is the truncated PSF, and
     ``svd_trunc_bound = ||h - h_trunc||_1`` bounds ``||A - A_trunc||_2``.
+    ``auto_method`` records whether ``'auto'`` chose the method.
 
     Example::
 
@@ -245,6 +246,7 @@ class Convolve2D(LinearOperator):
         self._device = dev
         self.filt = as_tensor(filt_np, dev)
         self.method = method
+        self.auto_method = was_auto
         self.svd_trunc_bound = trunc_bound
         self.factors = fac
         self.groups = groups
@@ -305,6 +307,23 @@ class Convolve2D(LinearOperator):
         if self.method == "bandg":
             return SymmetricLinearOperator(LinOpComp(self.H, self))
         return ConvGram2D(self)
+
+
+def engine_conv(shape, filt, device) -> Convolve2D:
+    """The convolution a fused engine runs on ``device`` for the PSF
+    ``filt``.  A :class:`Convolve2D` of domain ``shape`` on ``device`` whose
+    method ``'auto'`` chose is taken as it is, with its taps, factors,
+    groups, Gram and norm bound (no host FFT, no SVD, no read of the PSF),
+    and counted as ``pds.conv_reused``; a build from its taps gives the same
+    operator (the same bound, unless ``lipschitz`` was set since).  Any
+    other operator (a forced method, another domain or device) is built
+    again from its taps, and an array or tensor PSF is built as before."""
+    if isinstance(filt, Convolve2D):
+        if filt.auto_method and tuple(filt.dim_shape) == tuple(shape) and same_device(filt.device, device):
+            count("pds.conv_reused")
+            return filt
+        filt = filt.filt
+    return Convolve2D(shape, filt, device=device)
 
 
 def _group_sum(x, stacks) -> torch.Tensor:

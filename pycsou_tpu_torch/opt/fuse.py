@@ -12,6 +12,11 @@ denoising has its own matcher, and so has the LASSO (APGD, and FBS at
 reference: the fused engines then take the separable kernels' Gram (rank
 <= 4 within 31 taps per axis), the grouped K1 sweeps (rank 5-16 on the
 card) or the FFT Gram.
+
+The matchers hand the engine the user's ``Convolve2D`` itself, not its
+taps: the engine takes the operator as it is (its factors, Gram and norm
+bound, see ``ops/conv.py`` ``engine_conv``), so a build does not compute
+the PSF's host FFT bound or its SVD a second time.
 """
 from __future__ import annotations
 
@@ -120,19 +125,16 @@ def _why_F(F, dim_shape) -> Optional[str]:
 
 def _match_conv_least_squares(dim_shape, F):
     """``||A x - y||^2`` with A a Convolve2D of a real PSF (returns
-    ``(filt, y)``), plain ``||x - y||^2`` (returns ``(None, y)``), or None."""
+    ``(A, y)``), plain ``||x - y||^2`` (returns ``(None, y)``), or None."""
     from pycsou_tpu_torch.core.functional import DiffProxFuncPreComp, ProxFuncPreComp
     from pycsou_tpu_torch.func.loss import LeastSquaresLoss
     from pycsou_tpu_torch.func.penalty import SquaredL2Norm
     from pycsou_tpu_torch.ops.conv import Convolve2D
 
     if type(F) is LeastSquaresLoss and type(F.op) is Convolve2D:
-        if tuple(F.op.dim_shape) != dim_shape:
+        if tuple(F.op.dim_shape) != dim_shape or torch.is_complex(F.op.filt):
             return None
-        filt = F.op.filt
-        if torch.is_complex(filt):
-            return None
-        y = F.data
+        filt, y = F.op, F.data
     elif type(F) in (ProxFuncPreComp, DiffProxFuncPreComp) and type(F.func) is SquaredL2Norm:
         scale = torch.as_tensor(F.scale)
         if scale.ndim != 0 or float(scale) != 1.0:
@@ -173,7 +175,7 @@ def _match_sampling_least_squares(dim_shape, F):
 
 def _match_masked_conv_least_squares(dim_shape, F):
     """``||M C x - y||^2`` with M a sampling operator after a Convolve2D C
-    of a real PSF: ``(filt, mask, y_img)`` for TVDeconvolution's combined
+    of a real PSF: ``(C, mask, y_img)`` for TVDeconvolution's combined
     mode, else None."""
     from pycsou_tpu_torch.core.linop import LinOpComp
     from pycsou_tpu_torch.func.loss import LeastSquaresLoss
@@ -184,12 +186,9 @@ def _match_masked_conv_least_squares(dim_shape, F):
     M, A = F.op.m1, F.op.m2
     if not _is_sampling(M) or type(A) is not Convolve2D:
         return None
-    if tuple(A.dim_shape) != tuple(dim_shape):
+    if tuple(A.dim_shape) != tuple(dim_shape) or torch.is_complex(A.filt):
         return None
-    filt = A.filt
-    if torch.is_complex(filt):
-        return None
-    return (filt,) + _back_projection(M, F.data)
+    return (A,) + _back_projection(M, F.data)
 
 
 def match_tv_deconvolution(dim_shape, F, G, H, K, tau: float, sigma: float, rho: float,

@@ -22,7 +22,7 @@ import torch
 
 from pycsou_tpu_torch.core.solver import IterativeSolver, _rel_from_sums
 from pycsou_tpu_torch.kernels.fista import lasso_fista_step
-from pycsou_tpu_torch.ops.conv import Convolve2D
+from pycsou_tpu_torch.ops.conv import Convolve2D, engine_conv
 from pycsou_tpu_torch.utils.device import as_tensor, resolve_device
 from pycsou_tpu_torch.utils.shapes import as_shape
 
@@ -48,7 +48,16 @@ class LassoDeconvolution(IterativeSolver):
     """``min_x ||A x - y||^2 + lam ||x||_1`` (or the nonnegative shrink
     when ``nonneg``) by FISTA; ``A`` a 2-D 'same' convolution, the identity
     when ``filt`` is None.  The device is ``device`` if given, else that of
-    ``y``.
+    ``y``, else that of ``filt``.
+
+    ``filt`` is the PSF (an array or tensor) or a
+    :class:`~pycsou_tpu_torch.ops.conv.Convolve2D`.  An operator whose
+    method ``'auto'`` chose, of domain ``shape``, on the solver's device is
+    taken as it is: its taps, factors, Gram and norm bound ``lipschitz``
+    (hence ``beta`` and the automatic ``tau``), with no second build;
+    ``A^H y`` is still computed.  Any other operator (a forced method,
+    another domain or device) is built again from its taps, as an array PSF
+    is.
 
     ``use_pallas`` keeps the reference's switch: ``"auto"`` takes
     ``"megaf"`` on a CUDA device for any PSF of rank <= 4 within 31 taps per
@@ -97,7 +106,7 @@ class LassoDeconvolution(IterativeSolver):
             raise ValueError("acceleration must be 'BT', 'CD' or None")
         if use_pallas not in ("auto", True, False, "interpret"):
             raise ValueError(f"use_pallas must be 'auto', True, False or 'interpret', not {use_pallas!r}")
-        dev = resolve_device(device, y, filt)
+        dev = resolve_device(device, y, filt.device if isinstance(filt, Convolve2D) else filt)
         self.device = dev
         self.y = as_tensor(y, dev)
         if tuple(self.y.shape) != shape:
@@ -108,7 +117,7 @@ class LassoDeconvolution(IterativeSolver):
         self.d = float(d)
         if filt is None:
             filt = np.ones((1, 1), np.float32)
-        A = Convolve2D(shape, filt, device=dev)
+        A = engine_conv(shape, filt, dev)
         self.filt = A.filt
         self.gram = A.gram
         self.atb = A.adjoint(self.y)

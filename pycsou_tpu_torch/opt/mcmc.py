@@ -165,7 +165,7 @@ class PMYULA(IterativeSolver):
                 if reason is not None:
                     return f"G is not absent, the nonnegative orthant or lam * L1Norm ({reason})"
                 prox_mode = "l1"
-        A = Convolve2D(dim_shape, np.ones((1, 1), np.float32) if filt is None else filt, device=self.device)
+        A = Convolve2D(dim_shape, np.ones((1, 1), np.float32) if filt is None else filt.filt, device=self.device)
         why = rank1_gate(A.gram)
         if why is not None:
             return f"the PSF is outside the rank-1 engines' gate: {why}"

@@ -90,7 +90,7 @@ from pycsou_tpu_torch.kernels.tvr import (
     tv_pds_megar_step_plain,
     tv_pds_megarm_step_plain,
 )
-from pycsou_tpu_torch.ops.conv import Convolve2D, SeparableConvGram2D
+from pycsou_tpu_torch.ops.conv import Convolve2D, SeparableConvGram2D, engine_conv
 from pycsou_tpu_torch.ops.diff import fdiff_forward
 from pycsou_tpu_torch.utils.device import as_tensor, resolve_device
 from pycsou_tpu_torch.utils.shapes import as_shape
@@ -220,7 +220,15 @@ class TVDeconvolution(IterativeSolver):
     ``filt`` is None), a sampling operator of diagonal Gram ``mask``, or
     both (see the module docstring).  ``isotropic=False`` takes the
     anisotropic ``lam ||grad x||_1``.  The device is ``device`` if given,
-    else that of ``y``.
+    else that of ``y``, else that of ``filt``.
+
+    ``filt`` is the PSF (an array or tensor) or a
+    :class:`~pycsou_tpu_torch.ops.conv.Convolve2D`.  An operator whose
+    method ``'auto'`` chose, of domain ``shape``, on the solver's device is
+    taken as it is: its taps, factors, Gram and norm bound ``lipschitz``
+    (hence ``beta``), with no second build; ``A^H y`` is still computed.
+    Any other operator (a forced method, another domain or device) is built
+    again from its taps, as an array PSF is.
 
     Example::
 
@@ -265,7 +273,7 @@ class TVDeconvolution(IterativeSolver):
             raise ValueError(f"unknown stencil {stencil!r}; expected one of {ENGINES + ('xla',)}")
         if use_pallas not in ("auto", True, False):
             raise ValueError(f"use_pallas must be 'auto', True or False, not {use_pallas!r}")
-        dev = resolve_device(device, y, filt, mask)
+        dev = resolve_device(device, y, filt.device if isinstance(filt, Convolve2D) else filt, mask)
         if stencil == "xla" or use_pallas is False:
             if stencil not in ("auto", "xla", "plain"):
                 raise ValueError(f"stencil={stencil!r} launches CUDA kernels, but use_pallas=False asks for the "
@@ -303,7 +311,7 @@ class TVDeconvolution(IterativeSolver):
             m_max = float(torch.max(m))
         if mask is not None and filt is not None:
             mode = "combined"
-            conv = Convolve2D(shape, filt, device=dev)
+            conv = engine_conv(shape, filt, dev)
             self.conv = conv
             self.filt = conv.filt
             self._adj2 = conv.fwd.adjoint(2.0) if conv.method == "band" else None
@@ -318,7 +326,7 @@ class TVDeconvolution(IterativeSolver):
             if filt is None:
                 # denoising as the identity 1x1 convolution: gram = I, atb = y
                 filt = np.ones((1, 1), np.float32)
-            conv = Convolve2D(shape, filt, device=dev)
+            conv = engine_conv(shape, filt, dev)
             self.filt = conv.filt
             self.gram = conv.gram
             self.atb = conv.adjoint(self.y)

@@ -27,8 +27,10 @@ the profiler's state and records nothing.  The program's spans:
 * ``conv.lipschitz`` (the FFT bound on a convolution's norm).
 
 The counter ``solve.host_reads`` counts the reads of ``solve()`` that wait
-for the device.  :func:`records`, :func:`counters` and :func:`reset` read
-and clear what was kept.
+for the device, and ``pds.conv_reused`` the fused engines that took the
+user's ``Convolve2D`` as it is (``ops/conv.py`` ``engine_conv``).
+:func:`records`, :func:`counters` and :func:`reset` read and clear what was
+kept.
 """
 from __future__ import annotations
 

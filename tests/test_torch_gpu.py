@@ -1005,6 +1005,55 @@ def test_auto_method_on_the_card(cuda):
     assert Convolve2D(S, _abs_psf(3, 5), device=cuda).method == "bandg"  # rank 5
 
 
+@pytest.mark.parametrize("flavour", ["conv", "combined", "lasso"])
+@pytest.mark.parametrize("psf", ["gauss15", "rank2", "rank6", "abs17"])
+def test_solvers_take_the_users_convolution_on_the_card(cuda, rng, monkeypatch, psf, flavour):
+    """``PDS`` (TV, and TV with a keep mask after the convolution) and
+    ``APGD`` (LASSO) of ``SquaredL2Loss(y) * A`` on the card take the user's
+    ``A`` as it is, computing no FFT bound, and give the engine the solver
+    builds from ``A``'s taps (the parent's route): the same engine, ``beta``
+    and ``A^H y``, and the same iterates bit for bit after 40 iterations.
+    The PSFs take mega3, megar, sweep over 'bandg' and sweep over the FFT
+    Gram in conv mode."""
+    from pycsou_tpu_torch.ops import conv as conv_mod
+    from pycsou_tpu_torch.opt import LassoDeconvolution
+    from pycsou_tpu_torch.opt.fuse import _back_projection
+
+    S = (512, 768)
+    h = {"gauss15": _gauss(), "rank2": _rank_psf(0, 2, 9), "rank6": _rank_psf(0, 6, 15),
+         "abs17": _abs_psf(7, 17)}[psf]
+    A = Convolve2D(S, h, device=cuda)
+    y = A(torch.from_numpy(np.abs(rng.standard_normal(S)).astype(np.float32)).to(cuda))
+    calls = []
+    real = conv_mod._fft_lipschitz
+    monkeypatch.setattr(conv_mod, "_fft_lipschitz", lambda *a: calls.append(a) or real(*a))
+    tv = dict(G=NonNegativeOrthant(S), H=0.05 * L21Norm((2,) + S, axis=0), K=Gradient(S))
+    if flavour == "conv":
+        p = PDS(S, F=SquaredL2Loss(S, data=y) * A, **tv)
+    elif flavour == "combined":
+        M = Masking(S, torch.from_numpy(rng.random(S) < 0.7).to(cuda))
+        p = PDS(S, F=SquaredL2Loss(M.codim_shape, data=M(y)) * (M * A), **tv)
+    else:
+        p = APGD(S, F=SquaredL2Loss(S, data=y) * A, G=0.01 * L1Norm(S))
+    assert calls == [] and p._fused.filt is A.filt
+    if flavour == "lasso":
+        ref = LassoDeconvolution(S, y, 0.01, filt=A.filt, tau=p.tau, acceleration=p.acceleration, d=p.d)
+        assert p._fused.engine == ref.engine
+        keys = ("x", "x_temp")
+    else:
+        mask, y_img = _back_projection(M, M(y)) if flavour == "combined" else (None, y)
+        ref = TVDeconvolution(S, y_img, 0.05, filt=A.filt, mask=mask, nonneg=True, tau=p.tau, sigma=p.sigma,
+                              rho=p.rho)
+        assert p._fused.stencil_mode == ref.stencil_mode
+        keys = ("x", "z0", "z1")
+    assert len(calls) == 1  # the reference's build from the taps
+    assert p._fused.beta == ref.beta and torch.equal(p._fused.atb, ref.atb)
+    got, want = p._fused.run_fixed(40), ref.run_fixed(40)
+    for k in keys:
+        assert torch.equal(got[k], want[k]), k
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("shape,K,wrap", [((512, 384), 15, True), ((512, 384), 15, False),
                                          ((333, 517), 17, False), ((256, 256), 9, True)])
 def test_conv_gram_on_the_card(cuda, rng, shape, K, wrap):

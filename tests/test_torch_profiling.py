@@ -78,7 +78,19 @@ def test_nothing_is_kept_or_entered_without_a_profiler(monkeypatch):
 
 
 def test_pds_construction_records_match_and_lipschitz():
-    y, A = _y(), tops.Convolve2D(S, _gauss())  # A built outside the profiler, as a user does once
+    # A built outside the profiler, as a user does once: the fused engine
+    # takes it as it is, so the match computes no FFT bound
+    y, A = _y(), tops.Convolve2D(S, _gauss())
+    with _cpu_profile():
+        p = _pds(y, A=A)
+    assert p._fused is not None
+    recs = profiling.records()
+    assert [r.name for r in recs] == ["pds.init", "pds.match"]
+    assert (recs[0].parent, recs[1].parent) == (None, 0)
+    assert profiling.counters() == {"pds.conv_reused": 1}
+    # a forced method: the engine builds its convolution from the taps again
+    A = tops.Convolve2D(S, _gauss(), method="fft")
+    profiling.reset()
     with _cpu_profile():
         p = _pds(y, A=A)
     assert p._fused is not None
