@@ -164,6 +164,43 @@ def _stride_body(solver, s):
     return _advance(solver, s, solver.step(s))
 
 
+class Deferred:
+    """An entry of an :class:`Iterand` computed on its first read: ``fn()``."""
+
+    __slots__ = ("fn",)
+
+    def __init__(self, fn):
+        self.fn = fn
+
+
+class Iterand(dict):
+    """A user-facing iterand whose entries may be :class:`Deferred`: each
+    runs on the first read of its entry and is kept.  A sharded engine's
+    duals are joined on the mesh's first device this way, so that a caller
+    who reads only ``x`` holds no second image-sized join there.  Reads go
+    through ``__getitem__`` (``dict(it)``, ``{**it}``, ``items()``,
+    ``values()``, ``get`` too)."""
+
+    def __getitem__(self, key):
+        v = dict.__getitem__(self, key)
+        if isinstance(v, Deferred):
+            v = v.fn()
+            dict.__setitem__(self, key, v)
+        return v
+
+    def __iter__(self):  # a dict subclass's own __iter__ makes dict(), {**} and update() read through __getitem__
+        return dict.__iter__(self)
+
+    def get(self, key, default=None):
+        return self[key] if key in self else default
+
+    def items(self):
+        return [(k, self[k]) for k in self]
+
+    def values(self):
+        return [self[k] for k in self]
+
+
 class SolveInfo:
     """Result bundle: final iterand(s), iteration counts, metric history and,
     with ``track_objective``, the objective's (``objective_history``)."""

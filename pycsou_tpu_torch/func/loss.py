@@ -173,9 +173,10 @@ def ConsistencyLoss(dim_shape, data, device=None) -> IndicatorFunctional:
 
 class LeastSquaresLoss(DifferentiableFunctional):
     """``F(x) = ||A x - y||^2`` with the gradient through the operator's
-    Gram, ``2 (A^H A x - A^H y)``, and ``A^H y`` precomputed.  When the
-    Gram has ``grad_fused`` (a separable convolution), the whole gradient is
-    one kernel pass (K2).
+    Gram, ``2 (A^H A x - A^H y)``, and ``A^H y`` computed once, at the
+    first gradient (a fused engine that takes the expression over computes
+    its own, so it is never held twice).  When the Gram has ``grad_fused``
+    (a separable convolution), the whole gradient is one kernel pass (K2).
 
     Example::
 
@@ -200,7 +201,14 @@ class LeastSquaresLoss(DifferentiableFunctional):
         self.op = op
         self.data = data
         self._gram = op.gram
-        self._atb = op.adjoint(data)
+        self._atb_once = None
+
+    @property
+    def _atb(self) -> torch.Tensor:
+        """``A^H y``, computed on first use."""
+        if self._atb_once is None:
+            self._atb_once = self.op.adjoint(self.data)
+        return self._atb_once
 
     @property
     def device(self):

@@ -23,7 +23,7 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["TILE", "library", "check", "stream_of", "build_dir"]
+__all__ = ["TILE", "library", "check", "launch", "stream_of", "build_dir"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -145,3 +145,24 @@ def check(err: int, what: str) -> None:
 def stream_of(t: torch.Tensor) -> int:
     """Handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(symbol: str, what: str, t: torch.Tensor, *args) -> None:
+    """Call the C launcher ``symbol`` with ``args`` and the current stream
+    of ``t``'s card, with that card current, and raise if it refused the
+    launch (``what`` names the kernel).  A launch into a stream of another
+    card than the current one fails, and the launchers' shared-memory opt-in
+    (``cudaFuncSetAttribute``) and SM count act on the current card; the
+    card is switched only when it differs from the current one, and
+    switched back, so that a one-card process never switches."""
+    fn = getattr(library(), symbol)
+    card, current = t.device.index, torch.cuda.current_device()
+    if card == current:
+        err = fn(*args, stream_of(t))
+    else:
+        torch.cuda.set_device(card)
+        try:
+            err = fn(*args, stream_of(t))
+        finally:
+            torch.cuda.set_device(current)
+    check(err, what)

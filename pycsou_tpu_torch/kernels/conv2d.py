@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pycsou_tpu_torch.kernels._build import check, library, stream_of
+from pycsou_tpu_torch.kernels._build import launch
 from pycsou_tpu_torch.utils.device import full_f32
 
 __all__ = [
@@ -146,11 +146,11 @@ def sepconv2d(x: torch.Tensor, f: SepFactors) -> torch.Tensor:
         return sepconv2d_plain(x, f)
     H, W = x.shape
     y = torch.empty_like(x)
-    err = library().pct_sepconv2d(
+    launch(
+        "pct_sepconv2d", "sepconv2d", x,
         x.data_ptr(), y.data_ptr(), H, W, f.packed.ctypes.data,
-        f.rank, f.Ku, f.Kv, f.ou, f.ov, stream_of(x),
+        f.rank, f.Ku, f.Kv, f.ou, f.ov,
     )
-    check(err, "sepconv2d")
     sepconv2d.launches += 1
     return y
 
@@ -175,12 +175,12 @@ def sepgram2d(x: torch.Tensor, fwd: SepFactors, adj: SepFactors, atb=None) -> to
         return sepgram2d_plain(x, fwd, adj, atb)
     H, W = x.shape
     g = torch.empty_like(x)
-    err = library().pct_sepgram2d(
+    launch(
+        "pct_sepgram2d", "sepgram2d", x,
         x.data_ptr(), 0 if atb is None else atb.data_ptr(), g.data_ptr(), H, W,
         taps.ctypes.data, fwd.rank, fwd.Ku, fwd.Kv, fwd.ou, fwd.ov, adj.ou, adj.ov,
-        2.0, stream_of(x),
+        2.0,
     )
-    check(err, "sepgram2d")
     sepgram2d.launches += 1
     return g
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from pycsou_tpu_torch.kernels._build import TILE, check, library, stream_of
+from pycsou_tpu_torch.kernels._build import TILE, launch
 from pycsou_tpu_torch.kernels.conv2d import (
     SepFactors,
     _check_device,
@@ -74,13 +74,13 @@ def lasso_fista_step(v, x_prev, atb, mom, fwd: SepFactors, adj2: SepFactors, *, 
     partials = torch.empty(nblocks * 6, dtype=torch.float32, device=v.device)
     stats = torch.empty(6, dtype=torch.float32, device=v.device)
     mom = mom.contiguous()
-    err = library().pct_lasso_fista(
+    launch(
+        "pct_lasso_fista", "lasso_fista_step", v,
         v.data_ptr(), x_prev.data_ptr(), atb.data_ptr(), mom.data_ptr(), xo.data_ptr(),
         vo.data_ptr(), partials.data_ptr(), stats.data_ptr(), H, W, taps.ctypes.data, fwd.rank,
         fwd.Ku, fwd.Kv, fwd.ou, fwd.ov, adj2.ou, adj2.ov, float(tau), float(tau * lam),
-        int(bool(nonneg)), stream_of(v),
+        int(bool(nonneg)),
     )
-    check(err, "lasso_fista_step")
     lasso_fista_step.launches += 1
     return xo, vo, stats
 

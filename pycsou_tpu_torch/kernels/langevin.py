@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from pycsou_tpu_torch.kernels._build import check, library, stream_of
+from pycsou_tpu_torch.kernels._build import launch
 from pycsou_tpu_torch.kernels.conv2d import (
     SepFactors,
     _check_device,
@@ -154,14 +154,14 @@ def pmyula_mega_step(x, atb, m1, m2, si, wf, fwd: SepFactors, adj2: SepFactors, 
     H, W = x.shape
     xo, m1o, m2o = (torch.empty_like(x) for _ in range(3))
     si, wf = si.contiguous(), wf.contiguous()
-    err = library().pct_pmyula(
+    launch(
+        "pct_pmyula", "pmyula_mega_step", x,
         x.data_ptr(), atb.data_ptr(), m1.data_ptr(), m2.data_ptr(),
         noise.data_ptr() if noise_mode == "stream" else 0, si.data_ptr(), wf.data_ptr(),
         xo.data_ptr(), m1o.data_ptr(), m2o.data_ptr(), H, W, taps.ctypes.data, fwd.rank, fwd.Ku,
         fwd.Kv, fwd.ou, fwd.ov, adj2.ou, adj2.ov, float(gamma), c1, cp, ns, thr,
-        PROX_MODES.index(prox_mode), stream_of(x),
+        PROX_MODES.index(prox_mode),
     )
-    check(err, "pmyula_mega_step")
     pmyula_mega_step.launches += 1
     return xo, m1o, m2o
 

@@ -19,7 +19,7 @@ import functools
 import numpy as np
 import torch
 
-from pycsou_tpu_torch.kernels._build import check, library, stream_of
+from pycsou_tpu_torch.kernels._build import launch
 from pycsou_tpu_torch.kernels.conv2d import SepFactors, _check_device, _check_image, gram_taps, sepgram2d_plain
 
 __all__ = ["sepgram_apply", "sepgram_apply_plain", "sepgram_available"]
@@ -70,11 +70,11 @@ def sepgram_apply(x: torch.Tensor, us, vs) -> torch.Tensor:
     H, W = x.shape
     g = torch.empty_like(x)
     taps = gram_taps(fwd, adj)
-    err = library().pct_sepgram2d(
+    launch(
+        "pct_sepgram2d", "sepgram_apply", x,
         x.data_ptr(), 0, g.data_ptr(), H, W, taps.ctypes.data, fwd.rank, fwd.Ku, fwd.Kv, fwd.ou, fwd.ov,
-        adj.ou, adj.ov, 2.0, stream_of(x),
+        adj.ou, adj.ov, 2.0,
     )
-    check(err, "sepgram_apply")
     sepgram_apply.launches += 1
     return g
 

@@ -49,7 +49,7 @@ import torch
 
 import numpy as np
 
-from pycsou_tpu_torch.kernels._build import TILE, check, library, stream_of
+from pycsou_tpu_torch.kernels._build import TILE, launch
 from pycsou_tpu_torch.kernels.band import gram_band_cols, gram_band_rows
 from pycsou_tpu_torch.kernels.conv2d import _check_device, _check_image
 from pycsou_tpu_torch.ops.diff import fdiff_forward, fdiff_forward_adjoint
@@ -145,13 +145,12 @@ def tv_pds_sweep_step_stats(x, z0, z1, g, *, tau, sigma, rho, lam, nonneg=True, 
     nblocks = -(-H // TILE) * -(-W // TILE)
     partials = torch.empty(nblocks * 6, dtype=torch.float32, device=x.device)
     stats = torch.empty(6, dtype=torch.float32, device=x.device)
-    err = library().pct_tv_sweep_stats(
+    launch(
+        "pct_tv_sweep_stats", "tv_pds_sweep_step_stats", x,
         x.data_ptr(), z0.data_ptr(), z1.data_ptr(), g.data_ptr(),
         xo.data_ptr(), z0o.data_ptr(), z1o.data_ptr(), partials.data_ptr(), stats.data_ptr(),
         H, W, float(tau), float(sigma), float(rho), float(lam), int(bool(nonneg)), int(bool(iso)),
-        stream_of(x),
     )
-    check(err, "tv_pds_sweep_step_stats")
     tv_pds_sweep_step_stats.launches += 1
     return xo, z0o, z1o, stats
 
@@ -199,13 +198,13 @@ def _launch_masked(fn, symbol, x, z0, z1, m, atb, kw):
     nblocks = -(-H // TILE) * -(-W // TILE)
     partials = torch.empty(nblocks * 6, dtype=torch.float32, device=x.device)
     stats = torch.empty(6, dtype=torch.float32, device=x.device)
-    err = getattr(library(), symbol)(
+    launch(
+        symbol, fn.__name__, x,
         x.data_ptr(), z0.data_ptr(), z1.data_ptr(), m.data_ptr(), atb.data_ptr(),
         xo.data_ptr(), z0o.data_ptr(), z1o.data_ptr(), partials.data_ptr(), stats.data_ptr(),
         H, W, float(kw["tau"]), float(kw["sigma"]), float(kw["rho"]), float(kw["lam"]),
-        int(bool(kw["nonneg"])), int(bool(kw["iso"])), stream_of(x),
+        int(bool(kw["nonneg"])), int(bool(kw["iso"])),
     )
-    check(err, fn.__name__)
     fn.launches += 1
     return xo, z0o, z1o, stats
 
@@ -277,12 +276,11 @@ def tv_pds_stencil_step(x, z, g, *, tau, sigma, rho, lam, nonneg=True, iso=True)
         return tv_pds_stencil_step_plain(x, z, g, **kw)
     H, W = x.shape
     xo, zo = torch.empty_like(x), torch.empty_like(z)
-    err = library().pct_tv_stencil(
+    launch(
+        "pct_tv_stencil", "tv_pds_stencil_step", x,
         x.data_ptr(), z.data_ptr(), g.data_ptr(), xo.data_ptr(), zo.data_ptr(), H, W,
         float(tau), float(sigma), float(rho), float(lam), int(bool(nonneg)), int(bool(iso)),
-        stream_of(x),
     )
-    check(err, "tv_pds_stencil_step")
     tv_pds_stencil_step.launches += 1
     return xo, zo
 
@@ -380,14 +378,14 @@ def _launch_rank1(fn, symbol, x, z0, z1, atb, gram, kw):
     nblocks = -(-H // TILE) * -(-W // TILE)
     partials = torch.empty(nblocks * 6, dtype=torch.float32, device=x.device)
     stats = torch.empty(6, dtype=torch.float32, device=x.device)
-    err = getattr(library(), symbol)(
+    launch(
+        symbol, fn.__name__, x,
         x.data_ptr(), z0.data_ptr(), z1.data_ptr(), atb.data_ptr(),
         xo.data_ptr(), z0o.data_ptr(), z1o.data_ptr(), partials.data_ptr(), stats.data_ptr(),
         H, W, taps.ctypes.data, E.data_ptr(), Kr, Kc, R,
         float(kw["tau"]), float(kw["sigma"]), float(kw["rho"]), float(kw["lam"]),
-        int(bool(kw["nonneg"])), int(bool(kw["iso"])), stream_of(x),
+        int(bool(kw["nonneg"])), int(bool(kw["iso"])),
     )
-    check(err, fn.__name__)
     fn.launches += 1
     return xo, z0o, z1o, stats
 
@@ -453,13 +451,12 @@ def tv_pds_mega_step(x, z, w, atb, gram, *, tau, sigma, rho, lam, nonneg=True, i
     taps, E, Kr, Kc, R = _rank1_args(gram)
     H, W = x.shape
     xo, zo = torch.empty_like(x), torch.empty_like(z)
-    err = library().pct_tv_mega(
+    launch(
+        "pct_tv_mega", "tv_pds_mega_step", x,
         x.data_ptr(), z.data_ptr(), w.data_ptr(), atb.data_ptr(), xo.data_ptr(), zo.data_ptr(),
         H, W, taps.ctypes.data, E.data_ptr(), Kr, Kc, R,
         float(tau), float(sigma), float(rho), float(lam), int(bool(nonneg)), int(bool(iso)),
-        stream_of(x),
     )
-    check(err, "tv_pds_mega_step")
     tv_pds_mega_step.launches += 1
     return xo, zo
 
@@ -547,14 +544,14 @@ def _launch_shard(fn, symbol, x, core, halos, row0, H_global, args, kw):
     nblocks = -(-h_loc // TILE) * -(-W // TILE)
     partials = torch.empty(nblocks * 6, dtype=torch.float32, device=x.device)
     stats = torch.empty(6, dtype=torch.float32, device=x.device)
-    err = getattr(library(), symbol)(
+    launch(
+        symbol, fn.__name__, x,
         *(t.data_ptr() for t in core), *(t.data_ptr() for t in halos),
         xo.data_ptr(), z0o.data_ptr(), z1o.data_ptr(), partials.data_ptr(), stats.data_ptr(),
         row0, h_loc, halos[0].shape[0], H_global, W, *args,
         float(kw["tau"]), float(kw["sigma"]), float(kw["rho"]), float(kw["lam"]),
-        int(bool(kw["nonneg"])), int(bool(kw["iso"])), stream_of(x),
+        int(bool(kw["nonneg"])), int(bool(kw["iso"])),
     )
-    check(err, fn.__name__)
     fn.launches += 1
     return xo, z0o, z1o, stats
 

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from pycsou_tpu_torch.kernels._build import TILE, check, library, stream_of
+from pycsou_tpu_torch.kernels._build import TILE, launch
 from pycsou_tpu_torch.kernels.conv2d import (
     SepFactors,
     _check_device,
@@ -90,14 +90,14 @@ def _launch_megar(fn, x, z0, z1, m, atb, fwd, adj2, taps, kw):
     nblocks = -(-H // TILE) * -(-W // TILE)
     partials = torch.empty(nblocks * 6, dtype=torch.float32, device=x.device)
     stats = torch.empty(6, dtype=torch.float32, device=x.device)
-    err = library().pct_tv_megar(
+    launch(
+        "pct_tv_megar", fn.__name__, x,
         x.data_ptr(), z0.data_ptr(), z1.data_ptr(), 0 if m is None else m.data_ptr(), atb.data_ptr(),
         xo.data_ptr(), z0o.data_ptr(), z1o.data_ptr(), partials.data_ptr(), stats.data_ptr(),
         H, W, taps.ctypes.data, fwd.rank, fwd.Ku, fwd.Kv, fwd.ou, fwd.ov, adj2.ou, adj2.ov,
         2.0, float(kw["tau"]), float(kw["sigma"]), float(kw["rho"]), float(kw["lam"]),
-        int(bool(kw["nonneg"])), int(bool(kw["iso"])), stream_of(x),
+        int(bool(kw["nonneg"])), int(bool(kw["iso"])),
     )
-    check(err, fn.__name__)
     fn.launches += 1
     return xo, z0o, z1o, stats
 
@@ -253,14 +253,14 @@ def tv_pds_megar_shard2d_step(x_ext, z0_ext, z1_ext, atb_ext, halos, fwd: SepFac
     nblocks = -(-h_loc // TILE) * -(-w_loc // TILE)
     partials = x_ext.new_empty(nblocks * 6)
     stats = x_ext.new_empty(6)
-    err = library().pct_tv_megar_shard2d(
+    launch(
+        "pct_tv_megar_shard2d", "tv_pds_megar_shard2d_step", x_ext,
         x_ext.data_ptr(), z0_ext.data_ptr(), z1_ext.data_ptr(), atb_ext.data_ptr(),
         *(t.data_ptr() for t in halos), xo.data_ptr(), z0o.data_ptr(), z1o.data_ptr(),
         partials.data_ptr(), stats.data_ptr(), row0, h_loc, R, col0, w_loc, HALO_COLS, H_global, W_global,
         taps.ctypes.data, fwd.rank, fwd.Ku, fwd.Kv, fwd.ou, fwd.ov, adj2.ou, adj2.ov, 2.0,
-        float(tau), float(sigma), float(rho), float(lam), int(bool(nonneg)), int(bool(iso)), stream_of(x_ext),
+        float(tau), float(sigma), float(rho), float(lam), int(bool(nonneg)), int(bool(iso)),
     )
-    check(err, "tv_pds_megar_shard2d_step")
     tv_pds_megar_shard2d_step.launches += 1
     return xo, z0o, z1o, stats
 

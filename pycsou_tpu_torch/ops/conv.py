@@ -34,9 +34,11 @@ flipped filter at the mirrored offset ``m - 1 - m // 2`` (``'direct'``,
 ``'overlap-add'``), or the product by ``conj(H)`` of the input placed at
 its offset on the FFT grid (``'fft'``, ``ConvolveND``).
 
-``lowrank_factors``, ``rank1_factors_nd`` and ``_fft_lipschitz`` are the
-reference's numpy code unchanged, so the factor taps and ``||A||`` (hence
-beta, tau and sigma) come out bit-equal to the JAX package's.
+``lowrank_factors`` and ``rank1_factors_nd`` are the reference's numpy
+code unchanged, so the factor taps come out bit-equal to the JAX
+package's.  ``||A||`` (hence beta, tau and sigma) is the reference's FFT
+bound, ``max |DFT_L(h)|``, by :func:`fft_norm_bound`: the same value within
+1e-12 relative with no host transform of the image's size.
 """
 from __future__ import annotations
 
@@ -68,6 +70,7 @@ __all__ = [
     "lowrank_factors",
     "rank1_factors_nd",
     "next_fast_len",
+    "fft_norm_bound",
 ]
 
 
@@ -84,19 +87,107 @@ def next_fast_len(n: int) -> int:
     return best
 
 
-def _fft_lipschitz(filt: np.ndarray, padded_shape: Tuple[int, ...]) -> float:
-    """``||conv||_2 <= max |DFT_L(h)|`` for any ``L >= n + m - 1`` per axis
-    (a rigorous bound: the 'same' convolution is a submatrix of the size-L
-    circulant acting on zero-padded inputs)."""
+# transform points a block of :func:`fft_norm_bound`'s full route holds
+_BOUND_BLOCK = 1 << 22
+
+
+def fft_norm_bound(filt, grid: Tuple[int, ...], device=None) -> float:
+    """``max |DFT_grid(h)|`` (``grid`` points per axis), which bounds the
+    norm of the 'same' and the full convolution by ``h`` for any ``grid >=
+    n + m - 1`` per axis (either is a submatrix of the grid's circulant),
+    with no transform of the grid's size on the host:
+
+    * a real ``h`` with no negative tap: ``sum(h)``, the DC term, which is
+      the largest on every grid;
+    * a 2-D ``h`` that is rank 1 to float64 rounding (``h = u v^T`` within
+      ``1e-13`` of the bound in l1, which bounds the gap between the two
+      transforms): ``max |DFT(u)| max |DFT(v)|`` from the two 1-D grids;
+    * else the transform itself on ``device`` (numpy's on the host for a
+      CPU device or none, ``torch.fft`` on a card) in float64, axis by axis
+      in numpy's order, the last axis's transforms a block of at most
+      ``_BOUND_BLOCK`` points at a time, the maximum kept.  On the host
+      this is numpy's ``rfftn`` (``fftn`` for a complex ``h``), value for
+      value.
+
+    Every route equals numpy's full-grid maximum within 1e-12 relative."""
+    h = np.asarray(filt)
+    grid = tuple(int(n) for n in grid)
+    if h.ndim != len(grid):
+        raise ValueError(f"a {h.ndim}-D filter on a {len(grid)}-D grid")
+    if not np.iscomplexobj(h):
+        h64 = h.astype(np.float64)
+        if not np.any(h64 < 0):
+            return float(np.sum(h64))
+        if h.ndim == 2:
+            bound = _rank1_bound(h64, grid)
+            if bound is not None:
+                return bound
+    return _full_bound(h, grid, device)
+
+
+def _rank1_bound(h: np.ndarray, grid):
+    """The product of the 1-D maxima of an exactly rank-1 2-D ``h``, or None."""
+    U, S, Vt = np.linalg.svd(h)
+    u, v = U[:, 0] * S[0], Vt[0]
+    bound = float(np.max(np.abs(np.fft.rfft(u, n=grid[0]))) * np.max(np.abs(np.fft.rfft(v, n=grid[1]))))
+    gap = float(np.sum(np.abs(h - np.outer(u, v))))  # >= the sup gap between the 2-D transforms
+    return bound if gap <= 1e-13 * bound else None
+
+
+def _full_bound(h: np.ndarray, grid, device) -> float:
+    """The largest magnitude of the whole transform on ``device`` (the host
+    by default), in numpy's order of axes (``rfftn``: the last axis, then
+    the first to the second last; ``fftn``: the last to the first), the
+    final axis's transforms a block at a time."""
+    dev = torch.device("cpu") if device is None else torch.device(device)
+    return (_full_bound_host if dev.type == "cpu" else _full_bound_torch)(h, grid, dev)
+
+
+def _axis_order(h: np.ndarray):
+    real = not np.iscomplexobj(h)
+    d = h.ndim
+    order = [d - 1] + list(range(d - 1)) if real else list(range(d - 1, -1, -1))
+    return real, order
+
+
+def _full_bound_host(h: np.ndarray, grid, dev=None) -> float:
+    real, order = _axis_order(h)
+    last = order[-1]
+    a = h.astype(np.float64 if real else np.complex128)
+    a = (np.fft.rfft if real else np.fft.fft)(a, n=grid[order[0]], axis=order[0])
+    if h.ndim == 1:
+        return float(np.max(np.abs(a)))
+    for ax in order[1:-1]:
+        a = np.fft.fft(a, n=grid[ax], axis=ax)
+    a = np.moveaxis(a, last, 0).reshape(a.shape[last], -1)
+    step = max(1, _BOUND_BLOCK // grid[last])
+    return max(float(np.max(np.abs(np.fft.fft(a[:, c : c + step], n=grid[last], axis=0))))
+               for c in range(0, a.shape[1], step))
+
+
+def _full_bound_torch(h: np.ndarray, grid, dev) -> float:
+    real, order = _axis_order(h)
+    last = order[-1]
+    t = torch.as_tensor(h).to(dev, torch.float64 if real else torch.complex128)
+    t = (torch.fft.rfft if real else torch.fft.fft)(t, n=grid[order[0]], dim=order[0])
+    if h.ndim == 1:
+        return float(torch.max(torch.abs(t)))
+    for ax in order[1:-1]:
+        t = torch.fft.fft(t, n=grid[ax], dim=ax)
+    t = torch.movedim(t, last, 0).reshape(t.shape[last], -1)
+    step = max(1, _BOUND_BLOCK // grid[last])
+    peaks = [torch.max(torch.abs(torch.fft.fft(t[:, c : c + step], n=grid[last], dim=0)))
+             for c in range(0, t.shape[1], step)]
+    return float(torch.max(torch.stack(peaks)))  # one host read
+
+
+def _fft_lipschitz(filt: np.ndarray, padded_shape: Tuple[int, ...], device=None) -> float:
+    """``||conv||_2 <= max |DFT_L(h)|`` on ``L = next_fast_len(n + m - 1)``
+    per axis (a rigorous bound: the 'same' convolution is a submatrix of
+    the size-L circulant acting on zero-padded inputs), by
+    :func:`fft_norm_bound` on ``device``."""
     with annotate("conv.lipschitz"):
-        h = np.asarray(filt)
-        L = tuple(next_fast_len(s) for s in padded_shape)
-        axes = tuple(range(len(L)))
-        if np.iscomplexobj(h):
-            H = np.fft.fftn(h.astype(np.complex128), s=L, axes=axes)
-        else:
-            H = np.fft.rfftn(h.astype(np.float64), s=L, axes=axes)
-        return float(np.max(np.abs(H)))
+        return fft_norm_bound(filt, tuple(next_fast_len(s) for s in padded_shape), device)
 
 
 def _real_filter(filt, cls: str) -> np.ndarray:
@@ -193,6 +284,9 @@ class Convolve2D(LinearOperator):
     * sigma_0`` first: the operator then is the truncated PSF, and
     ``svd_trunc_bound = ||h - h_trunc||_1`` bounds ``||A - A_trunc||_2``.
     ``auto_method`` records whether ``'auto'`` chose the method.
+    ``lipschitz``, where the caller knows a bound on ``||A||`` already (a
+    sharded solver building one operator a card), is taken in place of
+    :func:`fft_norm_bound`'s.
 
     Example::
 
@@ -210,7 +304,8 @@ class Convolve2D(LinearOperator):
         True
     """
 
-    def __init__(self, dim_shape, filt, method: str = "auto", device=None, svd_tol: float = None):
+    def __init__(self, dim_shape, filt, method: str = "auto", device=None, svd_tol: float = None,
+                 lipschitz: float = None):
         dim_shape = as_shape(dim_shape)
         if len(dim_shape) != 2:
             raise ValueError("Convolve2D expects a 2-D domain")
@@ -241,8 +336,10 @@ class Convolve2D(LinearOperator):
                 method = "bandg"
             elif method == "bandg":
                 raise ValueError(f"method='bandg' needs a PSF of rank 5-16 within {MAX_TAPS} taps per axis")
-        padded = tuple(n + k - 1 for n, k in zip(dim_shape, filt_np.shape))
-        super().__init__(dim_shape, dim_shape, lipschitz=_fft_lipschitz(filt_np, padded))
+        if lipschitz is None:
+            padded = tuple(n + k - 1 for n, k in zip(dim_shape, filt_np.shape))
+            lipschitz = _fft_lipschitz(filt_np, padded, dev)
+        super().__init__(dim_shape, dim_shape, lipschitz=float(lipschitz))
         self._device = dev
         self.filt = as_tensor(filt_np, dev)
         self.method = method
@@ -538,7 +635,7 @@ class Convolve1D(LinearOperator):
                 method = "fft"
         if method not in ("fft", "direct", "overlap-add"):
             raise ValueError("method must be 'auto', 'fft', 'direct' or 'overlap-add'")
-        super().__init__(dim_shape, dim_shape, lipschitz=_fft_lipschitz(filt_np, (n + m - 1,)))
+        super().__init__(dim_shape, dim_shape, lipschitz=_fft_lipschitz(filt_np, (n + m - 1,), dev))
         self._device = dev
         self.filt = as_tensor(filt_np, dev)
         self.method = method
@@ -684,7 +781,7 @@ class ConvolveND(LinearOperator):
         if filt_np.ndim != len(dim_shape):
             raise ValueError("filter rank must match the domain rank")
         padded = tuple(n + k - 1 for n, k in zip(dim_shape, filt_np.shape))
-        super().__init__(dim_shape, dim_shape, lipschitz=_fft_lipschitz(filt_np, padded))
+        super().__init__(dim_shape, dim_shape, lipschitz=_fft_lipschitz(filt_np, padded, dev))
         self._device = dev
         self.filt = as_tensor(filt_np, dev)
         self._s = tuple(next_fast_len(p) for p in padded)

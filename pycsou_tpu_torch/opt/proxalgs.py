@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from pycsou_tpu_torch.core.linop import LinearOperator
-from pycsou_tpu_torch.core.solver import IterativeSolver, _rel_from_sums
+from pycsou_tpu_torch.core.solver import Deferred, IterativeSolver, Iterand, _rel_from_sums
 from pycsou_tpu_torch.func.base import NullDifferentiableFunctional, NullProximableFunctional
 from pycsou_tpu_torch.ops.basic import IdentityOperator, NullOperator
 from pycsou_tpu_torch.opt.lasso import ACCELERATIONS, momentum
@@ -163,9 +163,13 @@ class PrimalDualSplitting(IterativeSolver):
                 self.tau, self.sigma = self.set_step_sizes()
             self.rho = float(rho) if rho is not None else self.set_momentum_term()
 
-            self.x0 = torch.zeros(dim_shape, device=dev) if x0 is None else as_tensor(x0, dev)
+            # the starting point; None for the default zeros, which a solve
+            # makes in its engine's layout (on a sharded engine, on each
+            # shard's device), so that no image-sized zeros wait here
+            self._x_shape = dim_shape
+            self.x0 = None if x0 is None else as_tensor(x0, dev)
             if self._has_H:
-                self.z0 = torch.zeros(self.H.dim_shape, device=dev) if z0 is None else as_tensor(z0, dev)
+                self.z0 = None if z0 is None else as_tensor(z0, dev)
             else:
                 self.z0 = torch.zeros((1,), device=dev)
 
@@ -234,14 +238,16 @@ class PrimalDualSplitting(IterativeSolver):
                 return self._fused._scatter(val) if isinstance(tmpl, tuple) else val
 
             state = self._fused.initial_state()
-            state["x"] = seed(state["x"], self.x0)
-            if "z0" in state:
+            if self.x0 is not None:
+                state["x"] = seed(state["x"], self.x0)
+            if self.z0 is not None and "z0" in state:
                 state["z0"] = seed(state["z0"], self.z0[0])
                 state["z1"] = seed(state["z1"], self.z0[1])
-            elif "z" in state and self._has_H:
+            elif self.z0 is not None and "z" in state and self._has_H:
                 state["z"] = seed(state["z"], self.z0)
             return state
-        state = {"x": self.x0, "z": self.z0}
+        state = {"x": torch.zeros(self._x_shape, device=self.device) if self.x0 is None else self.x0,
+                 "z": torch.zeros(self.H.dim_shape, device=self.device) if self.z0 is None else self.z0}
         if self._instats:
             state["_gstats"] = torch.zeros(4, device=self.device)
         return state
@@ -316,13 +322,36 @@ class PrimalDualSplitting(IterativeSolver):
     def postprocess(self, state):
         """The generic contract (``x`` and a stacked ``z``) also when the
         fused engine carried split duals, each sharded entry of a sharded
-        delegate joined on its mesh's first device."""
+        delegate joined on its mesh's first device: ``x`` at once, the
+        others on their first read (an ``Iterand``; an image that fills the
+        cards has no room on the first one for a join of the duals that
+        nobody reads), or at once on a mesh that spans processes."""
         out = super().postprocess(state)
-        if self._fused is not None:
-            out = {k: self._fused._gather(v) if isinstance(v, tuple) else v for k, v in out.items()}
-            if "z0" in out:
-                out["z"] = torch.stack([out.pop("z0"), out.pop("z1")], dim=0)
-        return out
+        if self._fused is None:
+            return out
+        z0 = z1 = None
+        if "z0" in out:
+            z0, z1 = out.pop("z0"), out.pop("z1")
+        joins = {k: (lambda v=v: self._fused._gather(v)) for k, v in out.items() if isinstance(v, tuple)}
+        if isinstance(z0, tuple):
+            joins["z"] = lambda: self._join_duals(z0, z1)
+        elif z0 is not None:
+            out["z"] = torch.stack([z0, z1])
+        if not joins:
+            return out
+        # a join across processes is a collective, which every process makes at once
+        lazy = not self._fused.mesh.spans_processes
+        for k, join in joins.items():
+            out[k] = join() if k == self.primary_var or not lazy else Deferred(join)
+        return Iterand(out) if lazy else out
+
+    def _join_duals(self, z0, z1) -> torch.Tensor:
+        """A sharded delegate's split duals joined into one ``(2, H, W)``
+        tensor on the mesh's first device, each shard copied into its rows."""
+        z = torch.empty((2,) + tuple(self.H.dim_shape[1:]), device=self.device)
+        self._fused._gather(z0, out=z[0])
+        self._fused._gather(z1, out=z[1])
+        return z
 
     # -- sharded solves ------------------------------------------------------
     def with_shardings(self, **shardings):
@@ -379,16 +408,17 @@ class PrimalDualSplitting(IterativeSolver):
                   mask=fused.mask if mask_mode else None)
         args = (tuple(fused.y.shape), None if mask_mode else fused.filt, fused.y, fused.lam)
         try:
-            if spec[0] is not None and spec[1] is None and axes == (spec[0],):
-                from pycsou_tpu_torch.parallel.solvers import DistributedTVDeconv2D
+            with annotate("pds.route"):
+                if spec[0] is not None and spec[1] is None and axes == (spec[0],):
+                    from pycsou_tpu_torch.parallel.solvers import DistributedTVDeconv2D
 
-                dist = DistributedTVDeconv2D(*args, axis_name=spec[0], **kw)
-            elif spec[0] is not None and spec[1] is not None and axes == spec[:2]:
-                from pycsou_tpu_torch.parallel.solvers import Spatial2DTVDeconv2D
+                    dist = DistributedTVDeconv2D(*args, axis_name=spec[0], **kw)
+                elif spec[0] is not None and spec[1] is not None and axes == spec[:2]:
+                    from pycsou_tpu_torch.parallel.solvers import Spatial2DTVDeconv2D
 
-                dist = Spatial2DTVDeconv2D(*args, **kw)
-            else:
-                return decline(f"{sh.spec} does not name the axes {axes} of its mesh")
+                    dist = Spatial2DTVDeconv2D(*args, **kw)
+                else:
+                    return decline(f"{sh.spec} does not name the axes {axes} of its mesh")
         except ValueError as e:  # the constructors' gates (rank, divisibility, halo reach)
             return decline(e)
         return self.replace(_fused=dist, iters_per_step=1)

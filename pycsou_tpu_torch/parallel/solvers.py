@@ -50,7 +50,7 @@ from pycsou_tpu_torch.kernels.conv2d import MAX_TAPS, SepFactors, sepconv2d
 from pycsou_tpu_torch.kernels.tv import tv_pds_mega2_shard_step, tv_pds_sweep_shard_step
 from pycsou_tpu_torch.kernels.tvr import HALO_COLS, tv_pds_megar_shard2d_step, tv_pds_megar_shard_step
 from pycsou_tpu_torch.ops._gram import conv_full_direct
-from pycsou_tpu_torch.ops.conv import Convolve2D, lowrank_factors
+from pycsou_tpu_torch.ops.conv import Convolve2D, fft_norm_bound, lowrank_factors
 from pycsou_tpu_torch.opt.tv import rank1_gate
 from pycsou_tpu_torch.parallel.mesh import Mesh, each, fold, gather_positions, make_mesh, make_mesh_2d
 from pycsou_tpu_torch.parallel.spatial import (
@@ -74,6 +74,7 @@ from pycsou_tpu_torch.parallel.spatial import (
     sharded_sepgram_rank1_2d,
 )
 from pycsou_tpu_torch.utils.device import Remote, as_tensor
+from pycsou_tpu_torch.utils.profiling import annotate
 from pycsou_tpu_torch.utils.shapes import as_shape
 
 __all__ = ["DistributedTVDeconv2D", "BatchedDistributedTVDeconv2D", "Spatial2DTVDeconv2D"]
@@ -162,12 +163,13 @@ def _tau(beta: float, tau) -> float:
     return (1.0 / L_K**2) * (-beta / 4 + math.sqrt(beta**2 / 16 + L_K**2))
 
 
-def _fft_beta(filt_np: np.ndarray, H: int, W: int) -> float:
-    """``2 ||A||^2`` from the FFT padded to ``(H + m0 - 1, W + m1 - 1)``,
-    the reference's closed form."""
+def _fft_beta(filt_np: np.ndarray, H: int, W: int, device=None) -> float:
+    """``2 ||A||^2`` with ``||A||`` the reference's bound ``max |DFT(h)|`` on
+    the grid ``(H + m0 - 1, W + m1 - 1)``, by ``ops.conv.fft_norm_bound``
+    (no host transform of the image's size; the full one, where the PSF
+    needs it, on ``device``)."""
     m0, m1 = filt_np.shape
-    Hf = np.fft.fftn(filt_np.astype(np.float64), s=(H + m0 - 1, W + m1 - 1), axes=(0, 1))
-    return 2.0 * float(np.max(np.abs(Hf))) ** 2
+    return 2.0 * fft_norm_bound(filt_np, (H + m0 - 1, W + m1 - 1), device) ** 2
 
 
 class _BlockedTV(IterativeSolver):
@@ -176,6 +178,15 @@ class _BlockedTV(IterativeSolver):
     from the shards' sums, the iterand joined on the first mesh device
     (each solver's ``_scatter`` and ``_gather``) and the TV term of the
     objective."""
+
+    _sp_engine = ""  # the fused shard engine, "" on the chain
+
+    @property
+    def stencil_mode(self) -> str:
+        """The engine a step runs (``_sp_engine``: ``"megasp"``,
+        ``"megarsp"``, ``"sweepsp"``, ``"megar2d"``; ``""`` on the chain),
+        as ``TVDeconvolution.stencil_mode`` names its own."""
+        return self._sp_engine
 
     @staticmethod
     def _check_use_pallas(use_pallas, on_cuda: bool) -> bool:
@@ -378,7 +389,7 @@ class DistributedTVDeconv2D(_BlockedTV):
                     f"local block of {h} rows is too short for a {m0}-row kernel: need at least "
                     f"{min_rows} rows per device (H={H} over {n} devices; use fewer devices or a taller image)"
                 )
-            self.beta = _fft_beta(filt_np, H, W)
+            self.beta = _fft_beta(filt_np, H, W, dev0)
             self.filt = as_tensor(filt_np, dev0)
             self._setup_chain(filt_np)
             if fused:
@@ -397,15 +408,10 @@ class DistributedTVDeconv2D(_BlockedTV):
     # -- construction ------------------------------------------------------
     def _setup_chain(self, filt_np: np.ndarray) -> None:
         """The data gradient's routes (the reference's ``_use_band`` and
-        ``_use_gram``) and their transfers and band plans, one copy a
-        device."""
+        ``_use_gram``) and their band plans; the FFT transfers wait for
+        their first use (:meth:`_transfers`)."""
         (H, W), h, (m0, m1) = self.shape, self.h_loc, filt_np.shape
-        devs = _local_devices(self.mesh)
-        f = torch.flip(self.filt, (0, 1))
-        self._h_hat_fwd = _on_each(conv_transfer(self.filt, (h + m0 - 1, W)), devs)
-        self._h_hat_adj = _on_each(conv_transfer(f, (h + m0 - 1, W)), devs)
-        acorr = conv_full_direct(self.filt, f)
-        self._acorr_hat = _on_each(conv_transfer(acorr, (h + 2 * (m0 - 1), W)), devs)
+        self._hats = None
         self._use_gram = h >= m0  # the Gram's frame strips need a block >= the kernel
         fac = lowrank_factors(filt_np)
         self._use_band = (fac is not None and fac[0].shape[1] == 1 and H >= 3 * m0 and W >= 3 * m1
@@ -418,12 +424,43 @@ class DistributedTVDeconv2D(_BlockedTV):
 
             self._band_rows, self._band_cols = plan(fac[0][:, 0], H), plan(fac[1][:, 0], W)
 
+    def _transfers(self) -> tuple:
+        """The chain's FFT transfers, one copy a device, made on the first
+        use by the chain, the overlap-save adjoint or :meth:`objective`
+        (megasp and megarsp read none): the forward and the adjoint
+        kernel's for blocks of ``(h_loc + m0 - 1, W)``, the
+        autocorrelation's for ``(h_loc + 2 (m0 - 1), W)``."""
+        if self._hats is None:
+            (m0, _), h, W = self.filt.shape, self.h_loc, self.shape[1]
+            devs = _local_devices(self.mesh)
+            f = torch.flip(self.filt, (0, 1))
+            acorr = conv_full_direct(self.filt, f)
+            self._hats = (_on_each(conv_transfer(self.filt, (h + m0 - 1, W)), devs),
+                          _on_each(conv_transfer(f, (h + m0 - 1, W)), devs),
+                          _on_each(conv_transfer(acorr, (h + 2 * (m0 - 1), W)), devs))
+        return self._hats
+
+    @property
+    def _h_hat_fwd(self) -> dict:
+        return self._transfers()[0]
+
+    @property
+    def _h_hat_adj(self) -> dict:
+        return self._transfers()[1]
+
+    @property
+    def _acorr_hat(self) -> dict:
+        return self._transfers()[2]
+
     def _conv_engine(self, filt_np: np.ndarray) -> str:
         """megasp, else megarsp, by the reference's mathematical gates, for a
-        band PSF; else sweepsp over the sharded Gram."""
+        band PSF; else sweepsp over the sharded Gram.  Each device's
+        ``Convolve2D`` takes the solver's norm bound, so that no device
+        computes one of its own."""
         h, m0 = self.h_loc, filt_np.shape[0]
         dev0 = self.mesh.local_device
-        convs = {d: Convolve2D(self.shape, filt_np, device=d) for d in _local_devices(self.mesh)}
+        norm = math.sqrt(self.beta / 2.0)
+        convs = {d: Convolve2D(self.shape, filt_np, device=d, lipschitz=norm) for d in _local_devices(self.mesh)}
         if convs[dev0].method != "band":
             return "sweepsp"
         # the Gram on each device: its rank-1 plan (K14) and factor taps (K1, K15)
@@ -441,11 +478,20 @@ class DistributedTVDeconv2D(_BlockedTV):
         h = self.h_loc
         return _positions(self.mesh, lambda i, d: a[..., i * h : (i + 1) * h, :].to(d).contiguous())
 
-    def _gather(self, shards) -> torch.Tensor:
-        """The shards joined along their rows on the first local mesh
-        device (the other processes' gathered first)."""
-        dev0 = self.mesh.local_device
-        return torch.cat([s.to(dev0) for s in gather_positions(shards)], dim=-2)
+    def _gather(self, shards, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The shards joined along their rows on the first local mesh device
+        (the other processes' gathered first), into ``out`` where given:
+        each shard is copied into its rows, so the join holds the image
+        once (span ``sp.gather``)."""
+        with annotate("sp.gather"):
+            parts = gather_positions(shards)
+            if out is None:
+                lead, w = tuple(parts[0].shape[:-2]), parts[0].shape[-1]
+                out = torch.empty(lead + (self.shape[0], w), dtype=parts[0].dtype, device=self.mesh.local_device)
+            h = self.h_loc
+            for i, s in enumerate(parts):
+                out[..., i * h : (i + 1) * h, :].copy_(s)
+            return out
 
     # -- IterativeSolver protocol -----------------------------------------
     def initial_state(self):
@@ -494,11 +540,15 @@ class DistributedTVDeconv2D(_BlockedTV):
         outs = []
         if engine == "sweepsp":
             g = tuple(self._data_grad(x, self.atb, self.y))
-            for i, hl in enumerate(halos((x, g, z0, z1), R)):
+            with annotate("sp.halo"):
+                hls = halos((x, g, z0, z1), R)
+            for i, hl in enumerate(hls):
                 outs.append(hl if isinstance(hl, Remote) else
                             tv_pds_sweep_shard_step(x[i], g[i], z0[i], z1[i], hl, i * h - R, **kw))
         else:
-            for i, (hl, d) in enumerate(zip(halos((x, z0, z1), R), self.devices)):
+            with annotate("sp.halo"):
+                hls = halos((x, z0, z1), R)
+            for i, (hl, d) in enumerate(zip(hls, self.devices)):
                 if isinstance(hl, Remote):
                     outs.append(hl)
                     continue
@@ -509,7 +559,9 @@ class DistributedTVDeconv2D(_BlockedTV):
                     o = tv_pds_megar_shard_step(x[i], z0[i], z1[i], a, hl, gram.fwd, gram.adj2, i * h - R,
                                                 **kw)
                 outs.append(o)
-        return {"x": _field(outs, 0), "z0": _field(outs, 1), "z1": _field(outs, 2), "_stats": fold(_field(outs, 3))}
+        with annotate("sp.fold"):
+            stats = fold(_field(outs, 3))
+        return {"x": _field(outs, 0), "z0": _field(outs, 1), "z1": _field(outs, 2), "_stats": stats}
 
     # -- the reference's attribute API -------------------------------------
     @property
@@ -808,7 +860,7 @@ class Spatial2DTVDeconv2D(_BlockedTV):
                 f"local blocks {h_loc}x{w_loc} too small for a {m0}x{m1} kernel: "
                 f"need >= {need_r} rows and >= {need_c} cols per device"
             )
-        self.beta = _fft_beta(filt_np, H, W)
+        self.beta = _fft_beta(filt_np, H, W, dev0)
         self.tau = self.sigma = _tau(self.beta, tau)
         # megar2d: the block kernels' taps and halos
         if (fused and max(m0, m1) <= MAX_TAPS and h_loc >= _HALO["megarsp"]
@@ -869,12 +921,13 @@ class Spatial2DTVDeconv2D(_BlockedTV):
         h, w = self.h_loc, self.w_loc
         return self._grid(lambda i, j, d: a[..., i * h : (i + 1) * h, j * w : (j + 1) * w].to(d).contiguous())
 
-    def _gather(self, grid) -> torch.Tensor:
+    def _gather(self, grid, out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The blocks joined on the first local mesh device (the other
-        processes' gathered first)."""
+        processes' gathered first), into ``out`` where given."""
         dev0, n1 = self.mesh.local_device, self.mesh.shape[1]
         flat = [b.to(dev0) for b in gather_positions(_flat(grid))]
-        return torch.cat([torch.cat(flat[i : i + n1], dim=-1) for i in range(0, len(flat), n1)], dim=-2)
+        rows = [torch.cat(flat[i : i + n1], dim=-1) for i in range(0, len(flat), n1)]
+        return torch.cat(rows, dim=-2) if out is None else torch.cat(rows, dim=-2, out=out)
 
     def _sum_ranks(self, fn, grid, which: int):
         """``fn(grid, rows_plan, cols_plan)`` summed over the ranks, with the

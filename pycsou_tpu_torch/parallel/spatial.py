@@ -7,8 +7,9 @@ each on its mesh position's device.  Where the reference's ``ppermute``
 sends rows to the neighbouring device, here each block receives them:
 a neighbour's rows on the same device are a view of its block (a row slice
 of a contiguous block is contiguous), on another device of this process a
-copy (``.to(device, non_blocking=True)``; right on a card of several GPUs,
-not measured).  On a mesh that spans processes a sequence has one entry a
+copy (``.to(device, non_blocking=True)``; under a profiler the counter
+``sp.halo_bytes`` adds up the bytes copied between two cards or sent to
+another process).  On a mesh that spans processes a sequence has one entry a
 position, a :class:`~pycsou_tpu_torch.utils.device.Remote` where another
 process holds the block (``Mesh.place``): a neighbour in another process
 sends its rows, and each exchange posts every halo that crosses a process
@@ -59,6 +60,7 @@ from pycsou_tpu_torch.ops.conv import next_fast_len
 from pycsou_tpu_torch.ops.diff import fdiff_forward, fdiff_forward_adjoint
 from pycsou_tpu_torch.parallel.mesh import Mesh, _rank, each, fold, psum, transfer
 from pycsou_tpu_torch.utils.device import Remote, full_f32
+from pycsou_tpu_torch.utils.profiling import count
 
 __all__ = [
     "halo_from_prev",
@@ -130,18 +132,26 @@ def _fetch(requests) -> list:
     process boundary goes in one batch."""
     me = _rank()
     out, msgs, slots = [], [], []
+    moved = 0
     for tag, (src, take, dst) in enumerate(requests):
         if isinstance(dst, Remote):
             out.append(dst)
             if not isinstance(src, Remote):
-                msgs.append((tag, me, dst.rank, take(src), None))
+                piece = take(src)
+                moved += piece.numel() * piece.element_size()
+                msgs.append((tag, me, dst.rank, piece, None))
         elif isinstance(src, Remote):
             # the piece has the shape of the same piece of the receiving block
             slots.append(len(out))
             out.append(None)
             msgs.append((tag, src.rank, me, None, take(dst)))
         else:
-            out.append(_on(take(src), dst.device))
+            piece = take(src)
+            if piece.device != dst.device:
+                moved += piece.numel() * piece.element_size()
+            out.append(_on(piece, dst.device))
+    if moved:
+        count("sp.halo_bytes", moved)
     if msgs:
         got = [g for g in transfer(msgs) if g is not None]
         for k, g in zip(slots, got):

@@ -24,11 +24,18 @@ the profiler's state and records nothing.  The program's spans:
   histories read, ``postprocess``);
 * ``pds.init`` (``PrimalDualSplitting(...)``), holding ``pds.match`` (the
   expression matched onto a fused engine, which the match builds);
-* ``conv.lipschitz`` (the FFT bound on a convolution's norm).
+  ``pds.route`` (``PDS.with_shardings``: the sharded solver's constructor);
+* ``conv.lipschitz`` (the FFT bound on a convolution's norm);
+* in a step of ``parallel.DistributedTVDeconv2D``'s shard engines,
+  ``sp.halo`` (the neighbours' halo rows fetched) and ``sp.fold`` (the
+  shards' partial sums added on the first device); ``sp.gather`` (its
+  shards joined on the first device).
 
 The counter ``solve.host_reads`` counts the reads of ``solve()`` that wait
-for the device, and ``pds.conv_reused`` the fused engines that took the
-user's ``Convolve2D`` as it is (``ops/conv.py`` ``engine_conv``).
+for the device, ``pds.conv_reused`` the fused engines that took the user's
+``Convolve2D`` as it is (``ops/conv.py`` ``engine_conv``), and
+``sp.halo_bytes`` the bytes the halo exchanges copy between cards
+(``parallel/spatial.py``).
 :func:`records`, :func:`counters` and :func:`reset` read and clear what was
 kept.
 """

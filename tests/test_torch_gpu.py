@@ -1552,8 +1552,9 @@ def test_stacked_pds_and_group_lasso_on_the_card(cuda, rng):
     """Poisson-TV deblurring (``PDS`` with ``K = LinOpVStack([band
     Convolve2D, Gradient])`` and ``H = ProxFuncHStack([KLDivergence,
     L21Norm])``): K1 twice an iteration and nothing else; the group LASSO
-    (``APGD`` with ``L21Norm(groups=)``): K2 once an iteration; each within
-    1e-4 of the CPU after 10 iterations."""
+    (``APGD`` with ``L21Norm(groups=)``): K2 once an iteration, and K1 once
+    for ``A^H y`` at its first gradient; each within 1e-4 of the CPU after
+    10 iterations."""
     from pycsou_tpu_torch.func import KLDivergence, L21Norm, ProxFuncHStack
     from pycsou_tpu_torch.ops import LinOpVStack
 
@@ -1572,7 +1573,7 @@ def test_stacked_pds_and_group_lasso_on_the_card(cuda, rng):
                     G=0.01 * L21Norm(S, groups=tiles, device=d))
 
     kernels = [sepconv2d, sepgram2d, lasso_fista_step, tv_pds_megar_step, tv_pds_sweep_step_stats]
-    for build, want, keys in ((pds, {0: 20}, ("x", "z")), (lasso, {1: 10}, ("x", "x_temp"))):
+    for build, want, keys in ((pds, {0: 20}, ("x", "z")), (lasso, {0: 1, 1: 10}, ("x", "x_temp"))):
         solver = build(cuda)
         assert solver._fused is None
         before = [k.launches for k in kernels]
@@ -1925,3 +1926,82 @@ def test_program_spans_on_the_card(cuda, rng):
         per_call.append((time.perf_counter_ns() - t0) / 1000)
     assert statistics.median(per_call) <= 500, statistics.median(per_call)
     assert profiling.records() == []
+
+
+# -- several cards in one process: a mesh over cuda:0..3 -------------------------------
+
+
+@pytest.fixture
+def four_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        pytest.skip(f"needs four CUDA cards in one process ({n} visible)")
+    return [torch.device("cuda", i) for i in range(4)]
+
+
+def test_routed_solve_over_four_cards_is_the_one_card_mesh(four_cards):
+    """``PDS(...).with_shardings`` at 8192² on a mesh over cuda:0..3 (megasp,
+    K14 on each card, halos copied between cards, the partial sums folded
+    in mesh order on cuda:0) against the same four positions on cuda:0: x,
+    the duals, the metric history and ``converged_at`` bit for bit; each
+    step's exchange copies 18 halo blocks of 16 rows between cards."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pycsou_tpu_torch.parallel import NamedSharding, PartitionSpec
+    from pycsou_tpu_torch.utils import profiling
+
+    S = (8192, 8192)
+    dev0 = four_cards[0]
+    g = torch.Generator(device=dev0).manual_seed(26)
+    y = torch.randn(S, generator=g, device=dev0).abs_()
+    A = Convolve2D(S, _gauss(), device=dev0)
+    y = A(y) + 0.01 * torch.randn(S, generator=g, device=dev0)
+
+    def routed(devices):
+        p = PDS(S, F=SquaredL2Loss(S, data=y) * A, G=NonNegativeOrthant(S), H=0.05 * L21Norm((2,) + S, axis=0),
+                K=Gradient(S), max_iter=400, min_iter=50, accuracy_threshold=1e-4)
+        r = p.with_shardings(x=NamedSharding(make_mesh((4,), ("sp",), devices=devices), PartitionSpec("sp", None)))
+        assert isinstance(r._fused, DistributedTVDeconv2D) and r._fused.stencil_mode == "megasp"
+        return r
+
+    spread, one = routed(four_cards), routed([dev0] * 4)
+    a, b = spread.solve(), one.solve()
+    assert a.converged_at is not None and a.converged_at == b.converged_at and a.n_iter == b.n_iter
+    assert np.array_equal(a.history, b.history)
+    assert a["x"].device == dev0 and torch.equal(a["x"], b["x"]) and torch.equal(a["z"], b["z"])
+    assert torch.cuda.current_device() == 0
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        spread.run_fixed(2)
+        torch.cuda.synchronize()
+    counts = profiling.counters()
+    profiling.reset()
+    assert counts.get("sp.halo_bytes") == 2 * 18 * 16 * S[1] * 4
+
+
+# one case of each launcher's card test (K1-K18, stats_fold), run on cuda:1 while cuda:0 is current
+_ANOTHER_CARD = [
+    ("test_kernels_match_plain", ((100, 130), 2, 15, 15)),
+    ("test_masked_kernels_match_plain", ((100, 130), True, True)),
+    ("test_sweepm2_tiles_match_plain", (97, 131, True, True)),
+    ("test_megarm_matches_plain", ((100, 130), 2, 9, 7)),
+    ("test_fista_kernel_matches_plain", ((100, 130), 2, 9, 7)),
+    ("test_pmyula_kernel_matches_plain", ((100, 130), 2, 9, 7)),
+    ("test_rank1_kernels_match_plain", ((100, 130), 15, 15, True, True)),
+    ("test_mega3_walker_matches_plain", ((65, 65), 15, 15, True, True)),
+    ("test_shard_kernels_match_plain", (4, (128, 130), 15, 15)),
+    ("test_block_kernel_matches_plain", ((96, 132), (2, 2), 2, 9, 4)),
+    ("test_sepgram_apply_matches_plain_and_k2", ((100, 130), 2, 7, 7)),
+]
+
+
+@pytest.mark.parametrize("name,args", _ANOTHER_CARD, ids=[n for n, _ in _ANOTHER_CARD])
+def test_launchers_run_on_a_card_that_is_not_current(four_cards, name, args):
+    """Each launcher's card test with every tensor on cuda:1 while cuda:0
+    is the current card: the launch, its shared-memory opt-in and its SM
+    count act on the tensors' card (``kernels/_build.py`` ``launch``), and
+    the current card is cuda:0 again after it."""
+    torch.cuda.set_device(0)
+    globals()[name](four_cards[1], np.random.default_rng(17), *args)
+    torch.cuda.synchronize(four_cards[1])
+    assert torch.cuda.current_device() == 0
