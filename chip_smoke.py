@@ -266,14 +266,15 @@
 checkout at OLD_ROOT and for this one in turns (old, new, new, old), each
 run a process of its own on the same card: the callers of the shared Gram
 (``csrc/sepconv.cuh``: K1, K2, K18, K4, K7, K8, K9, K15, K17) on both
-PSFs, K10 on the Gaussian and the identity PSF, K11 on both, K12 on the
+PSFs, K10 on the Gaussian and the identity PSF, K11 on both, K10 beside
+two K11 launches and its bound at 4096 x 4096 and 2048 x 2048, K12 on the
 Gaussian PSF, K3 as a control, the 1-D shard kernels K14 and K16 on a
 middle shard, K6 with the keep mask and K5 as its control, the rates of
 the paths they carry (the main path on mega3, mega2, mega and megar by
 name, small denoising at 1024 x 1024, the sharded megasp, megarsp and
 sweepsp paths, inpainting and ``PDS`` denoising on K6 among them) and the
-main path's time to 1e-6.  ``--gram-times ROOT
-[--kernels-only]`` is one such run.
+main path's time to 1e-6; ``--kernels-only`` after OLD_ROOT times the
+kernels alone.  ``--gram-times ROOT [--kernels-only]`` is one such run.
 
 Any failure exits non-zero.  On success the last two lines are a JSON
 object with the per-kernel results and the device line
@@ -4090,7 +4091,8 @@ def gram_times(root, kernels_only=False):
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     _build.library()
-    out = {"root": str(root), "build_s": time.perf_counter() - t0, "ms": {}, "iters_per_s": {}, "idle": {}}
+    out = {"root": str(root), "build_s": time.perf_counter() - t0, "ms": {}, "bound_ms": {}, "iters_per_s": {},
+           "idle": {}}
     ms = out["ms"]
     rng = np.random.default_rng(SEED)
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa: E731
@@ -4139,6 +4141,22 @@ def gram_times(root, kernels_only=False):
         gram = Convolve2D(SHAPE, h, device=dev).gram
         ms[f"K10 {psf}"] = median_ms(lambda: tv_pds_mega3_step(x, z0, z1, atb, gram, **kw))
         ms[f"K11 {psf}"] = median_ms(lambda: tv_pds_mega2_step(x, z0, z1, atb, gram, **kw))
+    # K10 (two iterations) beside two K11 launches on the same inputs and
+    # beside its bound (7 image streams), at 4096^2 and 2048^2 (the frames
+    # cell's size) on the Gaussian PSF
+    for n in (SHAPE[0], 2048):
+        xs, zs0, zs1, atbs = (a[:n, :n].contiguous() for a in (x, z0, z1, atb))
+        gram = Convolve2D((n, n), gauss, device=dev).gram
+
+        def two_k11():
+            s = tv_pds_mega2_step(xs, zs0, zs1, atbs, gram, **kw)
+            return tv_pds_mega2_step(*s[:3], atbs, gram, **kw)
+
+        if n != SHAPE[0]:
+            ms[f"K10 gauss {n}^2"] = median_ms(lambda: tv_pds_mega3_step(xs, zs0, zs1, atbs, gram, **kw))
+        ms[f"two K11 gauss {n}^2"] = median_ms(two_k11)
+        out["bound_ms"][f"K10 {n}^2"] = bound(7, 0, (n, n))[0]
+        del xs, zs0, zs1, atbs, gram
     zs = torch.stack([z0, z1])
     zs[0, -1] = 0.0
     zs[1, :, -1] = 0.0
@@ -4246,12 +4264,12 @@ def gram_times(root, kernels_only=False):
     return 0
 
 
-def gram_ab(parent):
-    """``--gram-ab PARENT_ROOT``: gram_times of the parent's checkout and of
-    this one in turns, parent, change, change, parent, each in a process of
-    its own on the same card; prints each metric's four values and the ratio
-    of the change's mean to the parent's, then the whole record as one JSON
-    line."""
+def gram_ab(parent, kernels_only=False):
+    """``--gram-ab PARENT_ROOT [--kernels-only]``: gram_times of the parent's
+    checkout and of this one in turns, parent, change, change, parent, each
+    in a process of its own on the same card; prints each metric's four
+    values and the ratio of the change's mean to the parent's, then the
+    whole record as one JSON line."""
     from pathlib import Path
 
     if not torch.cuda.is_available():
@@ -4263,8 +4281,8 @@ def gram_ab(parent):
     log(smi)
     runs = []
     for label, root in (("parent", parent), ("change", here), ("change", here), ("parent", parent)):
-        p = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--gram-times", str(root)], cwd=root,
-                           capture_output=True, text=True, timeout=900)
+        p = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--gram-times", str(root)]
+                           + ["--kernels-only"] * kernels_only, cwd=root, capture_output=True, text=True, timeout=900)
         if p.returncode != 0:
             print(p.stdout[-4000:], p.stderr[-8000:], file=sys.stderr)
             raise RuntimeError(f"--gram-times {root} exited {p.returncode}")
@@ -4273,7 +4291,7 @@ def gram_ab(parent):
     table = {}
     for _, r in runs:
         r["time_to_1e6"] = {"main path (mega3)": r.get("time_to_1e6_s")}
-    for group in ("ms", "host_ms", "iters_per_s", "idle", "time_to_1e6"):
+    for group in ("ms", "bound_ms", "host_ms", "iters_per_s", "idle", "time_to_1e6"):
         for key in runs[0][1][group]:
             vals = [r[group][key] for _, r in runs]
             par, chg = [v for (lb, _), v in zip(runs, vals) if lb == "parent"], \
@@ -4300,6 +4318,6 @@ if __name__ == "__main__":
         sys.exit(phase16_worker(sys.argv[2], int(sys.argv[3]), sys.argv[4]))
     if len(sys.argv) in (3, 4) and sys.argv[1] == "--gram-times":
         sys.exit(gram_times(sys.argv[2], kernels_only=sys.argv[3:] == ["--kernels-only"]))
-    if len(sys.argv) == 3 and sys.argv[1] == "--gram-ab":
-        sys.exit(gram_ab(sys.argv[2]))
+    if len(sys.argv) in (3, 4) and sys.argv[1] == "--gram-ab":
+        sys.exit(gram_ab(sys.argv[2], kernels_only=sys.argv[3:] == ["--kernels-only"]))
     sys.exit(main())

@@ -62,35 +62,64 @@
 //
 // K10 walks instead of tiling, as the TPU kernel does (its grid walks
 // full-width row tiles with rings of rows in VMEM, tv.py:1604-1631).  A
-// block owns a strip of kStrip = 64 output columns (the last shifted back
+// block owns a strip of kStrip = 63 output columns (the last shifted back
 // to end on the image's edge) and a segment of rows (a multiple of the
-// step, cut so that the grid fills two blocks an SM about once), and walks
-// down it in steps of S = 16 rows.  Step k, with g = g0 + k S:
-//   1. stage 1: V = RowGram(x) on rows [g, g + S) down a ring of x rows,
-//      G1 = ColGram(V) on the strip grown by A + 1 columns each side, A =
-//      max(R, 1) (stage 2 reads the duals one column out of its strip);
-//      the Gram's passes in the other order than K11's (the same operator,
-//      other rounding); G1 kept with the row above from the last step; then
-//      iteration 1 on rows [g - 1, g + S - 1) into a ring of x1 rows (0
-//      outside the image's columns: the zero boundary of the second Gram)
-//      and, on the strip grown by 1, rings of its duals;
-//   2. stage 2, D = R + 1 rows behind: the same on the x1 ring for rows
-//      [h, h + S), h = g - D, then iteration 2 on the block's own pixels
-//      of rows [h - 1, h + S - 1), with the partial sums.
-// After stage 1 the next step's x rows and stage 1's z0, z1, atb rows, and
-// stage 2's atb rows, come in by cp.async while stage 2 runs, so no
-// stencil reads device memory.  Each stencil runs in two passes: x_t once
-// a pixel (into V, free by then), then x' and the duals from it
-// (pds_update), where pds_stencil would compute each x_t three times.
-// The segment's first steps run stage 1
-// alone (the fill); only the strip's sides (A + 1 columns of stage 1, A +
-// R + 1 of x) and the segment's ends are computed twice.  Rows outside [0, H)
-// are never stored in a ring and read as 0, so once the walk passes the
-// image's last row a ring keeps the last rows the bottom edge corrections
-// read; segments start on a multiple of S >= R + 1, so the step that
-// computes the first K - 1 rows already holds the rows [0, L) the top
-// corrections read.  At R = 15: 107 KB of shared memory, two blocks of 256
-// threads an SM.
+// step, cut so that the grid fills the SMs, one block each, about once: 66
+// strips x 2 segments at 4096^2, 33 x 4 at 2048^2), and walks down it in
+// steps of S = 16 rows.  Each iteration's Gram is a row pass (H: the
+// column taps along a row) into a ring, then a column pass (V) down the
+// ring, K11's order.  Step k, g = g0 + k S, h = g - S:
+//   stage 1: H1 on x rows [g + R, g + S + R) into the Cx ring; V1, Cx into
+//      G1 on rows [g, g + S), each item going on to x_t1 there; U1, the
+//      update on rows [g - 1, g + S - 1) into a ring of x1 rows (0 outside
+//      the image: the zero boundary of the second Gram) and, on the strip
+//      grown by one column, rings of its duals; all on the strip grown by
+//      A = max(R, 1) columns each side (stage 2's Gram reads x1 R out);
+//   stage 2: the same on x1 for rows [h, h + S), then iteration 2 on the
+//      block's own pixels of rows [h - 1, h + S - 1), with the partial sums.
+// What bounds it.  A step of a 63-column strip is ~11.5k warp instructions
+// (two Grams of 31 taps a direction on 94 and 64 columns, 4 FFMA a
+// dispatch slot; two x_t passes and two updates), ~3k cycles of the SM's
+// four schedulers; its 7 streams take 0.14 ms at 4096^2.  A walker of one
+// stage at a time took 1.31 ms on an H100: one block of 8 warps ran the
+// two stages' seven phases in turn, each closed by a block barrier, so the
+// phases added up (copies 0.26 ms, band passes 0.40, stencils 0.38); its
+// edge corrections ran a dependent loop of __ldg a pixel, and its code
+// outgrew the instruction cache.  Now a block of 512 threads, one an SM,
+// is two groups of 8 warps, one a stage, side by side: while stage 1 makes
+// step k + 1, stage 2 makes step k and brings in stage 1's rows of step k
+// + 2 (an mbarrier a buffer tells stage 1 they are in): a row inside the
+// image on a 16-byte address as one bulk copy by the copy engine, any
+// other by 16- or 4-byte cp.async, which stall the warps that start them
+// while every SM loads at once.  Each group closes its phases with its own
+// named barrier (bar.sync id, 256); stage 1 hands stage 2 each step's x1
+// and dual rows (bar.arrive on a "full" barrier, which stage 2 waits on),
+// and stage 2 hands back the ring rows it is done with ("empty"), so stage
+// 1 runs at most one step ahead (the x1 and dual rings hold 64 rows).  The
+// H passes take a row and 9 or 11 outputs an item from a register window
+// (a warp: 8 rows x 4 items on rows of 4 x odd floats, or 16 x 2 on 2 x
+// odd: no bank conflicts); the V passes a column and 8 rows, their window
+// of 8 + 2R rows read with no index arithmetic (windows start on ring
+// slots 8 m, and the first 2R slots of Cx and C1 are kept again past slot
+// 63); the stencils run on 2-D thread maps, a column and 8 (4) rows a
+// thread, every input read into registers before any store.  The edge
+// corrections read E from shared memory, spread over the threads (columns,
+// after the H pass) or in the V item that owns the row.  Rows and columns
+// outside the image are loaded as 0, as are z0's last row and z1's last
+// column (the dual's invariant), so the stencils test no mask but the last
+// row and column's gradient.  The segment's first two steps run stage 1
+// alone (the fill); only the strip's sides (A columns of stage 1, A + R of
+// x) and the segment's ends are computed twice.  Cx and C1 keep the rows
+// [0, L) and [H - L, H) the edge corrections read: stage 1's first step
+// starts on a multiple of S, 16 rows above stage 2's (itself the segment's
+// first row, or earlier where the segment ends less than R rows below it),
+// and rows past the image's last are written as 0 in order.  At R = 15:
+// 223 KB of shared memory, one block of 512 threads an SM.  On an H100 at
+// 4096^2 a launch takes 0.95 ms, one wave of 132 blocks whose length the 4
+// blocks of the two edge strips set (their column corrections: an inner
+// strip's block ends ~25% sooner); within a step the two groups share the
+// SM's dispatch slots, and starting the row copies still holds stage 2 for
+// about a third of its cycles.
 //
 // K14 is K11 on a row shard, staged.  Read through sepconv.cuh's Shard, as
 // K11's code, its window load and its stencil picked the row's block on
@@ -126,9 +155,10 @@
 namespace pct {
 
 constexpr int kMaxReach = 15;     // padded reach R <= 15 (taps per axis <= 16)
-constexpr int kStrip = 64;       // K10: output columns of a block's strip
-constexpr int kMega3Step = 16;   // K10: rows a step of the walk
-constexpr int kMega3Threads = 256;
+constexpr int kStrip = 63;          // K10: output columns of a block's strip
+constexpr int kMega3Step = 16;      // K10: rows a step of the walk
+constexpr int kMega3Group = 256;    // K10: threads of each of its two groups
+constexpr int kMega3Threads = 2 * kMega3Group;
 
 // Autocorrelation taps centred at R: ar[R + d] = 2 acorr_rows[K_r - 1 + d]
 // (the gradient's 2x folded in), ac[R + d] = acorr_cols[K_c - 1 + d].
@@ -508,311 +538,590 @@ tv_mega2_shard_kernel(PCT_IMAGE(x), PCT_IMAGE(z0), PCT_IMAGE(z1), PCT_IMAGE(atb)
 
 // -- K10: two iterations ------------------------------------------------
 
-// The strip walker's geometry for padded reach R (the design is in the
-// comment at the top of this file).  Columns are relative to the strip's
-// first output column c0, rows are global.
+__host__ __device__ constexpr int m3_round4(int n) { return (n + 3) / 4 * 4; }
+// Row strides: 2 x odd floats, at least n (an H pass warp of 16 rows x 2
+// items of an odd number of columns then meets 32 distinct banks), or 4 x
+// odd (8 rows x 4 items, on 16-byte rows).
+__host__ __device__ constexpr int m3_stride2(int n) { return (n + 1) / 4 * 4 + 2; }
+__host__ __device__ constexpr int m3_stride4(int n) { return ((n + 3) / 4 | 1) * 4; }
+
+// The pipelined strip walker's geometry for padded reach R (the design is
+// in the comment at the top of this file).  Rows are global; each ring or
+// buffer starts on the image column named beside it, those loaded from
+// device memory on a multiple of 4 at or left of it (16-byte copies).
 template <int R>
 struct Mega3Geom {
-  static constexpr int S = kMega3Step;       // rows a step
-  static constexpr int D = R + 1;            // lag: stage 1 behind x, stage 2 behind stage 1
-  static constexpr int Rx = R > 1 ? R : 1;   // x rows kept above a step's first gradient row
-  static constexpr int R2 = R > 2 ? R : 2;   // x1 rows kept above stage 2's first gradient row
-  // stage 1 grows the strip by A columns each side: R for stage 2's Gram,
-  // and at least 1 for the duals stage 2 reads one column out (R = 0)
-  static constexpr int A = R > 1 ? R : 1;
-  static constexpr int N1 = kStrip + 2 * A + 1;  // x1: columns [-A, Cw + A]
-  static constexpr int NG = N1 + 1;          // G1: columns [-A, Cw + A + 1]
-  static constexpr int NXc = NG + 2 * R;     // x: columns [-A - R, Cw + A + R + 1]
-  static constexpr int NZc = kStrip + 2;     // stage-1 duals: columns [-1, Cw]
-  static constexpr int N2 = kStrip + 1;      // G2 and stage 2's atb: columns [0, Cw]
-  static constexpr int NI = N1 + 2;          // stage 1's z0, z1, atb: columns [-A - 1, Cw + A + 1]
-  static constexpr int NX = S + R + Rx;      // rows of the x ring
-  static constexpr int NX1 = S + R + R2;     // rows of the x1 ring
-  static constexpr int NZ = S + R + 2;       // rows of the stage-1 dual rings
-  static constexpr int sX = NXc | 1, sG = NG | 1, s1 = N1 | 1, sZ = NZc | 1, s2 = N2 | 1, sI = NI | 1;
-  static constexpr int K2 = (D + R2 + S - 1) / S;  // stage-1 steps before stage 2's first (at least)
-  // [x ring | V | G1 | x1 ring | z0_1 ring | z1_1 ring | G2 | stage 1's
-  // z0, z1, atb (rows [g - 2, g + S)) | stage 2's atb (rows [h - 1, h + S),
-  // two buffers)]; V holds in turn stage 1's row pass, its x_t ((S + 1)
-  // rows of stride s1), stage 2's row pass and its x_t (stride s2)
-  static constexpr int nV = S * sX > (S + 1) * s1 ? S * sX : (S + 1) * s1;
-  static constexpr int oV = NX * sX, oG1 = oV + nV, oX1 = oG1 + (S + 1) * sG;
-  static constexpr int oZ0 = oX1 + NX1 * s1, oZ1 = oZ0 + NZ * sZ, oG2 = oZ1 + NZ * sZ;
-  static constexpr int nI = (S + 2) * sI, oI = oG2 + (S + 1) * s2, nA2 = (S + 1) * s2, oA2 = oI + 3 * nI;
-  static constexpr int floats = oA2 + 2 * nA2;
-  static_assert(S * s1 + A + R + kNW <= nV && (S + 1) * s2 <= nV, "V2 (and its row pass's overrun) must fit in V");
-  static_assert(S >= R + 1 && S % kNW == 0, "a step covers the edge corrections' reach");
+  static constexpr int S = kMega3Step, CW = kStrip, NT = kMega3Group;
+  static constexpr int A = R > 1 ? R : 1;    // stage 1's columns beyond the strip, each side
+  static constexpr int N1 = CW + 2 * A + 1;  // Cx, x_t1, x1: from c0 - A
+  static constexpr int NX = N1 + 2 * R;      // x: from c0 - A - R
+  static constexpr int NI = N1 + 1;          // stage 1's z0, z1, atb: from c0 - A - 1
+  static constexpr int NZ = CW + 2;          // x1's duals: from c0 - 1
+  static constexpr int N2 = CW + 1;          // C1, x_t2, stage 2's atb: from c0
+  static constexpr int HR = S / 2;           // rows of a V pass or U1 item
+  // H passes: NW outputs an item, NS items a row, RPW rows a warp
+  static constexpr int NW1 = 9, NS1 = ((N1 + NW1 - 1) / NW1 + 3) / 4 * 4, RPW1 = 8;
+  static constexpr int NW2 = 11, NS2 = ((N2 + NW2 - 1) / NW2 + 1) / 2 * 2, RPW2 = 16;
+  static constexpr int KX = (NX + 6) / 4, KI = (NI + 6) / 4, KA = (N2 + 6) / 4;  // 16-byte chunks a row
+  // rings of NR rows (row q at slot (q - q0) & (NR - 1)); Cx and C1 keep
+  // their first 2R slots again past the last, so that a V pass window (HR +
+  // 2R rows from a slot 8 m) is contiguous; the x_t rings hold NT1 rows
+  static constexpr int NR = 64, NM = NR + 2 * R, NT1 = 32;
+  static constexpr int sX = m3_stride4(4 * KX), sC = m3_stride2(N1), s1 = m3_stride2(N1), sC1 = m3_stride2(N2);
+  static constexpr int sI = 4 * KI, sA = 4 * KA, nI = (S + 1) * sI, nA2 = S * sA;
+  static constexpr int nE = 4 * kMaxReach * 2 * kMaxReach;  // the edge corrections, at most
+  // [x ring | Cx ring | z0, z1, atb of stage 1 (rows [g - 1, g + S)), two
+  // buffers | x_t1 ring | x1 ring | z0_1, z1_1 rings | C1 ring | x_t2 ring |
+  // stage 2's atb (rows [h, h + S)), two buffers | edge corrections | the
+  // mbarriers of stage 1's inputs]
+  static constexpr int oCx = NR * sX, oI = m3_round4(oCx + NM * sC), oT1 = oI + 6 * nI, oX1 = oT1 + NT1 * N1;
+  static constexpr int oZ0 = oX1 + NR * s1, oZ1 = oZ0 + NR * NZ, oC1 = oZ1 + NR * NZ;
+  static constexpr int oT2 = oC1 + NM * sC1, oA2 = m3_round4(oT2 + NT1 * N2), oE = oA2 + 2 * nA2;
+  static constexpr int oMB = m3_round4(oE + nE), floats = oMB + 4;  // + two mbarriers
+  static_assert(S == 16 && R + 1 <= S && 2 * N1 <= NT && 2 * NZ <= NT && 4 * N2 == NT,
+                "the thread maps: two V or U1 items a column, four U2 items");
+  static_assert(NS1 * NW1 + 2 * R + 3 <= sX + 4 * KX && NS2 * NW2 + 2 * R <= s1 + N1, "H pass overruns stay in the ring");
+  static_assert(floats * sizeof(float) + 16 * 6 * sizeof(float) <= 227 * 1024, "one block an SM");
 };
 
-// A ring of N image rows in shared memory: row q sits at slot (q - q0) mod
-// N, stride s; rows outside [0, H) read as 0 and are never stored, so the
-// ring keeps the image's last N rows once the walk passes H.  at(lo) gives
-// the ring for a step whose rows lie within (lo - N, lo + 2N) (the window
-// [lo, lo + N) and, below it, the last rows the bottom edge corrections
-// read), where a slot costs an add and a compare, no division.
+// K10's named barriers: each group's own, and the hand-offs between them
+// (two of each kind, taken by even and odd steps in turn).
+enum : int { kBarG1 = 1, kBarG2 = 2, kBarFull = 3, kBarEmpty = 5 };
+
 template <int N>
-struct RowRing {
-  float* p;
-  int q0, s, H;
-  int lo = 0, base = 0;  // base: the slot of row lo
-  __device__ __forceinline__ RowRing at(int l) const {
-    RowRing r = *this;
-    r.lo = l;
-    r.base = (l - q0) % N;
-    if (r.base < 0) r.base += N;
-    return r;
-  }
-  __device__ __forceinline__ int slot(int q) const {
-    const int t = q - lo + base;
-    return t < 0 ? t + N : t >= N ? t - N : t;
-  }
-  __device__ __forceinline__ float* row(int q) const { return p + slot(q) * s; }
-  __device__ __forceinline__ bool held(int q) const { return q >= 0 && q < H; }
-};
+__device__ __forceinline__ void m3_sync(int id) {
+#ifdef __CUDA_ARCH__
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(N) : "memory");
+#endif
+}
 
-// out(i, j) = sum_t ar[t] ring(q + i + t - R, j) for i < S, j < ncols: the
-// row band pass down a ring, a thread computing NW consecutive rows of one
-// column from a register window (consecutive threads take consecutive
-// columns: no bank conflicts).
-template <int R, int NW, int S, int N>
-__device__ __forceinline__ void band_down_ring(const RowRing<N>& in, int q, float* out, int so, int ncols,
-                                               const R1Taps& tp) {
-  for (int it = threadIdx.x; it < ncols * (S / NW); it += blockDim.x) {
-    const int j = it % ncols, i0 = (it / ncols) * NW;
-    const int qa = q + i0 - R;
-    int sl = in.slot(qa);
+template <int N>
+__device__ __forceinline__ void m3_arrive(int id) {
+#ifdef __CUDA_ARCH__
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(N) : "memory");
+#endif
+}
+
+// An mbarrier in shared memory: set to expect `count` arrivals a phase; an
+// arrival once this thread's earlier cp.async copies have landed (the
+// thread goes on at once); a wait until the phase of the given parity is
+// done.
+__device__ __forceinline__ void m3_mbar_init(uint64_t* mb, int count) {
+#ifdef __CUDA_ARCH__
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"((unsigned)__cvta_generic_to_shared(mb)), "r"(count)
+               : "memory");
+#endif
+}
+
+__device__ __forceinline__ void m3_mbar_copies(uint64_t* mb) {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"((unsigned)__cvta_generic_to_shared(mb))
+               : "memory");
+#endif
+}
+
+__device__ __forceinline__ void m3_mbar_wait(uint64_t* mb, int parity) {
+#ifdef __CUDA_ARCH__
+  unsigned done = 0;
+  do {
+    asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\nselp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done)
+                 : "r"((unsigned)__cvta_generic_to_shared(mb)), "r"(parity)
+                 : "memory");
+  } while (!done);
+#endif
+}
+
+// A bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device to shared memory by the copy engine, its bytes
+// counted on the mbarrier mb (expected first, so that the phase cannot end
+// before they land); the thread goes on at once.
+__device__ __forceinline__ void m3_bulk(float* dst, const float* src, int bytes, uint64_t* mb) {
+#ifdef __CUDA_ARCH__
+  const unsigned b = (unsigned)__cvta_generic_to_shared(mb);
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n" ::"r"(b), "r"(bytes) : "memory");
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(bytes), "r"(b)
+               : "memory");
+#else
+  std::memcpy(dst, src, bytes);
+#endif
+}
+
+// Orders this thread's earlier writes to shared memory before later bulk
+// copies into the same rows (the copy engine is another proxy).
+__device__ __forceinline__ void m3_fence_proxy() {
+#ifdef __CUDA_ARCH__
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+#endif
+}
+
+// Rows [qa, qb) of an (H, W) image, nk 16-byte chunks from column cs (a
+// multiple of 4), to dst(q) by one group's cp.async copies, a warp a row:
+// rows outside [0, hlim) and columns outside [0, wlim) come in as 0 (z0's
+// last row and z1's last column are read as 0: the dual's invariant).  A
+// chunk inside [0, wlim) on a 16-byte address is one copy, any other four.
+// Done after copy_wait_group.  Given an mbarrier mb, a row wholly inside
+// the image on a 16-byte address is instead one bulk copy by its warp's
+// first thread, done when mb's phase ends.
+template <class Dst>
+__device__ __forceinline__ void m3_load(Dst dst, const float* __restrict__ src, int W, int hlim, int wlim, int qa,
+                                        int qb, int cs, int nk, int gtid, uint64_t* mb = nullptr) {
+  const int lane = gtid & 31;
+  for (int q = qa + (gtid >> 5); q < qb; q += kMega3Group / 32) {
+    float* d = dst(q);
+    const bool rin = q >= 0 && q < hlim;
+    const float* row = src + (size_t)(rin ? q : 0) * W;
+    if (mb && rin && cs >= 0 && cs + 4 * nk <= wlim && (reinterpret_cast<uintptr_t>(row + cs) & 15) == 0) {
+      if (lane == 0) m3_bulk(d, row + cs, 16 * nk, mb);
+      continue;
+    }
+    for (int k = lane; k < nk; k += 32) {
+      const int c = cs + 4 * k;
+      if (rin && c >= 0 && c + 4 <= wlim && (reinterpret_cast<uintptr_t>(row + c) & 15) == 0) {
+        copy_async16(d + 4 * k, row + c);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const bool in = rin && c + u >= 0 && c + u < wlim;
+          copy_async(d + 4 * k + u, row + (in ? c + u : 0), in);
+        }
+      }
+    }
+  }
+}
+
+// sum_l e[l] v[l * sv] for l < L (L even), in two halves; one copy of
+// the code for every row edge correction (they run in a V item on the
+// image's first and last rows only).
+__device__ __noinline__ float m3_dot(const float* e, const float* v, int sv, int L) {
+  float a = 0.f, b = 0.f;
+  for (int l = 0; l < L; l += 2) {
+    a = fmaf(e[l], v[l * sv], a);
+    b = fmaf(e[l + 1], v[(l + 1) * sv], b);
+  }
+  return a + b;
+}
+
+// H pass: out(q, j) = sum_t ac[t] in(q, j + t) for the nr rows from qa and
+// j < nout.  An item is a row and NW outputs from a register window; a warp
+// takes RPW rows and 32 / RPW items of each.  in(q): the row's pointer;
+// out(q, j, v) stores output j.
+template <int R, int NW, int NS, int RPW, class In, class Out>
+__device__ __forceinline__ void m3_hpass(In in, Out out, int qa, int nr, int nout, const R1Taps& tp, int gtid) {
+  constexpr int SPW = 32 / RPW, WPB = NS / SPW;  // items of a row a warp; warps a block of RPW rows
+  static_assert(NS % SPW == 0, "whole warps");
+  for (int it = gtid; it < (nr + RPW - 1) / RPW * WPB * 32; it += kMega3Group) {
+    const int wi = it >> 5, lane = it & 31, rb = wi / WPB;
+    const int i = rb * RPW + lane % RPW, j0 = ((wi - rb * WPB) * SPW + lane / RPW) * NW;
+    if (i >= nr) continue;
+    const int q = qa + i;
+    const float* src = in(q) + j0;
     float win[NW + 2 * R];
 #pragma unroll
-    for (int k = 0; k < NW + 2 * R; ++k) {
-      win[k] = in.held(qa + k) ? in.p[sl * in.s + j] : 0.f;
-      sl = sl + 1 == N ? 0 : sl + 1;
-    }
+    for (int t = 0; t < NW + 2 * R; ++t) win[t] = src[t];
 #pragma unroll
     for (int o = 0; o < NW; ++o) {
       float acc = 0.f;
 #pragma unroll
-      for (int t = 0; t <= 2 * R; ++t) acc = fmaf(tp.ar[t], win[o + t], acc);
-      out[(i0 + o) * so + j] = acc;
+      for (int t = 0; t <= 2 * R; ++t) acc = fmaf(tp.ac[t], win[o + t], acc);
+      if (j0 + o < nout) out(q, j0 + o, acc);
     }
   }
 }
 
-// The row edge corrections (edge_fix's rows) of a band pass down a ring:
-// out row i is image row q + i (i < n), columns j < ncols; rows
-// [0, K - 1) read ring rows [0, L), rows [H - K + 1, H) ring rows
-// [H - L, H), which the ring must hold.
-template <int N>
-__device__ __forceinline__ void ring_row_fix(float* out, int so, int q, int n, int ncols, const RowRing<N>& in,
-                                             const float* __restrict__ Et, const float* __restrict__ Eb,
-                                             int K, int H) {
-  if (K <= 1) return;
+// sum_l e[l] v[l] for l < L (L even), in four partial sums: the column
+// corrections' dot, inline (one item a thread, run after the H pass).
+__device__ __forceinline__ float m3_dot_row(const float* e, const float* v, int L) {
+  float a = 0.f, b = 0.f, c = 0.f, d = 0.f;
+  int l = 0;
+  for (; l + 4 <= L; l += 4) {
+    a = fmaf(e[l], v[l], a);
+    b = fmaf(e[l + 1], v[l + 1], b);
+    c = fmaf(e[l + 2], v[l + 2], c);
+    d = fmaf(e[l + 3], v[l + 3], d);
+  }
+  if (l < L) {
+    a = fmaf(e[l], v[l], a);
+    b = fmaf(e[l + 1], v[l + 1], b);
+  }
+  return (a + c) + (b + d);
+}
+
+// The column edge corrections (edge_fix's columns, top then bottom) of an H
+// pass's nr rows from qa: output j (image column oc0 + j, j < nout) gets
+// sum_l Et[c][l] x(l) for c < Kc - 1 and sum_l Eb[c - W + Kc - 1][l] x(W - L
+// + l) for c >= W - Kc + 1, x read through in(q) (image column ic0 first).
+// An item is an output; fix(q, j, v) adds v.  Es: [Etc | Ebc].
+template <class In, class Fix>
+__device__ __forceinline__ void m3_col_fix(In in, Fix fix, int qa, int nr, int nout, int oc0, int ic0, int W,
+                                           const float* Es, int K, int gtid) {
   const int k1 = K - 1, L = 2 * K - 2;
-  const int t0 = max(0, -q), t1 = min(n, k1 - q);
-  const int b0 = max(0, H - k1 - q), b1 = min(n, H - q);
-  const int nt = max(0, t1 - t0), nbot = max(0, b1 - b0);
-  for (int it = threadIdx.x; it < (nt + nbot) * ncols; it += blockDim.x) {
-    const int e = it / ncols, j = it - e * ncols;
-    const bool top = e < nt;
-    const int i = top ? t0 + e : b0 + e - nt;
-    const int g = q + i;
-    const float* row = top ? Et + g * L : Eb + (g - (H - k1)) * L;
-    const int qs = top ? 0 : H - L;
-    float acc = 0.f;
-    for (int l = 0; l < L; ++l) acc = fmaf(__ldg(row + l), in.held(qs + l) ? in.row(qs + l)[j] : 0.f, acc);
-    out[i * so + j] += acc;
+  const int la = max(0, -oc0), lb = min(nout, k1 - oc0), ra = max(lb, max(0, W - k1 - oc0)), rb = min(nout, W - oc0);
+  const int nl = max(0, lb - la), ne = nl + max(0, rb - ra);
+  for (int it = gtid; it < nr * ne; it += kMega3Group) {
+    const int i = it / ne, e = it - i * ne, j = e < nl ? la + e : ra + e - nl, c = oc0 + j, q = qa + i;
+    const float* x = in(q) - ic0;  // image column 0
+    float v = 0.f;
+    bool top = c < k1;
+    if (top) v = m3_dot_row(Es + c * L, x, L);
+    if (c >= W - k1) {
+      const float b = m3_dot_row(Es + (k1 + c - (W - k1)) * L, x + W - L, L);
+      fix(q, j, top ? v : 0.f);
+      v = b;
+    }
+    fix(q, j, v);
   }
 }
 
-// Copy of image rows [qa, qb) of an (H, W) image, columns [cx, cx + nc),
-// to dst(q) in shared memory by cp.async (0 outside the image's columns;
-// rows outside [0, H) skipped).  A warp copies a row at a time.  Done after
-// copy_wait().
-template <class Dst>
-__device__ __forceinline__ void rows_load(Dst dst, const float* __restrict__ src, int H, int W, int qa, int qb,
-                                          int cx, int nc) {
-  const int lane = threadIdx.x & 31;
-  for (int q = max(qa, 0) + (int)(threadIdx.x >> 5); q < min(qb, H); q += blockDim.x >> 5) {
-    float* d = dst(q);
-    const float* row = src + (size_t)q * W;
-    for (int cc = lane; cc < nc; cc += 32) {
-      const int c = cx + cc;
-      const bool in = c >= 0 && c < W;
-      copy_async(d + cc, row + (in ? c : 0), in);
+// V pass item: g[o] = sum_t ar[t] C(q + o + t - R) for o < HR, from the
+// contiguous window src (row q - R of a ring column, stride s), plus the
+// row edge corrections (edge_fix's rows, top then bottom), which read the
+// ring's rows [0, L) and [H - L, H) from crow(0) and crow(H - L) (stride
+// ss).  Es: [Etr | Ebr].
+template <int R, int HR, class CRow>
+__device__ __forceinline__ void m3_vpass(float (&g)[HR], const float* src, int s, int q, int H, const R1Taps& tp,
+                                         const float* Es, int K, CRow crow, int ss) {
+  float win[HR + 2 * R];
+#pragma unroll
+  for (int t = 0; t < HR + 2 * R; ++t) win[t] = src[t * s];
+#pragma unroll
+  for (int o = 0; o < HR; ++o) {
+    float acc = 0.f;
+#pragma unroll
+    for (int t = 0; t <= 2 * R; ++t) acc = fmaf(tp.ar[t], win[o + t], acc);
+    g[o] = acc;
+  }
+  if (meets_edges(q, HR, K, H)) {
+    const int k1 = K - 1, L = 2 * K - 2;
+#pragma unroll
+    for (int o = 0; o < HR; ++o) {
+      const int r = q + o;
+      if (r >= 0 && r < k1) g[o] += m3_dot(Es + r * L, crow(0), ss, L);
+      if (r >= H - k1 && r < H) g[o] += m3_dot(Es + (k1 + r - (H - k1)) * L, crow(H - L), ss, L);
     }
   }
+}
+
+// x_t = P(x - tau g - tau div z) (MaskedDual::x_t's arithmetic) from the
+// Gram's g (2x folded in), atb, x and the dual's four values.
+__device__ __forceinline__ float m3_xt(float gv, float a, float xv, float z0u, float z0c, float z1l, float z1c,
+                                       const PdsParams& p) {
+  const float div = (z0u - z0c) + (z1l - z1c);
+  const float v = xv - p.tau * (gv - 2.f * a) - p.tau * div;
+  return p.nonneg ? fmaxf(v, 0.f) : v;
+}
+
+// pds_update's arithmetic on unmasked duals: du_r only when down (r < H -
+// 1), du_c only when right (c < W - 1).
+__device__ __forceinline__ PdsOut m3_update(const PdsParams& p, bool down, bool right, float x0, float xt, float xd,
+                                            float xtd, float xr, float xtr, float z0, float z1) {
+  const float u = 2.f * xt - x0;
+  const float du_r = down ? (2.f * xtd - xd) - u : 0.f;
+  const float du_c = right ? (2.f * xtr - xr) - u : 0.f;
+  const float v0 = z0 + p.sigma * du_r;
+  const float v1 = z1 + p.sigma * du_c;
+  float z0t, z1t;
+  if (p.iso) {
+    const float scale = p.lam / fmaxf(sqrtf(v0 * v0 + v1 * v1), p.lam);
+    z0t = v0 * scale;
+    z1t = v1 * scale;
+  } else {
+    z0t = fminf(fmaxf(v0, -p.lam), p.lam);
+    z1t = fminf(fmaxf(v1, -p.lam), p.lam);
+  }
+  const float keep = 1.f - p.rho;
+  return PdsOut{p.rho * xt + keep * x0, p.rho * z0t + keep * z0, p.rho * z1t + keep * z1, x0, z0, z1};
 }
 
 template <int R>
-__global__ void __launch_bounds__(kMega3Threads, 2)
+__global__ void __launch_bounds__(kMega3Threads, 1)
 tv_mega3_kernel(const float* __restrict__ x, const float* __restrict__ z0,
                 const float* __restrict__ z1, const float* __restrict__ atb,
                 float* __restrict__ xo, float* __restrict__ z0o, float* __restrict__ z1o,
                 float* __restrict__ partials, int H, int W, int Hs, R1Taps tp, R1Edges e, PdsParams p) {
   using G = Mega3Geom<R>;
-  constexpr int S = G::S;
-  extern __shared__ float smem[];
-  float* V = smem + G::oV;
-  float* G1 = smem + G::oG1;
-  float* G2 = smem + G::oG2;
-  const int c0 = span_origin(blockIdx.x, kStrip, W), cn = blockIdx.x * kStrip;  // cn: first own column
-  const int ce = min(cn + kStrip, W);
-  const int r0 = blockIdx.y * Hs, r1 = min(r0 + Hs, H);                   // own rows [r0, r1)
-  // stage-1 steps before stage 2's first: G::K2, or more where the segment
-  // ends less than 2R rows below its start, so that stage 1 makes the x1
-  // rows [H - L, H) the last rows' edge corrections read
-  const int K2 = max(G::K2, (r0 + G::D - H + 2 * R + S - 1) / S);
-  const int g0 = r0 + G::D - K2 * S;  // step k: stage 1's gradient rows [g, g + S), g = g0 + kS
-  const int nsteps = K2 + (r1 - r0 + S) / S;
-  const RowRing<G::NX> Xr{smem, g0 - G::Rx, G::sX, H};
-  const RowRing<G::NX1> X1r{smem + G::oX1, g0 - 1, G::s1, H};
-  const RowRing<G::NZ> Z0r{smem + G::oZ0, g0 - 1, G::sZ, H}, Z1r{smem + G::oZ1, g0 - 1, G::sZ, H};
-  const int Lr = 2 * e.Kr - 2, Lc = 2 * e.Kc - 2;
-  const float* Etc = e.E + 2 * (e.Kr - 1) * Lr;
-  const float* Ebc = Etc + (e.Kc - 1) * Lc;
-  constexpr int A = G::A;
-  const bool cols1 = meets_edges(c0 - A, G::NG, e.Kc, W), cols2 = meets_edges(c0, G::N2, e.Kc, W);
-  float* In = smem + G::oI;  // stage 1's z0, z1, atb: row g - 2 + i, column c0 - A - 1 + j
-  // the rows step k reads of x and of stage 1's inputs; stage 2's atb for
-  // step k goes into buffer k & 1
-  auto load_stage1 = [&](int g) {
-    const auto X = Xr.at(g - G::Rx);
-    rows_load([&](int q) { return X.row(q); }, x, H, W, g + R, g + S + R, c0 - A - R, G::NXc);
-    const float* srcs[3] = {z0, z1, atb};
-    for (int a = 0; a < 3; ++a)
-      rows_load([&](int q) { return In + a * G::nI + (q - g + 2) * G::sI; }, srcs[a], H, W, g - 2, g + S,
-                c0 - A - 1, G::NI);
-  };
-  auto load_stage2 = [&](int h, int buf) {
-    float* A2 = smem + G::oA2 + buf * G::nA2;
-    rows_load([&](int q) { return A2 + (q - h + 1) * G::s2; }, atb, H, W, h - 1, h + S, c0, G::N2);
-  };
+  constexpr int S = G::S, CW = G::CW, A = G::A, NT = G::NT, HR = G::HR, N1 = G::N1, N2 = G::N2, NZ = G::NZ;
+  constexpr int M = G::NR - 1, MT = G::NT1 - 1, K2 = 2;  // K2: stage 1's steps before stage 2's first
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int c0 = span_origin(blockIdx.x, CW, W), cn = blockIdx.x * CW, ce = min(cn + CW, W);  // own [cn, ce)
+  const int r0 = blockIdx.y * Hs, r1 = min(r0 + Hs, H);                                          // own [r0, r1)
+  // stage 2's first step: rows [h0, h0 + S), the segment's first row, or
+  // earlier where the segment ends less than R rows below it (so that the
+  // walk makes the rows [H - L, H) the last rows' edge corrections read);
+  // stage 1's first, S rows above (h0 and g0 are multiples of S: some step
+  // starts on row 0, and holds the rows [0, L) the top corrections read)
+  const int h0 = min(r0, (H - R) & ~(S - 1)), g0 = h0 - S;
+  const int nsteps = K2 + (r1 - h0 + S) / S;
+  const int gtid = threadIdx.x & (NT - 1);
+  // the edge corrections [Etr | Ebr | Etc | Ebc] into shared memory
+  float* Es = smem + G::oE;
+  const float* Esc = Es + 2 * (e.Kr - 1) * (2 * e.Kr - 2);
+  for (int i = threadIdx.x; i < 2 * (e.Kr - 1) * (2 * e.Kr - 2) + 2 * (e.Kc - 1) * (2 * e.Kc - 2); i += kMega3Threads)
+    Es[i] = e.E[i];
+  uint64_t* mb = reinterpret_cast<uint64_t*>(smem + G::oMB);
+  if (threadIdx.x == 0) {
+    m3_mbar_init(mb, NT);
+    m3_mbar_init(mb + 1, NT);
+  }
+  __syncthreads();
+  // the rings stage 1 hands stage 2 (row q at slot (q - g0) & M)
+  float* X1 = smem + G::oX1;
+  float* Z0 = smem + G::oZ0;
+  float* Z1 = smem + G::oZ1;
   Stats6 st;
   st.zero();
 
-  {
-    const auto X = Xr.at(g0 - G::Rx);
-    rows_load([&](int q) { return X.row(q); }, x, H, W, g0 - G::Rx, g0 + R, c0 - A - R, G::NXc);
-  }
-  load_stage1(g0);
-  for (int k = 0; k < nsteps; ++k) {
+  // stage 1's inputs of step k: x rows into the x ring (the first step's
+  // whole window), z0, z1 and atb rows [g - 1, g + S) into In buffer k &
+  // 1.  Stage 1 loads its first K2 + 2 steps' itself, one step ahead;
+  // stage 2 the rest, two steps ahead of stage 1, each made known by the
+  // mbarrier of its buffer.
+  float* Xr = smem;           // x: row q at slot (q - g0) & M, column xa + j
+  float* In0 = smem + G::oI;  // z0, z1, atb of step k: buffer k & 1, row q - g + 1, column za + j
+  const int xa = (c0 - A - R) & ~3, za = (c0 - A - 1) & ~3, ix = c0 - A - xa, iz = c0 - A - za;
+  auto load_step = [&](int k, uint64_t* bar) {
     const int g = g0 + k * S;
-    // this step's windows of the rings: x rows [g - Rx, g + S + R); x1 rows
-    // and stage-1 duals from stage 2's first read to stage 1's last write
-    const auto X = Xr.at(g - G::Rx);
-    const auto X1 = X1r.at(g + S - 1 - G::NX1);
-    const auto Z0 = Z0r.at(g + S - 1 - G::NZ), Z1 = Z1r.at(g + S - 1 - G::NZ);
-    copy_wait();
-    __syncthreads();  // this step's x rows are in; the last step is done with every buffer
-    // stage 1: V = RowGram(x) on rows [g, g + S), G1 = ColGram(V), kept with
-    // the row above (the last step's last, slot 0); then iteration 1 on
-    // rows [g - 1, g + S - 1)
-    for (int j = threadIdx.x; j < G::NG; j += kMega3Threads) G1[j] = G1[S * G::sG + j];
-    band_down_ring<R, kNW, S>(X, g, V, G::sX, G::NXc, tp);
-    if (meets_edges(g, S, e.Kr, H)) {
-      __syncthreads();
-      ring_row_fix(V, G::sX, g, S, G::NXc, X, e.E, e.E + (e.Kr - 1) * Lr, e.Kr, H);
-    }
-    __syncthreads();
-    band_along_row<R, kNW, false>(V, G::sX, G1 + G::sG, G::sG, S, G::NG, tp);
-    if (cols1) {
-      __syncthreads();
-      edge_fix(G1 + G::sG, 1, G::sG, c0 - A, G::NG, S, V, 1, G::sX, c0 - A - R, Etc, Ebc, e.Kc, W);
-    }
-    __syncthreads();
-    {
-      // iteration 1 in two passes: x_t once a pixel on rows [g - 1, g + S]
-      // into T (V is free), then x1 and, on the dual columns, the duals
-      float* T = V;  // row r - g + 1, column c - c0 + A
-      auto xs = [=](int r, int c) { return X.row(r)[c - c0 + A + R]; };
-      auto in = [=](int a) {
-        return [=](int r, int c) { return In[a * G::nI + (r - g + 2) * G::sI + (c - c0 + A + 1)]; };
-      };
-      const auto ia = in(2);
-      const MaskedDual<decltype(in(0)), decltype(in(1))> zd{in(0), in(1), H, W};
-      auto grad = [=](int r, int c) { return G1[(r - g + 1) * G::sG + (c - c0 + A)] - 2.f * ia(r, c); };
-      for (int i = threadIdx.x; i < (S + 1) * G::N1; i += kMega3Threads) {
-        const int rr = i / G::N1, cc = i % G::N1, r = g - 1 + rr, c = c0 - A + cc;
-        if (r >= 0 && r < H && c >= 0 && c < W) T[rr * G::s1 + cc] = zd.x_t(r, c, xs(r, c), grad, p);
-      }
-      __syncthreads();
-      for (int i = threadIdx.x; i < S * G::N1; i += kMega3Threads) {
-        const int rr = i / G::N1, cc = i % G::N1, r = g - 1 + rr, c = c0 - A + cc;
-        if (r < 0 || r >= H) continue;
-        float* x1 = X1.row(r) + cc;
-        if (c < 0 || c >= W) {
-          *x1 = 0.f;
-          continue;
-        }
-        const float* t = T + rr * G::s1 + cc;
-        const float x0 = xs(r, c);
-        const int zc = c - c0 + 1;  // column in the dual rings
-        if (zc < 0 || zc >= G::NZc) {
-          *x1 = p.rho * t[0] + (1.f - p.rho) * x0;
-          continue;
-        }
-        const bool down = r < H - 1, right = c < W - 1;
-        const PdsOut o = pds_update(r, c, H, W, p, zd, x0, t[0], down ? xs(r + 1, c) : 0.f,
-                                    down ? t[G::s1] : 0.f, right ? xs(r, c + 1) : 0.f, right ? t[1] : 0.f);
-        *x1 = o.xn;
-        Z0.row(r)[zc] = o.z0n;
-        Z1.row(r)[zc] = o.z1n;
-      }
-    }
-    __syncthreads();
-    // stage 1's buffers are free: the next step's rows come in while stage 2 runs
-    if (k + 1 < nsteps) {
-      load_stage1(g + S);
-      if (k + 1 >= K2) load_stage2(g + S - G::D, (k + 1) & 1);
-    }
-    if (k < K2) continue;
+    m3_load([&](int q) { return Xr + ((q - g0) & M) * G::sX; }, x, W, H, W, k == 0 ? g - R : g + R, g + S + R, xa,
+            G::KX, gtid, bar);
+    float* b = In0 + (k & 1) * 3 * G::nI;
+    auto rows = [&](float* a) { return [=](int q) { return a + (q - g + 1) * G::sI; }; };
+    m3_load(rows(b), z0, W, H - 1, W, g - 1, g + S, za, G::KI, gtid, bar);
+    m3_load(rows(b + G::nI), z1, W, H, W - 1, g - 1, g + S, za, G::KI, gtid, bar);
+    m3_load(rows(b + 2 * G::nI), atb, W, H, W, g - 1, g + S, za, G::KI, gtid, bar);
+  };
 
-    // stage 2, D rows behind: the same on x1 for rows [h, h + S), then
-    // iteration 2 on the block's own rows among [h - 1, h + S - 1)
-    const int h = g - G::D;
-    for (int j = threadIdx.x; j < G::N2; j += kMega3Threads) G2[j] = G2[S * G::s2 + j];
-    band_down_ring<R, kNW, S>(X1, h, V, G::s1, G::N1, tp);
-    if (meets_edges(h, S, e.Kr, H)) {
-      __syncthreads();
-      ring_row_fix(V, G::s1, h, S, G::N1, X1, e.E, e.E + (e.Kr - 1) * Lr, e.Kr, H);
+  if (threadIdx.x < NT) {
+    // stage 1, step k (g = g0 + k S): H1, the row pass of x rows [g + R, g +
+    // S + R) into Cx; V1, the column pass of Cx into G1 on rows [g, g + S),
+    // each item going on to x_t1 there; U1, iteration 1's update on rows [g
+    // - 1, g + S - 1) into x1 (0 outside the image) and the duals
+    float* Cx = smem + G::oCx;  // row q at slot (q - g0 + R) & M (windows from slots 8 m), column c0 - A + j
+    float* T1 = smem + G::oT1;  // x_t1: row q at slot (q - g0) & MT
+    const bool fix1 = meets_edges(c0 - A, N1, e.Kc, W);
+    auto xrow = [&](int q) { return Xr + ((q - g0) & M) * G::sX + (ix - R); };  // image column c0 - A - R
+    load_step(0, nullptr);
+    copy_commit();
+    for (int k = 0; k < nsteps; ++k) {
+      const int g = g0 + k * S;
+      const float* In = In0 + (k & 1) * 3 * G::nI;
+      if (k < K2 + 2) {
+        copy_wait_group<0>();
+        m3_fence_proxy();  // these rows are later written by bulk copies
+      } else {
+        m3_mbar_wait(mb + (k & 1), ((k - K2 - 2) >> 1) & 1);
+      }
+      m3_sync<NT>(kBarG1);  // step k's inputs are in; step k - 1 is done with every buffer
+      if (k + 1 < nsteps && k + 1 < K2 + 2) load_step(k + 1, nullptr);
+      copy_commit();
+      {
+        const int qa = k == 0 ? g - R : g + R, nr = k == 0 ? S + 2 * R : S;
+        auto cx = [&](int q, int j) -> float& { return Cx[((q - g0 + R) & M) * G::sC + j]; };
+        auto put = [&](int q, int j, float v) {
+          const int t = (q - g0 + R) & M;
+          Cx[t * G::sC + j] = v;
+          if (t < 2 * R) Cx[(t + G::NR) * G::sC + j] = v;
+        };
+        m3_hpass<R, G::NW1, G::NS1, G::RPW1>(xrow, put, qa, nr, N1, tp, gtid);
+        if (fix1) {
+          m3_sync<NT>(kBarG1);
+          m3_col_fix(xrow, [&](int q, int j, float v) { put(q, j, cx(q, j) + v); }, qa, nr, N1, c0 - A, c0 - A - R, W,
+                     Esc, e.Kc, gtid);
+        }
+      }
+      m3_sync<NT>(kBarG1);
+      if (gtid < 2 * N1) {
+        const int hf = gtid >= N1, j = gtid - hf * N1, q = g + hf * HR;
+        float gv[HR];
+        const float* cw = Cx + ((q - g0) & M) * G::sC + j;  // row q - R: a slot 8 m
+        m3_vpass<R, HR>(gv, cw, G::sC, q, H, tp, Es, e.Kr,
+                        [&](int r) { return Cx + ((r - g0 + R) & M) * G::sC + j; }, G::sC);
+        // x_t1 on rows [q, q + HR): every input first (rows from a slot 8 m: no wrap)
+        const float* xs = Xr + ((q - g0) & M) * G::sX + j + ix;
+        const float* zi = In + (q - g) * G::sI + j + iz - 1;  // row q - 1 of the inputs, column c - 1
+        float z0v[HR + 1], z1l[HR], z1c[HR], av[HR], xv[HR];
+        z0v[0] = zi[1];
+#pragma unroll
+        for (int o = 0; o < HR; ++o) {
+          const float* zr = zi + (o + 1) * G::sI;
+          z0v[o + 1] = zr[1];
+          z1l[o] = zr[G::nI];
+          z1c[o] = zr[G::nI + 1];
+          av[o] = zr[2 * G::nI + 1];
+          xv[o] = xs[o * G::sX];
+        }
+        float* t = T1 + ((q - g0) & MT) * N1 + j;
+#pragma unroll
+        for (int o = 0; o < HR; ++o) t[o * N1] = m3_xt(gv[o], av[o], xv[o], z0v[o], z0v[o + 1], z1l[o], z1c[o], p);
+      }
+      m3_sync<NT>(kBarG1);
+      if (k - 2 >= K2) m3_sync<2 * NT>(kBarEmpty + (k & 1));  // stage 2 is done with step k - 2's rows
+      if (gtid < 2 * N1) {
+        // a column and HR rows from g - 1 + HR hf: the duals' columns take the
+        // whole update, the others only x1 = rho x_t + (1 - rho) x
+        const bool full = gtid < 2 * NZ;
+        const int t0 = full ? gtid : gtid - 2 * NZ, n = full ? NZ : N1 - NZ;
+        const int hf = t0 >= n, jj = t0 - hf * n;
+        const int j = full ? jj + A - 1 : (jj < A - 1 ? jj : jj + NZ), c = c0 - A + j;
+        const int q = g - 1 + hf * HR;
+        const bool cin = c >= 0 && c < W, right = c < W - 1;
+        // row q at its own slot, rows q + 1 .. q + HR from a slot 8 m on
+        const int sa = (q - g0) & M, sb = (q + 1 - g0) & M;
+        const float* xa_ = Xr + sa * G::sX + j + ix;
+        const float* xb_ = Xr + sb * G::sX + j + ix;
+        const float* ua = T1 + ((q - g0) & MT) * N1 + j;
+        const float* ub = T1 + ((q + 1 - g0) & MT) * N1 + j;
+        float tv[HR + 1], xv[HR + 1];
+        tv[0] = ua[0];
+        xv[0] = xa_[0];
+#pragma unroll
+        for (int o = 0; o < HR; ++o) {
+          tv[o + 1] = ub[o * N1];
+          xv[o + 1] = xb_[o * G::sX];
+        }
+        if (full) {
+          const float* zi = In + (q - g + 1) * G::sI + j + iz;  // row q of the inputs, column c
+          float tr[HR], xr[HR], zz0[HR], zz1[HR];
+#pragma unroll
+          for (int o = 0; o < HR; ++o) {
+            tr[o] = o == 0 ? ua[1] : ub[(o - 1) * N1 + 1];
+            xr[o] = o == 0 ? xa_[1] : xb_[(o - 1) * G::sX + 1];
+            zz0[o] = zi[o * G::sI];
+            zz1[o] = zi[G::nI + o * G::sI];
+          }
+#pragma unroll
+          for (int o = 0; o < HR; ++o) {
+            const int r = q + o, s = o == 0 ? sa : sb + o - 1;
+            const PdsOut u = m3_update(p, r < H - 1, right, xv[o], tv[o], xv[o + 1], tv[o + 1], xr[o], tr[o], zz0[o], zz1[o]);
+            const bool in = r >= 0 && r < H && cin;
+            X1[s * G::s1 + j] = in ? u.xn : 0.f;
+            Z0[s * NZ + jj] = in ? u.z0n : 0.f;
+            Z1[s * NZ + jj] = in ? u.z1n : 0.f;
+          }
+        } else {
+#pragma unroll
+          for (int o = 0; o < HR; ++o) {
+            const int r = q + o, s = o == 0 ? sa : sb + o - 1;
+            X1[s * G::s1 + j] = r >= 0 && r < H && cin ? p.rho * tv[o] + (1.f - p.rho) * xv[o] : 0.f;
+          }
+        }
+      }
+      if (k >= K2) {
+        __threadfence_block();
+        m3_arrive<2 * NT>(kBarFull + (k & 1));  // x1 and the duals of rows [g - 1, g + S - 1) are in
+      }
     }
-    __syncthreads();
-    band_along_row<R, kNW, false>(V + (A - R), G::s1, G2 + G::s2, G::s2, S, G::N2, tp);  // from column c0 - R
-    if (cols2) {
-      __syncthreads();
-      edge_fix(G2 + G::s2, 1, G::s2, c0, G::N2, S, V, 1, G::s1, c0 - A, Etc, Ebc, e.Kc, W);
-    }
-    __syncthreads();
-    // iteration 2 in the same two passes: x_t on rows [h - 1, h + S) and
-    // columns [c0, c0 + Cw] into T, then the block's own pixels
-    float* T = V;  // row r - h + 1, column c - c0
-    auto mid_x = [=](int r, int c) { return X1.row(r)[c - c0 + A]; };
-    auto mid = [=](const RowRing<G::NZ>& z) {
-      return [=](int r, int c) { return z.row(r)[c - c0 + 1]; };
+  } else {
+    // stage 2, step k (h = g - S, one step behind stage 1): H2, the row pass
+    // of x1 rows [h + R, h + S + R) into C1; V2, the column pass into G2 on
+    // rows [h, h + S), each item going on to x_t2; U2, iteration 2's update
+    // on the block's own pixels of rows [h - 1, h + S - 1), with the sums
+    float* C1 = smem + G::oC1;   // row q at slot (q - h0 + R) & M (windows from slots 8 m), column c0 + j
+    float* T2 = smem + G::oT2;   // x_t2: row q at slot (q - h0) & MT, column c0 + j
+    float* A20 = smem + G::oA2;  // atb of step k: buffer k & 1, row q - h, column aa + j
+    const int aa = c0 & ~3, ia = c0 - aa;
+    const bool fix2 = meets_edges(c0, N2, e.Kc, W);
+    auto x1row = [&](int q) { return X1 + ((q - g0) & M) * G::s1 + (A - R); };  // image column c0 - R
+    auto load_atb = [&](int k) {
+      const int h = g0 + k * S - S;
+      float* b = A20 + (k & 1) * G::nA2;
+      m3_load([&](int q) { return b + (q - h) * G::sA; }, atb, W, H, W, h, h + S, aa, G::KA, gtid);
     };
-    const MaskedDual<decltype(mid(Z0)), decltype(mid(Z1))> zd{mid(Z0), mid(Z1), H, W};
-    const float* A2 = smem + G::oA2 + (k & 1) * G::nA2;  // atb, rows [h - 1, h + S)
-    auto grad2 = [=](int r, int c) {
-      const int o = (r - h + 1) * G::s2 + (c - c0);
-      return G2[o] - 2.f * A2[o];
-    };
-    for (int i = threadIdx.x; i < (S + 1) * G::N2; i += kMega3Threads) {
-      const int rr = i / G::N2, cc = i % G::N2, r = h - 1 + rr, c = c0 + cc;
-      if (r >= 0 && r < H && c < W) T[rr * G::s2 + cc] = zd.x_t(r, c, mid_x(r, c), grad2, p);
-    }
-    __syncthreads();
-    const int ra = max(h - 1, r0), rb = min(h + S - 1, r1);
-    for (int i = threadIdx.x; i < (rb - ra) * kStrip; i += kMega3Threads) {
-      const int r = ra + i / kStrip, cc = i % kStrip, c = c0 + cc;
-      if (c < cn || c >= ce) continue;
-      const float* t = T + (r - h + 1) * G::s2 + cc;
-      const bool down = r < H - 1, right = c < W - 1;
-      const PdsOut o = pds_update(r, c, H, W, p, zd, mid_x(r, c), t[0], down ? mid_x(r + 1, c) : 0.f,
-                                  down ? t[G::s2] : 0.f, right ? mid_x(r, c + 1) : 0.f, right ? t[1] : 0.f);
-      const size_t q = (size_t)r * W + c;
-      xo[q] = o.xn;
-      z0o[q] = o.z0n;
-      z1o[q] = o.z1n;
-      st.add(o);  // the second iteration against the first
+    load_atb(K2);
+    copy_commit();
+    for (int k = K2; k < nsteps; ++k) {
+      const int h = g0 + k * S - S;
+      const float* A2 = A20 + (k & 1) * G::nA2;
+      copy_wait_group<0>();
+      m3_fence_proxy();  // this thread's cp.async rows, before bulk copies into them
+      m3_sync<2 * NT>(kBarFull + (k & 1));  // stage 1 has made step k; step k - 1 is done with every buffer
+      if (k + 2 < nsteps) {
+        load_step(k + 2, mb + (k & 1));  // into the In buffer stage 1 has just left
+        m3_mbar_copies(mb + (k & 1));
+      }
+      if (k + 1 < nsteps) load_atb(k + 1);
+      copy_commit();
+      {
+        const int qa = k == K2 ? h - R : h + R, nr = k == K2 ? S + 2 * R : S;
+        auto put = [&](int q, int j, float v) {
+          const int t = (q - h0 + R) & M;
+          C1[t * G::sC1 + j] = v;
+          if (t < 2 * R) C1[(t + G::NR) * G::sC1 + j] = v;
+        };
+        m3_hpass<R, G::NW2, G::NS2, G::RPW2>(x1row, put, qa, nr, N2, tp, gtid);
+        if (fix2) {
+          m3_sync<NT>(kBarG2);
+          m3_col_fix(x1row, [&](int q, int j, float v) { put(q, j, C1[((q - h0 + R) & M) * G::sC1 + j] + v); }, qa,
+                     nr, N2, c0, c0 - R, W, Esc, e.Kc, gtid);
+        }
+      }
+      m3_sync<NT>(kBarG2);
+      if (gtid < 2 * N2) {
+        const int hf = gtid >= N2, j = gtid - hf * N2, q = h + hf * HR;
+        float gv[HR];
+        const float* cw = C1 + ((q - h0) & M) * G::sC1 + j;  // row q - R: a slot 8 m
+        m3_vpass<R, HR>(gv, cw, G::sC1, q, H, tp, Es, e.Kr,
+                        [&](int r) { return C1 + ((r - h0 + R) & M) * G::sC1 + j; }, G::sC1);
+        // x_t2 on rows [q, q + HR): every input first (x1 and dual rows from a slot 8 m: no wrap)
+        const int s = (q - g0) & M;
+        const float* xs = X1 + s * G::s1 + j + A;
+        const float* z0r = Z0 + s * NZ + j + 1;
+        const float* z1r = Z1 + s * NZ + j;
+        const float* ar = A2 + (q - h) * G::sA + j + ia;
+        float z0v[HR + 1], z1l[HR], z1c[HR], av[HR], xv[HR];
+        z0v[0] = Z0[((q - 1 - g0) & M) * NZ + j + 1];
+#pragma unroll
+        for (int o = 0; o < HR; ++o) {
+          z0v[o + 1] = z0r[o * NZ];
+          z1l[o] = z1r[o * NZ];
+          z1c[o] = z1r[o * NZ + 1];
+          av[o] = ar[o * G::sA];
+          xv[o] = xs[o * G::s1];
+        }
+        float* t = T2 + ((q - h0) & MT) * N2 + j;
+#pragma unroll
+        for (int o = 0; o < HR; ++o) t[o * N2] = m3_xt(gv[o], av[o], xv[o], z0v[o], z0v[o + 1], z1l[o], z1c[o], p);
+      }
+      m3_sync<NT>(kBarG2);
+      {
+        // a column and 4 rows from h - 1 + 4 qq: every input first
+        const int j = gtid & (N2 - 1), qq = gtid / N2, c = c0 + j, q = h - 1 + 4 * qq;
+        const bool own = c >= cn && c < ce, right = c < W - 1;
+        const int sa = (q - g0) & M, sb = (q + 1 - g0) & M;
+        const float* xa_ = X1 + sa * G::s1 + j + A;
+        const float* xb_ = X1 + sb * G::s1 + j + A;
+        const float* ua = T2 + ((q - h0) & MT) * N2 + j;
+        const float* ub = T2 + ((q + 1 - h0) & MT) * N2 + j;
+        float tv[5], xv[5], tr[4], xr[4], zz0[4], zz1[4];
+        tv[0] = ua[0];
+        xv[0] = xa_[0];
+#pragma unroll
+        for (int o = 0; o < 4; ++o) {
+          const int s = o == 0 ? sa : sb + o - 1;
+          tv[o + 1] = ub[o * N2];
+          xv[o + 1] = xb_[o * G::s1];
+          tr[o] = o == 0 ? ua[1] : ub[(o - 1) * N2 + 1];
+          xr[o] = o == 0 ? xa_[1] : xb_[(o - 1) * G::s1 + 1];
+          zz0[o] = Z0[s * NZ + j + 1];
+          zz1[o] = Z1[s * NZ + j + 1];
+        }
+#pragma unroll
+        for (int o = 0; o < 4; ++o) {
+          const int r = q + o;
+          if (own && r >= r0 && r < r1) {
+            const PdsOut u = m3_update(p, r < H - 1, right, xv[o], tv[o], xv[o + 1], tv[o + 1], xr[o], tr[o], zz0[o],
+                                       zz1[o]);
+            const size_t i = (size_t)r * W + c;
+            xo[i] = u.xn;
+            z0o[i] = u.z0n;
+            z1o[i] = u.z1n;
+            st.add(u);  // the second iteration against the first
+          }
+        }
+      }
+      if (k + 2 < nsteps) m3_arrive<2 * NT>(kBarEmpty + (k & 1));  // done with step k's x1 and dual rows
     }
   }
   block_stats<kMega3Threads>(st, partials);
@@ -953,12 +1262,12 @@ int launch_mega2_shard(const float* const x[3], const float* const z0[3], const 
 
 // K10's segment height: a multiple of the step of at least 32 rows (so the
 // grid has no more blocks than the wrappers' partials of 32 x 32 tiles),
-// cut so that the strips x segments fill two blocks an SM about once.
+// cut so that the strips x segments fill the SMs, one block each, about once.
 inline int mega3_segment(int H, int strips) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) != cudaSuccess || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     sms = 132;
-  const int nseg = std::max(1, (2 * sms + strips / 2) / strips);
+  const int nseg = std::max(1, (sms + strips / 2) / strips);
   const int hs = (H + nseg - 1) / nseg;
   return std::max(2 * kMega3Step, (hs + kMega3Step - 1) / kMega3Step * kMega3Step);
 }

@@ -560,21 +560,45 @@ def test_rank1_tiles_match_plain(cuda, rng, shape, K0, K1, iso, nonneg):
     torch.cuda.synchronize()
 
 
-# K10's strip walker: 64-column strips (the last shifted back) and segments
-# of 32 rows at these sizes, so these shapes cross every boundary of the
-# walk: W = 64 -+ 1 and 2 * 64 + 1, H = 32 -+ 1 and 2 * 32 -+ 1, H < 2R + 2,
-# widths and heights no multiple of either, each padded reach 0, 4, 8, 15.
+# K10's strip walker: 63-column strips (the last shifted back to end on the
+# image's edge) and, at these sizes, segments of 32 rows, so these shapes
+# cross every boundary of the walk: W = 63 -+ 1, 63 + 2, 2 * 63 + 1 and 2 *
+# 63 + 3, H = 32 -+ 1 and 2 * 32 -+ 1, widths and heights no multiple of
+# either, each padded reach 0, 4, 8, 15.  The pipelined walker's own:
+# segments shorter than its depth (stage 1's two steps of fill, then stage
+# 2 one step behind: H 100, 50 and 97 end on segments of 4, 18 and 1 rows,
+# walked from earlier rows so that the bottom corrections' rows are made),
+# the last step of a segment (H = 32 m + 1), the strip shifted back at a
+# ragged edge for each padded reach (W 200, 131, 197, 195), H < 2R + 2 for
+# R 4, 8 and 15, widths on and off 16-byte rows (16-byte copies where a
+# row allows them, 4-byte ones elsewhere), and every slot of the 64-row
+# rings with their mirrored rows (H 161).  Last, the benchmark cells' sizes
+# with their 15 x 15 Gaussian PSF (sigma 2): 33 strips of 512-row segments
+# or 66 of 2048-row ones, one block an SM, 132 in all.
 @pytest.mark.parametrize("shape,K0,K1", [((45, 63), 15, 15), ((65, 65), 15, 15), ((63, 129), 15, 15),
                                          ((33, 250), 5, 5), ((31, 130), 9, 9), ((30, 65), 9, 16),
                                          ((7, 9), 1, 1), ((100, 301), 9, 4), ((130, 70), 16, 3),
                                          ((200, 64), 1, 1), ((100, 128), 15, 15), ((130, 132), 16, 3),
-                                         ((40, 200), 1, 1), ((130, 192), 1, 1)])
+                                         ((40, 200), 1, 1), ((130, 192), 1, 1),
+                                         ((100, 50), 15, 15), ((50, 60), 15, 15), ((97, 64), 9, 9),
+                                         ((113, 65), 5, 16), ((70, 200), 1, 1), ((70, 131), 5, 5),
+                                         ((70, 197), 9, 9), ((70, 195), 16, 16), ((20, 130), 3, 16),
+                                         ((9, 100), 3, 5), ((12, 70), 3, 9), ((3, 64), 1, 16),
+                                         ((161, 129), 16, 16), ((45, 62), 15, 15), ((45, 127), 9, 9),
+                                         ((2048, 2048), "gauss", 15), ((4096, 4096), "gauss", 15)])
 @pytest.mark.parametrize("iso,nonneg", [(True, True), (False, False)])
 def test_mega3_walker_matches_plain(cuda, rng, shape, K0, K1, iso, nonneg):
     """K10 against its plain version twice in a row (the second step from
     the first's outputs), partial sums within rtol 1e-5, and two launches on
-    the same inputs bit for bit the same."""
-    gram = Convolve2D(shape, _rank1_psf(K0, K1), device=cuda).gram
+    the same inputs bit for bit the same.  K0 "gauss" is the K1 x K1
+    Gaussian of sigma 2."""
+    if K0 == "gauss":
+        a = np.arange(K1) - K1 // 2
+        g = np.exp(-(a[:, None] ** 2 + a[None, :] ** 2) / (2 * 2.0**2))
+        psf = (g / g.sum()).astype(np.float32)
+    else:
+        psf = _rank1_psf(K0, K1)
+    gram = Convolve2D(shape, psf, device=cuda).gram
     t = lambda arr: torch.from_numpy(arr.astype(np.float32)).to(cuda)  # noqa: E731
     x = t(np.abs(rng.standard_normal(shape)))
     atb = t(rng.standard_normal(shape))
